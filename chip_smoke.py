@@ -13,9 +13,13 @@ Phases, one line each on standard output:
    each kernel must have launched;
 4. kernels: each kernel's wrapper against its plain PyTorch version on the same CUDA
    tensors — the inputs the main path gave it, plus seeded edge cases (NULL lanes,
-   duplicates, negative keys, dead rows, empty input, an overflowing round limit) —
+   duplicates, negative keys, dead rows, empty input, an overflowing round limit, a
+   long collision chain, a hot probe row, leading and trailing empty probe rows, a
+   pair capacity equal to the pair count or cutting a segment) —
    compared bit for bit and timed with CUDA events;
-5. reference: the same four queries through the port on the CPU (where every kernel
+5. kernel scaling: the two kernels redesigned for the card (`expand_offsets`,
+   `hash_place`) at a large shape, bit-checked against their plain versions and timed;
+6. reference: the same four queries through the port on the CPU (where every kernel
    call site takes its plain version) over the same lanes; rows must be equal.
 
 It prints one `{"kernels": [...]}` line, and as its last line
@@ -34,6 +38,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12       # non-tensor 32-bit rate of an H100 SXM, used for int ops
+SPIN_CYCLES = 50_000_000    # ~25 ms of the card's clock: longer than enqueueing 10 calls
 QUERIES = (1, 3, 5, 6)
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
@@ -137,6 +142,8 @@ def run_main_path(s, capture):
 # -- kernels vs plain -----------------------------------------------------------
 
 def _time(fn, reps: int = 10) -> float:
+    """Median of `reps` single calls, each between its own CUDA events: what a caller
+    waits for, including the host's enqueue work whenever the card waits for it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -150,6 +157,25 @@ def _time(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_ms(fn, reps: int = 10) -> float:
+    """The card's time for one call's device work: CUDA events around `reps` calls
+    queued behind a spin of the card (`torch.cuda._sleep`), so every call is enqueued
+    before the first starts and the host's work per call never leaves the card
+    idle.  For a kernel wrapper that work is the kernel launch alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _same(x, y) -> bool:
@@ -178,7 +204,9 @@ def _lane_bytes(keys) -> int:
 
 def edge_cases(device):
     """Seeded inputs covering NULL lanes, duplicates, negative keys, multi-lane keys,
-    dead rows, empty input and an overflowing round limit."""
+    dead rows, empty input, an overflowing round limit, a long collision chain, a hot
+    probe row, runs of empty probe rows and pair capacities that equal or cut the
+    pair count."""
     import numpy as np
     import torch
     rng = np.random.default_rng(20240917)
@@ -201,18 +229,43 @@ def edge_cases(device):
     ]
     counts = rng.integers(0, 4, n).astype(np.int64)
     counts[rng.random(n) < 0.3] = 0
-    offs = np.cumsum(counts)
-    starts = offs - counts
+
+    def segments(c, cap_of_total):
+        # starts = exclusive prefix sum of counts, as the join's probe builds them
+        offs = np.cumsum(c)
+        return t(c), t(offs - c), cap_of_total(int(offs[-1]) if c.size else 0)
+
+    hot = counts.copy()
+    hot[4321] = 100_000
+    lead = counts.copy()
+    lead[:30_000] = 0
+    trail = counts.copy()
+    trail[-30_000:] = 0
+    straddle = counts.copy()
+    straddle[50_000] = 7
+    cut = int(np.cumsum(straddle)[50_000]) - 4  # the cap cuts that segment after 3 pairs
     expand = [
-        ("ragged", t(counts), t(starts), int(offs[-1]) + 1024),
-        ("overflow cap", t(counts), t(starts), int(offs[-1]) // 2),
-        ("empty", t(np.zeros(0, np.int64)), t(np.zeros(0, np.int64)), 1024),
+        ("ragged", *segments(counts, lambda total: total + 1024)),
+        ("overflow cap", *segments(counts, lambda total: total // 2)),
+        ("empty", *segments(np.zeros(0, np.int64), lambda total: 1024)),
+        ("hot row", *segments(hot, lambda total: total + 1024)),
+        ("leading empty rows", *segments(lead, lambda total: total + 1024)),
+        ("trailing empty rows", *segments(trail, lambda total: total + 1024)),
+        ("total == cap", *segments(counts, lambda total: total)),
+        ("segment straddles cap", *segments(straddle, lambda total: cut)),
     ]
+    # a long chain: 2,000 distinct keys, 3 rows each, all on one probe walk, so round r
+    # places key r only -- 2,000 rounds to place them all, 1,500 leave 500 unplaced
+    chain_n = 6000
+    chain = ([(t(np.arange(chain_n, dtype=np.int64) // 3), None)], t(np.ones(chain_n, np.bool_)),
+             (t(np.full(chain_n, 5, np.int64)), t(np.full(chain_n, 35, np.int64)), 4096))
     place = [
-        ("1 lane dup", [(k32, None)], live, 64),
-        ("2 lanes NULLs", [(k32, v32), (k64, None)], live, 64),
-        ("overflow rounds", [(k64, v32)], live, 2),
-        ("empty", [(empty32, None)], empty_b, 64),
+        ("1 lane dup", [(k32, None)], live, 64, None),
+        ("2 lanes NULLs", [(k32, v32), (k64, None)], live, 64, None),
+        ("overflow rounds", [(k64, v32)], live, 2, None),
+        ("empty", [(empty32, None)], empty_b, 64, None),
+        ("long collision chain", chain[0], chain[1], 2048, chain[2]),
+        ("long collision chain, overflow", chain[0], chain[1], 1500, chain[2]),
     ]
     return slot_keys, expand, place
 
@@ -266,7 +319,7 @@ def check_kernels(capture, launches, device="cuda"):
         n = keys[0][0].numel()
         err = max(err, compare(name, "main path input", kern, plain))
         ops = n * (24 * len(keys) + 2)
-        results.append(_entry(name, launches, err, _time(kern), _time(plain), nbytes, ops,
+        results.append(_entry(name, launches, err, kern, plain, nbytes, ops,
                               shape=f"n={n} lanes={len(keys)} M={M}"))
 
     # expand_offsets
@@ -280,15 +333,23 @@ def check_kernels(capture, launches, device="cuda"):
     plain = lambda: cuda_join.expand_offsets_plain(counts, starts, cap)  # noqa: E731
     err = max(err, compare("expand_offsets", "main path input", kern, plain))
     npr = counts.numel()
-    results.append(_entry("expand_offsets", launches, err, _time(kern), _time(plain),
+    total = int(counts.sum())
+    arange = torch.arange(npr, dtype=torch.int32, device=counts.device)
+    # the nearest one-call library function: covers [0, total) only (no tail, no cap)
+    library = lambda: torch.repeat_interleave(arange, counts, output_size=total)  # noqa: E731
+    results.append(_entry("expand_offsets", launches, err, kern, plain,
                           16 * npr + 4 * cap, 4 * npr + 3 * cap,
-                          shape=f"npr={npr} cap={cap}"))
+                          shape=f"npr={npr} cap={cap} total={total}",
+                          library=library))
 
     # hash_place
     err = 0.0
-    for label, keys, live, rounds in place_cases:
-        M = 1 << int(max(16, min(1 << 16, live.numel())) * 2 - 1).bit_length()
-        ident, live_, s0, step = _place_inputs(keys, live, M)
+    for label, keys, live, rounds, walk in place_cases:
+        if walk is None:
+            M = 1 << int(max(16, min(1 << 16, live.numel())) * 2 - 1).bit_length()
+            ident, live_, s0, step = _place_inputs(keys, live, M)
+        else:
+            ident, live_, (s0, step, M) = keys, live, walk
         err = max(err, compare(
             "hash_place", label,
             lambda: cuda_agg.hash_place(ident, live_, s0, step, M, rounds),
@@ -298,8 +359,8 @@ def check_kernels(capture, launches, device="cuda"):
     plain = lambda: cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds)  # noqa: E731
     err = max(err, compare("hash_place", "main path input", kern, plain))
     n = live.numel()
-    nbytes = n + 16 * n + _lane_bytes(ident) + 4 * M + n + 4 * n
-    results.append(_entry("hash_place", launches, err, _time(kern), _time(plain), nbytes,
+    nbytes = _place_bytes(ident, n, M)
+    results.append(_entry("hash_place", launches, err, kern, plain, nbytes,
                           n * (12 + 4 * len(ident)) + M,
                           shape=f"n={n} lanes={len(ident)} M={M} max_rounds={rounds}"))
     if failures:
@@ -307,17 +368,81 @@ def check_kernels(capture, launches, device="cuda"):
     return results
 
 
-def _entry(name, launches, err, ms, plain_ms, nbytes, ops, shape):
+def _place_bytes(ident, n, M) -> int:
+    # live, s0/step and identity lanes read; rep, resolved and gid written
+    return n + 16 * n + _lane_bytes(ident) + 4 * M + n + 4 * n
+
+
+def _bound(nbytes) -> dict:
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def kernel_scaling(inst, device="cuda"):
+    """The two kernels redesigned for the card at a large shape, each bit-checked
+    against its plain version and timed (median of 10 CUDA-event runs): `hash_place`
+    over lineitem's `l_orderkey` lane as loaded (the GROUP BY l_orderkey of TPC-H Q18),
+    and `expand_offsets` with one probe row holding 2^20 pairs."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
+    lanes = [np.asarray(p.lanes["l_orderkey"])
+             for p in inst.store("tpch", "lineitem").partitions]
+    key = torch.from_numpy(np.concatenate(lanes)).to(device)
+    n = key.numel()
+    M, rounds = 1 << 22, 64
+    ident, live, s0, step = _place_inputs([(key, None)], torch.ones(n, dtype=torch.bool,
+                                                                    device=device), M)
+    place = lambda: cuda_agg.hash_place(ident, live, s0, step, M, rounds)  # noqa: E731
+    got = place()
+    want = cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds)
+    if not _same(got, want):
+        raise AssertionError("hash_place differs from its plain version at the large shape")
+    out = [{"name": "hash_place", "shape": f"n={n} lanes=1 M={M} max_rounds={rounds}",
+            "distinct_keys": int(torch.unique(key).numel()),
+            "groups": int((got[0] != n).sum()), "unresolved": int((~got[1]).sum()),
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _device_ms(place), "call_ms": _time(place),
+            **_bound(_place_bytes(ident, n, M))}]
+
+    rng = np.random.default_rng(20241017)
+    npr = 1 << 24
+    c = rng.integers(0, 3, npr).astype(np.int64)
+    c[rng.random(npr) < 0.4] = 0
+    c[npr // 3] = 1 << 20  # one hot probe row
+    offs = np.cumsum(c)
+    cap = int(offs[-1]) + 1024
+    counts = torch.from_numpy(c).to(device)
+    starts = torch.from_numpy(offs - c).to(device)
+    expand = lambda: cuda_join.expand_offsets(counts, starts, cap)  # noqa: E731
+    got = expand()
+    want = cuda_join.expand_offsets_plain(counts, starts, cap)
+    if not _same(got, want):
+        raise AssertionError("expand_offsets differs from its plain version at the large "
+                             "shape")
+    out.append({"name": "expand_offsets", "shape": f"npr={npr} cap={cap} hot_row=2^20",
+                "max_abs_err": _max_abs_err(got, want),
+                "ms": _device_ms(expand), "call_ms": _time(expand),
+                **_bound(16 * npr + 4 * cap)})
+    return out
+
+
+def _entry(name, launches, err, kern, plain, nbytes, ops, shape, library=None):
+    """One kernel's record: `kern`, `plain` and `library` (one PyTorch call computing
+    the same function, or None) are timed here.  `ms` is the card's time for the
+    kernel alone; `call_ms`, `plain_ms` and `library_ms` are whole calls."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT_OPS_PER_S * 1e3
     source, replaces = KERNELS[name]
+    ms = _device_ms(kern)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
             "tolerance": 0.0, "ok": err == 0.0,  # bit-identical, every output
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": ms, "call_ms": _time(kern),
+            "plain_ms": _time(plain),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "bytes": nbytes, "shape": shape}
+            "library_ms": None if library is None else _time(library),
+            "bytes": nbytes, "shape": shape}
 
 
 # -- reference: the port on the CPU ---------------------------------------------------
@@ -392,6 +517,7 @@ def main(argv=None) -> int:
 
     kernels = check_kernels(capture, launches)
     say("kernels", cases="main-path inputs + edge cases", ok=True)
+    say("kernel_scaling", kernels=kernel_scaling(inst))
 
     cpu_ms = cpu_reference(inst, rows)
     say("reference", device="cpu", query_ms=cpu_ms, equal=True)

@@ -1,41 +1,63 @@
-// Probe -> pair owner map of the CSR hash join.
+// Probe -> pair owner map of the CSR hash join: a single-pass segment fill.
 //
 // Replaces galaxysql_tpu/kernels/pallas_join.py `expand_offsets` (body
-// `_make_expand_kernel`).  For pair slot j in [0, cap): the probe row whose
-// [start, start + count) segment covers j.  Two steps, as in the reference:
-//   1. scatter-max of each row id at starts[i], for rows with count > 0 and
-//      start < cap (the reference's `.at[].max(mode="drop")` with count-0 rows
-//      parked at cap);
-//   2. an inclusive running max over [0, cap) (the reference's `lax.cummax`).
-// starts are unique among non-empty rows, so the result is bit-identical however
-// the atomics interleave.
+// `_make_expand_kernel`: a scatter-max of each non-empty row id at its start, then a
+// running max over [0, cap)).  For pair slot j in [0, cap) the result is the largest
+// non-empty row i with starts[i] <= j, or 0 if there is none.
 //
-// Bound: memory.  Step 1 reads 16 bytes per probe row and does one 4-byte atomic
-// per non-empty row; step 2 reads and writes 4 bytes per pair slot.  Design: a zero
-// fill, a grid-stride atomicMax scatter, then a hand-written two-level max-scan --
-// each block scans one tile of 4096 slots with warp shuffles and writes the tile's
-// max; one block scans the tile maxima; a last pass folds each tile's carry in.
+// Precondition: starts is the exclusive prefix sum of counts (starts[0] == 0,
+// starts[i+1] == starts[i] + counts[i]); the only caller,
+// galaxysql_tpu_torch/kernels/relational.py `hash_join_probe_csr`, builds it so.
+// Then the non-empty segments [start, start + count) tile [0, total) in row order,
+// total = starts[npr-1] + counts[npr-1], and:
+//   - slot j < total belongs to the last row i with starts[i] <= j (a row sharing
+//     its start with later rows is empty, so that row is the segment's owner);
+//   - slot j >= total takes the last non-empty row (the reference's running max
+//     carries it forward), the last i with starts[i] < total, or 0 if total == 0;
+//   - slots at or past cap are not written (a segment straddling cap is clipped).
+// So every slot is written once: no zero fill, no atomics, no scan over the output.
+//
+// Bound: memory.  The function must read starts (8 bytes a probe row; counts only
+// for the last row) and write 4 bytes a pair slot.  Design ("merge path"): the rows'
+// starts and the slot indices 0..cap-1 are merged (row i before slot j iff
+// starts[i] <= j) and each block takes EX_TILE consecutive merge items, so a block
+// handles at most EX_TILE rows plus slots however skewed the counts are: a hot row
+// with millions of pairs spreads over many blocks, a run of empty rows over few.
+// Two warps find the block's two split points by a 32-way search over starts; the
+// block marks, in shared memory, each tile row that is the last with its start at
+// that start's slot, takes a block-wide running max of the marks (carrying in the
+// row before the tile), and writes the tile's slots with coalesced stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SCAN_THREADS 1024
-#define SCAN_ITEMS 4
-#define SCAN_TILE (SCAN_THREADS * SCAN_ITEMS)
+#define EX_THREADS 256
+#define EX_TILE 4096  // merge items (rows + slots) per block
+#define EX_WARPS (EX_THREADS / 32)
+#define EX_CHUNK (EX_TILE / EX_WARPS)  // slots one warp scans
+#define EX_BATCH 4
 
-__global__ void scatter_kernel(const int64_t* __restrict__ counts,
-                               const int64_t* __restrict__ starts,
-                               int32_t* __restrict__ p_of, int64_t npr, int64_t cap) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < npr; i += stride) {
-    if (counts[i] > 0) {
-      const int64_t s = starts[i];
-      if (s >= 0 && s < cap) atomicMax(&p_of[s], (int32_t)i);
-    }
+// First index in [lo, hi) where the monotone predicate turns false (hi if never),
+// found by the 32 lanes of one warp together: each step probes 32 points and keeps
+// the part between the last true and the first false, 1/33 of the range.
+template <class Pred>
+__device__ __forceinline__ int64_t warp_partition(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int64_t n = hi - lo;
+    const int64_t p = lo + n * (lane + 1) / 33;
+    const unsigned yes = __ballot_sync(0xffffffffu, pred(p));
+    const int c = __popc(yes);  // lanes 0..c-1 saw true
+    const int64_t nlo = c > 0 ? lo + n * c / 33 + 1 : lo;
+    hi = c < 32 ? lo + n * (c + 1) / 33 : hi;
+    lo = nlo;
   }
+  return lo;
 }
 
-// Inclusive max-scan within one warp (values are >= 0, so 0 is the identity).
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
+
 __device__ __forceinline__ int32_t warp_scan_max(int32_t v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -46,98 +68,98 @@ __device__ __forceinline__ int32_t warp_scan_max(int32_t v) {
   return v;
 }
 
-// Inclusive max-scan of the thread totals of one 1024-thread block: returns the
-// max over all threads before this one (0 for thread 0); *block_total receives the
-// max over the whole block.
-__device__ __forceinline__ int32_t block_exclusive_max(int32_t total, int32_t* warp_tot,
-                                                       int32_t* block_total) {
+__global__ void __launch_bounds__(EX_THREADS)
+segment_fill_kernel(const int64_t* __restrict__ counts, const int64_t* __restrict__ starts,
+                    int32_t* __restrict__ p_of, int64_t npr, int64_t cap) {
+  __shared__ int32_t mark[EX_TILE];
+  __shared__ int64_t split[2];
+  __shared__ int32_t tail_row;
+  __shared__ int32_t carry_in[EX_WARPS];
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int32_t incl = warp_scan_max(total);
-  if (lane == 31) warp_tot[warp] = incl;
+  const int64_t d0 = (int64_t)blockIdx.x * EX_TILE;
+  const int64_t d1 = min64(d0 + EX_TILE, npr + cap);
+  const int64_t total = npr > 0 ? starts[npr - 1] + counts[npr - 1] : 0;
+
+  if (warp < 2) {
+    // rows among the first d merge items: the first a where row a does not come
+    // before slot d-1-a
+    const int64_t d = warp == 0 ? d0 : d1;
+    const int64_t a = warp_partition(max64(d - cap, 0), min64(d, npr),
+                                     [&](int64_t x) { return starts[x] <= d - 1 - x; });
+    if (lane == 0) split[warp] = a;
+  } else if (warp == 2) {
+    // the tail's row: the last i with starts[i] < total (only tiles that reach it)
+    int32_t t = 0;
+    if (total < min64(d1, cap)) {
+      const int64_t lb = warp_partition(0, npr,
+                                        [&](int64_t x) { return starts[x] < total; });
+      t = lb > 0 ? (int32_t)(lb - 1) : 0;
+    }
+    if (lane == 0) tail_row = t;
+  }
   __syncthreads();
-  if (warp == 0) warp_tot[lane] = warp_scan_max(warp_tot[lane]);
+
+  const int64_t a0 = split[0], a1 = split[1];
+  const int64_t b0 = d0 - a0;
+  const int nslots = (int)((d1 - a1) - b0);
+  for (int k = threadIdx.x; k < nslots; k += EX_THREADS) mark[k] = -1;
   __syncthreads();
-  int32_t before = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) before = 0;
-  if (warp > 0) before = max(before, warp_tot[warp - 1]);
-  *block_total = warp_tot[31];
-  return before;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles_kernel(int32_t* __restrict__ x, int64_t n, int32_t* __restrict__ tile_max) {
-  __shared__ int32_t warp_tot[32];
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
-  int32_t v[SCAN_ITEMS];
-  int32_t run = 0;
+  // each tile row that is the last with its start marks that start's slot; a thread
+  // takes EX_BATCH rows at a time so that their loads are in flight together
+  for (int64_t i0 = a0 + threadIdx.x; i0 < a1; i0 += EX_BATCH * EX_THREADS) {
+    int64_t s[EX_BATCH], next[EX_BATCH];
 #pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int64_t j = base + k;
-    run = max(run, j < n ? x[j] : 0);
-    v[k] = run;
-  }
-  int32_t total;
-  const int32_t before = block_exclusive_max(run, warp_tot, &total);
+    for (int u = 0; u < EX_BATCH; ++u) {
+      const int64_t i = i0 + u * EX_THREADS;
+      s[u] = i < a1 ? starts[i] : 0;
+      next[u] = i + 1 < a1 ? starts[i + 1] : -1;  // -1: no next row in the tile
+    }
 #pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    const int64_t j = base + k;
-    if (j < n) x[j] = max(v[k], before);
+    for (int u = 0; u < EX_BATCH; ++u) {
+      const int64_t i = i0 + u * EX_THREADS;
+      const int64_t rel = s[u] - b0;
+      if (i < a1 && rel >= 0 && rel < nslots && next[u] != s[u]) mark[rel] = (int32_t)i;
+    }
   }
-  if (threadIdx.x == 0) tile_max[blockIdx.x] = total;
+  __syncthreads();
+
+  // running max of the marks: each warp scans its EX_CHUNK slots, 32 at a time
+  int32_t carry = -1;
+  for (int k = warp * EX_CHUNK + lane; k < (warp + 1) * EX_CHUNK && k - lane < nslots;
+       k += 32) {
+    int32_t v = warp_scan_max(max(k < nslots ? mark[k] : -1, carry));
+    if (k < nslots) mark[k] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+  if (lane == 0) carry_in[warp] = carry;
+  __syncthreads();
+  if (threadIdx.x == 0) {  // carry into each warp's chunk: the rows before it
+    int32_t c = (int32_t)(a0 - 1);
+    for (int w = 0; w < EX_WARPS; ++w) {
+      const int32_t own = carry_in[w];
+      carry_in[w] = c;
+      c = max(c, own);
+    }
+  }
+  __syncthreads();
+  const int32_t tail = tail_row;
+  for (int k = threadIdx.x; k < nslots; k += EX_THREADS) {
+    const int64_t j = b0 + k;
+    p_of[j] = j >= total ? tail : max(max(mark[k], carry_in[k / EX_CHUNK]), 0);
+  }
 }
 
-// One block: inclusive max-scan of the tile maxima, a chunk of 1024 at a time.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_carry_kernel(int32_t* __restrict__ t, int64_t nt) {
-  __shared__ int32_t warp_tot[32];
-  int32_t carry = 0;
-  for (int64_t base = 0; base < nt; base += SCAN_THREADS) {
-    const int64_t j = base + threadIdx.x;
-    const int32_t e = j < nt ? t[j] : 0;
-    int32_t total;
-    const int32_t before = block_exclusive_max(e, warp_tot, &total);
-    if (j < nt) t[j] = max(max(e, before), carry);
-    carry = max(carry, total);
-    __syncthreads();  // warp_tot is reused by the next chunk
-  }
-}
-
-__global__ void add_carry_kernel(int32_t* __restrict__ x, int64_t n,
-                                 const int32_t* __restrict__ tile_scan) {
-  if (blockIdx.x == 0) return;
-  const int32_t c = tile_scan[blockIdx.x - 1];
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  for (int k = threadIdx.x; k < SCAN_TILE; k += blockDim.x) {
-    const int64_t j = base + k;
-    if (j < n) x[j] = max(x[j], c);
-  }
-}
-
-// tile_max: scratch of ceil(cap / 4096) int32, allocated by the caller.
 extern "C" int gx_expand_offsets(int device, const void* counts, const void* starts,
-                                 void* p_of, void* tile_max, long long npr, long long cap,
-                                 void* stream) {
+                                 void* p_of, long long npr, long long cap, void* stream) {
   if (npr < 0 || cap < 0 || npr > (1LL << 31) - 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (cap == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  err = cudaMemsetAsync(p_of, 0, (size_t)cap * sizeof(int32_t), s);
-  if (err != cudaSuccess) return (int)err;
-  if (npr > 0) {
-    long long blocks = (npr + 255) / 256;
-    if (blocks > 132LL * 64) blocks = 132LL * 64;
-    scatter_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-        (const int64_t*)counts, (const int64_t*)starts, (int32_t*)p_of, npr, cap);
-  }
-  const long long nt = (cap + SCAN_TILE - 1) / SCAN_TILE;
-  scan_tiles_kernel<<<(unsigned)nt, SCAN_THREADS, 0, s>>>((int32_t*)p_of, cap,
-                                                          (int32_t*)tile_max);
-  if (nt > 1) {
-    scan_carry_kernel<<<1, SCAN_THREADS, 0, s>>>((int32_t*)tile_max, nt);
-    add_carry_kernel<<<(unsigned)nt, 256, 0, s>>>((int32_t*)p_of, cap,
-                                                   (const int32_t*)tile_max);
-  }
+  const long long blocks = (npr + cap + EX_TILE - 1) / EX_TILE;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  segment_fill_kernel<<<(unsigned)blocks, EX_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)counts, (const int64_t*)starts, (int32_t*)p_of, npr, cap);
   return (int)cudaGetLastError();
 }

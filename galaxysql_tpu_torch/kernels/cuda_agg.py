@@ -2,13 +2,18 @@
 
 Port of `galaxysql_tpu/kernels/pallas_agg.py` `hash_place` (`_make_place_kernel`),
 whose oracle is `relational._hash_place`: open-addressing placement in rounds of
-snapshot / elect (scatter-min on row id) / adopt (identity-lane compare), at most
-`max_rounds` rounds.  Memory-bound (see `csrc/hash_place.cu`); the round loop stays
-on the device, gated on an on-device unresolved-row counter.
+elect (scatter-min on row id into slots empty at the round's start) and adopt
+(identity-lane compare), at most `max_rounds` rounds.
+
+The kernel is one cooperative launch per call (see `csrc/hash_place.cu`): the whole
+round loop runs inside it, with grid-wide barriers between the phases.  Its election
+is round-stamped (a 64-bit atomicMin of `round << 32 | row`, so an earlier round's
+owner always wins, without the reference's occupancy snapshot), and rounds after the
+first walk only a worklist of the rows still unresolved.
 
 The wrapper takes the tensors' device as the route: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version.  `LAUNCHES` counts kernel
-launches (one per call; a call runs 3 launches per round on the stream).
+launches, one per call.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ LAUNCHES = {"hash_place": 0}
 
 _VP = ctypes.c_void_p
 _PLACE_ARGS = (ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-               _VP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP)
+               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP)
 
 
 def reset_launches():
@@ -75,6 +80,8 @@ def hash_place(ident: Sequence[Tuple[Any, Optional[Any]]], live, s0, step,
         raise ValueError(f"slot count {M} out of range")
     if n >= (1 << 31) - 1:
         raise ValueError(f"{n} rows exceed the kernel's int32 row ids")
+    if not 0 <= max_rounds < (1 << 31):
+        raise ValueError(f"round limit {max_rounds} out of range")
     check_lane(live, n, device, "live lane", torch.bool)
     check_lane(s0, n, device, "s0", torch.int64)
     check_lane(step, n, device, "step", torch.int64)
@@ -82,13 +89,14 @@ def hash_place(ident: Sequence[Tuple[Any, Optional[Any]]], live, s0, step,
     rep = torch.empty(M, dtype=torch.int32, device=device)
     resolved = torch.empty(n, dtype=torch.bool, device=device)
     gid = torch.empty(n, dtype=torch.int32, device=device)
-    occ = torch.empty(M, dtype=torch.uint8, device=device)
-    unres = torch.empty(1, dtype=torch.int32, device=device)
+    # the slot owners (uint64), two worklists and their lengths: 8M + 8n + 4(rounds+1)
+    # bytes, the layout gx_hash_place carves
+    scratch = torch.empty(M + n + max_rounds // 2 + 1, dtype=torch.int64, device=device)
     rc = cb.function("hash_place.cu", "gx_hash_place", _PLACE_ARGS)(
         cb.device_index(rep), ctypes.cast(data, _VP), ctypes.cast(valid, _VP),
         ctypes.cast(wide, _VP), len(ident), cb.ptr(live), cb.ptr(s0), cb.ptr(step),
-        cb.ptr(rep), cb.ptr(resolved), cb.ptr(gid), cb.ptr(occ), cb.ptr(unres), n, M,
-        max_rounds, cb.stream_of(rep))
+        cb.ptr(rep), cb.ptr(resolved), cb.ptr(gid), cb.ptr(scratch), n, M, max_rounds,
+        cb.stream_of(rep))
     cb.check(rc, "hash_place")
     LAUNCHES["hash_place"] += 1
     return rep, resolved, gid

@@ -6,7 +6,10 @@ Ports of `galaxysql_tpu/kernels/pallas_join.py`:
   slot ids `hash_columns(keys) & (M-1)`, dead rows parked at slot M.
 - `hash_slots` (Pallas `hash_slots`, masked=False): the same mix for probe rows.
 - `expand_offsets` (Pallas `expand_offsets`, `_make_expand_kernel`): the probe->pair
-  owner map, a scatter-max at segment starts followed by a running max.
+  owner map.  The plain version is the reference's scatter-max at segment starts
+  followed by a running max; the kernel is one launch that writes every pair slot
+  once (a load-balanced segment fill), which needs `starts` to be the exclusive
+  prefix sum of `counts`, as `relational.hash_join_probe_csr` builds it.
 
 All three are memory-bound (see `csrc/join_slots.cu`, `csrc/expand_offsets.cu`).
 Each wrapper takes the tensors' device as the route: a CUDA tensor launches the
@@ -98,7 +101,7 @@ def check_lane(t, n: int, device, what: str, dtype=None):
 _VP = ctypes.c_void_p
 _SLOTS_ARGS = (ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong,
                ctypes.c_longlong, _VP)
-_EXPAND_ARGS = (ctypes.c_int, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_longlong, _VP)
+_EXPAND_ARGS = (ctypes.c_int, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_longlong, _VP)
 
 
 def _slots_kernel(keys, live, M: int, name: str):
@@ -138,7 +141,13 @@ def hash_slots(keys: Sequence[Tuple[Any, Optional[Any]]], M: int):
 
 def expand_offsets(counts, starts, cap: int):
     """Probe->pair owner map: for pair slot j, the probe row whose
-    [start, start+count) segment covers j (int32[cap])."""
+    [start, start+count) segment covers j (int32[cap]); slots past the last segment
+    take the last non-empty row (0 if none).
+
+    Precondition of the kernel: `starts` is the exclusive prefix sum of `counts`
+    (`starts[0] == 0`, `starts[i+1] == starts[i] + counts[i]`), which the only call
+    site, `relational.hash_join_probe_csr`, guarantees.  The plain version takes any
+    starts unique among non-empty rows."""
     if not counts.is_cuda:
         return expand_offsets_plain(counts, starts, cap)
     device = counts.device
@@ -148,10 +157,9 @@ def expand_offsets(counts, starts, cap: int):
     if cap < 0:
         raise ValueError("negative pair capacity")
     p_of = torch.empty(cap, dtype=torch.int32, device=device)
-    tiles = torch.empty(max((cap + 4095) // 4096, 1), dtype=torch.int32, device=device)
     rc = cb.function("expand_offsets.cu", "gx_expand_offsets", _EXPAND_ARGS)(
-        cb.device_index(p_of), cb.ptr(counts), cb.ptr(starts), cb.ptr(p_of),
-        cb.ptr(tiles), npr, cap, cb.stream_of(p_of))
+        cb.device_index(p_of), cb.ptr(counts), cb.ptr(starts), cb.ptr(p_of), npr, cap,
+        cb.stream_of(p_of))
     cb.check(rc, "expand_offsets")
     LAUNCHES["expand_offsets"] += 1
     return p_of

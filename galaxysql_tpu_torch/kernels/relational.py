@@ -329,7 +329,7 @@ def hash_join_probe_csr(build_keys, probe_keys, build_live, probe_live,
     offsets = torch.cumsum(counts, 0)
     total = int(offsets[-1])
     overflow = total > cap
-    starts = offsets - counts
+    starts = offsets - counts  # the exclusive prefix sum the expand kernel requires
 
     p_of = _expand_offsets(counts, starts, npr, cap).to(torch.int64)
     k = slots - starts[p_of]
