@@ -10,13 +10,15 @@ Phases, one line each on standard output:
 3. main path: load TPC-H at `--sf` (default 1), run Q1, Q3, Q5 and Q6 twice each
    through `Instance(device="cuda")` and `Session`, time the second run; every kernel
    launch counter is set to 0 just before the timed runs and read just after, and
-   each kernel must have launched;
+   each kernel must have launched; then each query again WARM_REPEATS times, for the
+   spread of warm times within the call;
 4. kernels: each kernel's wrapper against its plain PyTorch version on the same CUDA
    tensors — the inputs the main path gave it, plus seeded edge cases (NULL lanes,
    duplicates, negative keys, dead rows, empty input, an overflowing round limit, a
    long collision chain, a hot probe row, leading and trailing empty probe rows, a
    pair capacity equal to the pair count or cutting a segment) —
-   compared bit for bit and timed with CUDA events;
+   each kernel run CHECK_REPEATS times against one plain result, compared bit for
+   bit, and timed with CUDA events;
 5. kernel scaling: the two kernels redesigned for the card (`expand_offsets`,
    `hash_place`) at a large shape, bit-checked against their plain versions and timed;
 6. reference: the same four queries through the port on the CPU (where every kernel
@@ -39,6 +41,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12       # non-tensor 32-bit rate of an H100 SXM, used for int ops
 SPIN_CYCLES = 50_000_000    # ~25 ms of the card's clock: longer than enqueueing 10 calls
+CHECK_REPEATS = 20          # kernel runs held against one plain result, per input
+WARM_REPEATS = 7            # extra warm runs of each query after the main path
 QUERIES = (1, 3, 5, 6)
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
@@ -139,6 +143,29 @@ def run_main_path(s, capture):
     return rows, timed, first_ms, per_query, launches
 
 
+def warm_repeats(s, rows):
+    """Each query WARM_REPEATS more times, the four interleaved, after the main path:
+    the spread of warm times within one call, with the gen-2 garbage collections
+    that fell inside each run.  Rows must equal the main path's."""
+    import gc
+    import torch
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    times = {q: [] for q in QUERIES}
+    gen2 = {q: [] for q in QUERIES}
+    for _ in range(WARM_REPEATS):
+        for q in QUERIES:
+            g0 = gc.get_stats()[2]["collections"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = s.execute(SQL[q])
+            torch.cuda.synchronize()
+            times[q].append((time.perf_counter() - t0) * 1000.0)
+            gen2[q].append(gc.get_stats()[2]["collections"] - g0)
+            if rs.rows != rows[q]:
+                raise AssertionError(f"Q{q}: a warm repeat returned other rows")
+    return times, gen2
+
+
 # -- kernels vs plain -----------------------------------------------------------
 
 def _time(fn, reps: int = 10) -> float:
@@ -191,6 +218,20 @@ def _max_abs_err(x, y) -> float:
     if x.numel() == 0:
         return 0.0
     return float((x.to(float) - y.to(float)).abs().max())
+
+
+def _held(kernel, want):
+    """Runs `kernel` CHECK_REPEATS times against one plain result `want`: whether every
+    run is bit-identical, and the largest absolute error.  A race in a kernel (the
+    grid barriers of `hash_place`) would show as a run that differs."""
+    import torch
+    same, err = True, 0.0
+    for _ in range(CHECK_REPEATS):
+        got = kernel()
+        torch.cuda.synchronize()
+        same = same and _same(got, want)
+        err = max(err, _max_abs_err(got, want))
+    return same, err
 
 
 def _lane_bytes(keys) -> int:
@@ -258,24 +299,29 @@ def edge_cases(device):
     # places key r only -- 2,000 rounds to place them all, 1,500 leave 500 unplaced
     chain_n = 6000
     chain = ([(t(np.arange(chain_n, dtype=np.int64) // 3), None)], t(np.ones(chain_n, np.bool_)),
-             (t(np.full(chain_n, 5, np.int64)), t(np.full(chain_n, 35, np.int64)), 4096))
+             t(np.full(chain_n, 5, np.int64)), t(np.full(chain_n, 35, np.int64)), 4096)
     place = [
-        ("1 lane dup", [(k32, None)], live, 64, None),
-        ("2 lanes NULLs", [(k32, v32), (k64, None)], live, 64, None),
-        ("overflow rounds", [(k64, v32)], live, 2, None),
-        ("empty", [(empty32, None)], empty_b, 64, None),
-        ("long collision chain", chain[0], chain[1], 2048, chain[2]),
-        ("long collision chain, overflow", chain[0], chain[1], 1500, chain[2]),
+        ("1 lane dup", _place_inputs([(k32, None)], live), 64),
+        ("2 lanes NULLs", _place_inputs([(k32, v32), (k64, None)], live), 64),
+        ("overflow rounds", _place_inputs([(k64, v32)], live), 2),
+        ("empty", _place_inputs([(empty32, None)], empty_b), 64),
+        ("long collision chain", chain, 2048),
+        ("long collision chain, overflow", chain, 1500),
     ]
     return slot_keys, expand, place
 
 
-def _place_inputs(ident, live, M):
+def _place_inputs(ident, live, M=None):
+    """`hash_place`'s `(ident, live, s0, step, M)` for identity lanes, as the GROUP BY
+    builds them; M defaults to the smallest power of two at or above twice the rows,
+    the rows clamped to [16, 65,536]."""
     from galaxysql_tpu_torch.kernels.hashing import hash_columns, lsr
     from galaxysql_tpu_torch.kernels.relational import _ident_lanes
+    if M is None:
+        M = 1 << int(max(16, min(1 << 16, live.numel())) * 2 - 1).bit_length()
     ident = _ident_lanes(ident)
     h = hash_columns(ident)
-    return ident, live, (h & (M - 1)).contiguous(), ((lsr(h, 32) << 1) | 1).contiguous()
+    return ident, live, (h & (M - 1)).contiguous(), ((lsr(h, 32) << 1) | 1).contiguous(), M
 
 
 def check_kernels(capture, launches, device="cuda"):
@@ -287,11 +333,10 @@ def check_kernels(capture, launches, device="cuda"):
     results = []
 
     def compare(name, label, kernel, plain):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        if not _same(got, want):
+        same, err = _held(kernel, plain())
+        if not same:
             failures.append(f"{name} [{label}]")
-        return _max_abs_err(got, want)
+        return err
 
     # build_slots / hash_slots
     for name in ("build_slots", "hash_slots"):
@@ -329,6 +374,9 @@ def check_kernels(capture, launches, device="cuda"):
                                lambda: cuda_join.expand_offsets(counts, starts, cap),
                                lambda: cuda_join.expand_offsets_plain(counts, starts, cap)))
     counts, starts, cap = capture.calls["expand_offsets"][1]
+    if not torch.equal(starts, torch.cumsum(counts, 0) - counts):
+        raise AssertionError("expand_offsets: the main path passed starts that are not the "
+                             "exclusive prefix sum of counts")
     kern = lambda: cuda_join.expand_offsets(counts, starts, cap)  # noqa: E731
     plain = lambda: cuda_join.expand_offsets_plain(counts, starts, cap)  # noqa: E731
     err = max(err, compare("expand_offsets", "main path input", kern, plain))
@@ -338,18 +386,13 @@ def check_kernels(capture, launches, device="cuda"):
     # the nearest one-call library function: covers [0, total) only (no tail, no cap)
     library = lambda: torch.repeat_interleave(arange, counts, output_size=total)  # noqa: E731
     results.append(_entry("expand_offsets", launches, err, kern, plain,
-                          16 * npr + 4 * cap, 4 * npr + 3 * cap,
+                          _expand_bytes(npr, cap), 4 * npr + 3 * cap,
                           shape=f"npr={npr} cap={cap} total={total}",
                           library=library))
 
     # hash_place
     err = 0.0
-    for label, keys, live, rounds, walk in place_cases:
-        if walk is None:
-            M = 1 << int(max(16, min(1 << 16, live.numel())) * 2 - 1).bit_length()
-            ident, live_, s0, step = _place_inputs(keys, live, M)
-        else:
-            ident, live_, (s0, step, M) = keys, live, walk
+    for label, (ident, live_, s0, step, M), rounds in place_cases:
         err = max(err, compare(
             "hash_place", label,
             lambda: cuda_agg.hash_place(ident, live_, s0, step, M, rounds),
@@ -366,6 +409,13 @@ def check_kernels(capture, launches, device="cuda"):
     if failures:
         raise AssertionError(f"kernel differs from its plain version: {failures}")
     return results
+
+
+def _expand_bytes(npr, cap) -> int:
+    # what the function needs under its precondition: `starts` (8 B a probe row), the
+    # last row's count (the pair total) and the owner map written (4 B a slot); a
+    # row's count is the next row's start minus its own
+    return 8 * npr + 8 + 4 * cap
 
 
 def _place_bytes(ident, n, M) -> int:
@@ -390,17 +440,17 @@ def kernel_scaling(inst, device="cuda"):
     key = torch.from_numpy(np.concatenate(lanes)).to(device)
     n = key.numel()
     M, rounds = 1 << 22, 64
-    ident, live, s0, step = _place_inputs([(key, None)], torch.ones(n, dtype=torch.bool,
-                                                                    device=device), M)
+    ident, live, s0, step, M = _place_inputs(
+        [(key, None)], torch.ones(n, dtype=torch.bool, device=device), M)
     place = lambda: cuda_agg.hash_place(ident, live, s0, step, M, rounds)  # noqa: E731
-    got = place()
     want = cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds)
-    if not _same(got, want):
+    same, err = _held(place, want)
+    if not same:
         raise AssertionError("hash_place differs from its plain version at the large shape")
     out = [{"name": "hash_place", "shape": f"n={n} lanes=1 M={M} max_rounds={rounds}",
             "distinct_keys": int(torch.unique(key).numel()),
-            "groups": int((got[0] != n).sum()), "unresolved": int((~got[1]).sum()),
-            "max_abs_err": _max_abs_err(got, want),
+            "groups": int((want[0] != n).sum()), "unresolved": int((~want[1]).sum()),
+            "max_abs_err": err,
             "ms": _device_ms(place), "call_ms": _time(place),
             **_bound(_place_bytes(ident, n, M))}]
 
@@ -414,15 +464,14 @@ def kernel_scaling(inst, device="cuda"):
     counts = torch.from_numpy(c).to(device)
     starts = torch.from_numpy(offs - c).to(device)
     expand = lambda: cuda_join.expand_offsets(counts, starts, cap)  # noqa: E731
-    got = expand()
-    want = cuda_join.expand_offsets_plain(counts, starts, cap)
-    if not _same(got, want):
+    same, err = _held(expand, cuda_join.expand_offsets_plain(counts, starts, cap))
+    if not same:
         raise AssertionError("expand_offsets differs from its plain version at the large "
                              "shape")
     out.append({"name": "expand_offsets", "shape": f"npr={npr} cap={cap} hot_row=2^20",
-                "max_abs_err": _max_abs_err(got, want),
+                "max_abs_err": err,
                 "ms": _device_ms(expand), "call_ms": _time(expand),
-                **_bound(16 * npr + 4 * cap)})
+                **_bound(_expand_bytes(npr, cap))})
     return out
 
 
@@ -515,8 +564,13 @@ def main(argv=None) -> int:
         device_cache_bytes=inst.device_cache.nbytes,
         result_rows={q: len(r) for q, r in rows.items()})
 
+    repeat_ms, gen2 = warm_repeats(s, rows)
+    say("warm_repeats", query_ms=repeat_ms,
+        median_ms={q: statistics.median(v) for q, v in repeat_ms.items()},
+        gen2_collections=gen2)
+
     kernels = check_kernels(capture, launches)
-    say("kernels", cases="main-path inputs + edge cases", ok=True)
+    say("kernels", cases="main-path inputs + edge cases", repeats=CHECK_REPEATS, ok=True)
     say("kernel_scaling", kernels=kernel_scaling(inst))
 
     cpu_ms = cpu_reference(inst, rows)

@@ -50,6 +50,10 @@ def hash_slots_plain(keys: Sequence[Tuple[Any, Optional[Any]]], M: int):
 
 
 def expand_offsets_plain(counts, starts, cap: int):
+    """The reference's general formulation: a scatter-max of row ids at segment starts,
+    then a running max.  It takes any `starts` unique among non-empty rows; the kernel
+    behind `expand_offsets` agrees with it only when `starts` is the exclusive prefix
+    sum of `counts`, the one form its call site passes."""
     npr = counts.shape[0]
     at = torch.where((counts > 0) & (starts < cap), starts, torch.full_like(starts, cap))
     p_of = torch.zeros(cap + 1, dtype=torch.int32, device=counts.device)
