@@ -24,6 +24,23 @@ Phases, one line each on standard output:
 6. reference: the same four queries through the port on the CPU (where every kernel
    call site takes its plain version) over the same lanes; rows must be equal.
 
+Then ANALYZE, all of TPC-H, TPC-DS and window functions, each phase on instances of its
+own, its launch counters set to 0 just before its timed runs and read just after:
+
+7. analyzed_tpch: `ANALYZE TABLE` on the eight TPC-H tables, then all 22 queries twice
+   each (the second run timed), with each query's launches and join order; rows must
+   equal the port on the CPU over the same lanes, also ANALYZEd;
+8. tpcds: `tpcds.generate(--sf)` loaded with `insert_pylists`, ANALYZEd, the 10
+   queries twice each; rows must equal the port on the CPU;
+9. window: window queries over `orders` and `lineitem` (every `WindowSpec` kind and
+   frame, NULL partition keys, one partition spanning every row), compared with the
+   port on the CPU through an outer aggregate.
+
+Floats in 7-9 compare as `tests/test_tpcds.py` compares them (relative and absolute
+1e-6); every other value must be equal.  The largest input these phases gave each
+kernel is then held against its plain version CHECK_REPEATS times and timed, beside
+the main path's, in the kernel's `new_phases` entry.
+
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
 exits non-zero without that line; there is no CPU fallback.
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -84,6 +102,32 @@ def load_tpch(sf: float, device="cuda"):
     return inst, s, {t: len(next(iter(data[t].values()))) for t in tpch.TABLE_ORDER}
 
 
+def _on_cuda(args) -> bool:
+    """Whether the first tensor among a kernel wrapper's arguments is on the card."""
+    import torch
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.is_cuda
+        if isinstance(a, (tuple, list)):
+            for x in a:
+                if isinstance(x, torch.Tensor):
+                    return x.is_cuda
+                if isinstance(x, (tuple, list)) and isinstance(x[0], torch.Tensor):
+                    return x[0].is_cuda
+    return False
+
+
+def kernel_capture():
+    """A `Capture` of the four kernel wrappers."""
+    from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
+    return Capture([
+        (cuda_join, "build_slots", lambda keys, live, M: keys[0][0].numel()),
+        (cuda_join, "hash_slots", lambda keys, M: keys[0][0].numel()),
+        (cuda_join, "expand_offsets", lambda counts, starts, cap: cap),
+        (cuda_agg, "hash_place", lambda ident, live, s0, step, M, r: live.numel()),
+    ])
+
+
 class Capture:
     """Wraps the kernel wrappers during the main path: keeps the largest call's
     arguments per kernel (the inputs the kernel phase replays)."""
@@ -99,10 +143,11 @@ class Capture:
 
     def _wrap(self, name, fn, size_of):
         def wrapped(*args):
-            size = size_of(*args)
-            self.shapes.setdefault(name, []).append(size)
-            if name not in self.calls or size >= self.calls[name][0]:
-                self.calls[name] = (size, args)
+            if _on_cuda(args):  # a CPU comparison's plain calls are not captured
+                size = size_of(*args)
+                self.shapes.setdefault(name, []).append(size)
+                if name not in self.calls or size >= self.calls[name][0]:
+                    self.calls[name] = (size, args)
             return fn(*args)
         return wrapped
 
@@ -324,91 +369,107 @@ def _place_inputs(ident, live, M=None):
     return ident, live, (h & (M - 1)).contiguous(), ((lsr(h, 32) << 1) | 1).contiguous(), M
 
 
+def _kernel_fns(name, args):
+    """One captured call of kernel `name`: (kernel call, plain call, bytes it must
+    move, operations, shape, one-call library function or None)."""
+    import torch
+    from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
+    if name == "build_slots":
+        keys, live, M = args
+        n = keys[0][0].numel()
+        return (lambda: cuda_join.build_slots(keys, live, M),
+                lambda: cuda_join.build_slots_plain(keys, live, M),
+                _lane_bytes(keys) + live.numel() + 4 * live.numel(),
+                n * (24 * len(keys) + 2), f"n={n} lanes={len(keys)} M={M}", None)
+    if name == "hash_slots":
+        keys, M = args
+        n = keys[0][0].numel()
+        return (lambda: cuda_join.hash_slots(keys, M),
+                lambda: cuda_join.hash_slots_plain(keys, M),
+                _lane_bytes(keys) + 4 * n, n * (24 * len(keys) + 2),
+                f"n={n} lanes={len(keys)} M={M}", None)
+    if name == "expand_offsets":
+        counts, starts, cap = args
+        if not torch.equal(starts, torch.cumsum(counts, 0) - counts):
+            raise AssertionError("expand_offsets: a captured call passed starts that are "
+                                 "not the exclusive prefix sum of counts")
+        npr = counts.numel()
+        total = int(counts.sum())
+        arange = torch.arange(npr, dtype=torch.int32, device=counts.device)
+        # the nearest one-call library function: covers [0, total) only (no tail, no cap)
+        return (lambda: cuda_join.expand_offsets(counts, starts, cap),
+                lambda: cuda_join.expand_offsets_plain(counts, starts, cap),
+                _expand_bytes(npr, cap), 4 * npr + 3 * cap,
+                f"npr={npr} cap={cap} total={total}",
+                lambda: torch.repeat_interleave(arange, counts, output_size=total))
+    ident, live, s0, step, M, rounds = args
+    n = live.numel()
+    return (lambda: cuda_agg.hash_place(ident, live, s0, step, M, rounds),
+            lambda: cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds),
+            _place_bytes(ident, live, M), int(live.sum()) * (12 + 4 * len(ident)) + M,
+            f"n={n} lanes={len(ident)} M={M} max_rounds={rounds}", None)
+
+
 def check_kernels(capture, launches, device="cuda"):
     """Every kernel against its plain version, bit for bit; times and bounds."""
-    import torch
     from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
     slot_cases, expand_cases, place_cases = edge_cases(device)
     failures = []
-    results = []
+    errs = {name: 0.0 for name in KERNELS}
 
     def compare(name, label, kernel, plain):
         same, err = _held(kernel, plain())
         if not same:
             failures.append(f"{name} [{label}]")
-        return err
+        errs[name] = max(errs[name], err)
 
-    # build_slots / hash_slots
-    for name in ("build_slots", "hash_slots"):
-        err = 0.0
-        for label, keys, live in slot_cases:
-            M = 1 << max(4, int(max(keys[0][0].shape[0], 1) * 4 - 1).bit_length())
-            if name == "build_slots":
-                err = max(err, compare(name, label,
-                                       lambda: cuda_join.build_slots(keys, live, M),
-                                       lambda: cuda_join.build_slots_plain(keys, live, M)))
-            else:
-                err = max(err, compare(name, label, lambda: cuda_join.hash_slots(keys, M),
-                                       lambda: cuda_join.hash_slots_plain(keys, M)))
-        args = capture.calls[name][1]
-        if name == "build_slots":
-            keys, live, M = args
-            kern = lambda: cuda_join.build_slots(keys, live, M)  # noqa: E731
-            plain = lambda: cuda_join.build_slots_plain(keys, live, M)  # noqa: E731
-            nbytes = _lane_bytes(keys) + live.numel() + 4 * live.numel()
-        else:
-            keys, M = args
-            kern = lambda: cuda_join.hash_slots(keys, M)  # noqa: E731
-            plain = lambda: cuda_join.hash_slots_plain(keys, M)  # noqa: E731
-            nbytes = _lane_bytes(keys) + 4 * keys[0][0].numel()
-        n = keys[0][0].numel()
-        err = max(err, compare(name, "main path input", kern, plain))
-        ops = n * (24 * len(keys) + 2)
-        results.append(_entry(name, launches, err, kern, plain, nbytes, ops,
-                              shape=f"n={n} lanes={len(keys)} M={M}"))
-
-    # expand_offsets
-    err = 0.0
+    for label, keys, live in slot_cases:
+        M = 1 << max(4, int(max(keys[0][0].shape[0], 1) * 4 - 1).bit_length())
+        compare("build_slots", label, lambda: cuda_join.build_slots(keys, live, M),
+                lambda: cuda_join.build_slots_plain(keys, live, M))
+        compare("hash_slots", label, lambda: cuda_join.hash_slots(keys, M),
+                lambda: cuda_join.hash_slots_plain(keys, M))
     for label, counts, starts, cap in expand_cases:
-        err = max(err, compare("expand_offsets", label,
-                               lambda: cuda_join.expand_offsets(counts, starts, cap),
-                               lambda: cuda_join.expand_offsets_plain(counts, starts, cap)))
-    counts, starts, cap = capture.calls["expand_offsets"][1]
-    if not torch.equal(starts, torch.cumsum(counts, 0) - counts):
-        raise AssertionError("expand_offsets: the main path passed starts that are not the "
-                             "exclusive prefix sum of counts")
-    kern = lambda: cuda_join.expand_offsets(counts, starts, cap)  # noqa: E731
-    plain = lambda: cuda_join.expand_offsets_plain(counts, starts, cap)  # noqa: E731
-    err = max(err, compare("expand_offsets", "main path input", kern, plain))
-    npr = counts.numel()
-    total = int(counts.sum())
-    arange = torch.arange(npr, dtype=torch.int32, device=counts.device)
-    # the nearest one-call library function: covers [0, total) only (no tail, no cap)
-    library = lambda: torch.repeat_interleave(arange, counts, output_size=total)  # noqa: E731
-    results.append(_entry("expand_offsets", launches, err, kern, plain,
-                          _expand_bytes(npr, cap), 4 * npr + 3 * cap,
-                          shape=f"npr={npr} cap={cap} total={total}",
-                          library=library))
-
-    # hash_place
-    err = 0.0
+        compare("expand_offsets", label,
+                lambda: cuda_join.expand_offsets(counts, starts, cap),
+                lambda: cuda_join.expand_offsets_plain(counts, starts, cap))
     for label, (ident, live_, s0, step, M), rounds in place_cases:
-        err = max(err, compare(
-            "hash_place", label,
-            lambda: cuda_agg.hash_place(ident, live_, s0, step, M, rounds),
-            lambda: cuda_agg.hash_place_plain(ident, live_, s0, step, M, rounds)))
-    ident, live, s0, step, M, rounds = capture.calls["hash_place"][1]
-    kern = lambda: cuda_agg.hash_place(ident, live, s0, step, M, rounds)  # noqa: E731
-    plain = lambda: cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds)  # noqa: E731
-    err = max(err, compare("hash_place", "main path input", kern, plain))
-    n = live.numel()
-    nbytes = _place_bytes(ident, n, M)
-    results.append(_entry("hash_place", launches, err, kern, plain, nbytes,
-                          n * (12 + 4 * len(ident)) + M,
-                          shape=f"n={n} lanes={len(ident)} M={M} max_rounds={rounds}"))
+        compare("hash_place", label,
+                lambda: cuda_agg.hash_place(ident, live_, s0, step, M, rounds),
+                lambda: cuda_agg.hash_place_plain(ident, live_, s0, step, M, rounds))
+    results = []
+    for name in KERNELS:
+        kern, plain, nbytes, ops, shape, library = _kernel_fns(name,
+                                                               capture.calls[name][1])
+        compare(name, "main path input", kern, plain)
+        results.append(_entry(name, launches[name], errs[name], kern, plain, nbytes, ops,
+                              shape=shape, library=library))
     if failures:
         raise AssertionError(f"kernel differs from its plain version: {failures}")
     return results
+
+
+def check_new_phase_inputs(capture, launches_by_phase):
+    """Each kernel on the largest input the new phases gave it: held against its plain
+    version CHECK_REPEATS times and timed as the main path's input is."""
+    out = {}
+    failures = []
+    for name in KERNELS:
+        if name not in capture.calls:
+            raise AssertionError(f"{name}: the new phases never launched it")
+        kern, plain, nbytes, ops, shape, library = _kernel_fns(name,
+                                                               capture.calls[name][1])
+        same, err = _held(kern, plain())
+        if not same:
+            failures.append(name)
+        e = _entry(name, {ph: n.get(name, 0) for ph, n in launches_by_phase.items()},
+                   err, kern, plain, nbytes, ops, shape=shape, library=library)
+        out[name] = {k: v for k, v in e.items()
+                     if k not in ("name", "route", "source", "replaces")}
+    if failures:
+        raise AssertionError(f"kernel differs from its plain version on the new phases' "
+                             f"inputs: {failures}")
+    return out
 
 
 def _expand_bytes(npr, cap) -> int:
@@ -418,9 +479,13 @@ def _expand_bytes(npr, cap) -> int:
     return 8 * npr + 8 + 4 * cap
 
 
-def _place_bytes(ident, n, M) -> int:
-    # live, s0/step and identity lanes read; rep, resolved and gid written
-    return n + 16 * n + _lane_bytes(ident) + 4 * M + n + 4 * n
+def _place_bytes(ident, live, M) -> int:
+    # the live byte of every row; s0/step (16 B) and the identity lanes of the live rows
+    # only, since the kernel reads nothing else of a dead row; rep (4 B a slot),
+    # resolved (1 B a row) and gid (4 B a row) written
+    n = live.numel()
+    n_live = int(live.sum())
+    return int(n + n_live * (16 + _lane_bytes(ident) / max(n, 1)) + 4 * M + n + 4 * n)
 
 
 def _bound(nbytes) -> dict:
@@ -452,7 +517,7 @@ def kernel_scaling(inst, device="cuda"):
             "groups": int((want[0] != n).sum()), "unresolved": int((~want[1]).sum()),
             "max_abs_err": err,
             "ms": _device_ms(place), "call_ms": _time(place),
-            **_bound(_place_bytes(ident, n, M))}]
+            **_bound(_place_bytes(ident, live, M))}]
 
     rng = np.random.default_rng(20241017)
     npr = 1 << 24
@@ -484,7 +549,7 @@ def _entry(name, launches, err, kern, plain, nbytes, ops, shape, library=None):
     source, replaces = KERNELS[name]
     ms = _device_ms(kern)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
+            "launches": launches, "max_abs_err": err,
             "tolerance": 0.0, "ok": err == 0.0,  # bit-identical, every output
             "ms": ms, "kernel_ms": ms, "call_ms": _time(kern),
             "plain_ms": _time(plain),
@@ -521,6 +586,167 @@ def cpu_reference(gpu_inst, rows_gpu):
     return times
 
 
+# -- ANALYZE, all of TPC-H, TPC-DS, window functions ---------------------------------
+
+def _launch_counts():
+    from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
+    return {**cuda_join.LAUNCHES, **cuda_agg.LAUNCHES}
+
+
+def _reset_launches():
+    from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
+    cuda_join.reset_launches()
+    cuda_agg.reset_launches()
+
+
+def _rows_match(got, want):
+    """(equal, float cells compared, largest relative float difference): floats as
+    `tests/test_tpcds.py` compares them, every other value exactly."""
+    if len(got) != len(want):
+        return False, 0, 0.0
+    floats, worst = 0, 0.0
+    for a, b in zip(got, want):
+        if len(a) != len(b):
+            return False, floats, worst
+        for x, y in zip(a, b):
+            if isinstance(x, float) or isinstance(y, float):
+                if x is None or y is None:
+                    if not (x is None and y is None):
+                        return False, floats, worst
+                    continue
+                floats += 1
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-300) if x != y else 0.0)
+                if not math.isclose(float(x), float(y), rel_tol=1e-6, abs_tol=1e-6):
+                    return False, floats, worst
+            elif x != y:
+                return False, floats, worst
+    return True, floats, worst
+
+
+def _copy_instance(src_inst, schema, tables, ddl, device):
+    """A fresh instance on `device` holding `src_inst`'s tables of `schema` (the same
+    host lanes, carried through `storage.transfer`); no plan has run on it."""
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import transfer
+    inst = Instance(device=device)
+    s = Session(inst)
+    s.execute(f"CREATE DATABASE {schema}")
+    s.execute(f"USE {schema}")
+    for t in tables:
+        s.execute(ddl[t])
+        parts, dicts = transfer.arrays_of(src_inst.store(schema, t))
+        inst.install_store(transfer.store_from_arrays(inst.catalog.table(schema, t),
+                                                      parts, dicts))
+    return inst, s
+
+
+def _analyze(s, tables) -> float:
+    t0 = time.perf_counter()
+    s.execute("ANALYZE TABLE " + ", ".join(tables))
+    return (time.perf_counter() - t0) * 1000.0
+
+
+def join_order(rel) -> str:
+    """The join tree of a logical plan: scans by table name, joins by kind."""
+    from galaxysql_tpu_torch.plan import logical as L
+    if isinstance(rel, L.Scan):
+        return rel.table.name
+    kids = [join_order(c) for c in rel.children]
+    if isinstance(rel, L.Join):
+        return f"({kids[0]} {rel.kind} {kids[1]})"
+    kids = [k for k in kids if k]
+    return kids[0] if len(kids) == 1 else ("[" + ", ".join(kids) + "]" if kids else "")
+
+
+def run_phase(s_gpu, s_cpu, schema, queries):
+    """Each query twice on the card (the second run timed, launch counters set to 0
+    just before the timed runs and read just after), once on the CPU; rows compared."""
+    import torch
+    first, timed, per_query, rows_n, plans = {}, {}, {}, {}, {}
+    rows = {}
+    for name, sql in queries.items():
+        t0 = time.perf_counter()
+        rows[name] = s_gpu.execute(sql).rows
+        torch.cuda.synchronize()
+        first[name] = (time.perf_counter() - t0) * 1000.0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    for name, sql in queries.items():
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = s_gpu.execute(sql)
+        torch.cuda.synchronize()
+        timed[name] = (time.perf_counter() - t0) * 1000.0
+        after = _launch_counts()
+        per_query[name] = {k: after[k] - before[k] for k in after}
+        if rs.rows != rows[name]:
+            raise AssertionError(f"{name}: second run returned other rows than the first")
+        rows_n[name] = len(rs.rows)
+    launches = _launch_counts()
+    peak = int(torch.cuda.max_memory_allocated())
+    cpu_ms, floats, worst = {}, 0, 0.0
+    for name, sql in queries.items():
+        plans[name] = join_order(s_gpu.instance.planner.plan_select(
+            sql, schema, [], s_gpu).rel)
+        t0 = time.perf_counter()
+        want = s_cpu.execute(sql).rows
+        cpu_ms[name] = (time.perf_counter() - t0) * 1000.0
+        ok, f, w = _rows_match(rows[name], want)
+        if not ok:
+            raise AssertionError(f"{name}: rows on the card differ from the port on the "
+                                 f"CPU:\n  cuda {rows[name][:3]}\n  cpu  {want[:3]}")
+        floats += f
+        worst = max(worst, w)
+    return {"query_ms": timed, "first_run_ms": first, "launches": launches,
+            "launches_per_query": per_query, "join_order": plans,
+            "peak_device_bytes": peak, "result_rows": rows_n, "cpu_ms": cpu_ms,
+            "float_cells": floats, "max_float_rel_diff": worst, "equal": True}
+
+
+def analyzed_tpch(inst):
+    """Fresh card and CPU instances over the main path's TPC-H lanes, both ANALYZEd
+    before any query (so no plan baseline predates the statistics)."""
+    from galaxysql_tpu_torch.plan import logical as L
+    from galaxysql_tpu_torch.storage import tpch
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi, gs = _copy_instance(inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cuda")
+    ci, cs = _copy_instance(inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cpu")
+    analyze_ms = _analyze(gs, tpch.TABLE_ORDER)
+    _analyze(cs, tpch.TABLE_ORDER)
+    line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)})
+    line["analyze_ms"] = analyze_ms
+    line["q5_plan_analyzed"] = L.explain(
+        gi.planner.plan_select(SQL[5], "tpch", [], gs).rel).splitlines()
+    return line, (gi, gs, ci, cs)
+
+
+def tpcds_phase(sf):
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import tpcds
+    t0 = time.perf_counter()
+    data = tpcds.generate(sf)
+    gen_ms = (time.perf_counter() - t0) * 1000.0
+    gi = Instance(device="cuda")
+    gs = Session(gi)
+    gs.execute("CREATE DATABASE tpcds")
+    gs.execute("USE tpcds")
+    t0 = time.perf_counter()
+    for t in tpcds.TABLE_ORDER:
+        gs.execute(tpcds.TPCDS_DDL[t])
+        gi.store("tpcds", t).insert_pylists(data[t], gi.tso.next_timestamp())
+    load_ms = (time.perf_counter() - t0) * 1000.0
+    ci, cs = _copy_instance(gi, "tpcds", tpcds.TABLE_ORDER, tpcds.TPCDS_DDL, "cpu")
+    analyze_ms = _analyze(gs, tpcds.TABLE_ORDER)
+    _analyze(cs, tpcds.TABLE_ORDER)
+    line = run_phase(gs, cs, "tpcds", tpcds.QUERIES)
+    line.update(sf=sf, generate_ms=gen_ms, load_ms=load_ms, analyze_ms=analyze_ms,
+                rows={t: gi.store("tpcds", t).row_count() for t in tpcds.TABLE_ORDER})
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -546,12 +772,7 @@ def main(argv=None) -> int:
     inst, s, table_rows = load_tpch(args.sf)
     say("load", sf=args.sf, seconds=round(time.perf_counter() - t0, 3), rows=table_rows)
 
-    capture = Capture([
-        (cuda_join, "build_slots", lambda keys, live, M: keys[0][0].numel()),
-        (cuda_join, "hash_slots", lambda keys, M: keys[0][0].numel()),
-        (cuda_join, "expand_offsets", lambda counts, starts, cap: cap),
-        (cuda_agg, "hash_place", lambda ident, live, s0, step, M, r: live.numel()),
-    ])
+    capture = kernel_capture()
     try:
         torch.cuda.reset_peak_memory_stats()
         rows, timed, first, per_query, launches = run_main_path(s, capture)
@@ -575,6 +796,33 @@ def main(argv=None) -> int:
 
     cpu_ms = cpu_reference(inst, rows)
     say("reference", device="cpu", query_ms=cpu_ms, equal=True)
+
+    from galaxysql_tpu_torch.plan import logical as L
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    from galaxysql_tpu_torch.storage.window_queries import WINDOW_QUERIES
+    q5_no_stats = L.explain(inst.planner.plan_select(SQL[5], "tpch", [], s).rel)
+    phase_capture = kernel_capture()
+    launches_by_phase = {}
+    try:
+        line, (_gi, gs, _ci, cs) = analyzed_tpch(inst)
+        line["q5_plan_no_stats"] = q5_no_stats.splitlines()
+        launches_by_phase["analyzed_tpch"] = line["launches"]
+        say("analyzed_tpch", sf=args.sf, **line)
+        line = run_phase(gs, cs, "tpch", WINDOW_QUERIES)
+        launches_by_phase["window"] = line["launches"]
+        say("window", sf=args.sf, **line)
+        line = tpcds_phase(args.sf)
+        launches_by_phase["tpcds"] = line["launches"]
+        say("tpcds", **line)
+    finally:
+        phase_capture.restore()
+    for phase in ("analyzed_tpch", "tpcds"):
+        missing = [k for k in KERNELS if launches_by_phase[phase].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in {phase}: {missing}")
+    new_inputs = check_new_phase_inputs(phase_capture, launches_by_phase)
+    for entry in kernels:
+        entry["new_phases"] = new_inputs[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

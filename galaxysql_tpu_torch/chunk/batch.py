@@ -47,7 +47,9 @@ def as_tensor(a, device=None) -> torch.Tensor:
     """Host array / tensor -> tensor on `device` (no copy when already there)."""
     if isinstance(a, torch.Tensor):
         return a if device is None else a.to(device)
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    a = np.asarray(a)
+    # np.ascontiguousarray would turn a 0-d array (a constant) into shape (1,)
+    t = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
     return t if device is None else t.to(device)
 
 
@@ -119,6 +121,27 @@ def dictionary_translation(target: Dictionary, source: Dictionary) -> np.ndarray
     """trans[source_code] = target_code (or -1 when the string is absent from target)."""
     return np.array([target.encode_one(v, add=False) for v in source.values] or [-1],
                     dtype=np.int32)
+
+
+_UNION_TRANS_CACHE: Dict[Tuple[int, int, int], np.ndarray] = {}
+
+
+def dictionary_union_translation(target: Dictionary,
+                                 source: Dictionary) -> np.ndarray:
+    """trans[source_code] = target_code, EXTENDING target with values it lacks
+    (UNION semantics: every source string must exist in the output dictionary).
+
+    Cached by (target uid, source uid, len(source)): codes never change once
+    assigned, so a cached table stays valid as either dictionary grows."""
+    key = (target.uid, source.uid, len(source))
+    t = _UNION_TRANS_CACHE.get(key)
+    if t is None:
+        t = np.array([target.encode_one(v) for v in source.values] or [0],
+                     dtype=np.int32)
+        if len(_UNION_TRANS_CACHE) > 4096:
+            _UNION_TRANS_CACHE.clear()
+        _UNION_TRANS_CACHE[key] = t
+    return t
 
 
 @dataclasses.dataclass

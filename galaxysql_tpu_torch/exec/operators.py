@@ -1,8 +1,8 @@
 """Physical operators over ColumnBatches (trimmed port of `galaxysql_tpu/exec/operators.py`).
 
 Pull-model operators: streaming ones (`FilterOp`, `ProjectOp`) transform one batch at
-a time; blocking ones (`HashAggOp`, the `HashJoinOp` build, `SortOp`) consume all input
-then produce.  Every hot loop is a torch formulation from `kernels/relational.py` on
+a time; blocking ones (`HashAggOp` and `DistinctOp`, the `HashJoinOp` and `CrossJoinOp`
+builds, `SortOp`, `WindowOp`) consume all input then produce.  Every hot loop is a torch formulation from `kernels/relational.py` on
 the batch's device, and dynamic cardinality is handled by capacity buckets plus
 overflow-doubling retries, exactly as in the reference.
 
@@ -29,6 +29,7 @@ from galaxysql_tpu_torch.expr.compiler import (ExprCompiler, TorchXP, _find_dict
 from galaxysql_tpu_torch.kernels import relational as K
 from galaxysql_tpu_torch.types import collation as _coll
 from galaxysql_tpu_torch.types import datatype as dt
+from galaxysql_tpu_torch.utils import errors
 
 MIN_BUCKET = 1024
 
@@ -604,6 +605,73 @@ class HashJoinOp(Operator):
                 yield ColumnBatch(ncols, unmatched)
 
 
+class CrossJoinOp(Operator):
+    """Cartesian product with a SMALL materialized build side.
+
+    Exists for the uncorrelated-scalar-subquery pattern (a 1-row aggregate
+    cross-joined into the outer query: TPC-H Q11/Q15/Q22); guarded against large
+    builds.  Every lane stays on the batches' device."""
+
+    MAX_CELLS = 1 << 26
+
+    def __init__(self, build: Operator, probe: Operator, scalar: bool = False,
+                 build_schema=None):
+        self.build = build
+        self.probe = probe
+        # scalar subquery semantics: empty build NULL-extends, >1 rows errors
+        self.scalar = scalar
+        self.build_schema = build_schema
+
+    def batches(self) -> Iterator[ColumnBatch]:
+        build = concat_batches(list(self.build.batches()))
+        nb = build.num_live() if build.capacity else 0
+        if self.scalar and nb > 1:
+            raise errors.TddlError("Subquery returns more than 1 row")
+        if self.scalar and nb == 0:
+            for pb in self.probe.batches():
+                ncols = {}
+                for name, (typ, d_) in (self.build_schema or {}).items():
+                    z = torch.zeros(pb.capacity, dtype=torch_dtype(typ.lane),
+                                    device=pb.device)
+                    ncols[name] = Column(z, torch.zeros(pb.capacity, dtype=torch.bool,
+                                                        device=pb.device), typ, d_)
+                ncols.update(pb.columns)
+                yield ColumnBatch(ncols, pb.live)
+            return
+        build = build.compact().pad_to(build.num_live()) if build.capacity else build
+        nb = build.capacity
+        for pb in self.probe.batches():
+            if nb == 0:
+                return  # empty build: cross join is empty
+            if nb == 1:
+                cols = {}
+                for name, c in build.columns.items():
+                    data = c.data[:1].expand(pb.capacity).contiguous()
+                    valid = (c.valid[:1].expand(pb.capacity).contiguous()
+                             if c.valid is not None else None)
+                    cols[name] = Column(data, valid, c.dtype, c.dictionary)
+                cols.update(pb.columns)
+                yield ColumnBatch(cols, pb.live)
+                continue
+            if nb * pb.capacity > self.MAX_CELLS:
+                raise RuntimeError("cross join too large")
+            # expand: probe rows repeated nb times each
+            pidx = torch.repeat_interleave(
+                torch.arange(pb.capacity, device=pb.device), nb)
+            bidx = torch.arange(nb, device=pb.device).repeat(pb.capacity)
+            cols = {}
+            for name, c in build.columns.items():
+                cols[name] = Column(c.data[bidx],
+                                    c.valid[bidx] if c.valid is not None else None,
+                                    c.dtype, c.dictionary)
+            for name, c in pb.columns.items():
+                cols[name] = Column(c.data[pidx],
+                                    c.valid[pidx] if c.valid is not None else None,
+                                    c.dtype, c.dictionary)
+            live = pb.live_mask()[pidx] & build.live_mask()[bidx]
+            yield ColumnBatch(cols, live)
+
+
 class SortOp(Operator):
     """ORDER BY [LIMIT]: in-memory sort on the batch's device.  The reference's
     external sorted-run merge is not part of the port."""
@@ -688,6 +756,132 @@ class LimitOp(Operator):
             remaining_skip = max(remaining_skip - n, 0)
             remaining -= taken
             yield ColumnBatch(b.columns, take_mask)
+
+
+class DistinctOp(HashAggOp):
+    """SELECT DISTINCT / UNION DISTINCT: a grouped aggregation with no aggregates."""
+
+    def __init__(self, child: Operator, exprs: Sequence[Tuple[str, ir.Expr]],
+                 max_groups: int = 1 << 16):
+        super().__init__(child, exprs, [], max_groups)
+
+
+class WindowOp(Operator):
+    """Window functions: materialize, sort by (partition, order), scan-based frames
+    (`relational.window_eval`).
+
+    Output rows come back in window-sort order (SQL imposes no order without an outer
+    ORDER BY); all payload columns are gathered through the same permutation."""
+
+    def __init__(self, child: Operator, partitions, orders, calls, out_schema=None):
+        self.child = child
+        self.partitions = list(partitions)   # [ir.Expr]
+        self.orders = list(orders)           # [(ir.Expr, desc)]
+        self.calls = list(calls)             # [L.WindowCall]
+        # [(id, DataType, Dictionary)]: shapes an EMPTY result
+        self.out_schema = out_schema
+
+    def _specs(self):
+        inputs: List[ir.Expr] = []
+        index: Dict[Tuple, int] = {}
+
+        def arg_ix(e):
+            k = expr_cache_key(e)
+            if k not in index:
+                index[k] = len(inputs)
+                inputs.append(e)
+            return index[k]
+
+        lanes = []  # (lane_name, WindowSpec)
+        for c in self.calls:
+            frame = c.frame
+            if c.kind in ("row_number", "rank", "dense_rank"):
+                lanes.append((c.out_id, K.WindowSpec(c.kind, -1, 0, frame)))
+            elif c.kind == "avg":
+                ix = arg_ix(c.arg)
+                lanes.append((c.out_id + "$sum", K.WindowSpec("sum", ix, 0, frame)))
+                lanes.append((c.out_id + "$cnt", K.WindowSpec("count", ix, 0, frame)))
+            else:
+                lanes.append((c.out_id,
+                              K.WindowSpec(c.kind, arg_ix(c.arg), c.offset, frame)))
+        return inputs, lanes
+
+    def batches(self) -> Iterator[ColumnBatch]:
+        merged = concat_batches(list(self.child.batches()))
+        if merged.capacity == 0:
+            cols = dict(merged.columns)
+            for fid, typ, dic in (self.out_schema or []):
+                if fid not in cols:
+                    cols[fid] = Column(torch.zeros(0, dtype=torch_dtype(typ.lane)),
+                                       None, typ, dic)
+            yield ColumnBatch(cols, None)
+            return
+        padded = merged.pad_to(bucket_capacity(merged.capacity))
+        inputs, lanes = self._specs()
+        specs = tuple(s for _, s in lanes)
+        device = padded.device
+        key = ("window", str(device),
+               tuple(expr_cache_key(p) for p in self.partitions),
+               tuple((expr_cache_key(e), d) for e, d in self.orders),
+               tuple(expr_cache_key(e) for e in inputs), specs)
+
+        def build():
+            xp = TorchXP(device)
+            comp = ExprCompiler(xp)
+            pfns = [comp.compile(p) for p in self.partitions]
+            ofns = [(comp.compile(e), d) for e, d in self.orders]
+            ifns = [comp.compile(e) for e in inputs]
+
+            def run(batch: ColumnBatch):
+                env = batch_env(batch)
+                n = batch.capacity
+                pk = [broadcast_value(n, *f(env), xp) for f in pfns]
+                ok = []
+                for f, desc in ofns:
+                    d, v = broadcast_value(n, *f(env), xp)
+                    ok.append((d, v, desc, not desc))
+                ins = [broadcast_value(n, *f(env), xp) for f in ifns]
+                order, live_s, outs = K.window_eval(pk, ok, ins, specs,
+                                                    batch.live_mask())
+                cols = {}
+                for name, c in batch.columns.items():
+                    cols[name] = Column(c.data[order],
+                                        c.valid[order] if c.valid is not None else None,
+                                        c.dtype, c.dictionary)
+                return cols, live_s, outs
+            return run
+
+        cols, live_s, outs = closure_cache(key, build)(padded)
+        yield self.finalize_calls(cols, live_s, outs, lanes)
+
+    def finalize_calls(self, cols, live_s, outs, lanes) -> ColumnBatch:
+        """Attach the window-call outputs to the permuted payload columns on their
+        device; avg = sum/count with MySQL decimal scale."""
+        cols = dict(cols)
+        lane_map = {name: outs[i] for i, (name, _) in enumerate(lanes)}
+        for c in self.calls:
+            rt = c.dtype
+            if c.kind == "avg":
+                s, _sv = lane_map[c.out_id + "$sum"]
+                cnt, _ = lane_map[c.out_id + "$cnt"]
+                safe = torch.where(cnt == 0, torch.ones_like(cnt), cnt)
+                at = c.arg.dtype
+                if rt.clazz == dt.TypeClass.DECIMAL:
+                    shift = rt.scale - (at.scale if at.clazz == dt.TypeClass.DECIMAL
+                                        else 0)
+                    data = _signed_div_round(TorchXP(s.device), s.to(torch.int64)
+                                             * _pow10(max(shift, 0)), safe)
+                else:
+                    data = (s.to(torch.float64) / safe).to(torch.float32)
+                cols[c.out_id] = Column(data, cnt > 0, rt, None)
+            else:
+                d, v = lane_map[c.out_id]
+                if c.kind == "sum" and rt.clazz == dt.TypeClass.FLOAT:
+                    d = d.to(torch.float32)
+                dic = _find_dictionary(c.arg) if (c.arg is not None and
+                                                  c.arg.dtype.is_string) else None
+                cols[c.out_id] = Column(d, v, rt, dic)
+        return ColumnBatch(cols, live_s)
 
 
 def run_to_batch(op: Operator) -> ColumnBatch:

@@ -5,7 +5,13 @@
   version), with MVCC visibility computed on the device;
 - hash join sides: build = smaller estimated input (the probe side streams);
   left/semi/anti joins fix the probe side to the preserved/output side;
-- aggregates use estimated group counts to size the fixed-shape kernel output.
+- aggregates use estimated group counts to size the fixed-shape kernel output;
+- cross joins (the scalar-subquery shape) keep their build side whole; a filter over
+  a cross join is run as an equi join where it can be (`_through_cross`);
+- UNION children are renamed to the first child's ids, and string codes translated
+  into the first child's dictionaries, on the lanes' device; UNION DISTINCT and
+  ROLLUP's grouping sets run `DistinctOp` / `HashAggOp` over that;
+- VALUES rows and window functions have their own operators.
 
 Filter and Project run as separate operators.  The runtime filters and skew plans the
 rules plant on the logical tree are ignored here.
@@ -18,12 +24,16 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from galaxysql_tpu_torch.chunk.batch import Column, ColumnBatch
+from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
+                                             batch_from_pydict,
+                                             dictionary_union_translation)
 from galaxysql_tpu_torch.exec import operators as ops
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
+from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.plan import logical as L
-from galaxysql_tpu_torch.plan.rules import estimate_rows
+from galaxysql_tpu_torch.plan.rules import conjuncts, estimate_rows
 from galaxysql_tpu_torch.storage.table_store import TableStore
+from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
 
 
@@ -159,10 +169,74 @@ class ScanSource(ops.Operator):
         return ColumnBatch(cols, live)
 
 
+class ValuesSource(ops.Operator):
+    """Literal rows (and SELECT without FROM: one anonymous row) on the context's
+    device."""
+
+    def __init__(self, node: L.Values, ctx: ExecContext):
+        self.node = node
+        self.ctx = ctx
+
+    def batches(self) -> Iterator[ColumnBatch]:
+        rows = self.node.rows
+        if not self.node.schema:
+            b = batch_from_pydict({"__one": [1] * max(len(rows), 1)},
+                                  {"__one": dt.BIGINT})
+        else:
+            data = {fid: [r[i] for r in rows] for i, (fid, _, _) in
+                    enumerate(self.node.schema)}
+            schema = {fid: typ for fid, typ, _ in self.node.schema}
+            dicts = {fid: d for fid, typ, d in self.node.schema if d is not None}
+            b = batch_from_pydict(data, schema, dicts)
+        dev = self.ctx.device
+        yield ColumnBatch({n: Column(c.data.to(dev),
+                                     None if c.valid is None else c.valid.to(dev),
+                                     c.dtype, c.dictionary)
+                           for n, c in b.columns.items()}, None)
+
+
+class UnionOp(ops.Operator):
+    """UNION ALL: every child renamed to the first child's field ids, string codes
+    translated into the first child's dictionaries (children from different tables
+    encode against different dictionaries, and concatenating raw codes would decode
+    wrong values).  The translation table goes to the lane's device; the lane does
+    not leave it."""
+
+    def __init__(self, children: List[ops.Operator], id_lists: List[List[str]],
+                 target_dicts: Dict):
+        self.children_ops = children
+        self.id_lists = id_lists
+        self.target_dicts = target_dicts
+
+    def batches(self) -> Iterator[ColumnBatch]:
+        first_ids = self.id_lists[0]
+        for op, ids in zip(self.children_ops, self.id_lists):
+            rename = dict(zip(ids, first_ids))
+            for b in op.batches():
+                yield self._align(b.rename(rename))
+
+    def _align(self, b: ColumnBatch) -> ColumnBatch:
+        cols = {}
+        for fid, c in b.columns.items():
+            tgt = self.target_dicts.get(fid)
+            if c.dictionary is None or tgt is None or c.dictionary is tgt:
+                cols[fid] = c
+                continue
+            trans = as_tensor(dictionary_union_translation(tgt, c.dictionary),
+                              c.data.device)
+            cols[fid] = Column(trans[c.data.to(torch.int64)], c.valid, c.dtype, tgt)
+        return ColumnBatch(cols, b.live)
+
+
 def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, L.Scan):
         return ScanSource(node, ctx)
+    if isinstance(node, L.Values):
+        return ValuesSource(node, ctx)
     if isinstance(node, L.Filter):
+        rewritten = _through_cross(node)
+        if rewritten is not None:
+            return build_operator(rewritten, ctx)
         return ops.FilterOp(build_operator(node.child, ctx), node.cond)
     if isinstance(node, L.Project):
         return ops.ProjectOp(build_operator(node.child, ctx), node.exprs)
@@ -173,6 +247,9 @@ def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
         calls = [ops.AggCall(a.kind, a.arg, a.out_id) for a in node.aggs]
         return ops.HashAggOp(build_operator(node.child, ctx), node.groups, calls,
                              max_groups=max_groups)
+    if isinstance(node, L.Window):
+        return ops.WindowOp(build_operator(node.child, ctx), node.partitions,
+                            node.orders, node.calls, out_schema=node.fields())
     if isinstance(node, L.Join):
         return _build_join(node, ctx)
     if isinstance(node, L.Sort):
@@ -180,12 +257,68 @@ def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
                           node.offset)
     if isinstance(node, L.Limit):
         return ops.LimitOp(build_operator(node.child, ctx), node.limit, node.offset)
+    if isinstance(node, L.Union):
+        u = UnionOp([build_operator(c, ctx) for c in node.children],
+                    [c.field_ids() for c in node.children],
+                    {fid: d for fid, _t, d in node.children[0].fields()})
+        if node.all:
+            return u
+        return ops.DistinctOp(u, [(fid, ir.ColRef(fid, typ, d))
+                                  for fid, typ, d in node.fields()])
     raise errors.NotSupportedError(f"no physical operator for {type(node).__name__}")
+
+
+def _through_cross(node: L.Filter) -> Optional[L.RelNode]:
+    """A filter over a cross join as the operators run it, or None to run it as is.
+
+    The copied rules leave a predicate above a scalar cross (an uncorrelated scalar
+    subquery) even where it reads only the cross's probe side, so an equi predicate
+    between the two sides of a plain cross below never becomes a join key: TPC-H
+    Q15's supplier x revenue0, 10,000 x 10,000 rows at SF 1, past
+    `CrossJoinOp.MAX_CELLS`.  Here conjuncts that read only the probe side move below
+    a scalar cross (which keeps each probe row once), and equi conjuncts across a
+    plain cross make it an inner equi join.  The rows are the same; the logical plan
+    is not touched."""
+    child = node.child
+    if not (isinstance(child, L.Join) and child.kind == "cross"):
+        return None
+    conj = conjuncts(node.cond)
+    left_ids = set(child.left.field_ids())
+    if child.scalar:
+        below = [set(ir.referenced_columns(c)) <= left_ids for c in conj]
+        if not any(below):
+            return None
+        j = L.Join(L.Filter(child.left, ir.and_(*[c for c, b in zip(conj, below) if b])),
+                   child.right, "cross", [])
+        j.scalar = True
+        rest = [c for c, b in zip(conj, below) if not b]
+        return L.Filter(j, ir.and_(*rest)) if rest else j
+    right_ids = set(child.right.field_ids())
+    equi, rest = [], []
+    for c in conj:
+        if isinstance(c, ir.Call) and c.op == "eq":
+            a, b = c.args
+            ra, rb = set(ir.referenced_columns(a)), set(ir.referenced_columns(b))
+            if ra and rb and ra <= left_ids and rb <= right_ids:
+                equi.append((a, b))
+                continue
+            if ra and rb and rb <= left_ids and ra <= right_ids:
+                equi.append((b, a))
+                continue
+        rest.append(c)
+    if not equi:
+        return None
+    j = L.Join(child.left, child.right, "inner", equi)
+    return L.Filter(j, ir.and_(*rest)) if rest else j
 
 
 def _build_join(node: L.Join, ctx: ExecContext) -> ops.Operator:
     if node.kind == "cross":
-        raise errors.NotSupportedError("cross joins")
+        bschema = {fid: (typ, d) for fid, typ, d in node.right.fields()}
+        return ops.CrossJoinOp(build_operator(node.right, ctx),
+                               build_operator(node.left, ctx),
+                               scalar=getattr(node, "scalar", False),
+                               build_schema=bschema)
     lkeys = [a for a, _ in node.equi]
     rkeys = [b for _, b in node.equi]
     bloom = not ctx.hints.get("no_bloom", False)

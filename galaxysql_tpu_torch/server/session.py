@@ -1,9 +1,9 @@
 """Session: statement dispatch (trimmed port of `galaxysql_tpu/server/session.py`).
 
-Handles CREATE DATABASE, USE, CREATE TABLE and SELECT.  A SELECT goes parse -> bind ->
-optimise -> plan on the host (the planner and its plan cache), then through the
-operator tree on the instance's device; the compacted result batch comes back as
-rows.  Every query runs on the instance's device: the reference's pinning of point
+Handles CREATE DATABASE, USE, CREATE TABLE, ANALYZE TABLE and SELECT.  A SELECT goes
+parse -> bind -> optimise -> plan on the host (the planner and its plan cache), then
+through the operator tree on the instance's device; the compacted result batch comes
+back as rows.  ANALYZE builds the statistics on the host (`meta/statistics.py`).  Every query runs on the instance's device: the reference's pinning of point
 queries to the host CPU is not carried over.
 """
 
@@ -15,6 +15,7 @@ from typing import Any, List, Optional, Tuple
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
                                               SINGLE, TableMeta)
+from galaxysql_tpu_torch.meta.statistics import analyze_store
 from galaxysql_tpu_torch.plan.physical import ExecContext, build_operator
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.sql import ast
@@ -84,6 +85,8 @@ class Session:
             return self._run_query(stmt, sql, params)
         if isinstance(stmt, ast.CreateTable):
             return self._run_create_table(stmt)
+        if isinstance(stmt, ast.AnalyzeTable):
+            return self._run_analyze(stmt)
         if isinstance(stmt, ast.CreateDatabase):
             self.instance.catalog.create_schema(stmt.name, stmt.if_not_exists)
             return ok()
@@ -113,6 +116,19 @@ class Session:
         self.last_trace = ctx.trace
         return ResultSet(plan.display_names, [t for _, t, _ in plan.fields()], rows,
                          batch=batch)
+
+    def _run_analyze(self, stmt: ast.AnalyzeTable) -> ResultSet:
+        schema = self._require_schema()
+        rows = []
+        for name in stmt.names:
+            tm = self.instance.catalog.table(name.schema or schema, name.table)
+            # per-partition HLL sketches merged + equi-depth histograms, on the host
+            analyze_store(tm, self.instance.store(tm.schema, tm.name))
+            rows.append((f"{tm.schema}.{tm.name}", "analyze", "status", "OK"))
+        self.instance.catalog.version += 1
+        # the statistics epoch the plan baselines (`plan/spm.py`) key on
+        self.instance.catalog.stats_version += 1
+        return ResultSet(["Table", "Op", "Msg_type", "Msg_text"], [dt.VARCHAR] * 4, rows)
 
     def _run_create_table(self, stmt: ast.CreateTable) -> ResultSet:
         schema = stmt.name.schema or self._require_schema()

@@ -5,20 +5,23 @@ and per-row MVCC stamps (`begin_ts`/`end_ts`; a snapshot at ts sees rows with
 begin_ts <= ts < end_ts).  Rows route to partitions with the catalog's
 `PartitionRouter`, so a table loaded into the port lands in the same partitions as in
 the reference.  The scan reads these lanes through the device cache
-(`plan/physical.py`).  Bulk loading is `insert_arrays`; `storage/transfer.py` adopts
-the lanes of a reference store as they are.
+(`plan/physical.py`).  Loading is `insert_pylists` (Python values, encoded as the
+reference encodes them) or `insert_arrays` (numpy columns); `storage/transfer.py`
+adopts the lanes of a reference store as they are.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from galaxysql_tpu_torch.chunk.batch import column_from_pylist
 from galaxysql_tpu_torch.meta.catalog import PartitionRouter, TableMeta
 from galaxysql_tpu_torch.types import datatype as dt
+from galaxysql_tpu_torch.utils import errors
 
 INFINITY_TS = (1 << 63) - 1  # int64 max; must exceed any TSO value
 
@@ -65,6 +68,31 @@ class TableStore:
         # process-unique identity for caches (id() can be recycled after GC)
         self.uid = next(TableStore._next_uid)
 
+    def insert_pylists(self, data: Dict[str, List[Any]], begin_ts: int) -> int:
+        """Encode Python values (None = NULL) and route rows to partitions; returns the
+        rows inserted.  Lanes, validity and dictionary codes are those the reference's
+        `insert_pylists` produces (`chunk.batch.column_from_pylist`); numeric columns
+        are encoded with whole-array numpy operations that give the same values."""
+        table = self.table
+        n = len(next(iter(data.values()))) if data else 0
+        lanes: Dict[str, np.ndarray] = {}
+        valid: Dict[str, np.ndarray] = {}
+        for c in table.columns:
+            values = data.get(c.name)
+            if values is None:
+                if c.auto_increment:
+                    start = table.auto_increment_next
+                    table.auto_increment_next += n
+                    lanes[c.name] = np.arange(start, start + n, dtype=c.dtype.lane)
+                    valid[c.name] = np.ones(n, dtype=np.bool_)
+                    continue
+                values = [c.default] * n
+            lanes[c.name], valid[c.name] = _encode_pylist(
+                values, c.dtype, table.dictionaries.get(c.name.lower()))
+            if not c.nullable and not valid[c.name].all() and c.default is None:
+                raise errors.TddlError(f"Column '{c.name}' cannot be null")
+        return self._append(lanes, valid, n, begin_ts)
+
     def insert_arrays(self, data: Dict[str, Any], begin_ts: int) -> int:
         """Bulk ingestion: numeric columns as numpy arrays pass through; string columns
         are dictionary-encoded via np.unique (LOAD DATA analog)."""
@@ -99,14 +127,18 @@ class TableStore:
             else:
                 lanes[c.name] = np.asarray(values).astype(c.dtype.lane)
                 valid[c.name] = np.ones(n, dtype=np.bool_)
+        return self._append(lanes, valid, n, begin_ts)
+
+    def _append(self, lanes: Dict[str, np.ndarray], valid: Dict[str, np.ndarray],
+                n: int, begin_ts: int) -> int:
         pids = self._route(lanes)
         for pid in np.unique(pids):
             sel = np.nonzero(pids == pid)[0]
             self.partitions[int(pid)].append(
                 {k: v[sel] for k, v in lanes.items()},
                 {k: v[sel] for k, v in valid.items()}, begin_ts)
-        table.stats.row_count += n
-        table.bump_version()  # cached device lanes of the old contents go stale
+        self.table.stats.row_count += n
+        self.table.bump_version()  # cached device lanes of the old contents go stale
         return n
 
     def _route(self, lanes: Dict[str, np.ndarray]) -> np.ndarray:
@@ -120,3 +152,22 @@ class TableStore:
 
     def row_count(self) -> int:
         return sum(p.num_rows for p in self.partitions)
+
+
+def _encode_pylist(values: Sequence[Any], typ: dt.DataType,
+                   dictionary) -> Tuple[np.ndarray, np.ndarray]:
+    """(lane, valid) of one column of Python values.  Strings, and dates or datetimes
+    given as strings, go value by value through `column_from_pylist` (dictionary codes
+    in order of first appearance); other lanes take the same values in one numpy pass:
+    a decimal is round(v * 10**scale) with ties to even, as Python's `round` does."""
+    valid = np.fromiter((v is not None for v in values), dtype=np.bool_,
+                        count=len(values))
+    if typ.is_string or (typ.clazz in (dt.TypeClass.DATE, dt.TypeClass.DATETIME) and
+                         any(isinstance(v, str) for v in values)):
+        col = column_from_pylist(values, typ, dictionary)
+        return col.np_data(), col.np_valid()
+    filled = values if valid.all() else [0 if v is None else v for v in values]
+    if typ.clazz == dt.TypeClass.DECIMAL:
+        lane = np.round(np.asarray(filled, dtype=np.float64) * (10 ** typ.scale))
+        return lane.astype(typ.lane), valid
+    return np.asarray(filled).astype(typ.lane), valid

@@ -1,15 +1,19 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
     python3 -m galaxysql_tpu_torch.tools.profile_slice [--sf 1.0] [--out chiprun_out/profile]
+        [--queries 1,3,5,6] [--analyze]
 
-Loads TPC-H at `--sf` into the port on the card, runs Q1, Q3, Q5 and Q6 twice to warm
-the device cache, then once more each under `torch.profiler` (CPU and CUDA
-activities).  For each query it prints one JSON line: the wall time, the device-busy
+Loads TPC-H at `--sf` into the port on the card (with `--analyze`, then runs ANALYZE
+TABLE on its eight tables), runs the queries twice to warm the device cache, then once
+more each under `torch.profiler` (CPU and CUDA activities).  `--queries` names TPC-H
+query numbers and the window queries of `storage/window_queries.py`.  For each query it prints one JSON line: the wall time, the device-busy
 time (sum of device kernel and memcpy/memset times; one stream, so they do not
 overlap), the device's idle share of the wall time, the number of device operations,
 the number of host reads of a device scalar (`aten::_local_scalar_dense`, each a
 host-device synchronisation) and of `aten::nonzero` calls (which synchronise too),
-and the device operations that took the most time.  One Chrome trace per query goes
+the device operations that took the most time, and each `hash_place` call's shape
+(rows, live rows, key lanes, slots, round limit, rows left unplaced: an unplaced row
+makes the GROUP BY retry with twice the slots).  One Chrome trace per query goes
 under `--out`.  Without a CUDA device it exits non-zero.
 """
 
@@ -21,9 +25,6 @@ import os
 import subprocess
 import sys
 import time
-
-QUERIES = (1, 3, 5, 6)
-
 
 def _device_ms(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -53,12 +54,25 @@ def profile_query(s, sql: str, trace_path: str) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from galaxysql_tpu_torch.kernels import cuda_agg
+    place = cuda_agg.hash_place
+    calls = []
+
+    def recorded(ident, live, s0, step, M, max_rounds):
+        out = place(ident, live, s0, step, M, max_rounds)
+        calls.append((live, len(ident), M, max_rounds, out[1]))  # read after the run
+        return out
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.execute(sql)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000.0
+    cuda_agg.hash_place = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        cuda_agg.hash_place = place
     prof.export_chrome_trace(trace_path)
     device_ops, busy_ms, scalar_reads, nonzeros = [], 0.0, 0, 0
     for avg in prof.key_averages():
@@ -75,7 +89,11 @@ def profile_query(s, sql: str, trace_path: str) -> dict:
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if wall_ms else None,
             "device_ops": sum(c for _, _, c in device_ops),
             "scalar_reads": scalar_reads, "nonzero_calls": nonzeros,
-            "top_device_ops": [[k[:120], round(ms, 4), c] for k, ms, c in device_ops[:8]]}
+            "top_device_ops": [[k[:120], round(ms, 4), c] for k, ms, c in device_ops[:8]],
+            "hash_place_calls": [{"rows": live.numel(), "live": int(live.sum()),
+                                  "lanes": lanes, "slots": M, "max_rounds": r,
+                                  "unplaced": int((live & ~resolved).sum())}
+                                 for live, lanes, M, r, resolved in calls]}
 
 
 def main(argv=None) -> int:
@@ -83,6 +101,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile"),
                     help="directory for the Chrome traces")
+    ap.add_argument("--queries", default="1,3,5,6",
+                    help="comma-separated TPC-H query numbers and window query names")
+    ap.add_argument("--analyze", action="store_true",
+                    help="ANALYZE TABLE the eight tables before the runs")
     args = ap.parse_args(argv)
 
     import torch
@@ -90,20 +112,28 @@ def main(argv=None) -> int:
         print("profile_slice: CUDA is not available; this tool runs only on a GPU",
               file=sys.stderr)
         return 2
+    from galaxysql_tpu_torch.storage import tpch
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    from galaxysql_tpu_torch.storage.window_queries import WINDOW_QUERIES
+    queries = {q: SQL[int(q)] if q.isdigit() else WINDOW_QUERIES[q]
+               for q in args.queries.split(",")}
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0], flush=True)
     s = load_tpch(args.sf)
+    if args.analyze:
+        s.execute("ANALYZE TABLE " + ", ".join(tpch.TABLE_ORDER))
     for _ in range(2):
-        for q in QUERIES:
-            s.execute(SQL[q])
+        for sql in queries.values():
+            s.execute(sql)
     os.makedirs(args.out, exist_ok=True)
-    for q in QUERIES:
-        out = profile_query(s, SQL[q], os.path.join(args.out, f"q{q}_trace.json"))
-        print(json.dumps({"query": q, "sf": args.sf, **out}), flush=True)
+    for q, sql in queries.items():
+        trace = os.path.join(args.out, f"{'q' if q.isdigit() else ''}{q}_trace.json")
+        out = profile_query(s, sql, trace)
+        print(json.dumps({"query": int(q) if q.isdigit() else q, "sf": args.sf,
+                          "analyzed": args.analyze, **out}), flush=True)
     return 0
 
 

@@ -15,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = [
     "types/datatype.py", "types/temporal.py", "types/collation.py", "utils/errors.py",
     "sql/lexer.py", "sql/ast.py", "sql/parser.py", "sql/parameterize.py", "sql/hints.py",
-    "meta/tso.py", "meta/catalog.py", "storage/tpch.py", "storage/tpch_queries.py",
+    "meta/tso.py", "meta/catalog.py", "meta/statistics.py", "storage/tpch.py",
+    "storage/tpch_queries.py", "storage/tpcds.py",
     "exec/runtime_filter.py", "exec/skew.py", "expr/ir.py",
     "plan/logical.py", "plan/rules.py", "plan/binder.py", "plan/planner.py", "plan/spm.py",
 ]
