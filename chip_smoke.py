@@ -36,10 +36,30 @@ own, its launch counters set to 0 just before its timed runs and read just after
    frame, NULL partition keys, one partition spanning every row), compared with the
    port on the CPU through an outer aggregate.
 
-Floats in 7-9 compare as `tests/test_tpcds.py` compares them (relative and absolute
-1e-6); every other value must be equal.  The largest input these phases gave each
-kernel is then held against its plain version CHECK_REPEATS times and timed, beside
-the main path's, in the kernel's `new_phases` entry.
+Then writes and transactions, on a card instance and a CPU instance of their own
+holding copies of the main path's lanes; every statement runs on both, in the same
+order, and every result must be equal (of the 22 queries after the refresh, the
+DML_CPU_QUERIES):
+
+10. dml: (a) TPC-H's refresh functions in a transaction, after ANALYZE: session W
+    runs BEGIN, RF1 (SF x 1,500 new orders and their lineitems,
+    `storage/tpch_refresh.py`) as a few multi-row INSERTs and RF2 (SF x 1,500 orders
+    and their lineitems deleted); Q1, Q3 and Q18 in W see its writes, in a second
+    session R the snapshot from before; COMMIT; then all 22 queries twice each (the
+    second run timed), DML_CPU_QUERIES of them also on the CPU.  (b) A rollback: an
+    UPDATE of lineitem and a DELETE of orders, Q4 and Q6 inside, ROLLBACK, and Q4
+    and Q6 equal their rows from before.  (c) A write conflict: W updates an order
+    in a transaction, R's update of the same row raises `TransactionError`, W
+    commits and R's retry succeeds.  (d) The sysbench `oltp_read_write` mix
+    (`storage/sysbench.py`) on one 1,000,000-row table, OLTP_TRANSACTIONS
+    transactions.  Launch counters are set to 0 at the phase's start and read at
+    its end.
+
+Floats in 7-10 compare as `tests/test_tpcds.py` compares them (relative and absolute
+1e-6); every other value must be equal.  The largest input the phases 7-9 gave each
+kernel, and apart from it the largest input the dml phase gave it, are then held
+against the kernel's plain version CHECK_REPEATS times and timed, beside the main
+path's, in the kernel's `new_phases` entry.
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -62,6 +82,11 @@ SPIN_CYCLES = 50_000_000    # ~25 ms of the card's clock: longer than enqueueing
 CHECK_REPEATS = 20          # kernel runs held against one plain result, per input
 WARM_REPEATS = 7            # extra warm runs of each query after the main path
 QUERIES = (1, 3, 5, 6)
+OLTP_ROWS = 1_000_000       # rows of the sysbench table in the dml phase
+OLTP_TRANSACTIONS = 20      # oltp_read_write transactions in the dml phase
+# the queries after the refresh that are also run on the CPU and compared: all 22
+# put the script past 600 s on the card's machine, so the CPU side is cut to these
+DML_CPU_QUERIES = (1, 3, 4, 5, 6, 10, 12, 18, 21)
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
                     "galaxysql_tpu/kernels/pallas_join.py:123"),
@@ -380,7 +405,8 @@ def _kernel_fns(name, args):
         return (lambda: cuda_join.build_slots(keys, live, M),
                 lambda: cuda_join.build_slots_plain(keys, live, M),
                 _lane_bytes(keys) + live.numel() + 4 * live.numel(),
-                n * (24 * len(keys) + 2), f"n={n} lanes={len(keys)} M={M}", None)
+                n * (24 * len(keys) + 2),
+                f"n={n} live={int(live.sum())} lanes={len(keys)} M={M}", None)
     if name == "hash_slots":
         keys, M = args
         n = keys[0][0].numel()
@@ -407,7 +433,8 @@ def _kernel_fns(name, args):
     return (lambda: cuda_agg.hash_place(ident, live, s0, step, M, rounds),
             lambda: cuda_agg.hash_place_plain(ident, live, s0, step, M, rounds),
             _place_bytes(ident, live, M), int(live.sum()) * (12 + 4 * len(ident)) + M,
-            f"n={n} lanes={len(ident)} M={M} max_rounds={rounds}", None)
+            f"n={n} live={int(live.sum())} lanes={len(ident)} M={M} max_rounds={rounds}",
+            None)
 
 
 def check_kernels(capture, launches, device="cuda"):
@@ -659,9 +686,12 @@ def join_order(rel) -> str:
     return kids[0] if len(kids) == 1 else ("[" + ", ".join(kids) + "]" if kids else "")
 
 
-def run_phase(s_gpu, s_cpu, schema, queries):
+def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None):
     """Each query twice on the card (the second run timed, launch counters set to 0
-    just before the timed runs and read just after), once on the CPU; rows compared."""
+    just before the timed runs and read just after), once on the CPU; rows compared.
+    With `reset=False` neither the launch counters nor the peak memory are set back:
+    they then count from the caller's own start.  `cpu_queries` names the queries
+    compared on the CPU (default: all)."""
     import torch
     first, timed, per_query, rows_n, plans = {}, {}, {}, {}, {}
     rows = {}
@@ -670,8 +700,9 @@ def run_phase(s_gpu, s_cpu, schema, queries):
         rows[name] = s_gpu.execute(sql).rows
         torch.cuda.synchronize()
         first[name] = (time.perf_counter() - t0) * 1000.0
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
     for name, sql in queries.items():
         before = _launch_counts()
         torch.cuda.synchronize()
@@ -690,6 +721,8 @@ def run_phase(s_gpu, s_cpu, schema, queries):
     for name, sql in queries.items():
         plans[name] = join_order(s_gpu.instance.planner.plan_select(
             sql, schema, [], s_gpu).rel)
+        if cpu_queries is not None and name not in cpu_queries:
+            continue
         t0 = time.perf_counter()
         want = s_cpu.execute(sql).rows
         cpu_ms[name] = (time.perf_counter() - t0) * 1000.0
@@ -744,6 +777,199 @@ def tpcds_phase(sf):
     line = run_phase(gs, cs, "tpcds", tpcds.QUERIES)
     line.update(sf=sf, generate_ms=gen_ms, load_ms=load_ms, analyze_ms=analyze_ms,
                 rows={t: gi.store("tpcds", t).row_count() for t in tpcds.TABLE_ORDER})
+    return line
+
+
+# -- writes and transactions -----------------------------------------------------------
+
+def _both(s_gpu, s_cpu, sql, what):
+    """`sql` on the card's session, then on the CPU's; the results must be equal.
+    Returns (the card's result, its ms on the host clock ending in a sync)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = s_gpu.execute(sql)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0
+    want = s_cpu.execute(sql)
+    ok, _f, _w = _rows_match(got.rows, want.rows)
+    if not ok or got.affected != want.affected:
+        raise AssertionError(f"{what}: the card and the CPU differ (affected "
+                             f"{got.affected} / {want.affected}):\n  cuda "
+                             f"{got.rows[:3]}\n  cpu  {want.rows[:3]}")
+    return got, ms
+
+
+def _conflicts(s, sql) -> bool:
+    from galaxysql_tpu_torch.utils import errors
+    try:
+        s.execute(sql)
+    except errors.TransactionError:
+        return True
+    return False
+
+
+def _cache_line(inst, since):
+    c = inst.device_cache
+    return {"device_cache_bytes": c.nbytes, "device_cache_misses": c.misses - since[0],
+            "device_cache_hits": c.hits - since[1]}
+
+
+def dml_tpch(src_inst, sf):
+    """(a) refresh in a transaction, (b) rollback, (c) conflict, on fresh copies."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import tpch, tpch_refresh
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi, gw = _copy_instance(src_inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cuda")
+    ci, cw = _copy_instance(src_inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cpu")
+    gr, cr = Session(gi, "tpch"), Session(ci, "tpch")
+    # statistics first, as a deployment has them: the plans are analyzed_tpch's
+    line = {"analyze_ms": _analyze(gw, tpch.TABLE_ORDER)}
+    _analyze(cw, tpch.TABLE_ORDER)
+    inside_q = (1, 3, 18)
+    before = {q: _both(gr, cr, SQL[q], f"Q{q} before the refresh")[0].rows
+              for q in inside_q}
+    since = (gi.device_cache.misses, gi.device_cache.hits)
+
+    keys = np.concatenate([p.lanes["o_orderkey"]
+                           for p in gi.store("tpch", "orders").partitions])
+    rows = tpch_refresh.rf1_rows(sf, int(keys.max()))
+    rf1 = tpch_refresh.rf1_statements(rows)
+    rf2 = tpch_refresh.rf2_statements(tpch_refresh.rf2_keys(sf, keys))
+    _both(gw, cw, "BEGIN", "BEGIN")
+    rf1_ms, rf2_ms, affected = [], [], []
+    for sql in rf1:
+        rs, ms = _both(gw, cw, sql, "RF1")
+        rf1_ms.append(ms)
+        affected.append(rs.affected)
+    for sql in rf2:
+        rs, ms = _both(gw, cw, sql, "RF2")
+        rf2_ms.append(ms)
+        affected.append(rs.affected)
+    n_orders = tpch_refresh.refresh_orders(sf)
+    n_lines = len(rows["lineitem"]["l_orderkey"])
+    if sum(affected[:len(rf1)]) != n_orders + n_lines or affected[-1] != n_orders:
+        raise AssertionError(f"refresh affected {affected}")
+    inside_ms, outside_ms = {}, {}
+    for q in inside_q:
+        rs, inside_ms[f"Q{q}"] = _both(gw, cw, SQL[q], f"Q{q} inside the refresh")
+        if q == 1 and rs.rows == before[q]:
+            raise AssertionError("Q1 inside the refresh does not see its writes")
+        rs, outside_ms[f"Q{q}"] = _both(gr, cr, SQL[q], f"Q{q} in the other session")
+        if rs.rows != before[q]:
+            raise AssertionError(f"Q{q} in the other session does not see the snapshot "
+                                 "from before the refresh")
+    _rs, commit_ms = _both(gw, cw, "COMMIT", "COMMIT")
+    line.update(rf1_statements=len(rf1), rf1_rows={"orders": n_orders,
+                                                   "lineitem": n_lines},
+                rf1_ms=rf1_ms, rf2_ms=rf2_ms, rf2_rows_deleted=affected[len(rf1):],
+                inside_ms=inside_ms, other_session_ms=outside_ms, commit_ms=commit_ms)
+    after = run_phase(gw, cw, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
+                      reset=False, cpu_queries={f"Q{q}" for q in DML_CPU_QUERIES})
+    line["after_commit"] = {k: after[k] for k in (
+        "query_ms", "first_run_ms", "launches_per_query", "result_rows", "cpu_ms",
+        "float_cells", "max_float_rel_diff", "equal")}
+    line["after_commit"]["query_ms_sum"] = sum(after["query_ms"].values())
+    line["after_commit"]["first_run_ms_sum"] = sum(after["first_run_ms"].values())
+    line.update(_cache_line(gi, since))
+
+    # (b) rollback
+    rb_q = (4, 6)
+    before = {q: _both(gw, cw, SQL[q], f"Q{q} before the rollback")[0].rows
+              for q in rb_q}
+    rb = {}
+    for sql in ("BEGIN",
+                "UPDATE lineitem SET l_discount = l_discount + 0.01 "
+                "WHERE l_shipdate < DATE '1993-01-01'",
+                "DELETE FROM orders WHERE o_orderdate < DATE '1992-03-01'"):
+        rs, ms = _both(gw, cw, sql, sql[:30])
+        rb[sql.split()[0].lower()] = {"ms": ms, "affected": rs.affected}
+    for q in rb_q:
+        _rs, rb[f"Q{q}_inside_ms"] = _both(gw, cw, SQL[q], f"Q{q} inside the rollback")
+    _rs, rb["rollback_ms"] = _both(gw, cw, "ROLLBACK", "ROLLBACK")
+    for q in rb_q:
+        rs, rb[f"Q{q}_after_ms"] = _both(gw, cw, SQL[q], f"Q{q} after the rollback")
+        if rs.rows != before[q]:
+            raise AssertionError(f"Q{q} after ROLLBACK differs from before the "
+                                 "transaction")
+    line["rollback"] = rb
+
+    # (c) conflict: first writer wins
+    key = int(keys[len(keys) // 2])
+    upd = f"UPDATE orders SET o_comment = 'conflict' WHERE o_orderkey = {key}"
+    _both(gw, cw, "BEGIN", "BEGIN")
+    _both(gw, cw, f"UPDATE orders SET o_comment = 'writer' WHERE o_orderkey = {key}",
+          "the writer's update")
+    if not (_conflicts(gr, upd) and _conflicts(cr, upd)):
+        raise AssertionError("the second writer's update did not raise TransactionError")
+    _both(gw, cw, "COMMIT", "COMMIT")
+    rs, _ms = _both(gr, cr, upd, "the retry")
+    if rs.affected != 1:
+        raise AssertionError("the retry after COMMIT did not update the row")
+    line["conflict"] = {"raised": "TransactionError", "retry_affected": rs.affected}
+    line["tpch_peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    return line
+
+
+def dml_oltp(seed=20241017):
+    """(d) The sysbench oltp_read_write mix on one table of OLTP_ROWS rows."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import sysbench
+    gi = Instance(device="cuda")
+    gs = Session(gi)
+    gs.execute("CREATE DATABASE sbtest")
+    gs.execute("USE sbtest")
+    gs.execute(sysbench.ddl())
+    t0 = time.perf_counter()
+    gi.store("sbtest", "sbtest1").insert_arrays(sysbench.generate(OLTP_ROWS, seed),
+                                                gi.tso.next_timestamp())
+    load_ms = (time.perf_counter() - t0) * 1000.0
+    _ci, cs = _copy_instance(gi, "sbtest", ["sbtest1"], {"sbtest1": sysbench.ddl()},
+                             "cpu")
+    since = (gi.device_cache.misses, gi.device_cache.hits)
+    rng = np.random.default_rng(seed)
+    kinds, txn_ms = {}, []
+    for _ in range(OLTP_TRANSACTIONS):
+        total = 0.0
+        for kind, sql in sysbench.transaction(rng, OLTP_ROWS):
+            rs, ms = _both(gs, cs, sql, f"oltp {kind}")
+            if kind in ("index_update", "non_index_update", "delete", "insert") \
+                    and rs.affected != 1:
+                raise AssertionError(f"oltp {kind} affected {rs.affected} rows")
+            kinds.setdefault(kind, []).append(ms)
+            total += ms
+        txn_ms.append(total)
+    line = {"rows": OLTP_ROWS, "transactions": OLTP_TRANSACTIONS, "load_ms": load_ms,
+            "statement_ms_median": {k: statistics.median(v) for k, v in kinds.items()},
+            "statement_ms_max": {k: max(v) for k, v in kinds.items()},
+            "statements": {k: len(v) for k, v in kinds.items()},
+            "transaction_ms": txn_ms,
+            "transaction_ms_median": statistics.median(txn_ms),
+            "dictionary_c_values": len(gi.catalog.table("sbtest", "sbtest1")
+                                       .dictionaries["c"]),
+            "peak_device_bytes": int(torch.cuda.max_memory_allocated())}
+    line.update(_cache_line(gi, since))
+    return line
+
+
+def dml_phase(inst, sf):
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    line = dml_tpch(inst, sf)
+    line["oltp"] = dml_oltp()
+    line["launches"] = _launch_counts()
+    line["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    line["seconds"] = time.perf_counter() - t0
+    missing = [k for k in KERNELS if line["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in dml: {missing}")
     return line
 
 
@@ -821,8 +1047,20 @@ def main(argv=None) -> int:
         if missing:
             raise AssertionError(f"kernels not launched in {phase}: {missing}")
     new_inputs = check_new_phase_inputs(phase_capture, launches_by_phase)
+    del _gi, gs, _ci, cs, line
+
+    dml_capture = kernel_capture()
+    try:
+        line = dml_phase(inst, args.sf)
+    finally:
+        dml_capture.restore()
+    print(card, flush=True)
+    say("dml", sf=args.sf, nvidia_smi=card, **line)
+    dml_inputs = check_new_phase_inputs(dml_capture, {"dml": line["launches"]})
     for entry in kernels:
         entry["new_phases"] = new_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
+        entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -85,9 +85,15 @@ def _scan_meta(store, version: int, pids) -> Dict:
 
 
 def _device_visibility(begin, end, ts, txn_id):
-    """Device-side MVCC visibility (the reference's `_device_visibility`)."""
-    ins_ok = (begin >= 0) & (begin <= ts)
-    dele = (end >= 0) & (end <= ts)
+    """Device-side MVCC visibility: the twin of `Partition.visible_mask` (one change
+    of the semantics must touch both).  Stamps stay int64 throughout; the fused pad
+    rows (begin 0, end -1) come out visible and are masked by `::padlive`."""
+    if ts is None:
+        ins_ok = begin >= 0
+        dele = end != np.iinfo(np.int64).max
+    else:
+        ins_ok = (begin >= 0) & (begin <= ts)
+        dele = (end >= 0) & (end <= ts)
     if txn_id:
         ins_ok = ins_ok | (begin == -txn_id)
         dele = dele | (end == -txn_id)

@@ -8,13 +8,18 @@ the reference.  The scan reads these lanes through the device cache
 (`plan/physical.py`).  Loading is `insert_pylists` (Python values, encoded as the
 reference encodes them) or `insert_arrays` (numpy columns); `storage/transfer.py`
 adopts the lanes of a reference store as they are.
+
+Writes follow the reference: an insert appends rows stamped with its timestamp, a
+delete stamps `end_ts` in place, an update does both (the new versions move to the
+end of their partition).  Inside a transaction the stamps are provisional
+(`-txn_id`) until `txn/xa.py` finalizes them.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,7 +43,8 @@ class Partition:
             c.name: np.zeros(0, dtype=np.bool_) for c in table.columns}
         self.begin_ts = np.zeros(0, dtype=np.int64)
         self.end_ts = np.zeros(0, dtype=np.int64)
-        self.lock = threading.Lock()
+        # re-entrant: update_rows appends under the lock it already holds
+        self.lock = threading.RLock()
 
     @property
     def num_rows(self) -> int:
@@ -56,6 +62,43 @@ class Partition:
             self.end_ts = np.concatenate(
                 [self.end_ts, np.full(n, INFINITY_TS, dtype=np.int64)])
 
+    def visible_mask(self, snapshot_ts: Optional[int], txn_id: int = 0) -> np.ndarray:
+        """MVCC visibility on the host.  Uncommitted changes carry NEGATIVE
+        timestamps (-txn_id), visible only to the owning transaction; commit turns
+        them into TSO values.  The reference's numpy body (`native.visible_mask`);
+        `plan/physical._device_visibility` is its device twin."""
+        b, e = self.begin_ts, self.end_ts
+        if snapshot_ts is None:
+            ins = b >= 0
+            dele = e != np.iinfo(np.int64).max
+        else:
+            ins = (b >= 0) & (b <= snapshot_ts)
+            dele = (e >= 0) & (e <= snapshot_ts)
+        if txn_id:
+            ins = ins | (b == -txn_id)
+            dele = dele | (e == -txn_id)
+        return ins & ~dele
+
+    def delete_rows(self, row_ids: np.ndarray, commit_ts: int):
+        with self.lock:
+            self.end_ts[row_ids] = commit_ts
+
+    def update_rows(self, row_ids: np.ndarray, new_lanes: Dict[str, np.ndarray],
+                    new_valid: Dict[str, np.ndarray], commit_ts: int):
+        """MVCC update = end old versions + append new versions."""
+        with self.lock:
+            full_lanes = {}
+            full_valid = {}
+            for c in self.table.columns:
+                if c.name in new_lanes:
+                    full_lanes[c.name] = new_lanes[c.name]
+                    full_valid[c.name] = new_valid[c.name]
+                else:
+                    full_lanes[c.name] = self.lanes[c.name][row_ids]
+                    full_valid[c.name] = self.valid[c.name][row_ids]
+            self.end_ts[row_ids] = commit_ts
+            self.append(full_lanes, full_valid, commit_ts)
+
 
 class TableStore:
     _next_uid = itertools.count(1)
@@ -67,12 +110,22 @@ class TableStore:
         self.partitions = [Partition(table, i) for i in range(n)]
         # process-unique identity for caches (id() can be recycled after GC)
         self.uid = next(TableStore._next_uid)
+        # serializes a writer's (count rows -> append -> derive its appended ranges),
+        # taken before any partition lock
+        self.append_lock = threading.RLock()
 
     def insert_pylists(self, data: Dict[str, List[Any]], begin_ts: int) -> int:
         """Encode Python values (None = NULL) and route rows to partitions; returns the
-        rows inserted.  Lanes, validity and dictionary codes are those the reference's
-        `insert_pylists` produces (`chunk.batch.column_from_pylist`); numeric columns
-        are encoded with whole-array numpy operations that give the same values."""
+        rows inserted."""
+        lanes, valid, n = self.encode_pylists(data)
+        return self.append_encoded(lanes, valid, n, begin_ts)
+
+    def encode_pylists(self, data: Dict[str, List[Any]]):
+        """Python values -> (lanes, valid, n), changing nothing but the
+        auto-increment counter (and growing string dictionaries).  Lanes, validity
+        and dictionary codes are those the reference's `encode_pylists` produces
+        (`chunk.batch.column_from_pylist`); numeric columns are encoded with
+        whole-array numpy operations that give the same values."""
         table = self.table
         n = len(next(iter(data.values()))) if data else 0
         lanes: Dict[str, np.ndarray] = {}
@@ -91,7 +144,7 @@ class TableStore:
                 values, c.dtype, table.dictionaries.get(c.name.lower()))
             if not c.nullable and not valid[c.name].all() and c.default is None:
                 raise errors.TddlError(f"Column '{c.name}' cannot be null")
-        return self._append(lanes, valid, n, begin_ts)
+        return lanes, valid, n
 
     def insert_arrays(self, data: Dict[str, Any], begin_ts: int) -> int:
         """Bulk ingestion: numeric columns as numpy arrays pass through; string columns
@@ -127,10 +180,11 @@ class TableStore:
             else:
                 lanes[c.name] = np.asarray(values).astype(c.dtype.lane)
                 valid[c.name] = np.ones(n, dtype=np.bool_)
-        return self._append(lanes, valid, n, begin_ts)
+        return self.append_encoded(lanes, valid, n, begin_ts)
 
-    def _append(self, lanes: Dict[str, np.ndarray], valid: Dict[str, np.ndarray],
-                n: int, begin_ts: int) -> int:
+    def append_encoded(self, lanes: Dict[str, np.ndarray], valid: Dict[str, np.ndarray],
+                       n: int, begin_ts: int) -> int:
+        """Route encoded lanes to partitions and append them stamped `begin_ts`."""
         pids = self._route(lanes)
         for pid in np.unique(pids):
             sel = np.nonzero(pids == pid)[0]
@@ -150,8 +204,14 @@ class TableStore:
                 for c in info.columns]
         return self.router.route_rows(keys)
 
-    def row_count(self) -> int:
-        return sum(p.num_rows for p in self.partitions)
+    def row_count(self, snapshot_ts: Optional[int] = None, txn_id: int = 0) -> int:
+        return sum(int(p.visible_mask(snapshot_ts, txn_id).sum())
+                   for p in self.partitions)
+
+    def truncate(self):
+        n = self.table.partition.num_partitions
+        self.partitions = [Partition(self.table, i) for i in range(n)]
+        self.table.stats.row_count = 0
 
 
 def _encode_pylist(values: Sequence[Any], typ: dt.DataType,

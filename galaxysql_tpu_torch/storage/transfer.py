@@ -6,7 +6,9 @@ code order.  It reads attributes only, so it works on the reference engine's sto
 on the port's.  `store_from_arrays(table, partitions, dictionaries)` builds the port's
 `TableStore` from that state with the same partitions, codes and stamps — the part
 weight conversion plays for a model: afterwards both engines hold identical lanes, so
-scans, slot vectors and query results can be compared bit for bit.
+scans, slot vectors and query results can be compared bit for bit.  The new store
+owns copies of every array: writes stamp `begin_ts`/`end_ts` in place, and a store
+sharing them with its source would show one engine's writes in the other.
 """
 
 from __future__ import annotations
@@ -53,15 +55,15 @@ def store_from_arrays(table: TableMeta, partitions: Sequence[PartitionArrays],
     for p, src in zip(store.partitions, partitions):
         n = int(np.asarray(src["begin_ts"]).shape[0])
         for c in table.columns:
-            lane = np.ascontiguousarray(src["lanes"][c.name], dtype=c.dtype.lane)
-            valid = np.ascontiguousarray(src["valid"][c.name], dtype=np.bool_)
+            lane = np.array(src["lanes"][c.name], dtype=c.dtype.lane, order="C")
+            valid = np.array(src["valid"][c.name], dtype=np.bool_, order="C")
             if lane.shape != (n,) or valid.shape != (n,):
                 raise ValueError(f"{table.name}.{c.name}: lane length differs from "
                                  f"the partition's {n} rows")
             p.lanes[c.name] = lane
             p.valid[c.name] = valid
-        p.begin_ts = np.ascontiguousarray(src["begin_ts"], dtype=np.int64)
-        p.end_ts = np.ascontiguousarray(src["end_ts"], dtype=np.int64)
+        p.begin_ts = np.array(src["begin_ts"], dtype=np.int64, order="C")
+        p.end_ts = np.array(src["end_ts"], dtype=np.int64, order="C")
         if p.end_ts.shape != (n,):
             raise ValueError(f"{table.name}: end_ts length differs from begin_ts")
         rows += n
