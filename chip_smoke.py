@@ -55,6 +55,27 @@ DML_CPU_QUERIES):
     transactions.  Launch counters are set to 0 at the phase's start and read at
     its end.
 
+Then the TP point-query path, on card and CPU instances of their own (a 1,000,000-row
+`sbtest1` in 8 partitions from `storage/sysbench.py`, the dml phase's seed, and copies
+of the main path's `orders` lanes); every answer on the card must equal the CPU
+instance's:
+
+11. point: (a) POINT_STATEMENTS sysbench `oltp_point_select` statements from one
+    session (the first planned, registering its PointPlan, the rest on the sequential
+    fast path) and a quarter as many `select o_totalprice from orders where
+    o_orderkey = %d`, with `point_plan_queries`; (b) closed loops of POINT_SESSIONS
+    Python threads, one `Session` each, POINT_PER_SESSION statements a session, with
+    the batch scheduler on (adaptive window) and off: QPS, p50/p99 ms, the
+    scheduler's counters and group sizes, every row equal to the CPU instance's
+    sequential answer for its key, and at least one flush at the largest count; (c)
+    `batched_point_lookup` against one `sbtest1` partition at FLUSH_KEYS keys,
+    including an id with 10 versions (past `BATCH_MAXDUP`), appended tail rows and
+    missing ids: its CSR identical to `_host_batched_point`'s, the whole call and the
+    card's time for the device program; (d) after an UPDATE of c, a DELETE and
+    re-INSERT and inside an open transaction with its own UPDATE, sequential and
+    batched point selects equal on the card and the CPU.  No kernel is on this
+    path: each kernel's `new_phases.launches.point` is expected to be 0.
+
 Floats in 7-10 compare as `tests/test_tpcds.py` compares them (relative and absolute
 1e-6); every other value must be equal.  The largest input the phases 7-9 gave each
 kernel, and apart from it the largest input the dml phase gave it, are then held
@@ -84,6 +105,10 @@ WARM_REPEATS = 7            # extra warm runs of each query after the main path
 QUERIES = (1, 3, 5, 6)
 OLTP_ROWS = 1_000_000       # rows of the sysbench table in the dml phase
 OLTP_TRANSACTIONS = 20      # oltp_read_write transactions in the dml phase
+POINT_STATEMENTS = 1000     # sequential oltp_point_select statements in the point phase
+POINT_SESSIONS = (64, 256)  # closed-loop session counts of the point phase
+POINT_PER_SESSION = 16      # statements each session runs in a closed loop
+FLUSH_KEYS = (1, 64, 1024)  # keys of the timed batched_point_lookup calls
 # the queries after the refresh that are also run on the CPU and compared: all 22
 # put the script past 600 s on the card's machine, so the CPU side is cut to these
 DML_CPU_QUERIES = (1, 3, 4, 5, 6, 10, 12, 18, 21)
@@ -973,6 +998,290 @@ def dml_phase(inst, sf):
     return line
 
 
+# -- the TP point-query path ------------------------------------------------------------
+
+def _pct(values, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def _sequential(s_gpu, s_cpu, stmts):
+    """Statements one after another from one session of each instance: the first
+    is planned (and registers the PointPlan), the rest take the fast path.  Rows
+    must be equal on the card and the CPU."""
+    import torch
+    ms = []
+    for sql in stmts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = s_gpu.execute(sql).rows
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        want = s_cpu.execute(sql).rows
+        if got != want:
+            raise AssertionError(f"{sql}: the card and the CPU differ: {got} / {want}")
+    if not s_gpu.last_trace or not s_gpu.last_trace[0].startswith("point-plan"):
+        raise AssertionError(f"the fast path did not serve {stmts[-1]}: "
+                             f"{s_gpu.last_trace}")
+    return {"statements": len(stmts), "first_run_ms": ms[0],
+            "fast_p50_ms": _pct(ms[1:], 50), "fast_p99_ms": _pct(ms[1:], 99),
+            "fast_max_ms": max(ms[1:])}
+
+
+def _closed_loop(inst, schema, stmt, n_sessions, per_session, expected):
+    """`n_sessions` Python threads, one `Session` each, each running
+    `per_session` statements `stmt(i, j)` back to back (sessions and threads are
+    made before the clock starts).  Every row must equal `expected[sql]`.  Returns
+    the QPS and per-statement latencies."""
+    import threading
+    from galaxysql_tpu_torch.server.session import Session
+    sessions = [Session(inst, schema) for _ in range(n_sessions)]
+    lat = [[] for _ in range(n_sessions)]
+    errors = []
+    start = threading.Barrier(n_sessions + 1)
+
+    def run(i):
+        try:
+            start.wait(timeout=120)
+            for j in range(per_session):
+                sql = stmt(i, j)
+                t0 = time.perf_counter()
+                rows = sessions[i].execute(sql).rows
+                lat[i].append((time.perf_counter() - t0) * 1000.0)
+                if rows != expected[sql]:
+                    raise AssertionError(f"{sql}: {rows} / {expected[sql]}")
+        except BaseException as e:  # carried to the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_sessions)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for sx in sessions:
+        sx.close()
+    if errors:
+        raise errors[0]
+    flat = [x for row in lat for x in row]
+    return {"qps": len(flat) / wall, "p50_ms": _pct(flat, 50), "p99_ms": _pct(flat, 99),
+            "seconds": wall}
+
+
+def _concurrent(gi, schema, stmt, expected, sessions, per_session):
+    """The closed loop with the batch scheduler on (adaptive window) and off, after
+    one short untimed loop with it on, and the scheduler's counters and group sizes
+    of each timed run."""
+    import statistics as st
+    sched = gi.batch_scheduler
+    out = {}
+    # ramp, not timed: the first flush of each partition builds its sorted device
+    # lanes, as every first flush after a write does
+    gi.config.set_instance("ENABLE_BATCH_SCHEDULER", 1)
+    _closed_loop(gi, schema, stmt, sessions, 2, expected)
+    for on in (1, 0):
+        gi.config.set_instance("ENABLE_BATCH_SCHEDULER", on)
+        before = dict(sched.counts)
+        n_groups = len(sched.group_sizes)
+        line = _closed_loop(gi, schema, stmt, sessions, per_session, expected)
+        line.update({k: sched.counts[k] - before[k] for k in sched.counts})
+        groups = list(sched.group_sizes)[n_groups:]
+        line["group_size_mean"] = st.mean(groups) if groups else 0.0
+        line["group_size_p50"] = st.median(groups) if groups else 0.0
+        out["batching_on" if on else "batching_off"] = line
+    gi.config.set_instance("ENABLE_BATCH_SCHEDULER", 1)
+    if out["batching_on"]["batch_fallbacks"]:
+        raise AssertionError(f"{out['batching_on']['batch_fallbacks']} batch members fell "
+                             f"back to the sequential path: {list(sched.trace)[-3:]}")
+    return out
+
+
+def _flush(gi, pid, vals):
+    """`batched_point_lookup` of `vals` against partition `pid` of the card's
+    sbtest1: its CSR must be identical to `_host_batched_point` on the same
+    partition.  Whole-call ms (host clock, median of 20) and the card's time for
+    the device program alone (`_device_ms`)."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.chunk.batch import as_tensor
+    from galaxysql_tpu_torch.exec import operators as ops
+    store = gi.store("sbtest", "sbtest1")
+    tm = store.table
+    part = store.partitions[pid]
+    snap = gi.tso.next_timestamp()
+
+    def call():
+        return ops.batched_point_lookup(store, pid, part, "id", tm.version, vals, snap,
+                                        0, device_cache=gi.device_cache)
+
+    ids, offs = call()
+    with part.lock:
+        want_ids, want_offs = ops._host_batched_point(part, "id", vals, snap, 0)
+        n0 = part.key_index("id")[0]
+    if not (np.array_equal(ids, want_ids) and np.array_equal(offs, want_offs)):
+        raise AssertionError(f"batched_point_lookup at B={len(vals)} differs from "
+                             "_host_batched_point")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    cap = ops.bucket_capacity(max(n0, 1))
+    sig = f"id::{part.lane_gen}.{n0}"
+
+    def not_cached():
+        raise AssertionError(f"the flush's sorted lanes of partition {pid} are not in "
+                             "the device cache")
+
+    # the device program's inputs, as the calls above cached them
+    lanes = [gi.device_cache.get_lane_built(store, pid, f"{name}::{sig}", tm.version,
+                                            cap, not_cached)
+             for name in ("bp_keys", "bp_begin", "bp_end")]
+    B = ops.batch_key_bucket(len(vals))
+    keys = np.full(B, ops._lane_pad_value(part.lanes["id"].dtype),
+                   dtype=part.lanes["id"].dtype)
+    keys[:len(vals)] = vals
+    kt = as_tensor(keys, gi.device)
+    device = _device_ms(lambda: ops._batched_point_program(*lanes, kt, snap, 0))
+    torch.cuda.synchronize()
+    per_key = np.diff(offs)
+    return {"keys": len(vals), "bucket": B, "partition_rows": part.num_rows,
+            "index_n0": n0, "tail_rows": part.num_rows - n0, "rows_found": int(ids.size),
+            "overflow_keys": int(sum(part.key_candidates("id", v).size > ops.BATCH_MAXDUP
+                                     for v in vals)),
+            "missing_keys": int((per_key == 0).sum()),
+            "call_ms": statistics.median(times), "device_ms": device, "csr_equal": True}
+
+
+def point_phase(tpch_inst, seed=20241017, device="cuda"):
+    """(a) sequential oltp_point_select and orders point selects, (b) closed loops of
+    POINT_SESSIONS threads with the scheduler on and off, (c) flushes at
+    FLUSH_KEYS keys, (d) point selects after writes and in an open transaction."""
+    import numpy as np
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import sysbench, tpch
+    t0 = time.perf_counter()
+    gi = Instance(device=device)
+    gs = Session(gi)
+    gs.execute("CREATE DATABASE sbtest")
+    gs.execute("USE sbtest")
+    gs.execute(sysbench.ddl())
+    gi.store("sbtest", "sbtest1").insert_arrays(sysbench.generate(OLTP_ROWS, seed),
+                                                gi.tso.next_timestamp())
+    ci, cs = _copy_instance(gi, "sbtest", ["sbtest1"], {"sbtest1": sysbench.ddl()}, "cpu")
+    go, gos = _copy_instance(tpch_inst, "tpch", ["orders"], tpch.TPCH_DDL, device)
+    co, cos = _copy_instance(tpch_inst, "tpch", ["orders"], tpch.TPCH_DDL, "cpu")
+    line = {"setup_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(seed)
+
+    # (a) sequential
+    line["sequential"] = {"sbtest1": _sequential(
+        gs, cs, sysbench.point_select(rng, OLTP_ROWS, POINT_STATEMENTS))}
+    okeys = np.concatenate([p.lanes["o_orderkey"]
+                            for p in go.store("tpch", "orders").partitions])
+    okeys = np.sort(okeys)[::max(1, okeys.size // 4096)]
+    otpl = "select o_totalprice from orders where o_orderkey = %d"
+    line["sequential"]["orders"] = _sequential(
+        gos, cos, [otpl % int(k) for k in rng.choice(okeys, POINT_STATEMENTS // 4)])
+    line["sequential"]["point_plan_queries"] = {
+        "sbtest1": gi.counters["point_plan_queries"],
+        "orders": go.counters["point_plan_queries"]}
+    if not all(line["sequential"]["point_plan_queries"].values()):
+        raise AssertionError("no point select was served by the fast path")
+
+    # (b) concurrent: each statement's rows from the CPU instance, sequentially
+    ids = rng.integers(1, OLTP_ROWS + 1, max(POINT_SESSIONS) * POINT_PER_SESSION)
+    sb_stmt = {n: (lambda i, j: f"SELECT c FROM sbtest1 WHERE id="
+                                f"{int(ids[(i * POINT_PER_SESSION + j) % ids.size])}")
+               for n in POINT_SESSIONS}
+    o_stmt = lambda i, j: otpl % int(okeys[(i * 31 + j * 7) % okeys.size])  # noqa: E731
+    expected = {}
+    for n in POINT_SESSIONS:
+        for i in range(n):
+            for j in range(POINT_PER_SESSION):
+                for sql, sess in ((sb_stmt[n](i, j), cs), (o_stmt(i, j), cos)):
+                    if sql not in expected:
+                        expected[sql] = sess.execute(sql).rows
+    line["concurrent"] = {}
+    for n in POINT_SESSIONS:
+        line["concurrent"][f"sbtest1_{n}"] = _concurrent(gi, "sbtest", sb_stmt[n],
+                                                         expected, n, POINT_PER_SESSION)
+        line["concurrent"][f"orders_{n}"] = _concurrent(go, "tpch", o_stmt, expected, n,
+                                                        POINT_PER_SESSION)
+    top = max(POINT_SESSIONS)
+    for table in ("sbtest1", "orders"):
+        if line["concurrent"][f"{table}_{top}"]["batching_on"]["batch_flushes"] == 0:
+            raise AssertionError(f"no batch flush at {top} sessions on {table}")
+
+    # (c) flushes: an id with 10 versions inside the sorted index, then a tail
+    store = gi.store("sbtest", "sbtest1")
+    hot = int(ids[0])
+    pid = next(i for i, p in enumerate(store.partitions) if (p.lanes["id"] == hot).any())
+    for k in range(9):
+        _both(gs, cs, f"UPDATE sbtest1 SET k=k+1 WHERE id={hot}", "an UPDATE of k")
+    for inst in (gi, ci):
+        p = inst.store("sbtest", "sbtest1").partitions[pid]
+        with p.lock:
+            p.invalidate_indexes()  # the index is rebuilt over the 10 versions
+            p.key_index("id")
+    new_ids = list(range(OLTP_ROWS + 1, OLTP_ROWS + 401))
+    values = ", ".join(f"({i}, {i % 1000}, 'tail-{i}', 'pad')" for i in new_ids)
+    _both(gs, cs, f"INSERT INTO sbtest1 (id, k, c, pad) VALUES {values}", "the tail")
+    part = store.partitions[pid]
+    in_pid = [int(v) for v in np.unique(part.lanes["id"])]
+    tail = sorted(set(new_ids) & set(in_pid))
+    flush_keys = [hot] + tail[:8] + [OLTP_ROWS + 10_000 + i for i in range(8)]
+    pool = [int(v) for v in rng.choice(in_pid, max(FLUSH_KEYS))]
+    line["flush"] = []
+    for B in FLUSH_KEYS:
+        vals = (flush_keys + pool)[:B]
+        line["flush"].append(_flush(gi, pid, vals))
+    if not (line["flush"][-1]["overflow_keys"] and line["flush"][-1]["tail_rows"]):
+        raise AssertionError("the flush inputs hold no overflowing id or no tail")
+
+    # (d) after writes: an UPDATE of c, a DELETE and re-INSERT, an open transaction
+    upd, victim, own = (int(v) for v in ids[1:4])
+    _both(gs, cs, f"UPDATE sbtest1 SET c='after-{upd}' WHERE id={upd}", "UPDATE c")
+    _both(gs, cs, f"DELETE FROM sbtest1 WHERE id={victim}", "DELETE")
+    _both(gs, cs, f"INSERT INTO sbtest1 (id, k, c, pad) VALUES ({victim}, 1, "
+                  f"'again-{victim}', 'pad')", "re-INSERT")
+    gw, cw = Session(gi, "sbtest"), Session(ci, "sbtest")
+    _both(gw, cw, "BEGIN", "BEGIN")
+    _both(gw, cw, f"UPDATE sbtest1 SET c='own-{own}' WHERE id={own}", "the own UPDATE")
+    pt = "SELECT c FROM sbtest1 WHERE id=%d"
+    rs, _ms = _both(gw, cw, pt % own, "own write")
+    if rs.rows != [(f"own-{own}",)] or not gw.last_trace[0].startswith("point-plan"):
+        raise AssertionError(f"the writer does not see its own write: {rs.rows}")
+    watch = [upd, victim, own, hot] + tail[:8] + new_ids[-8:]
+    expected = {pt % k: cs.execute(pt % k).rows for k in watch}
+    other = gs.execute(pt % own).rows
+    if other != expected[pt % own] or other == [(f"own-{own}",)]:
+        raise AssertionError(f"another session sees the open transaction's write: "
+                             f"{other}")
+    for k in (upd, victim):
+        if expected[pt % k] != [((f"after-{k}" if k == upd else f"again-{k}"),)]:
+            raise AssertionError(f"id {k} after writes: {expected[pt % k]}")
+    before = gi.batch_scheduler.counts["batched_queries"]
+    after = _concurrent(gi, "sbtest", lambda i, j: pt % watch[(i + j) % len(watch)],
+                        expected, 64, 4)
+    if gi.batch_scheduler.counts["batched_queries"] == before:
+        raise AssertionError("no batched point select after the writes")
+    for k in watch:
+        _both(gs, cs, pt % k, "a sequential point select after writes")
+    _both(gw, cw, "COMMIT", "COMMIT")
+    rs, _ms = _both(gs, cs, pt % own, "after COMMIT")
+    if rs.rows != [(f"own-{own}",)]:
+        raise AssertionError("the committed write is not seen")
+    line["after_writes"] = {"watched_ids": len(watch), **after}
+    line["scheduler"] = dict(gi.batch_scheduler.stats_rows())
+    line["counters"] = {"sbtest1": dict(gi.counters), "orders": dict(go.counters)}
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1061,6 +1370,14 @@ def main(argv=None) -> int:
         entry["new_phases"] = new_inputs[entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
+
+    _reset_launches()
+    line = point_phase(inst)
+    line["launches"] = _launch_counts()
+    print(card, flush=True)
+    say("point", nvidia_smi=card, **line)
+    for entry in kernels:
+        entry["new_phases"]["launches"]["point"] = line["launches"][entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ overflow-doubling retries, exactly as in the reference.
 
 The reference's `global_jit` program cache becomes `closure_cache`: eager PyTorch
 compiles nothing, so the cache only spares rebuilding the expression closures of a
-repeated query.
+repeated query.  `batched_point_lookup` is the cross-session point lookup the batch
+scheduler (`server/batch_scheduler.py`) flushes through.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import dataclasses
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
@@ -27,6 +29,7 @@ from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import (ExprCompiler, TorchXP, _find_dictionary,
                                                _pow10, _signed_div_round, batch_env)
 from galaxysql_tpu_torch.kernels import relational as K
+from galaxysql_tpu_torch.storage.table_store import visible_rows
 from galaxysql_tpu_torch.types import collation as _coll
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
@@ -882,6 +885,224 @@ class WindowOp(Operator):
                                                   c.arg.dtype.is_string) else None
                 cols[c.out_id] = Column(d, v, rt, dic)
         return ColumnBatch(cols, live_s)
+
+
+# -- cross-session batched point lookup (server/batch_scheduler.py) -----------
+#
+# B parameter keys from concurrent sessions stack into ONE device program per
+# partition instead of B separate index probes.  The key batch is padded to a
+# static bucket (`_BATCH_KEY_BUCKETS`) and the sorted lanes to the capacity ladder,
+# as in the reference, so the device artifacts of one partition version serve every
+# flush.
+
+_BATCH_KEY_BUCKETS = (1, 4, 16, 64, 256, 1024)
+BATCH_MAX_KEYS = _BATCH_KEY_BUCKETS[-1]
+BATCH_MAXDUP = 8  # in-program cap on physical versions per key (overflow -> host)
+
+
+def batch_key_bucket(n: int) -> int:
+    """Smallest static key-batch bucket holding n keys."""
+    for b in _BATCH_KEY_BUCKETS:
+        if n <= b:
+            return b
+    return BATCH_MAX_KEYS
+
+
+def _lane_pad_value(dtype: np.dtype):
+    """A sort-order-maximal pad for sorted key lanes (pads never match a real
+    searchsorted window because their MVCC stamps mark them dead anyway)."""
+    if np.issubdtype(dtype, np.floating):
+        return np.inf
+    return np.iinfo(dtype).max
+
+
+def _batched_point_program(skeys: torch.Tensor, sbegin: torch.Tensor,
+                           send: torch.Tensor, keys: torch.Tensor, snap: int,
+                           txn: int, maxdup: int = BATCH_MAXDUP
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B keys against a capacity-padded sorted key lane, on the lanes' device.
+
+    Inputs:
+      skeys[cap]  sorted key lane, padded with the dtype max
+      sbegin[cap] begin_ts permuted to sorted order; NULL-key rows and pads
+                  carry -1 (never visible)
+      send[cap]   end_ts permuted to sorted order, pads 0 (dead)
+      keys[B]     the stacked parameter keys (pad slots ignored by the host)
+    Returns (pos[B, maxdup], overflow[B]): visible sorted-domain positions (-1 =
+    none) in ascending row order per key, and a per-key flag when the equal-key
+    window exceeded maxdup (the host resolves that key alone)."""
+    cap = skeys.shape[0]
+    lo = torch.searchsorted(skeys, keys, side="left")
+    hi = torch.searchsorted(skeys, keys, side="right")
+    pos = lo[:, None] + torch.arange(maxdup, device=skeys.device)[None, :]
+    in_rng = pos < hi[:, None]
+    posc = torch.clamp(pos, max=cap - 1)
+    b = sbegin[posc]
+    e = send[posc]
+    # the visibility rule of `table_store.visible_rows`: committed-and-past-snapshot
+    # insert, minus committed-and-past-snapshot delete, plus own provisional
+    ins = ((b >= 0) & (b <= snap)) | (b == -txn)
+    dele = ((e >= 0) & (e <= snap)) | (e == -txn)
+    vis = in_rng & ins & ~dele
+    return torch.where(vis, posc, torch.full_like(posc, -1)), (hi - lo) > maxdup
+
+
+def _tail_windows(lane, n0: int, n: int, keys):
+    """Sorted probe of the unsorted appended tail rows [n0, n): returns
+    (torder, tlo, thi) — torder[tlo[i]:thi[i]] + n0 are key i's candidate
+    row ids, in ascending row order (stable argsort).  Shared by the host
+    and device batched-point paths so their tail handling stays
+    bit-identical."""
+    tail = lane[n0:n]
+    torder = np.argsort(tail, kind="stable")
+    tsorted = tail[torder]
+    tlo = np.searchsorted(tsorted, keys, side="left")
+    thi = np.searchsorted(tsorted, keys, side="right")
+    return torder, tlo, thi
+
+
+def _host_batched_point(part, col: str, lane_vals, snap: int, txn_id: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """CPU formulation of the batched point lookup: one vectorized numpy sweep over
+    the sorted key index for ALL keys.  Caller holds `part.lock`.  Bit-identical
+    CSR to the device program path."""
+    k = len(lane_vals)
+    n = part.num_rows
+    lane = part.lanes[col]
+    valid = part.valid[col]
+    begin, end = part.begin_ts, part.end_ts
+    n0, perm, skeys = part.key_index(col)
+    keys = np.asarray(lane_vals).astype(lane.dtype)
+    lo = np.searchsorted(skeys, keys, side="left")
+    hi = np.searchsorted(skeys, keys, side="right")
+    if n > n0:
+        # unsorted appended tail: extend each key's candidate set
+        torder, tlo, thi = _tail_windows(lane, n0, n, keys)
+    else:
+        tlo = thi = np.zeros(k, dtype=np.int64)
+    reps = (hi - lo) + (thi - tlo)
+    total = int(reps.sum())
+    offsets = np.zeros(k + 1, dtype=np.int64)
+    if total == 0:
+        return np.zeros(0, dtype=np.int64), offsets
+    # within a key, index-window ids (ascending rows) come first, tail ids
+    # (all >= n0) after — exactly key_candidates' ordering
+    per_key = []
+    for i in range(k):
+        ids = perm[lo[i]:hi[i]]
+        if thi[i] > tlo[i]:
+            tids = torder[tlo[i]:thi[i]] + n0
+            ids = np.concatenate([ids, tids]) if ids.size else tids
+        per_key.append(ids)
+    flat = np.concatenate(per_key)
+    keep = valid[flat] & visible_rows(begin[flat], end[flat], snap, txn_id)
+    key_of = np.repeat(np.arange(k), reps)[keep]
+    np.cumsum(np.bincount(key_of, minlength=k), out=offsets[1:])
+    return flat[keep], offsets
+
+
+def batched_point_lookup(store, pid: int, part, col: str, version: int,
+                         lane_vals, snap: int, txn_id: int = 0,
+                         device_cache=None, force_device: bool = False
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Visible row ids of `col == v` for a stack of keys against one partition.
+
+    Returns CSR (ids, offsets): ids[offsets[i]:offsets[i+1]] are key i's matching
+    row ids, ascending — bit-identical to the sequential key_candidates + validity
+    + visibility path.  The route follows the device of `device_cache` (the
+    instance's): on a CUDA device the torch program `_batched_point_program` runs on
+    the card, always; on the CPU `_host_batched_point` sweeps the index in numpy,
+    unless `force_device` asks for the torch program on CPU tensors.  The
+    capacity-padded sorted keys and permuted MVCC stamps are version-keyed in
+    `device_cache` (no cache: built per call on the CPU), so steady-state flushes
+    ship only the B keys; the unsorted appended tail and >BATCH_MAXDUP version
+    pileups are probed on the host per flush."""
+    device = device_cache.device if device_cache is not None else torch.device("cpu")
+    k = len(lane_vals)
+    with part.lock:
+        if device.type == "cpu" and not force_device:
+            return _host_batched_point(part, col, lane_vals, snap, txn_id)
+        n = part.num_rows
+        lane = part.lanes[col]
+        valid = part.valid[col]
+        begin, end = part.begin_ts, part.end_ts
+        n0, perm, skeys = part.key_index(col)
+        cap = bucket_capacity(max(n0, 1))
+        B = batch_key_bucket(k)
+        pad = _lane_pad_value(lane.dtype)
+        keys = np.full(B, pad, dtype=lane.dtype)
+        keys[:k] = np.asarray(lane_vals).astype(lane.dtype)
+
+        def _pad(arr, fill):
+            if arr.shape[0] == cap:
+                return arr
+            out = np.full(cap, fill, dtype=arr.dtype)
+            out[:arr.shape[0]] = arr
+            return out
+
+        def build_keys():
+            return _pad(skeys, pad)
+
+        def build_begin():
+            # NULL key slots fold into the begin stamp (-1 = never visible):
+            # the sequential path's part.valid[col] filter, one array early
+            return _pad(np.where(valid[:n0][perm], begin[:n0][perm],
+                                 np.int64(-1)), np.int64(-1))
+
+        def build_end():
+            return _pad(end[:n0][perm], np.int64(0))
+
+        if device_cache is not None:
+            # the cached artifacts are materializations of THIS sorted-index
+            # build, so the key carries the index identity (lane_gen, n0) as
+            # well as the table version: key_index() can rebuild with a larger
+            # n0 within one version, and a (version, cap)-only hit would then
+            # map stale sorted positions through the fresh perm
+            sig = f"{col}::{part.lane_gen}.{n0}"
+            dk = device_cache.get_lane_built(store, pid, f"bp_keys::{sig}",
+                                             version, cap, build_keys)
+            db = device_cache.get_lane_built(store, pid, f"bp_begin::{sig}",
+                                             version, cap, build_begin)
+            de = device_cache.get_lane_built(store, pid, f"bp_end::{sig}",
+                                             version, cap, build_end)
+        else:
+            dk, db, de = (as_tensor(build_keys(), device),
+                          as_tensor(build_begin(), device),
+                          as_tensor(build_end(), device))
+        pos, overflow = _batched_point_program(dk, db, de, as_tensor(keys, device),
+                                               int(snap), int(txn_id))
+        # one device-to-host copy for both outputs
+        out = torch.cat([pos, overflow[:, None].to(pos.dtype)], dim=1).cpu().numpy()[:k]
+        pos, overflow = out[:, :BATCH_MAXDUP], out[:, BATCH_MAXDUP] != 0
+
+        # fast path: no appended tail, no version-pileup overflow — flatten
+        # the position matrix in one shot (row-major keeps per-key ascending)
+        mask = pos >= 0
+        counts = mask.sum(axis=1)
+        if n == n0 and not overflow.any():
+            offsets = np.zeros(k + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            return perm[pos[mask]], offsets
+
+        per_key: List[np.ndarray] = [perm[row[row >= 0]] for row in pos]
+        if n > n0:
+            # unsorted appended tail: one vectorized sorted probe for all keys
+            torder, tlo, thi = _tail_windows(lane, n0, n, keys[:k])
+            for i in np.nonzero(thi > tlo)[0]:
+                tids = torder[tlo[i]:thi[i]] + n0
+                tids = tids[valid[tids] & visible_rows(begin[tids], end[tids],
+                                                       snap, txn_id)]
+                if tids.size:
+                    per_key[i] = np.concatenate([per_key[i], tids]) \
+                        if per_key[i].size else tids
+        for i in np.nonzero(overflow)[0]:
+            # >BATCH_MAXDUP physical versions: exact host probe for this key
+            per_key[i] = part.key_rows(col, lane_vals[i], snap, txn_id)
+        offsets = np.zeros(k + 1, dtype=np.int64)
+        np.cumsum(np.asarray([a.size for a in per_key]), out=offsets[1:])
+        flat = (np.concatenate(per_key) if offsets[-1]
+                else np.zeros(0, dtype=np.int64))
+        return flat, offsets
 
 
 def run_to_batch(op: Operator) -> ColumnBatch:

@@ -2,7 +2,9 @@
 `galaxysql_tpu/plan/physical.py`).
 
 - scans read whole tables as one device-resident batch (lanes cached per table
-  version), with MVCC visibility computed on the device;
+  version), with MVCC visibility computed on the device; a scan the rules marked
+  `point_eq` reads its candidate rows through the partitions' sorted key indexes on
+  the host and ships them as one small batch;
 - hash join sides: build = smaller estimated input (the probe side streams);
   left/semi/anti joins fix the probe side to the preserved/output side;
 - aggregates use estimated group counts to size the fixed-shape kernel output;
@@ -85,7 +87,7 @@ def _scan_meta(store, version: int, pids) -> Dict:
 
 
 def _device_visibility(begin, end, ts, txn_id):
-    """Device-side MVCC visibility: the twin of `Partition.visible_mask` (one change
+    """Device-side MVCC visibility: the twin of `table_store.visible_rows` (one change
     of the semantics must touch both).  Stamps stay int64 throughout; the fused pad
     rows (begin 0, end -1) come out visible and are masked by `::padlive`."""
     if ts is None:
@@ -118,11 +120,53 @@ class ScanSource(ops.Operator):
         rename = {c: oid for oid, c in self.node.columns}
         pids = tuple(range(len(store.partitions)) if self.node.partitions is None
                      else self.node.partitions)
+        if self.node.point_eq is not None:
+            b = self._point_batch(t, store, pids)
+            if b is not None:
+                yield b.rename(rename)
+            return
         self.ctx.trace.append(
             f"scan {t.name} partitions={self.node.partitions or 'all'}")
         b = self._fused_table_batch(t, store, pids)
         if b is not None:
             yield b.rename(rename)  # fused cols are storage-name keyed
+
+    def _point_batch(self, t, store, pids) -> Optional[ColumnBatch]:
+        """Index access path: candidate rows from each partition's sorted key index
+        instead of whole lanes (the reference's `_point_batches`).  The index and the
+        row store live on the host, so the candidates are found and gathered there
+        and shipped as ONE small batch on the context's device.  The Filter above
+        the scan re-verifies the whole predicate, so candidates only need to be a
+        superset of the matches for the indexed column; MVCC visibility is applied
+        here (`Partition.key_rows`)."""
+        col, val = self.node.point_eq
+        ts, txn_id = self.ctx.snapshot_ts, self.ctx.txn_id
+        lanes: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
+        valids: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
+        total = 0
+        for pid in pids:
+            p = store.partitions[pid]
+            if p.num_rows == 0:
+                continue
+            with p.lock:
+                ids = p.key_rows(col, val, ts, txn_id)
+                if ids.size == 0:
+                    continue
+                for _oid, cname in self.node.columns:
+                    lanes[cname].append(p.lanes[cname][ids])
+                    valids[cname].append(p.valid[cname][ids])
+            self.ctx.trace.append(f"point-get {t.name} p{pid} rows={ids.size}")
+            total += ids.size
+        if total == 0:
+            return None
+        dev = self.ctx.device
+        cols = {}
+        for _oid, cname in self.node.columns:
+            v = np.concatenate(valids[cname])
+            cols[cname] = Column(as_tensor(np.concatenate(lanes[cname]), dev),
+                                 None if bool(v.all()) else as_tensor(v, dev),
+                                 t.column(cname).dtype, t.dictionaries.get(cname.lower()))
+        return ColumnBatch(cols, None)
 
     def _fused_table_batch(self, t, store, pids) -> Optional[ColumnBatch]:
         cache = self.ctx.device_cache

@@ -4,6 +4,11 @@ Owns the catalog, table stores, planner, TSO and the device cache, and carries t
 torch device every query of the instance runs on.  `Instance()` means the CUDA
 device and raises where CUDA is absent; `Instance(device="cpu")` runs the same
 operators on the CPU, where each kernel call site takes its plain version.
+
+It also holds the configuration (`config`, the reference's `ConfigParams`), the
+registered point plans of the sequential fast path (`point_plans`, cleared past 512
+entries as in the reference), the cross-session `batch_scheduler` and `counters`
+(`point_plan_queries`, `batched_point_queries`; `count` adds to them).
 """
 
 from __future__ import annotations
@@ -14,10 +19,12 @@ from typing import Dict
 
 import torch
 
+from galaxysql_tpu_torch.config.params import ConfigParams
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
 from galaxysql_tpu_torch.meta.catalog import Catalog, TableMeta
 from galaxysql_tpu_torch.meta.tso import TimestampOracle
 from galaxysql_tpu_torch.plan.planner import Planner
+from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
 from galaxysql_tpu_torch.storage.table_store import TableStore
 
 
@@ -36,6 +43,12 @@ class Instance:
         self.sessions: Dict[int, object] = {}
         self._conn_ids = itertools.count(1)
         self._lock = threading.Lock()
+        self.config = ConfigParams()
+        # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
+        self.point_plans: Dict[tuple, dict] = {}
+        self.counters: Dict[str, int] = {"point_plan_queries": 0,
+                                         "batched_point_queries": 0}
+        self.batch_scheduler = BatchScheduler(self)
 
     def store_key(self, schema: str, table: str) -> str:
         return f"{schema.lower()}.{table.lower()}"
@@ -58,3 +71,7 @@ class Instance:
     def allocate_conn_id(self) -> int:
         with self._lock:
             return next(self._conn_ids)
+
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + n

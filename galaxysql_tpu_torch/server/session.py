@@ -4,9 +4,20 @@ Handles CREATE DATABASE, USE, CREATE TABLE, ANALYZE TABLE, SELECT, INSERT, UPDAT
 DELETE, TRUNCATE TABLE and BEGIN / COMMIT / ROLLBACK.  A SELECT goes parse -> bind ->
 optimise -> plan on the host (the planner and its plan cache), then through the
 operator tree on the instance's device; the compacted result batch comes back as
-rows.  ANALYZE builds the statistics on the host (`meta/statistics.py`).  Every query
-runs on the instance's device: the reference's pinning of point queries to the host
-CPU is not carried over.
+rows.  ANALYZE builds the statistics on the host (`meta/statistics.py`).  Every
+planned query runs on the instance's device: the reference's pinning of TP plans to
+the host CPU is not carried over.
+
+The point path is the reference's.  A planned TP statement of the shape `SELECT cols
+FROM t WHERE key = ?` registers a PointPlan after its first run; re-executions of it
+skip binder and planner.  With several point queries in flight they go to the
+cross-session batch scheduler (`server/batch_scheduler.py`, one device program per
+touched partition for the group); otherwise the sequential fast path runs, as in
+the reference: a host key-get over the row store (the partition's sorted key index,
+visibility at the session's snapshot, the output columns gathered on the host), with
+no operator and no device work.  The reference's privilege check, shared MDL and
+archive check on this path are absent, as the port has none of them (MDL comes with
+DDL).
 
 Transactions are the reference's TSO transactions under snapshot isolation: BEGIN
 takes a snapshot timestamp that doubles as the transaction id; writes inside carry
@@ -22,21 +33,26 @@ instance's device at the session's snapshot.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from galaxysql_tpu_torch.chunk.batch import Column
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
-                                              SINGLE, TableMeta)
+                                              PartitionRouter, SINGLE, TableMeta)
 from galaxysql_tpu_torch.meta.statistics import analyze_store
+from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.binder import Binder, Scope
 from galaxysql_tpu_torch.plan.physical import ExecContext, build_operator
+from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
+from galaxysql_tpu_torch.sql.parameterize import DecimalParam, parameterize
 from galaxysql_tpu_torch.sql.parser import parse
 from galaxysql_tpu_torch.storage.table_store import INFINITY_TS
 from galaxysql_tpu_torch.txn.xa import participants_of
@@ -159,6 +175,10 @@ class Session:
 
     def _run_query(self, stmt, sql: str, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
+        if sql and self.instance.point_plans:
+            rs = self._try_point_exec(sql, params, schema)
+            if rs is not None:
+                return rs
         planner = self.instance.planner
         if sql:
             plan = planner.plan_select(sql, schema, params, self)
@@ -172,8 +192,173 @@ class Session:
         batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
         rows = batch.to_pylist()
         self.last_trace = ctx.trace
+        if plan.workload == "TP":
+            self._register_point_plan(plan)
         return ResultSet(plan.display_names, [t for _, t, _ in plan.fields()], rows,
                          batch=batch)
+
+    # -- point-plan fast path: archetypal `SELECT cols FROM t WHERE key = ?`
+    # statements skip binder and planner on re-execution; the registered PointPlan
+    # routes to the owning partition and reads index candidates on the host.
+
+    def _register_point_plan(self, plan):
+        if plan.spm_key is None or plan.param_count != 1 or \
+                getattr(plan, "hints", None):
+            return
+        rel = plan.rel
+        proj = rel if isinstance(rel, L.Project) else None
+        inner = proj.child if proj is not None else rel
+        if not (isinstance(inner, L.Filter) and isinstance(inner.child, L.Scan)):
+            return
+        scan = inner.child
+        if scan.point_eq is None or scan.as_of is not None or \
+                getattr(scan.table, "remote", None) is not None:
+            return
+        cond = inner.cond
+        if not (isinstance(cond, ir.Call) and cond.op == "eq"):
+            return
+        cl = _col_lit_cmp(cond)
+        if cl is None:
+            return
+        col, lit, _flip = cl
+        id_to_col = {oid: c for oid, c in scan.columns}
+        if id_to_col.get(col.name, "").lower() != scan.point_eq[0].lower():
+            return
+        bound = getattr(plan, "bound_params", None)
+        b0 = bound[0] if bound else None
+        if isinstance(b0, DecimalParam):
+            b0 = b0.value
+        if not bound or lit.value != b0:
+            return  # the one param must BE the point key value
+        out = []
+        if proj is not None:
+            for _name, e in proj.exprs:
+                if not isinstance(e, ir.ColRef) or e.name not in id_to_col:
+                    return
+                out.append(id_to_col[e.name])
+        else:
+            out = [c for _, c in scan.columns]
+        tm = scan.table
+        pp = {
+            "schema": tm.schema, "table": tm.name,
+            "key_col": scan.point_eq[0], "out_cols": out,
+            "names": list(plan.display_names),
+            "types": [t for _, t, _ in plan.fields()],
+            "schema_version": self.instance.catalog.schema_version,
+        }
+        if len(self.instance.point_plans) > 512:
+            self.instance.point_plans.clear()
+        self.instance.point_plans[plan.spm_key] = pp
+
+    def _try_point_exec(self, sql: str, params: Optional[list],
+                        schema: str) -> Optional[ResultSet]:
+        p = parameterize(sql)
+        key = (schema.lower(), p.cache_key)
+        pp = self.instance.point_plans.get(key)
+        if pp is None:
+            return None
+        if pp["schema_version"] != self.instance.catalog.schema_version:
+            self.instance.point_plans.pop(key, None)
+            return None
+        # bracket the WHOLE point path (batched or sequential): the batch
+        # scheduler's adaptive window keys off live point-query concurrency
+        sched = self.instance.batch_scheduler
+        sched.point_begin()
+        try:
+            return self._point_exec(pp, p, params, schema)
+        finally:
+            sched.point_end()
+
+    def _point_exec(self, pp: dict, p, params: Optional[list],
+                    schema: str) -> Optional[ResultSet]:
+        vals = p.resolve(params or [])
+        if len(vals) != 1:
+            return None
+        value = vals[0]
+        if isinstance(value, DecimalParam):
+            value = value.value
+        try:
+            tm = self.instance.catalog.table(pp["schema"], pp["table"])
+            store = self.instance.store(pp["schema"], pp["table"])
+        except (errors.TddlError, KeyError):
+            return None
+        key_col = pp["key_col"]
+        t0 = time.perf_counter()
+        if value is None:
+            rows = []  # eq NULL matches nothing
+        else:
+            lane_val = _lane_encode(tm, key_col, value)
+            if lane_val is None:
+                return None
+            # cross-session batching: coalesce with other sessions executing this
+            # same parameterized statement (None -> run it here)
+            brs = self._try_batched_point(pp, p, lane_val, schema)
+            if brs is not None:
+                return brs
+            rows = self._point_get(tm, store, key_col, lane_val, pp["out_cols"])
+        self.last_trace = [f"point-plan {pp['table']}.{key_col}",
+                           f"elapsed={time.perf_counter() - t0:.6f}s workload=TP"]
+        self.instance.count("point_plan_queries")
+        return ResultSet(pp["names"], pp["types"], rows)
+
+    def _point_get(self, tm: TableMeta, store, key_col: str, lane_val,
+                   out_cols: List[str]) -> List[Tuple]:
+        """Host key-get over the row store: the owning partition's index
+        candidates, their validity and visibility at the session's snapshot,
+        then the output columns gathered and decoded."""
+        # route in LANE domain: hash routing keys off the lane values.  int()
+        # matches route_rows' astype(int64) truncation of float lanes, so a float
+        # key routes to the shard it was written to
+        pids = PartitionRouter(tm).prune_eq(key_col, int(lane_val))
+        if pids is None:
+            pids = range(len(store.partitions))
+        snap = self._snapshot_ts()
+        txn_id = self.txn.txn_id if self.txn is not None else 0
+        rows: List[Tuple] = []
+        for pid in pids:
+            part = store.partitions[pid]
+            if part.num_rows == 0:
+                continue
+            with part.lock:
+                ids = part.key_rows(key_col, lane_val, snap, txn_id)
+                if ids.size == 0:
+                    continue
+                cols = [Column(part.lanes[c][ids], part.valid[c][ids],
+                               tm.column(c).dtype,
+                               tm.dictionaries.get(c.lower())).to_pylist()
+                        for c in out_cols]
+            rows.extend(zip(*cols))
+        return rows
+
+    def _try_batched_point(self, pp: dict, psql, lane_val,
+                           schema: str) -> Optional[ResultSet]:
+        """Submit this point read to the cross-session batch scheduler
+        (`server/batch_scheduler.py`).  Returns the scattered ResultSet, or None
+        when the session must run the sequential path itself: batching disabled,
+        arrival rate too low (window 0), singleton group, or a group-scope
+        fallback.
+
+        Snapshot semantics: a transaction holding ANY writes bypasses — its
+        provisional (-txn_id) stamps need own-txn visibility the shared group
+        program must not apply to other members.  A read-only transaction groups
+        only with sessions pinned to the SAME snapshot (pinned_ts rides the group
+        key); autocommit sessions share one flush-time TSO."""
+        sched = self.instance.batch_scheduler
+        if not sched.enabled():
+            return None
+        pinned = None
+        if self.txn is not None:
+            if self.txn.inserted or self.txn.deleted:
+                return None  # own-txn writes: sequential own-visibility path
+            pinned = self.txn.snapshot_ts
+        gkey = (schema.lower(), psql.cache_key, pinned, pp["schema_version"])
+        req = sched.submit(gkey, pp, lane_val, pinned)
+        if req is None:
+            return None
+        if req.error is not None:
+            raise req.error  # isolated to this session; group members proceed
+        self.last_trace = req.trace
+        return ResultSet(pp["names"], pp["types"], req.rows)
 
     # -- transactions -------------------------------------------------------------
 

@@ -6,8 +6,9 @@ CHAR(60)); `c` is ten groups of 11 random digits joined by '-', `pad` five; `k` 
 uniform over [1, table size].  One transaction is 10 point selects, one plain range
 read, one SUM(k) range, one ORDER BY c range and one DISTINCT ... ORDER BY c range
 (100 ids each), an UPDATE of k, an UPDATE of c, a DELETE of one id and the
-re-INSERT of that id, then COMMIT.  The table is partitioned by its primary key,
-as a distributed deployment shards it.
+re-INSERT of that id, then COMMIT.  `point_select` gives the statements of
+`oltp_point_select` (one point select each, no transaction).  The table is
+partitioned by its primary key, as a distributed deployment shards it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,14 @@ def generate(rows: int, seed: int = 20240601) -> Dict[str, np.ndarray]:
             "k": rng.integers(1, rows + 1, rows).astype(np.int32),
             "c": _digit_groups(rng, rows, 10),
             "pad": _digit_groups(rng, rows, 5)}
+
+
+def point_select(rng: np.random.Generator, rows: int, n: int,
+                 table: str = "sbtest1") -> List[str]:
+    """n statements of sysbench's `oltp_point_select.lua`: one point select each,
+    `SELECT c FROM sbtest1 WHERE id=<id>`, the id uniform over [1, rows]."""
+    return [f"SELECT c FROM {table} WHERE id={int(i)}"
+            for i in rng.integers(1, rows + 1, n)]
 
 
 def transaction(rng: np.random.Generator, rows: int,

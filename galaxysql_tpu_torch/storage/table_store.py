@@ -2,12 +2,13 @@
 
 Each partition is a host-resident struct-of-arrays column set: numpy lanes, null masks
 and per-row MVCC stamps (`begin_ts`/`end_ts`; a snapshot at ts sees rows with
-begin_ts <= ts < end_ts).  Rows route to partitions with the catalog's
-`PartitionRouter`, so a table loaded into the port lands in the same partitions as in
-the reference.  The scan reads these lanes through the device cache
-(`plan/physical.py`).  Loading is `insert_pylists` (Python values, encoded as the
-reference encodes them) or `insert_arrays` (numpy columns); `storage/transfer.py`
-adopts the lanes of a reference store as they are.
+begin_ts <= ts < end_ts), and an append-aware sorted key index per probed column
+(`key_index` / `key_candidates` / `key_rows`, the point path's access method).  Rows
+route to partitions with the catalog's `PartitionRouter`, so a table loaded into the
+port lands in the same partitions as in the reference.  The scan reads these lanes
+through the device cache (`plan/physical.py`).  Loading is `insert_pylists` (Python
+values, encoded as the reference encodes them) or `insert_arrays` (numpy columns);
+`storage/transfer.py` adopts the lanes of a reference store as they are.
 
 Writes follow the reference: an insert appends rows stamped with its timestamp, a
 delete stamps `end_ts` in place, an update does both (the new versions move to the
@@ -31,6 +32,25 @@ from galaxysql_tpu_torch.utils import errors
 INFINITY_TS = (1 << 63) - 1  # int64 max; must exceed any TSO value
 
 
+def visible_rows(b: np.ndarray, e: np.ndarray, snapshot_ts: Optional[int],
+                 txn_id: int = 0) -> np.ndarray:
+    """MVCC visibility of rows stamped `b`/`e` on the host.  Uncommitted changes
+    carry NEGATIVE timestamps (-txn_id), visible only to the owning transaction;
+    commit turns them into TSO values.  The reference's numpy body
+    (`native.visible_mask`); `plan/physical._device_visibility` and the batched
+    point program (`exec/operators._batched_point_program`) are its device twins."""
+    if snapshot_ts is None:
+        ins = b >= 0
+        dele = e != np.iinfo(np.int64).max
+    else:
+        ins = (b >= 0) & (b <= snapshot_ts)
+        dele = (e >= 0) & (e <= snapshot_ts)
+    if txn_id:
+        ins = ins | (b == -txn_id)
+        dele = dele | (e == -txn_id)
+    return ins & ~dele
+
+
 class Partition:
     """One shard of a table: numpy lanes + validity + MVCC timestamps."""
 
@@ -45,6 +65,64 @@ class Partition:
         self.end_ts = np.zeros(0, dtype=np.int64)
         # re-entrant: update_rows appends under the lock it already holds
         self.lock = threading.RLock()
+        # append-aware sorted key indexes: col -> (lane_gen, n0, perm, sorted_keys)
+        # where perm sorts rows [0, n0).  Appends don't invalidate (MVCC rows are
+        # immutable; the [n0, n) tail is probed linearly until it outgrows
+        # _INDEX_TAIL); wholesale lane replacement (truncate, `storage/transfer`)
+        # bumps lane_gen and forces a rebuild.
+        self._key_indexes: Dict[str, Tuple[int, int, np.ndarray, np.ndarray]] = {}
+        self.lane_gen = 0
+
+    _INDEX_TAIL = 8192
+
+    def invalidate_indexes(self):
+        """Call after replacing lane arrays wholesale."""
+        self.lane_gen += 1
+        self._key_indexes.clear()
+
+    def key_index(self, col: str):
+        """(n0, perm, sorted_keys) of the append-aware sorted index over
+        `col` (building it if stale).  `perm` stable-sorts rows [0, n0), so
+        perm[lo:hi] enumerates equal-key rows in ascending row-id order; rows
+        [n0, num_rows) are the unsorted appended tail the caller must probe
+        separately.  Caller must hold `self.lock`."""
+        n = self.num_rows
+        lane = self.lanes[col]
+        entry = self._key_indexes.get(col)
+        if entry is None or entry[0] != self.lane_gen or \
+                n - entry[1] > self._INDEX_TAIL:
+            perm = np.argsort(lane[:n], kind="stable")
+            entry = (self.lane_gen, n, perm, lane[:n][perm])
+            self._key_indexes[col] = entry
+        return entry[1], entry[2], entry[3]
+
+    def key_candidates(self, col: str, lane_value) -> np.ndarray:
+        """Row ids whose `col` lane equals the (lane-encoded) value.
+
+        MVCC-unaware: returns every physical row version with that key; the
+        caller applies visibility.  O(log n) over the indexed prefix plus a
+        linear probe of the unsorted appended tail."""
+        with self.lock:
+            n = self.num_rows
+            lane = self.lanes[col]
+            n0, perm, skeys = self.key_index(col)
+            lo = np.searchsorted(skeys, lane_value, side="left")
+            hi = np.searchsorted(skeys, lane_value, side="right")
+            ids = perm[lo:hi]
+            if n > n0:
+                tail = np.nonzero(lane[n0:n] == lane_value)[0] + n0
+                ids = np.concatenate([ids, tail]) if tail.size else ids
+            return ids
+
+    def key_rows(self, col: str, lane_value, snapshot_ts: Optional[int],
+                 txn_id: int = 0) -> np.ndarray:
+        """Row ids of the versions visible at the snapshot whose `col` lane equals
+        the (lane-encoded) value and is not NULL, in `key_candidates`' order: the
+        sequential key-get."""
+        with self.lock:
+            ids = self.key_candidates(col, lane_value)
+            return ids[self.valid[col][ids] & visible_rows(
+                self.begin_ts[ids], self.end_ts[ids], snapshot_ts, txn_id)]
 
     @property
     def num_rows(self) -> int:
@@ -63,21 +141,8 @@ class Partition:
                 [self.end_ts, np.full(n, INFINITY_TS, dtype=np.int64)])
 
     def visible_mask(self, snapshot_ts: Optional[int], txn_id: int = 0) -> np.ndarray:
-        """MVCC visibility on the host.  Uncommitted changes carry NEGATIVE
-        timestamps (-txn_id), visible only to the owning transaction; commit turns
-        them into TSO values.  The reference's numpy body (`native.visible_mask`);
-        `plan/physical._device_visibility` is its device twin."""
-        b, e = self.begin_ts, self.end_ts
-        if snapshot_ts is None:
-            ins = b >= 0
-            dele = e != np.iinfo(np.int64).max
-        else:
-            ins = (b >= 0) & (b <= snapshot_ts)
-            dele = (e >= 0) & (e <= snapshot_ts)
-        if txn_id:
-            ins = ins | (b == -txn_id)
-            dele = dele | (e == -txn_id)
-        return ins & ~dele
+        """MVCC visibility of every row on the host (`visible_rows`)."""
+        return visible_rows(self.begin_ts, self.end_ts, snapshot_ts, txn_id)
 
     def delete_rows(self, row_ids: np.ndarray, commit_ts: int):
         with self.lock:
@@ -210,7 +275,13 @@ class TableStore:
 
     def truncate(self):
         n = self.table.partition.num_partitions
+        old = self.partitions
         self.partitions = [Partition(self.table, i) for i in range(n)]
+        for p in self.partitions:
+            # the new lanes carry a later index generation than any the old
+            # partition's sorted-key artifacts were built under
+            p.lane_gen = old[p.pid].lane_gen
+            p.invalidate_indexes()
         self.table.stats.row_count = 0
 
 

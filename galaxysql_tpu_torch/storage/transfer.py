@@ -66,6 +66,7 @@ def store_from_arrays(table: TableMeta, partitions: Sequence[PartitionArrays],
         p.end_ts = np.array(src["end_ts"], dtype=np.int64, order="C")
         if p.end_ts.shape != (n,):
             raise ValueError(f"{table.name}: end_ts length differs from begin_ts")
+        p.invalidate_indexes()  # the lanes were replaced wholesale
         rows += n
     table.stats.row_count = rows
     table.bump_version()

@@ -19,6 +19,7 @@ COPIES = [
     "storage/tpch_queries.py", "storage/tpcds.py",
     "exec/runtime_filter.py", "exec/skew.py", "expr/ir.py",
     "plan/logical.py", "plan/rules.py", "plan/binder.py", "plan/planner.py", "plan/spm.py",
+    "config/params.py", "utils/failpoint.py",
 ]
 
 
