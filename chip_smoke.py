@@ -76,6 +76,28 @@ instance's:
     batched point selects equal on the card and the CPU.  No kernel is on this
     path: each kernel's `new_phases.launches.point` is expected to be 0.
 
+Then the MySQL front end, on the instances already loaded (no new data): the port's
+`MySQLServer` (WIRE_POOL statement threads) serves the main path's card instance and
+the point phase's card `sbtest1` on loopback ports, from an asyncio loop in a thread
+of this script:
+
+12. wire: (a) Q1, Q3, Q5 and Q6 through `net.client.MiniClient` in the text protocol
+    and as prepared statements, WIRE_REPEATS timed warm runs each after one untimed
+    run, beside as many in-process runs on the same instance; every answer, converted
+    back to Python values, must equal the in-process rows.  (b) EXPLAIN ANALYZE of Q5
+    over the wire: its node lines and `actual rows` per node must equal the same
+    statement on the CPU instance of phase 6.  (c) SHOW TABLES, DESCRIBE lineitem and
+    an `information_schema.tables` query over the wire, equal to the CPU instance's.
+    (d) sysbench `oltp_point_select` from WIRE_PROCESSES client processes
+    (`galaxysql_tpu_torch/tools/wire_clients.py`) of WIRE_CONNECTIONS connections
+    each, after an untimed ramp of WIRE_RAMP_STATEMENTS a connection and
+    WIRE_SERIAL_STATEMENTS from one connection alone (batching off), WIRE_STATEMENTS
+    prepared executions a connection, once after `SET GLOBAL
+    ENABLE_BATCH_SCHEDULER = 1` and once after `= 0`, both sent over the wire: QPS,
+    p50/p99, the scheduler's counters and group sizes; every `c` must equal the CPU
+    instance's row for its id.  Launch counters are set to 0 at the phase's start and
+    read at its end; all four kernels must have launched.
+
 Floats in 7-10 compare as `tests/test_tpcds.py` compares them (relative and absolute
 1e-6); every other value must be equal.  The largest input the phases 7-9 gave each
 kernel, and apart from it the largest input the dml phase gave it, are then held
@@ -109,6 +131,13 @@ POINT_STATEMENTS = 1000     # sequential oltp_point_select statements in the poi
 POINT_SESSIONS = (64, 256)  # closed-loop session counts of the point phase
 POINT_PER_SESSION = 16      # statements each session runs in a closed loop
 FLUSH_KEYS = (1, 64, 1024)  # keys of the timed batched_point_lookup calls
+WIRE_REPEATS = 3            # timed runs of each TPC-H query over the wire, per protocol
+WIRE_PROCESSES = 4          # oltp_point_select client processes in the wire phase
+WIRE_CONNECTIONS = 16       # connections of each client process
+WIRE_STATEMENTS = 40        # point selects each connection runs, per setting
+WIRE_RAMP_STATEMENTS = 8    # untimed point selects a connection runs before them
+WIRE_SERIAL_STATEMENTS = 400  # point selects of one connection alone, batching off
+WIRE_POOL = 80              # the wire server's statement threads (>= every connection)
 # the queries after the refresh that are also run on the CPU and compared: all 22
 # put the script past 600 s on the card's machine, so the CPU side is cut to these
 DML_CPU_QUERIES = (1, 3, 4, 5, 6, 10, 12, 18, 21)
@@ -635,7 +664,7 @@ def cpu_reference(gpu_inst, rows_gpu):
         if rows != rows_gpu[q]:
             raise AssertionError(f"Q{q}: rows on the card differ from the port on the CPU:"
                                  f"\n  cuda {rows_gpu[q][:3]}\n  cpu  {rows[:3]}")
-    return times
+    return times, inst
 
 
 # -- ANALYZE, all of TPC-H, TPC-DS, window functions ---------------------------------
@@ -1279,6 +1308,289 @@ def point_phase(tpch_inst, seed=20241017, device="cuda"):
     line["scheduler"] = dict(gi.batch_scheduler.stats_rows())
     line["counters"] = {"sbtest1": dict(gi.counters), "orders": dict(go.counters)}
     line["seconds"] = time.perf_counter() - t0
+    return line, (gi, ci)
+
+
+# -- the MySQL wire front end ----------------------------------------------------------
+
+class _Served:
+    """The port's `MySQLServer`s on one asyncio loop in a thread of this script."""
+
+    def __init__(self, servers):
+        import asyncio
+        import threading
+        self.servers = servers
+        self.loop = asyncio.new_event_loop()
+        started = threading.Event()
+        failed = []
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            try:
+                for srv in servers:
+                    self.loop.run_until_complete(srv.start())
+            except BaseException as e:  # carried to the caller
+                failed.append(e)
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not started.wait(60) or failed:
+            self.stop()
+            raise RuntimeError(f"the wire server did not start: {failed}")
+
+    def stop(self):
+        import asyncio
+
+        async def _stop():
+            for srv in self.servers:
+                await srv.stop()
+        if self.loop.is_running():
+            asyncio.run_coroutine_threadsafe(_stop(), self.loop).result(30)
+            self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+def _from_wire(value, typ):
+    """A value as the client decoded it, back to the engine's Python value: the
+    text protocol carries `repr` of floats and `str` of the rest, the binary
+    protocol integers and doubles as themselves, decimals as text."""
+    from galaxysql_tpu_torch.types import datatype as dt
+    if value is None or not isinstance(value, str):
+        return value
+    if typ.clazz in (dt.TypeClass.INT, dt.TypeClass.UINT):
+        return int(value)
+    if typ.clazz in (dt.TypeClass.DECIMAL, dt.TypeClass.FLOAT):
+        return float(value)
+    return value
+
+
+def _node_rows(lines):
+    """(plan line without its `(actual ...)` suffix, actual rows) per plan node of an
+    EXPLAIN ANALYZE."""
+    import re
+    out = []
+    for line in lines:
+        if line.startswith("--"):
+            continue
+        m = re.match(r"^(.*?)  \(actual rows=(\d+) ", line)
+        if m is None:
+            raise AssertionError(f"an EXPLAIN ANALYZE node without counts: {line}")
+        out.append((m.group(1), int(m.group(2))))
+    return out
+
+
+def _wire_queries(port, s_gpu):
+    """Q1, Q3, Q5 and Q6 over the wire, in the text protocol and as prepared
+    statements, WIRE_REPEATS times each after one untimed run: every answer converted
+    back must equal the in-process rows of the same instance, timed the same way."""
+    import torch
+    from galaxysql_tpu_torch.net.client import MiniClient
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    c = MiniClient("127.0.0.1", port, database="tpch", timeout=300)
+    out = {}
+    try:
+        for q in QUERIES:
+            rs = s_gpu.execute(SQL[q])
+            want, types = rs.rows, rs.types
+            sid = c.prepare(SQL[q])
+            runs = {"text": lambda: c.query(SQL[q]), "prepared": lambda: c.execute(sid, [])}
+            times = {"in_process": []}
+            for mode, fn in runs.items():
+                times[mode] = []
+                for k in range(WIRE_REPEATS + 1):
+                    t0 = time.perf_counter()
+                    names, rows = fn()
+                    ms = (time.perf_counter() - t0) * 1000.0
+                    got = [tuple(_from_wire(v, t) for v, t in zip(r, types)) for r in rows]
+                    if names != rs.names or got != want:
+                        raise AssertionError(f"Q{q} over the wire ({mode}) differs from "
+                                             f"the in-process rows: {got[:2]} / {want[:2]}")
+                    if k:
+                        times[mode].append(ms)
+            for _ in range(WIRE_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if s_gpu.execute(SQL[q]).rows != want:
+                    raise AssertionError(f"Q{q}: a warm in-process run gave other rows")
+                torch.cuda.synchronize()
+                times["in_process"].append((time.perf_counter() - t0) * 1000.0)
+            out[f"Q{q}"] = {"rows": len(want),
+                            **{f"{m}_ms": statistics.median(v) for m, v in times.items()},
+                            "runs_ms": times}
+    finally:
+        c.close()
+    return out
+
+
+def _wire_catalog(port, s_cpu):
+    """EXPLAIN ANALYZE of Q5, SHOW TABLES, DESCRIBE lineitem and an
+    information_schema query over the wire on the card; each must equal the same
+    statement on the port's CPU instance over the same lanes (EXPLAIN ANALYZE: the
+    node lines and `actual rows` per node)."""
+    from galaxysql_tpu_torch.net.client import MiniClient
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    c = MiniClient("127.0.0.1", port, database="tpch", timeout=300)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        _names, lines = c.query("EXPLAIN ANALYZE " + SQL[5])
+        out["explain_analyze_q5_ms"] = (time.perf_counter() - t0) * 1000.0
+        lines = [r[0] for r in lines]
+        want = [r[0] for r in s_cpu.execute("EXPLAIN ANALYZE " + SQL[5]).rows]
+        nodes = _node_rows(lines)
+        if nodes != _node_rows(want):
+            raise AssertionError("EXPLAIN ANALYZE of Q5 on the card differs from the CPU:"
+                                 f"\n{lines}\n{want}")
+        out["explain_analyze_q5"] = lines
+        out["explain_analyze_nodes"] = len(nodes)
+        info = ("SELECT table_name, table_rows FROM information_schema.tables "
+                "WHERE table_schema = 'tpch' ORDER BY table_name")
+        for name, sql in (("show_tables", "SHOW TABLES"),
+                          ("describe_lineitem", "DESCRIBE lineitem"),
+                          ("information_schema_tables", info)):
+            rs = s_cpu.execute(sql)
+            names, rows = c.query(sql)
+            got = [tuple(_from_wire(v, t) for v, t in zip(r, rs.types)) for r in rows]
+            if names != rs.names or got != rs.rows:
+                raise AssertionError(f"{sql} over the wire on the card differs from the "
+                                     f"CPU: {got[:3]} / {rs.rows[:3]}")
+            out[name] = rows
+    finally:
+        c.close()
+    return out
+
+
+def _point_select_clients(port, setting_sql, seed, statements,
+                          processes=WIRE_PROCESSES, connections=WIRE_CONNECTIONS):
+    """`processes` client processes (`tools/wire_clients.py`) of `connections`
+    connections each, all connected and prepared before one start signal; returns
+    their JSON lines.  Every process is ended before returning."""
+    from galaxysql_tpu_torch.net.client import MiniClient
+    c = MiniClient("127.0.0.1", port, database="sbtest", timeout=60)
+    c.query(setting_sql)
+    c.close()
+    procs = []
+    try:
+        for i in range(processes):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "galaxysql_tpu_torch.tools.wire_clients",
+                 "--port", str(port), "--database", "sbtest",
+                 "--connections", str(connections),
+                 "--statements", str(statements), "--max-id", str(OLTP_ROWS),
+                 "--seed", str(seed * 100 + i)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+        for p in procs:
+            if p.stdout.readline().strip() != "READY":
+                raise AssertionError("a wire client did not connect")
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        lines = []
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            line = json.loads(out.strip().splitlines()[-1])
+            if p.returncode or line["errors"]:
+                raise AssertionError(f"a wire client failed: {line['errors'][:3]}")
+            lines.append(line)
+        return lines
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _wire_point_select(gi, port, s_cpu):
+    """sysbench `oltp_point_select` over the wire from WIRE_PROCESSES x
+    WIRE_CONNECTIONS connections, with `SET GLOBAL ENABLE_BATCH_SCHEDULER` 1 and
+    then 0 sent over the wire: QPS, p50/p99, the scheduler's counters and group
+    sizes; every `c` must equal the CPU instance's row for its id."""
+    import statistics as st
+    sched = gi.batch_scheduler
+    expected = {}
+
+    def check(results):
+        for key, c, _ms in results:
+            if key not in expected:
+                rows = s_cpu.execute(f"SELECT c FROM sbtest1 WHERE id={key}").rows
+                expected[key] = rows[0][0] if rows else None
+            if c != expected[key]:
+                raise AssertionError(f"id {key} over the wire: {c!r} / {expected[key]!r}")
+
+    # ramp, not timed: the first flush of each partition after the point phase's
+    # writes builds its sorted device lanes again (as in that phase's ramp)
+    ramp = _point_select_clients(port, "SET GLOBAL ENABLE_BATCH_SCHEDULER = 1",
+                                 20241016, WIRE_RAMP_STATEMENTS)
+    check([r for line in ramp for r in line["results"]])
+    # one connection alone: the wire's own cost per statement, without contention
+    one = _point_select_clients(port, "SET GLOBAL ENABLE_BATCH_SCHEDULER = 0", 20241015,
+                                WIRE_SERIAL_STATEMENTS, processes=1, connections=1)
+    results = one[0]["results"]
+    check(results)
+    lat = [ms for _k, _c, ms in results]
+    out = {"one_connection": {"statements": len(results),
+                              "qps": len(results) / (one[0]["end"] - one[0]["start"]),
+                              "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99)}}
+    for k, on in enumerate((1, 0)):
+        before, n_groups = dict(sched.counts), len(sched.group_sizes)
+        fast0 = gi.counters["point_plan_queries"]
+        lines = _point_select_clients(
+            port, f"SET GLOBAL ENABLE_BATCH_SCHEDULER = {on}", 20241017 + k,
+            WIRE_STATEMENTS)
+        if bool(gi.config.get("ENABLE_BATCH_SCHEDULER")) != bool(on):
+            raise AssertionError("SET GLOBAL over the wire did not reach the scheduler")
+        results = [r for line in lines for r in line["results"]]
+        check(results)
+        lat = [ms for _k, _c, ms in results]
+        wall = max(ln["end"] for ln in lines) - min(ln["start"] for ln in lines)
+        groups = list(sched.group_sizes)[n_groups:]
+        served = {name: sched.counts[name] - before[name] for name in sched.counts}
+        served["point_plan_queries"] = gi.counters["point_plan_queries"] - fast0
+        if served["point_plan_queries"] + served["batched_queries"] != len(results):
+            raise AssertionError(f"not every point select took the point path: {served}")
+        out["batching_on" if on else "batching_off"] = {
+            "statements": len(results), "seconds": wall, "qps": len(results) / wall,
+            "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99), "max_ms": max(lat),
+            **served, "group_size_mean": st.mean(groups) if groups else 0.0,
+            "group_size_p50": st.median(groups) if groups else 0.0}
+    if out["batching_on"]["batch_flushes"] == 0:
+        raise AssertionError("no batch flush over the wire with the scheduler on")
+    return out
+
+
+def wire_phase(tpch_gpu, tpch_cpu, sb_gpu, sb_cpu):
+    """The port's MySQL server in front of the main path's card instance and the
+    point phase's sbtest1 instance (no new data): TPC-H over the wire, EXPLAIN
+    ANALYZE and the catalog statements, then oltp_point_select from client
+    processes.  Launch counters are read at the phase's end."""
+    from galaxysql_tpu_torch.net.server import MySQLServer
+    from galaxysql_tpu_torch.server.session import Session
+    t0 = time.perf_counter()
+    servers = [MySQLServer(tpch_gpu, port=0, users={"root": ""}, pool_size=WIRE_POOL),
+               MySQLServer(sb_gpu, port=0, users={"root": ""}, pool_size=WIRE_POOL)]
+    served = _Served(servers)
+    s_gpu, s_cpu = Session(tpch_gpu, "tpch"), Session(tpch_cpu, "tpch")
+    sb_s_cpu = Session(sb_cpu, "sbtest")
+    try:
+        line = {"pool_size": WIRE_POOL, "clients": {"processes": WIRE_PROCESSES,
+                                                    "connections": WIRE_CONNECTIONS,
+                                                    "statements": WIRE_STATEMENTS}}
+        line["tpch"] = _wire_queries(servers[0].port, s_gpu)
+        line.update(_wire_catalog(servers[0].port, s_cpu))
+        line["oltp_point_select"] = _wire_point_select(sb_gpu, servers[1].port,
+                                                       sb_s_cpu)
+        line["scheduler"] = dict(sb_gpu.batch_scheduler.stats_rows())
+    finally:
+        for x in (s_gpu, s_cpu, sb_s_cpu):
+            x.close()
+        served.stop()
+    line["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if line["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the wire phase: {missing}")
+    line["seconds"] = time.perf_counter() - t0
     return line
 
 
@@ -1329,7 +1641,7 @@ def main(argv=None) -> int:
     say("kernels", cases="main-path inputs + edge cases", repeats=CHECK_REPEATS, ok=True)
     say("kernel_scaling", kernels=kernel_scaling(inst))
 
-    cpu_ms = cpu_reference(inst, rows)
+    cpu_ms, cpu_inst = cpu_reference(inst, rows)
     say("reference", device="cpu", query_ms=cpu_ms, equal=True)
 
     from galaxysql_tpu_torch.plan import logical as L
@@ -1372,12 +1684,19 @@ def main(argv=None) -> int:
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 
     _reset_launches()
-    line = point_phase(inst)
+    line, (sb_gpu, sb_cpu) = point_phase(inst)
     line["launches"] = _launch_counts()
     print(card, flush=True)
     say("point", nvidia_smi=card, **line)
     for entry in kernels:
         entry["new_phases"]["launches"]["point"] = line["launches"][entry["name"]]
+
+    _reset_launches()
+    line = wire_phase(inst, cpu_inst, sb_gpu, sb_cpu)
+    print(card, flush=True)
+    say("wire", nvidia_smi=card, **line)
+    for entry in kernels:
+        entry["new_phases"]["launches"]["wire"] = line["launches"][entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

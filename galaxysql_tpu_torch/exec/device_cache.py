@@ -5,6 +5,12 @@ instance's device keyed by (table, partition set, column, table-version, length)
 version bump invalidates, eviction is LRU by byte budget, and a cache hit skips the
 O(table) host materialization.  Scans then read device memory instead of shipping
 lanes over PCIe per query.
+
+Concurrent misses on one key are single-flighted, as in the reference: the first
+thread runs the builder and the transfer, the others wait on a per-key event and
+take its entry; a failed build frees the claim for the next waiter.  Every miss
+adds its bytes and one transfer to `TRANSFER_STATS` (EXPLAIN ANALYZE's
+`-- transfer:` line).
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ from galaxysql_tpu_torch.chunk.batch import as_tensor
 
 Key = Tuple[int, Any, str, int, int]  # (store.uid, partitions, column, version, length)
 
+# host->device transfer accounting: every cache miss ships one lane to the device
+TRANSFER_STATS = {"bytes": 0, "transfers": 0}
+
 
 def hbm_high_water(device) -> Dict[str, int]:
     """Peak allocated device memory (bytes) of a CUDA device; empty on the CPU."""
@@ -28,6 +37,10 @@ def hbm_high_water(device) -> Dict[str, int]:
     return {str(device): int(torch.cuda.max_memory_allocated(device))}
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class DeviceCache:
     def __init__(self, device, budget_bytes: int = 8 << 30):
         self.device = torch.device(device)
@@ -35,28 +48,54 @@ class DeviceCache:
         self._map: "collections.OrderedDict[Key, Any]" = collections.OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
+        self._building: Dict[Key, threading.Event] = {}
         self.hits = 0
         self.misses = 0
 
+    def _lookup_or_claim(self, key: Key):
+        """(value, None) on a hit, (None, event) when this thread owns the build.
+        Waiters block on the owner's event and look again: either the entry landed
+        (a hit) or the owner failed (the waiter claims the build)."""
+        while True:
+            with self._lock:
+                got = self._map.get(key)
+                if got is not None:
+                    self._map.move_to_end(key)
+                    self.hits += 1
+                    return got, None
+                ev = self._building.get(key)
+                if ev is None:
+                    ev = threading.Event()
+                    self._building[key] = ev
+                    return None, ev
+            ev.wait()
+
     def get_lane_built(self, store, pid, column: str, version: int, length: int,
                        builder) -> torch.Tensor:
-        """Device lane for the key, building the host array lazily on a miss."""
+        """Device lane for the key, building the host array lazily on a miss;
+        concurrent misses on one key run the builder once."""
         key = (store.uid, pid, column, version, length)
-        with self._lock:
-            got = self._map.get(key)
-            if got is not None:
-                self._map.move_to_end(key)
-                self.hits += 1
-                return got
-        dev = as_tensor(builder(), self.device)
-        nbytes = dev.numel() * dev.element_size()
-        with self._lock:
-            self.misses += 1
-            self._map[key] = dev
-            self._bytes += nbytes
-            while self._bytes > self.budget and len(self._map) > 1:
-                _, old = self._map.popitem(last=False)
-                self._bytes -= old.numel() * old.element_size()
+        got, ev = self._lookup_or_claim(key)
+        if ev is None:
+            return got
+        try:
+            dev = as_tensor(builder(), self.device)
+            nbytes = _nbytes(dev)
+            with self._lock:
+                TRANSFER_STATS["bytes"] += nbytes
+                TRANSFER_STATS["transfers"] += 1
+                self.misses += 1
+                # only the claim's owner inserts its key, so no entry is replaced
+                # and no lane's bytes are counted twice
+                self._map[key] = dev
+                self._bytes += nbytes
+                while self._bytes > self.budget and len(self._map) > 1:
+                    _, old = self._map.popitem(last=False)
+                    self._bytes -= _nbytes(old)
+        finally:
+            with self._lock:
+                self._building.pop(key, None)
+            ev.set()
         return dev
 
     @property

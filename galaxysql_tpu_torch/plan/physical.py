@@ -17,10 +17,15 @@
 
 Filter and Project run as separate operators.  The runtime filters and skew plans the
 rules plant on the logical tree are ignored here.
+
+With `ExecContext.collect_stats` set (EXPLAIN ANALYZE) every operator is wrapped in a
+`StatsOp` that records its batches, live rows and wall time in `ctx.op_stats`;
+`annotate_explain` draws them onto the plan's explain lines.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -57,6 +62,9 @@ class ExecContext:
         self.txn_id = txn_id          # owning txn for MVCC visibility (0 = none)
         self.hints = hints or {}
         self.trace: List[str] = []
+        # EXPLAIN ANALYZE instrumentation: per-operator rows/batches/wall time
+        self.collect_stats = False
+        self.op_stats: List[dict] = []
 
 
 # per-(store, version, partitions) scan metadata: O(table) host reductions run once
@@ -278,7 +286,38 @@ class UnionOp(ops.Operator):
         return ColumnBatch(cols, b.live)
 
 
+class StatsOp(ops.Operator):
+    """EXPLAIN ANALYZE instrumentation: per-operator batches, rows and wall time.
+    Only wrapped when `ctx.collect_stats` is set: `num_live()` reads a count back
+    from the device per batch, so the normal path never pays."""
+
+    def __init__(self, inner: ops.Operator, node: L.RelNode, ctx: ExecContext):
+        self.inner = inner
+        self.node = node
+        self.ctx = ctx
+
+    def batches(self):
+        t0 = time.perf_counter()
+        rows = 0
+        nb = 0
+        for b in self.inner.batches():
+            nb += 1
+            rows += b.num_live()
+            yield b
+        self.ctx.op_stats.append(
+            {"node_id": id(self.node), "operator": type(self.node).__name__,
+             "batches": nb, "rows_out": rows,
+             "wall_ms": round((time.perf_counter() - t0) * 1000, 3)})
+
+
 def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
+    op = _build_operator(node, ctx)
+    if ctx.collect_stats:
+        return StatsOp(op, node, ctx)
+    return op
+
+
+def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, L.Scan):
         return ScanSource(node, ctx)
     if isinstance(node, L.Values):
@@ -286,7 +325,9 @@ def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, L.Filter):
         rewritten = _through_cross(node)
         if rewritten is not None:
-            return build_operator(rewritten, ctx)
+            # the rewritten nodes are not in the logical plan: their stats stand
+            # under this filter's line (the StatsOp around this call)
+            return _build_operator(rewritten, ctx)
         return ops.FilterOp(build_operator(node.child, ctx), node.cond)
     if isinstance(node, L.Project):
         return ops.ProjectOp(build_operator(node.child, ctx), node.exprs)
@@ -316,6 +357,26 @@ def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
         return ops.DistinctOp(u, [(fid, ir.ColRef(fid, typ, d))
                                   for fid, typ, d in node.fields()])
     raise errors.NotSupportedError(f"no physical operator for {type(node).__name__}")
+
+
+def annotate_explain(rel: L.RelNode, op_stats: List[dict]) -> List[str]:
+    """EXPLAIN ANALYZE tree: the logical plan's explain lines, each node annotated
+    with its measured rows, batches and wall time (matched by node identity).
+    `explain_lines` emits one line per node in pre-order, which is `L.walk`'s
+    order, so lines and nodes zip.  The reference's `RuntimeFilter(...)`,
+    `HotKeys(...)` and `Salted(...)` lines wait for the runtime-filter hub and
+    skew-aware execution."""
+    by_id: Dict[int, dict] = {}
+    for st in op_stats:
+        by_id.setdefault(st["node_id"], st)
+    lines: List[str] = []
+    for line, n in zip(rel.explain_lines(), L.walk(rel)):
+        st = by_id.get(id(n))
+        if st is not None:
+            line += (f"  (actual rows={st['rows_out']} "
+                     f"batches={st['batches']} wall={st['wall_ms']}ms)")
+        lines.append(line)
+    return lines
 
 
 def _through_cross(node: L.Filter) -> Optional[L.RelNode]:

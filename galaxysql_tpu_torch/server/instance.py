@@ -6,6 +6,8 @@ device and raises where CUDA is absent; `Instance(device="cpu")` runs the same
 operators on the CPU, where each kernel call site takes its plain version.
 
 It also holds the configuration (`config`, the reference's `ConfigParams`), the
+in-memory metadb (`metadb`, the reference's `MetaDb(None)`: SET GLOBAL values,
+users and grants) with its `config_listener` and the `privileges` over it, the
 registered point plans of the sequential fast path (`point_plans`, cleared past 512
 entries as in the reference), the cross-session `batch_scheduler` and `counters`
 (`point_plan_queries`, `batched_point_queries`; `count` adds to them).
@@ -14,6 +16,7 @@ entries as in the reference), the cross-session `batch_scheduler` and `counters`
 from __future__ import annotations
 
 import itertools
+import json
 import threading
 from typing import Dict
 
@@ -22,6 +25,8 @@ import torch
 from galaxysql_tpu_torch.config.params import ConfigParams
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
 from galaxysql_tpu_torch.meta.catalog import Catalog, TableMeta
+from galaxysql_tpu_torch.meta.gms import ConfigListener, MetaDb
+from galaxysql_tpu_torch.meta.privileges import PrivilegeManager
 from galaxysql_tpu_torch.meta.tso import TimestampOracle
 from galaxysql_tpu_torch.plan.planner import Planner
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
@@ -44,11 +49,25 @@ class Instance:
         self._conn_ids = itertools.count(1)
         self._lock = threading.Lock()
         self.config = ConfigParams()
+        self.metadb = MetaDb(None)
+        self.config_listener = ConfigListener(self.metadb)
+        self.config_listener.bind("config.params", self._reload_global_config)
+        self.privileges = PrivilegeManager(self.metadb)
+        self.catalog.create_schema("information_schema", if_not_exists=True)
         # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
         self.point_plans: Dict[tuple, dict] = {}
         self.counters: Dict[str, int] = {"point_plan_queries": 0,
                                          "batched_point_queries": 0}
         self.batch_scheduler = BatchScheduler(self)
+
+    def _reload_global_config(self, *_):
+        """Pull the SET GLOBAL values persisted in the metadb (the config
+        listener's handler, as in the reference)."""
+        for k, v in self.metadb.kv_scan("config.param."):
+            try:
+                self.config.set_instance(k[len("config.param."):], json.loads(v))
+            except Exception:
+                continue  # an unknown or stale parameter must not poison the reload
 
     def store_key(self, schema: str, table: str) -> str:
         return f"{schema.lower()}.{table.lower()}"

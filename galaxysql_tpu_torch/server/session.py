@@ -1,7 +1,12 @@
 """Session: statement dispatch (trimmed port of `galaxysql_tpu/server/session.py`).
 
 Handles CREATE DATABASE, USE, CREATE TABLE, ANALYZE TABLE, SELECT, INSERT, UPDATE,
-DELETE, TRUNCATE TABLE and BEGIN / COMMIT / ROLLBACK.  A SELECT goes parse -> bind ->
+DELETE, TRUNCATE TABLE, BEGIN / COMMIT / ROLLBACK, and the session statements: SET
+(session, user and global scope), SHOW (`server/show_handlers.py`), DESCRIBE,
+EXPLAIN [ANALYZE], CREATE USER, DROP USER, GRANT and REVOKE.  Every statement is
+authorized as in the reference (`_authorize` against the instance's
+`PrivilegeManager`); a query that reads `information_schema` refreshes its views
+first (`server/information_schema.py`).  A SELECT goes parse -> bind ->
 optimise -> plan on the host (the planner and its plan cache), then through the
 operator tree on the instance's device; the compacted result batch comes back as
 rows.  ANALYZE builds the statistics on the host (`meta/statistics.py`).  Every
@@ -15,9 +20,9 @@ cross-session batch scheduler (`server/batch_scheduler.py`, one device program p
 touched partition for the group); otherwise the sequential fast path runs, as in
 the reference: a host key-get over the row store (the partition's sorted key index,
 visibility at the session's snapshot, the output columns gathered on the host), with
-no operator and no device work.  The reference's privilege check, shared MDL and
-archive check on this path are absent, as the port has none of them (MDL comes with
-DDL).
+no operator and no device work.  The reference's privilege check on this path is
+kept; its shared MDL and archive check are absent, as the port has neither (MDL comes
+with DDL).
 
 Transactions are the reference's TSO transactions under snapshot isolation: BEGIN
 takes a snapshot timestamp that doubles as the transaction id; writes inside carry
@@ -33,12 +38,14 @@ instance's device at the session's snapshot.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from galaxysql_tpu_torch.chunk.batch import Column
+from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
@@ -47,8 +54,10 @@ from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionIn
 from galaxysql_tpu_torch.meta.statistics import analyze_store
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.binder import Binder, Scope
-from galaxysql_tpu_torch.plan.physical import ExecContext, build_operator
+from galaxysql_tpu_torch.plan.physical import (ExecContext, annotate_explain,
+                                               build_operator)
 from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode
+from galaxysql_tpu_torch.server import information_schema
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
@@ -101,8 +110,12 @@ class Session:
         self.instance = instance
         self.conn_id = instance.allocate_conn_id()
         self.schema = schema
-        self.last_trace: List[str] = []
+        self.autocommit = True
         self.txn: Optional[Transaction] = None
+        self.vars: Dict[str, Any] = {}
+        self.user_vars: Dict[str, Any] = {}
+        self.user = "root"
+        self.last_trace: List[str] = []
         instance.sessions[self.conn_id] = self
 
     def execute(self, sql: str, params: Optional[list] = None) -> ResultSet:
@@ -133,8 +146,65 @@ class Session:
             return self._run_query(None, sql, params)
         return self.execute_statement(parse(sql), sql, params)
 
+    _PRIV_BY_STMT = {
+        ast.Select: "SELECT", ast.SetOpSelect: "SELECT", ast.Insert: "INSERT",
+        ast.Update: "UPDATE", ast.Delete: "DELETE", ast.CreateTable: "CREATE",
+        ast.DropTable: "DROP", ast.TruncateTable: "DELETE", ast.AlterTable: "ALTER",
+        ast.CreateView: "CREATE", ast.DropView: "DROP",
+        ast.CreateIndex: "INDEX", ast.DropIndex: "INDEX", ast.LoadData: "INSERT",
+        ast.CreateDatabase: "CREATE", ast.DropDatabase: "DROP",
+        ast.CheckTable: "SELECT", ast.FlashbackTable: "CREATE",
+        ast.PurgeRecycleBin: "DROP", ast.AdviseIndex: "SELECT",
+        ast.Rebalance: "ALTER",
+    }
+
+    @staticmethod
+    def _stmt_tables(node) -> List[ast.TableName]:
+        """Every TableName a statement references (joins and subqueries included)."""
+        out: List[ast.TableName] = []
+        seen = set()
+
+        def walk(x):
+            if id(x) in seen or x is None:
+                return
+            seen.add(id(x))
+            if isinstance(x, ast.TableName):
+                out.append(x)
+                return
+            if isinstance(x, ast.Node) and hasattr(x, "__dataclass_fields__"):
+                for f in x.__dataclass_fields__:
+                    walk(getattr(x, f))
+            elif isinstance(x, (list, tuple)):
+                for item in x:
+                    walk(item)
+        walk(node)
+        return out
+
+    def _authorize(self, stmt: ast.Statement):
+        pm = self.instance.privileges
+        if isinstance(stmt, (ast.CreateUser, ast.DropUser, ast.GrantStmt,
+                             ast.RevokeStmt)):
+            # account administration requires the super user
+            if not pm.is_super(self.user):
+                raise errors.AccessDeniedError(
+                    f"user administration denied to '{self.user}'")
+            return
+        priv = self._PRIV_BY_STMT.get(type(stmt))
+        if priv is None:
+            return
+        if isinstance(stmt, (ast.CreateDatabase, ast.DropDatabase)):
+            pm.check(self.user, priv, stmt.name)
+            return
+        tables = self._stmt_tables(stmt)
+        if not tables:
+            pm.check(self.user, priv, self.schema or "*")
+            return
+        for t in tables:
+            pm.check(self.user, priv, t.schema or self.schema or "*", t.table)
+
     def execute_statement(self, stmt: ast.Statement, sql: str = "",
                           params: Optional[list] = None) -> ResultSet:
+        self._authorize(stmt)
         if isinstance(stmt, (ast.Select, ast.SetOpSelect)):
             return self._run_query(stmt, sql, params)
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete)):
@@ -161,7 +231,38 @@ class Session:
         if isinstance(stmt, ast.Rollback):
             self._rollback()
             return ok()
+        if isinstance(stmt, ast.SetStmt):
+            return self._run_set(stmt)
+        if isinstance(stmt, ast.Show):
+            return self._run_show(stmt)
+        if isinstance(stmt, ast.Explain):
+            return self._run_explain(stmt, params)
+        if isinstance(stmt, ast.Describe):
+            return self._describe(stmt.table)
+        if isinstance(stmt, ast.CreateUser):
+            self.instance.privileges.create_user(stmt.user, stmt.password,
+                                                 if_not_exists=stmt.if_not_exists)
+            return self._sync_privileges()
+        if isinstance(stmt, ast.DropUser):
+            self.instance.privileges.drop_user(stmt.user, stmt.if_exists)
+            return self._sync_privileges()
+        if isinstance(stmt, ast.GrantStmt):
+            schema = self._require_schema() if stmt.schema == "" else stmt.schema
+            self.instance.privileges.grant(stmt.user, stmt.privileges, schema,
+                                           stmt.table)
+            return self._sync_privileges()
+        if isinstance(stmt, ast.RevokeStmt):
+            schema = self._require_schema() if stmt.schema == "" else stmt.schema
+            self.instance.privileges.revoke(stmt.user, stmt.privileges, schema,
+                                            stmt.table)
+            return self._sync_privileges()
         raise errors.NotSupportedError(f"statement {type(stmt).__name__}")
+
+    def _sync_privileges(self) -> ResultSet:
+        """The reference also broadcasts the privilege-cache drop to peer
+        coordinators; the port has one coordinator (the sync bus comes with MPP
+        and workers), and the local mutation already dropped its caches."""
+        return ok()
 
     def _require_schema(self) -> str:
         if not self.schema:
@@ -175,6 +276,10 @@ class Session:
 
     def _run_query(self, stmt, sql: str, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
+        info = "information_schema" in (sql or "").lower() or \
+            schema.lower() == "information_schema"
+        if info:
+            information_schema.refresh(self.instance, self)
         if sql and self.instance.point_plans:
             rs = self._try_point_exec(sql, params, schema)
             if rs is not None:
@@ -184,11 +289,13 @@ class Session:
             plan = planner.plan_select(sql, schema, params, self)
         else:
             plan = planner.bind_statement(stmt, schema, params or [], self)
-        ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
-                          self.instance.device, self.instance.device_cache,
-                          params=params or [],
-                          txn_id=self.txn.txn_id if self.txn is not None else 0,
-                          hints=getattr(plan, "hints", None))
+        if stmt is None:
+            # the SELECT hot path skipped the raw parse; authorize on the plan's
+            # (parameterized) AST: the same table names, no second parse
+            self._authorize(plan.statement)
+        if info:
+            information_schema.check_ported(plan.rel)
+        ctx = self._exec_context(plan, params)
         batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
         rows = batch.to_pylist()
         self.last_trace = ctx.trace
@@ -196,6 +303,15 @@ class Session:
             self._register_point_plan(plan)
         return ResultSet(plan.display_names, [t for _, t, _ in plan.fields()], rows,
                          batch=batch)
+
+    def _exec_context(self, plan, params: Optional[list]) -> ExecContext:
+        """A query's context: the instance's device and device cache, the session's
+        snapshot and transaction."""
+        return ExecContext(self.instance.stores, self._snapshot_ts(),
+                           self.instance.device, self.instance.device_cache,
+                           params=params or [],
+                           txn_id=self.txn.txn_id if self.txn is not None else 0,
+                           hints=getattr(plan, "hints", None))
 
     # -- point-plan fast path: archetypal `SELECT cols FROM t WHERE key = ?`
     # statements skip binder and planner on re-execution; the registered PointPlan
@@ -274,6 +390,9 @@ class Session:
         vals = p.resolve(params or [])
         if len(vals) != 1:
             return None
+        # the privilege gate the planned path applies to its statement's AST
+        self.instance.privileges.check(self.user, "SELECT",
+                                       pp["schema"], pp["table"])
         value = vals[0]
         if isinstance(value, DecimalParam):
             value = value.value
@@ -297,7 +416,7 @@ class Session:
                 return brs
             rows = self._point_get(tm, store, key_col, lane_val, pp["out_cols"])
         self.last_trace = [f"point-plan {pp['table']}.{key_col}",
-                           f"elapsed={time.perf_counter() - t0:.6f}s workload=TP"]
+                           f"elapsed={time.perf_counter() - t0:.3f}s workload=TP"]
         self.instance.count("point_plan_queries")
         return ResultSet(pp["names"], pp["types"], rows)
 
@@ -633,6 +752,73 @@ class Session:
         if self.instance.catalog.add_table(tm, stmt.if_not_exists):
             self.instance.register_table(tm)
         return ok()
+
+    # -- session statements ----------------------------------------------------------
+
+    def _run_set(self, stmt: ast.SetStmt) -> ResultSet:
+        for scope, name, vexpr in stmt.assignments:
+            value = _ast_literal_value(vexpr)
+            if scope == "user":
+                self.user_vars[name.lower()] = value
+            elif scope == "global":
+                self.instance.config.set_instance(name, value)
+                # kept in the metadb as the reference keeps it; the config
+                # listener reloads it on notify
+                self.instance.metadb.kv_put(
+                    f"config.param.{name.upper()}", json.dumps(value))
+                self.instance.metadb.notify("config.params")
+            else:
+                self.vars[name.upper() if name.upper() in
+                          self.instance.config.registry() else name.lower()] = value
+        return ok()
+
+    def _run_show(self, stmt: ast.Show) -> ResultSet:
+        from galaxysql_tpu_torch.server import show_handlers
+        return show_handlers.handle(self, stmt)
+
+    def _run_explain(self, stmt: ast.Explain, params) -> ResultSet:
+        """EXPLAIN: the plan's explain lines.  EXPLAIN ANALYZE runs the plan as
+        `_run_query` does (the instance's device and device cache) with every
+        operator wrapped in a `StatsOp`, and annotates the lines with each
+        operator's rows, batches and wall time; then the rows, the elapsed time,
+        the host-to-device transfers, the trace and one line per operator."""
+        schema = self._require_schema()
+        inner = stmt.stmt
+        if not isinstance(inner, (ast.Select, ast.SetOpSelect)):
+            return ResultSet(["plan"], [dt.VARCHAR], [("not a plannable statement",)])
+        plan = self.instance.planner.bind_statement(inner, schema, params or [])
+        lines = plan.explain().split("\n")
+        if stmt.analyze:
+            ctx = self._exec_context(plan, params)
+            ctx.collect_stats = True
+            x0 = dict(TRANSFER_STATS)
+            t0 = time.time()
+            batch = run_to_batch(build_operator(plan.rel, ctx))
+            elapsed = time.time() - t0
+            rows = batch.num_live()
+            lines = annotate_explain(plan.rel, ctx.op_stats)
+            lines += [f"-- rows: {rows}", f"-- elapsed: {elapsed:.3f}s",
+                      f"-- transfer: h2d_bytes={TRANSFER_STATS['bytes'] - x0['bytes']} "
+                      f"transfers={TRANSFER_STATS['transfers'] - x0['transfers']}"] + \
+                [f"-- {t}" for t in ctx.trace]
+            for st in ctx.op_stats:
+                lines.append(f"-- op {st['operator']}: rows={st['rows_out']} "
+                             f"batches={st['batches']} wall={st['wall_ms']}ms")
+        lines.append(f"-- workload: {plan.workload}")
+        return ResultSet(["plan"], [dt.VARCHAR], [(ln,) for ln in lines])
+
+    def _describe(self, name: ast.TableName) -> ResultSet:
+        schema = self._require_schema()
+        tm = self.instance.catalog.table(name.schema or schema, name.table)
+        rows = []
+        for c in tm.columns:
+            key = "PRI" if c.name in tm.primary_key else ""
+            rows.append((c.name, c.dtype.sql_name().lower(),
+                         "YES" if c.nullable else "NO", key,
+                         None if c.default is None else str(c.default),
+                         "auto_increment" if c.auto_increment else ""))
+        return ResultSet(["Field", "Type", "Null", "Key", "Default", "Extra"],
+                         [dt.VARCHAR] * 6, rows)
 
 
 def _fold_constant(e: ir.Expr) -> ir.Literal:

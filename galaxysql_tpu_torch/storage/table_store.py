@@ -287,18 +287,56 @@ class TableStore:
 
 def _encode_pylist(values: Sequence[Any], typ: dt.DataType,
                    dictionary) -> Tuple[np.ndarray, np.ndarray]:
-    """(lane, valid) of one column of Python values.  Strings, and dates or datetimes
-    given as strings, go value by value through `column_from_pylist` (dictionary codes
-    in order of first appearance); other lanes take the same values in one numpy pass:
-    a decimal is round(v * 10**scale) with ties to even, as Python's `round` does."""
+    """(lane, valid) of one column of Python values, equal to the reference's
+    `column_from_pylist`: the same lanes, and the same exception where a value does not
+    fit its lane.  One numpy pass takes a column where it is exact: integers of the
+    lane's kind inside its range, floats into a float lane, decimals whose scaled value
+    fits int64 (round(v * 10**scale), ties to even as Python's `round`).  Everything
+    else goes value by value through `column_from_pylist`: strings (dictionary codes in
+    order of first appearance), dates given as strings, mixed ints and floats, object
+    columns and values out of range."""
     valid = np.fromiter((v is not None for v in values), dtype=np.bool_,
                         count=len(values))
-    if typ.is_string or (typ.clazz in (dt.TypeClass.DATE, dt.TypeClass.DATETIME) and
-                         any(isinstance(v, str) for v in values)):
-        col = column_from_pylist(values, typ, dictionary)
-        return col.np_data(), col.np_valid()
-    filled = values if valid.all() else [0 if v is None else v for v in values]
-    if typ.clazz == dt.TypeClass.DECIMAL:
-        lane = np.round(np.asarray(filled, dtype=np.float64) * (10 ** typ.scale))
-        return lane.astype(typ.lane), valid
-    return np.asarray(filled).astype(typ.lane), valid
+    if not typ.is_string and values:
+        filled = values if valid.all() else [0 if v is None else v for v in values]
+        lane = _encode_vectorized(filled, typ)
+        if lane is not None:
+            return lane, valid
+    col = column_from_pylist(values, typ, dictionary)
+    return col.np_data(), col.np_valid()
+
+
+def _encode_vectorized(filled: Sequence[Any], typ: dt.DataType) -> Optional[np.ndarray]:
+    """The lane of a column without NULLs in one numpy pass, or None where that pass
+    could differ from the reference's value-by-value assignment."""
+    if any(isinstance(v, str) for v in filled) and \
+            typ.clazz in (dt.TypeClass.DATE, dt.TypeClass.DATETIME):
+        return None
+    lane_t = np.dtype(typ.lane)
+    try:
+        if typ.clazz == dt.TypeClass.DECIMAL:
+            f = np.round(np.asarray(filled, dtype=np.float64) * (10 ** typ.scale))
+            # int64 holds exactly [-2**63, 2**63); NaN fails both tests
+            if not ((f >= -2.0 ** 63) & (f < 2.0 ** 63)).all():
+                return None
+            return f.astype(lane_t)
+        arr = np.asarray(filled)
+    except (TypeError, ValueError, OverflowError):
+        return None
+    if lane_t.kind in "iu":
+        if arr.dtype.kind not in "iu":
+            return None  # floats truncate, objects and bools assign one by one
+        info = np.iinfo(lane_t)
+        if arr.min() < info.min or arr.max() > info.max:
+            return None
+        return arr.astype(lane_t)
+    if lane_t.kind == "f":
+        # float -> float casts round as the reference's assignment does; integers
+        # go through float64 there, exact up to 2**53
+        if arr.dtype.kind == "f" or (arr.dtype.kind in "iu" and
+                                     int(np.abs(arr).max()) <= 1 << 53):
+            return arr.astype(lane_t)
+        return None
+    if lane_t.kind == "b" and arr.dtype.kind == "b":
+        return arr
+    return None

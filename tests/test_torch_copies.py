@@ -20,6 +20,8 @@ COPIES = [
     "exec/runtime_filter.py", "exec/skew.py", "expr/ir.py",
     "plan/logical.py", "plan/rules.py", "plan/binder.py", "plan/planner.py", "plan/spm.py",
     "config/params.py", "utils/failpoint.py",
+    "utils/lockdep.py", "meta/gms.py", "meta/privileges.py", "net/packets.py",
+    "net/client.py",
 ]
 
 

@@ -306,6 +306,41 @@ def test_script_matches_reference(name):
         assert [r[4] for r in results[5].rows][:2] == [0.0, 2.25]
 
 
+# INSERT values a lane cannot hold: the reference assigns value by value and raises
+# (OverflowError) before anything is appended; a mixed int/float BIGINT column keeps
+# its large integer exact and truncates the float
+OUT_OF_RANGE = [
+    ("TINYINT", "(1, 300)"), ("TINYINT", "(1, -129)"), ("INT", "(1, 3000000000)"),
+    ("BIGINT", "(1, 9223372036854775808)"), ("BIGINT UNSIGNED", "(1, -1)"),
+    ("DECIMAL(20,2)", "(1, 100000000000000000)"),
+    ("BIGINT", "(1, 4611686018427387905), (2, 1.5)"),
+]
+
+
+@pytest.mark.parametrize("typ,rows", OUT_OF_RANGE)
+def test_insert_out_of_range_values_match_reference(typ, rows):
+    """The lanes the reference stores, or its exception with both stores unchanged.
+    `Pair.run` compares only `TddlError`s, so the raw exception is caught here."""
+    pair = Pair()
+    pair.run("W", f"CREATE TABLE t (id BIGINT, v {typ}) PARTITION BY HASH(id) "
+                  "PARTITIONS 2")
+    pair.run("W", "INSERT INTO t VALUES (7, 7)")
+    js, ps = pair.session("W")
+    sql = f"INSERT INTO t VALUES {rows}"
+    want = got = None
+    try:
+        js.execute(sql)
+    except Exception as e:
+        want = e
+    try:
+        ps.execute(sql)
+    except Exception as e:
+        got = e
+    assert type(got) is type(want), (sql, want, got)
+    pair.assert_same_state()
+    assert pair.pi.store("test", "t").row_count() == (1 if want else 1 + rows.count("("))
+
+
 def test_double_update_stores_the_reference_float64_bits():
     """`SET v = v * 1.1` computes in float64 on the host, as the reference does, and
     stores the result rounded to the DOUBLE lane's float32; computing in float32 (the

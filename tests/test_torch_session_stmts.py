@@ -1,0 +1,327 @@
+"""Session statements: SET, SHOW, DESCRIBE, information_schema, EXPLAIN [ANALYZE] and
+the privilege statements, through the JAX package's `Session` and the port's
+`Session(Instance(device="cpu"))` on the CPU.  The same statements go through both
+engines in the same order; the results must agree on column names, column types
+(as SQL names) and rows, or both must raise the same error type."""
+
+import re
+
+import pytest
+import torch
+
+from galaxysql_tpu.server.instance import Instance as JaxInstance
+from galaxysql_tpu.server.session import Session as JaxSession
+from galaxysql_tpu.storage import tpch
+from galaxysql_tpu.storage.tpch_queries import QUERIES
+from galaxysql_tpu.utils import errors as jax_errors
+from galaxysql_tpu_torch.server import information_schema, show_handlers
+from galaxysql_tpu_torch.server.instance import Instance
+from galaxysql_tpu_torch.server.session import Session
+from galaxysql_tpu_torch.storage import transfer
+from galaxysql_tpu_torch.utils import errors
+
+pytestmark = pytest.mark.torch_port
+
+torch.set_num_threads(1)
+
+SETUP = [
+    "CREATE DATABASE s",
+    "USE s",
+    "CREATE TABLE h (id BIGINT NOT NULL AUTO_INCREMENT PRIMARY KEY, "
+    "name VARCHAR(20), amt DECIMAL(10,2), d DATE, INDEX i_name (name)) "
+    "PARTITION BY HASH(id) PARTITIONS 4",
+    "CREATE TABLE one (k INT PRIMARY KEY, v DOUBLE) SINGLE",
+    "CREATE TABLE b (code CHAR(2) NOT NULL, label VARCHAR(30), "
+    "UNIQUE KEY u_code (code)) BROADCAST",
+    "INSERT INTO h (name, amt, d) VALUES ('ann', 1.50, '2024-01-05'), "
+    "('bob', 20.25, NULL), (NULL, NULL, '2023-02-01'), ('cy', -3.10, '2024-07-07')",
+    "INSERT INTO one VALUES (1, 0.5), (2, 1e3)",
+    "INSERT INTO b VALUES ('cn', 'China'), ('de', 'Germany')",
+    "ANALYZE TABLE h, one, b",
+    "SELECT name, sum(amt) FROM h GROUP BY name ORDER BY name",
+]
+
+
+def _types(rs):
+    return [t.sql_name() for t in rs.types]
+
+
+class Twin:
+    """The two engines with named sessions on each side, set up by SETUP."""
+
+    def __init__(self):
+        self.ji = JaxInstance()
+        self.pi = Instance(device="cpu")
+        self.sessions = {}
+        for sql in SETUP:
+            self.run(sql)
+
+    def session(self, name="root"):
+        if name not in self.sessions:
+            js, ps = JaxSession(self.ji), Session(self.pi)
+            if self.sessions:
+                js.execute("USE s")
+                ps.execute("USE s")
+            self.sessions[name] = (js, ps)
+        return self.sessions[name]
+
+    def run(self, sql, name="root", ordered=True):
+        """Runs `sql` in both engines' session `name`; both give the same result or
+        raise the same error type (returned then)."""
+        js, ps = self.session(name)
+        want = got = None
+        try:
+            want = js.execute(sql)
+        except jax_errors.TddlError as e:
+            want = e
+        try:
+            got = ps.execute(sql)
+        except errors.TddlError as e:
+            got = e
+        if isinstance(want, Exception) or isinstance(got, Exception):
+            assert type(got).__name__ == type(want).__name__, (sql, want, got)
+            return type(got)
+        assert got.names == want.names, sql
+        assert _types(got) == _types(want), sql
+        if ordered:
+            assert got.rows == want.rows, sql
+        else:
+            assert sorted(got.rows, key=repr) == sorted(want.rows, key=repr), sql
+        assert got.affected == want.affected, sql
+        return got
+
+
+@pytest.fixture(scope="module")
+def twin():
+    return Twin()
+
+
+def test_set_scopes_then_show_variables():
+    t = Twin()
+    t.run("SET MAX_EXECUTION_TIME = 2500")
+    t.run("SET @answer = 42")
+    t.run("SET session my_knob = 'on'")
+    t.run("SET GLOBAL ENABLE_BATCH_SCHEDULER = 0")
+    for sql in ("SHOW VARIABLES", "SHOW VARIABLES LIKE 'max_exec%'",
+                "SHOW VARIABLES LIKE 'enable_batch%'", "SHOW VARIABLES LIKE 'my%'"):
+        t.run(sql)
+    js, ps = t.session()
+    assert ps.vars == js.vars == {"MAX_EXECUTION_TIME": 2500, "my_knob": "on"}
+    assert ps.user_vars == js.user_vars == {"answer": 42}
+    assert t.pi.config.get("ENABLE_BATCH_SCHEDULER") == \
+        t.ji.config.get("ENABLE_BATCH_SCHEDULER")
+    assert not t.pi.batch_scheduler.enabled()
+    # SET GLOBAL lands in the metadb, whose listener reloads it
+    assert t.pi.metadb.kv_get("config.param.ENABLE_BATCH_SCHEDULER") == \
+        t.ji.metadb.kv_get("config.param.ENABLE_BATCH_SCHEDULER")
+    t.pi.config.set_instance("ENABLE_BATCH_SCHEDULER", 1)
+    assert t.pi.config_listener.poll() == ["config.params"]
+    assert t.pi.config.get("ENABLE_BATCH_SCHEDULER") in (0, False)
+    # a second session sees the global value, not the first one's session value
+    t.run("SHOW VARIABLES LIKE 'max_exec%'", name="other")
+    t.run("SHOW VARIABLES LIKE 'enable_batch%'", name="other")
+
+
+SHOWS = [
+    "SHOW DATABASES", "SHOW DATABASES LIKE 's%'", "SHOW SCHEMAS",
+    "SHOW TABLES", "SHOW TABLES LIKE 'o%'", "SHOW TABLES FROM s", "SHOW FULL TABLES",
+    "SHOW COLUMNS FROM h", "SHOW FIELDS FROM b", "SHOW CREATE TABLE h",
+    "SHOW INDEX FROM h", "SHOW INDEXES FROM b", "SHOW KEYS FROM one",
+    "SHOW PROCESSLIST", "SHOW FULL PROCESSLIST", "SHOW WARNINGS", "SHOW STATUS",
+    "SHOW ENGINES", "SHOW CHARSET", "SHOW COLLATION", "SHOW COLLATION LIKE 'utf8mb4%'",
+    "SHOW TABLES FROM nowhere", "SHOW CREATE TABLE nope",
+]
+
+
+@pytest.mark.parametrize("sql", SHOWS)
+def test_show_kind(twin, sql):
+    twin.run(sql)
+
+
+def test_show_batch_stats(twin):
+    """The point scheduler's rows equal the reference's; the reference appends its
+    DML batcher's rows, which wait for `server/dml_batch.py`."""
+    js, ps = twin.session()
+    want, got = js.execute("SHOW BATCH STATS"), ps.execute("SHOW BATCH STATS")
+    assert got.names == want.names and _types(got) == _types(want)
+    names = {n for n, _v in twin.pi.batch_scheduler.stats_rows()}
+    assert got.rows == [r for r in want.rows if r[0] in names]
+    assert [r[0] for r in got.rows] == [n for n, _v in twin.ji.batch_scheduler.stats_rows()]
+
+
+def test_show_trace_of_a_point_select(twin):
+    """SHOW TRACE lists the last query's trace tags.  After a fast-path point select
+    they are the PointPlan's in both engines, up to the measured time; the reference
+    puts its trace id first and its span tree after (both wait for
+    `utils/tracing.py`)."""
+    js, ps = twin.session()
+    for _ in range(2):  # the first run registers the PointPlan
+        twin.run("SELECT v FROM one WHERE k = 2")
+    want, got = js.execute("SHOW TRACE"), ps.execute("SHOW TRACE")
+    assert got.names == want.names and _types(got) == _types(want)
+
+    def tags(rs):
+        return [re.sub(r"elapsed=[0-9.]+s", "elapsed=?s", r[0]) for r in rs.rows
+                if not r[0].startswith("trace-id ")]
+    assert tags(got) == tags(want) == ["point-plan one.k", "elapsed=?s workload=TP"]
+
+
+@pytest.mark.parametrize("kind", sorted(show_handlers._WAITING))
+def test_unported_show_kinds_raise(twin, kind):
+    _js, ps = twin.session()
+    sql = {"fragment": "SHOW FRAGMENT CACHE", "statement_summary":
+           "SHOW STATEMENT SUMMARY", "metric_history": "SHOW METRIC HISTORY",
+           "columnar_replica": "SHOW COLUMNAR REPLICA",
+           "cluster_health": "SHOW CLUSTER HEALTH", "binlog": "SHOW BINLOG EVENTS",
+           "ccl_rules": "SHOW CCL_RULES"}.get(kind, f"SHOW {kind.upper()}")
+    with pytest.raises(errors.NotSupportedError, match="ROADMAP Queue 1 item"):
+        ps.execute(sql)
+
+
+@pytest.mark.parametrize("table", ["h", "one", "b"])
+def test_describe_and_show_create(twin, table):
+    twin.run(f"DESCRIBE {table}")
+    twin.run(f"DESC s.{table}")
+    twin.run(f"SHOW CREATE TABLE {table}")
+
+
+VIEWS = ["schemata", "tables", "columns", "statistics", "partitions", "processlist",
+         "engines", "global_variables", "session_variables", "plan_cache"]
+
+
+@pytest.mark.parametrize("view", VIEWS)
+def test_information_schema_view(twin, view):
+    twin.run(f"SELECT * FROM information_schema.{view}", ordered=False)
+
+
+def test_information_schema_queries(twin):
+    twin.run("SELECT table_name, table_rows FROM information_schema.tables "
+             "WHERE table_schema = 's' ORDER BY table_name")
+    twin.run("SELECT table_name, count(*) AS n FROM information_schema.columns "
+             "WHERE table_schema = 's' GROUP BY table_name ORDER BY table_name")
+    twin.run("SELECT t.table_name, p.partition_name, p.table_rows FROM "
+             "information_schema.tables t JOIN information_schema.partitions p "
+             "ON t.table_name = p.table_name WHERE t.table_schema = 's' "
+             "ORDER BY t.table_name, p.partition_name")
+    twin.run("SELECT variable_value FROM information_schema.session_variables "
+             "WHERE variable_name = 'enable_batch_scheduler'")
+
+
+def test_information_schema_batch_stats(twin):
+    """The point scheduler's rows, as SHOW BATCH STATS gives them."""
+    js, ps = twin.session()
+    sql = "SELECT stat_name, value FROM information_schema.batch_stats"
+    want, got = js.execute(sql), ps.execute(sql)
+    names = {n for n, _v in twin.pi.batch_scheduler.stats_rows()}
+    assert got.rows == [r for r in want.rows if r[0] in names] and got.rows
+
+
+@pytest.mark.parametrize("view", sorted(information_schema.WAITING))
+def test_unported_views_raise(twin, view):
+    _js, ps = twin.session()
+    with pytest.raises(errors.NotSupportedError, match="ROADMAP Queue 1 item"):
+        ps.execute(f"SELECT * FROM information_schema.{view}")
+
+
+def test_users_grants_and_refusals():
+    t = Twin()
+    t.run("SELECT v FROM one WHERE k = 1")  # registers the PointPlan as root
+    t.run("SELECT v FROM one WHERE k = 2")
+    t.run("CREATE USER 'alice' IDENTIFIED BY 'pw'")
+    t.run("CREATE USER 'alice'")                      # exists: TddlError
+    t.run("CREATE USER IF NOT EXISTS 'alice'")
+    js, ps = t.session("alice")
+    js.user = ps.user = "alice"
+    denied = errors.AccessDeniedError
+    for sql in ("SELECT v FROM one WHERE k = 1",       # the point fast path
+                "SELECT count(*) FROM h", "INSERT INTO one VALUES (3, 1)",
+                "CREATE USER 'bob'", "GRANT SELECT ON s.* TO 'alice'"):
+        assert t.run(sql, name="alice") is denied, sql
+    t.run("GRANT SELECT ON s.one TO 'alice'")
+    assert t.run("SELECT v FROM one WHERE k = 1", name="alice").rows == [(0.5,)]
+    assert ps.last_trace[0] == "point-plan one.k"
+    assert t.run("SELECT count(*) FROM h", name="alice") is denied
+    t.run("GRANT SELECT, INSERT ON s.* TO 'alice'")
+    t.run("INSERT INTO one VALUES (3, 1)", name="alice")
+    t.run("SELECT count(*) FROM h", name="alice")
+    t.run("REVOKE SELECT ON s.* FROM 'alice'")
+    t.run("REVOKE SELECT ON s.one FROM 'alice'")
+    assert t.run("SELECT v FROM one WHERE k = 2", name="alice") is denied
+    assert t.run("SELECT count(*) FROM h", name="alice") is denied
+    t.run("SELECT count(*) FROM information_schema.tables", name="alice")
+    t.run("DROP USER 'alice'")
+    t.run("DROP USER 'alice'")                        # gone: TddlError
+    t.run("DROP USER IF EXISTS 'alice'")
+    assert t.pi.privileges.password_hash("alice") is None
+    assert t.pi.privileges.is_super("root")
+
+
+# -- EXPLAIN of TPC-H, over the lanes of one load ---------------------------------------
+
+@pytest.fixture(scope="module")
+def tpch_pair():
+    data = tpch.generate(0.01)
+    ji, pi = JaxInstance(), Instance(device="cpu")
+    js, ps = JaxSession(ji), Session(pi)
+    for s in (js, ps):
+        s.execute("CREATE DATABASE tpch")
+        s.execute("USE tpch")
+    for t in tpch.TABLE_ORDER:
+        js.execute(tpch.TPCH_DDL[t])
+        ji.store("tpch", t).insert_pylists(data[t], ji.tso.next_timestamp())
+        ps.execute(tpch.TPCH_DDL[t])
+        parts, dicts = transfer.arrays_of(ji.store("tpch", t))
+        pi.install_store(transfer.store_from_arrays(pi.catalog.table("tpch", t),
+                                                    parts, dicts))
+    return js, ps
+
+
+@pytest.mark.parametrize("q", range(1, 23))
+def test_explain_tpch_plans_line_for_line(tpch_pair, q):
+    js, ps = tpch_pair
+    want, got = js.execute("EXPLAIN " + QUERIES[q]), ps.execute("EXPLAIN " + QUERIES[q])
+    assert got.names == want.names == ["plan"]
+    assert got.rows == want.rows
+
+
+# lines only the reference prints: its runtime filters and skew-aware splits wait for
+# the runtime-filter hub and skew-aware execution (ROADMAP Queue 1 items 10 and 12)
+_REFERENCE_ONLY = ("RuntimeFilter(", "HotKeys(", "Salted(")
+_ACTUAL = re.compile(r"^(.*?)  \(actual rows=(\d+) ")
+
+
+def _nodes(rs):
+    """(node line without its `(actual ...)` suffix, actual rows) per plan node."""
+    out = []
+    for (line,) in rs.rows:
+        if line.startswith("--") or line.strip().startswith(_REFERENCE_ONLY):
+            continue
+        m = _ACTUAL.match(line)
+        assert m, line
+        out.append((m.group(1), int(m.group(2))))
+    return out
+
+
+# Every run with FRAGMENT_CACHE(OFF): a cached build in the reference skips its
+# subtree, whose nodes then carry no counts (the fragment cache waits for ROADMAP
+# Queue 1 item 11).  Q5 as written otherwise; Q3 and Q5 also with NO_BLOOM, which
+# turns off the reference's runtime filters: without it the reference's lineitem
+# filter in Q3 counts the probe rows its bloom filter left (459 at SF 0.01), the
+# port's all the rows the filter passes.
+@pytest.mark.parametrize("q,hint", [(5, "FRAGMENT_CACHE(OFF)"),
+                                    (3, "NO_BLOOM FRAGMENT_CACHE(OFF)"),
+                                    (5, "NO_BLOOM FRAGMENT_CACHE(OFF)")])
+def test_explain_analyze_rows_per_node(tpch_pair, q, hint):
+    js, ps = tpch_pair
+    sql = f"EXPLAIN ANALYZE /*+TDDL:{hint}*/ {QUERIES[q]}"
+    want, got = js.execute(sql), ps.execute(sql)
+    nodes = _nodes(got)
+    assert nodes == _nodes(want)
+    assert len(nodes) > 5
+    lines = [r[0] for r in got.rows]
+    rows = next(ln for ln in lines if ln.startswith("-- rows: "))
+    assert rows == next(r[0] for r in want.rows if r[0].startswith("-- rows: "))
+    assert any(ln.startswith("-- transfer: h2d_bytes=") for ln in lines)
+    assert lines[-1] == want.rows[-1][0] == "-- workload: AP"
+    ops = [ln for ln in lines if ln.startswith("-- op ")]
+    assert len(ops) == len(nodes)
