@@ -98,11 +98,38 @@ of this script:
     instance's row for its id.  Launch counters are set to 0 at the phase's start and
     read at its end; all four kernels must have launched.
 
-Floats in 7-10 compare as `tests/test_tpcds.py` compares them (relative and absolute
-1e-6); every other value must be equal.  The largest input the phases 7-9 gave each
-kernel, and apart from it the largest input the dml phase gave it, are then held
-against the kernel's plain version CHECK_REPEATS times and timed, beside the main
-path's, in the kernel's `new_phases` entry.
+Then DDL, last, on the same instances (the main path's card instance and phase 6's
+CPU instance, the point phase's card and CPU `sbtest1`); every statement runs on the
+card's and the CPU's instance in the same order and every result must be equal:
+
+13. ddl: (a) `ALTER TABLE orders ADD COLUMN` (an INT and a VARCHAR with defaults,
+    every partition's `lane_gen` must move), an UPDATE of the new columns, a join of
+    orders and lineitem grouped by them (cold after the ALTER dropped the device
+    cache, then warm), `DROP COLUMN` and Q3, `RENAME TO` of nation and back; (b)
+    `CREATE GLOBAL INDEX g_k ON sbtest1 (k) COVERING (c)` (timed: the backfill),
+    EXPLAIN of `SELECT c FROM sbtest1 WHERE k = ?` scanning `sbtest1$g_k` on both,
+    POINT_STATEMENTS / 4 such selects on the fast path, a transaction of INSERT,
+    UPDATE of k and DELETE committed and one rolled back, the GSI's visible rows equal
+    to sbtest1's projection on both instances, then `DROP INDEX` (the GSI's cached
+    lanes must leave the device cache); (c) `CREATE VIEW` of a Q3-shaped join and
+    group-by, a query on it with ORDER BY and LIMIT, `DROP VIEW`; (e) Q18 on the card
+    in one thread while a second runs `ALTER TABLE lineitem ADD COLUMN l_x INT`: the
+    ALTER must wait for the query's shared metadata lock, both succeed and Q18's rows
+    equal its rows from before; (d) `DROP TABLE customer` into the recycle bin (SHOW
+    RECYCLEBIN, Q3 raising the same error on both), `FLASHBACK TABLE` (Q3 equal to its
+    rows from before, the store's cached lanes kept), `DROP TABLE` and `PURGE
+    RECYCLEBIN` (the device-cache bytes fall by exactly the store's), a scratch
+    database created, filled and dropped; (f) SHOW DDL and `information_schema.ddl_jobs`
+    equal on both.  One `ddl_step` line per step with its ms.  Launch counters are
+    set to 0 at the phase's start and read at its end; all four kernels must have
+    launched.
+
+Floats in 7-10 and 13 compare as `tests/test_tpcds.py` compares them (relative
+and absolute 1e-6); every other value must be equal.  The largest input the phases
+7-9 gave each kernel, and apart from it the largest input the dml phase gave it and
+the largest the ddl phase gave it, are then held against the kernel's plain version
+CHECK_REPEATS times and timed, beside the main path's, in the kernel's `new_phases`
+entry (`dml_input`, `ddl_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -1594,6 +1621,327 @@ def wire_phase(tpch_gpu, tpch_cpu, sb_gpu, sb_cpu):
     return line
 
 
+# -- DDL ----------------------------------------------------------------------------
+
+DDL_JOIN = ("SELECT o_band, o_tag, o_orderstatus, count(*), sum(l_extendedprice) "
+            "FROM orders, lineitem WHERE o_orderkey = l_orderkey "
+            "GROUP BY o_band, o_tag, o_orderstatus ORDER BY o_band, o_tag, o_orderstatus")
+DDL_VIEW = ("CREATE VIEW rev AS SELECT l_orderkey, o_orderdate, o_shippriority, "
+            "sum(l_extendedprice * (1 - l_discount)) AS revenue "
+            "FROM customer, orders, lineitem "
+            "WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey "
+            "AND l_orderkey = o_orderkey AND o_orderdate < date '1995-03-15' "
+            "AND l_shipdate > date '1995-03-15' "
+            "GROUP BY l_orderkey, o_orderdate, o_shippriority")
+DDL_VIEW_QUERY = ("SELECT l_orderkey, revenue, o_orderdate FROM rev "
+                  "WHERE o_shippriority = 0 AND revenue > 1000 "
+                  "ORDER BY revenue DESC, o_orderdate, l_orderkey LIMIT 20")
+
+
+def _timed(s, sql):
+    """`sql` on one session; (result, ms on the host clock ending in a sync)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = s.execute(sql)
+    torch.cuda.synchronize()
+    return rs, (time.perf_counter() - t0) * 1000.0
+
+
+def _both_raise(s_gpu, s_cpu, sql, what) -> str:
+    """`sql` must raise the same error type on the card's and the CPU's session."""
+    from galaxysql_tpu_torch.utils import errors
+    kinds = []
+    for s in (s_gpu, s_cpu):
+        try:
+            s.execute(sql)
+            kinds.append(None)
+        except errors.TddlError as e:
+            kinds.append(type(e).__name__)
+    if kinds[0] is None or kinds[0] != kinds[1]:
+        raise AssertionError(f"{what}: expected the same error on both, got {kinds}")
+    return kinds[0]
+
+
+def _recyclebin(s) -> list:
+    """SHOW RECYCLEBIN without the parts that hold a clock (the bin name's
+    millisecond and counter suffix, the drop time)."""
+    import re
+    return [(re.sub(r"_\d+_\d+$", "", r[0]), r[1], r[2])
+            for r in s.execute("SHOW RECYCLEBIN").rows]
+
+
+def _store_bytes(inst, store) -> int:
+    c = inst.device_cache
+    with c._lock:
+        return sum(v.numel() * v.element_size() for k, v in c._map.items()
+                   if k[0] == store.uid)
+
+
+def _gsi_rows(inst, schema, table, cols):
+    """The visible rows of `cols` in a store, as one sorted int64 array."""
+    import numpy as np
+    ts = inst.tso.next_timestamp()
+    parts = []
+    for p in inst.store(schema, table).partitions:
+        with p.lock:
+            vis = p.visible_mask(ts)
+            parts.append(np.stack([p.lanes[c][vis].astype(np.int64) for c in cols], 1))
+    a = np.concatenate(parts)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def _ddl_alter(gs, cs, out):
+    """(a) ADD COLUMN on orders, an UPDATE of the new columns, a join grouped by
+    them (cold, then warm), DROP COLUMN and Q3, RENAME there and back."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    gens = [p.lane_gen for p in gi.store("tpch", "orders").partitions]
+    _r, out["add_columns_ms"] = _both(
+        gs, cs, "ALTER TABLE orders ADD COLUMN o_band INT DEFAULT 3, "
+        "ADD COLUMN o_tag VARCHAR(8) DEFAULT 'x'", "ALTER TABLE ADD COLUMN")
+    if not all(p.lane_gen > g for p, g in
+               zip(gi.store("tpch", "orders").partitions, gens)):
+        raise AssertionError("ADD COLUMN left a partition's lane_gen as it was")
+    out["device_cache_bytes_after_alter"] = gi.device_cache.nbytes
+    r, out["update_ms"] = _both(gs, cs, "UPDATE orders SET o_band = 5, o_tag = 'y' "
+                                "WHERE o_orderkey < 600000", "UPDATE of the new columns")
+    out["updated_rows"] = r.affected
+    before = _launch_counts()
+    r, out["join_first_run_ms"] = _both(gs, cs, DDL_JOIN, "join grouped by new columns")
+    _r, out["join_warm_ms"] = _timed(gs, DDL_JOIN)
+    if _r.rows != r.rows:
+        raise AssertionError("the warm run of the grouped join gave other rows")
+    after = _launch_counts()
+    out["join_launches"] = {k: after[k] - before[k] for k in after}
+    out["join_rows"] = r.rows
+    _r, out["drop_column_ms"] = _both(gs, cs, "ALTER TABLE orders DROP COLUMN o_tag",
+                                      "ALTER TABLE DROP COLUMN")
+    _r, out["q3_after_drop_ms"] = _both(gs, cs, SQL[3], "Q3 after DROP COLUMN")
+    _r, out["rename_ms"] = _both(gs, cs, "ALTER TABLE nation RENAME TO nation_x",
+                                 "RENAME")
+    _both_raise(gs, cs, "SELECT count(*) FROM nation", "nation after RENAME")
+    _both(gs, cs, "SELECT count(*) FROM nation_x", "the renamed table")
+    _both(gs, cs, "ALTER TABLE nation_x RENAME TO nation", "RENAME back")
+
+
+def _ddl_gsi(sb_gs, sb_cs, out):
+    """(b) a covering GSI on sbtest1: its build, the route, point selects through
+    it, DML kept in it under COMMIT and ROLLBACK, its content, DROP INDEX."""
+    import numpy as np
+    import torch
+    gi, ci = sb_gs.instance, sb_cs.instance
+    _r, out["create_gsi_ms"] = _timed(
+        sb_gs, "CREATE GLOBAL INDEX g_k ON sbtest1 (k) COVERING (c)")
+    t0 = time.perf_counter()
+    sb_cs.execute("CREATE GLOBAL INDEX g_k ON sbtest1 (k) COVERING (c)")
+    out["create_gsi_cpu_ms"] = (time.perf_counter() - t0) * 1000.0
+    out["gsi_rows"] = gi.store("sbtest", "sbtest1$g_k").row_count()
+    for s in (sb_gs, sb_cs):
+        plan = "\n".join(r[0] for r in s.execute(
+            "EXPLAIN SELECT c FROM sbtest1 WHERE k = 17").rows)
+        if "sbtest1$g_k" not in plan:
+            raise AssertionError(f"the point select does not scan the GSI:\n{plan}")
+    out["explain"] = plan.splitlines()
+    rng = np.random.default_rng(7)
+    ks = [int(k) for k in rng.integers(1, OLTP_ROWS + 1, POINT_STATEMENTS // 4)]
+    n0 = gi.counters["point_plan_queries"]
+    out["gsi_point_select"] = _sequential(
+        sb_gs, sb_cs, [f"SELECT c FROM sbtest1 WHERE k = {k}" for k in ks])
+    out["gsi_point_select"]["point_plan_queries"] = gi.counters["point_plan_queries"] - n0
+    # one transaction committed, one rolled back: INSERT, an UPDATE of k, DELETE
+    for j, end in enumerate(("COMMIT", "ROLLBACK")):
+        for sql in ("BEGIN",
+                    f"INSERT INTO sbtest1 (id, k, c, pad) VALUES "
+                    f"({OLTP_ROWS + 5000 + j}, 17, 'gsi-{end}', 'p')",
+                    f"UPDATE sbtest1 SET k = 17 WHERE id = {ks[2 * j] % OLTP_ROWS + 1}",
+                    f"DELETE FROM sbtest1 WHERE id = {ks[2 * j + 1] % OLTP_ROWS + 1}",
+                    "SELECT c FROM sbtest1 WHERE k = 17 ORDER BY c", end,
+                    "SELECT c FROM sbtest1 WHERE k = 17 ORDER BY c"):
+            _r, ms = _both(sb_gs, sb_cs, sql, f"GSI maintenance ({end})")
+            out.setdefault(f"txn_{end.lower()}_ms", []).append(ms)
+    for inst, name in ((gi, "card"), (ci, "cpu")):
+        if not np.array_equal(_gsi_rows(inst, "sbtest", "sbtest1", ["k", "c", "id"]),
+                              _gsi_rows(inst, "sbtest", "sbtest1$g_k",
+                                        ["k", "c", "id"])):
+            raise AssertionError(f"the GSI's rows differ from sbtest1's ({name})")
+    out["gsi_equals_base"] = True
+    # a full scan of the GSI table puts its lanes in the device cache
+    _both(sb_gs, sb_cs, "SELECT count(*), sum(k) FROM sbtest1$g_k", "GSI table scan")
+    gstore = gi.store("sbtest", "sbtest1$g_k")
+    out["gsi_cache_bytes"] = _store_bytes(gi, gstore)
+    bytes0 = gi.device_cache.nbytes
+    _r, out["drop_index_ms"] = _both(sb_gs, sb_cs, "DROP INDEX g_k ON sbtest1",
+                                     "DROP INDEX")
+    torch.cuda.synchronize()
+    out["device_cache_bytes_drop_index"] = [bytes0, gi.device_cache.nbytes]
+    if not out["gsi_cache_bytes"] or gi.device_cache.nbytes >= bytes0 or \
+            _store_bytes(gi, gstore):
+        raise AssertionError(f"DROP INDEX left the GSI's lanes in the device cache: "
+                             f"{out['device_cache_bytes_drop_index']}")
+    for s in (sb_gs, sb_cs):
+        if ("sbtest1$g_k",) in s.execute("SHOW TABLES").rows or \
+                "sbtest1$g_k" in "".join(r[0] for r in s.execute(
+                    "EXPLAIN SELECT c FROM sbtest1 WHERE k = 17").rows):
+            raise AssertionError("sbtest1$g_k survived DROP INDEX")
+
+
+def _ddl_views(gs, cs, out):
+    """(c) CREATE VIEW over a Q3-shaped join and group-by, a query on it, DROP."""
+    _r, out["create_view_ms"] = _both(gs, cs, DDL_VIEW, "CREATE VIEW")
+    r, out["view_query_first_ms"] = _both(gs, cs, DDL_VIEW_QUERY, "SELECT from the view")
+    _r, out["view_query_warm_ms"] = _timed(gs, DDL_VIEW_QUERY)
+    out["view_rows"] = len(r.rows)
+    _both(gs, cs, "DROP VIEW rev", "DROP VIEW")
+    _both_raise(gs, cs, DDL_VIEW_QUERY, "the dropped view")
+
+
+def _ddl_mdl(gs, cs, out):
+    """(e) Q18 on the card in one thread, ALTER TABLE lineitem ADD COLUMN in a
+    second: the ALTER waits for the query's shared MDL; both succeed."""
+    import threading
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    want, out["q18_before_ms"] = _timed(gs, SQL[18])
+    lock = gi.mdl._lock("tpch.lineitem")
+    box = {}
+
+    def run(key, fn):
+        try:
+            box[key] = fn()
+        except BaseException as e:  # carried to the main thread
+            box[key] = e
+    for attempt in range(3):
+        q_sess, a_sess = Session(gi, "tpch"), Session(gi, "tpch")
+        box.clear()
+        query = threading.Thread(target=run, args=(
+            "query", lambda: (q_sess.execute(SQL[18]).rows, time.perf_counter())))
+        query.start()
+        while lock.readers == 0 and query.is_alive():
+            time.sleep(0.0002)
+        t_submit = time.perf_counter()
+        alter = threading.Thread(target=run, args=(
+            "alter", lambda: (a_sess.execute(
+                "ALTER TABLE lineitem ADD COLUMN l_x INT"), time.perf_counter())))
+        alter.start()
+        waited = False
+        while alter.is_alive():
+            waited = waited or (lock.writers_waiting > 0 and lock.readers > 0)
+            time.sleep(0.0002)
+        query.join()
+        for k in ("query", "alter"):
+            if isinstance(box[k], BaseException):
+                raise box[k]
+        q_sess.close()
+        a_sess.close()
+        if waited:
+            break
+        gs.execute("ALTER TABLE lineitem DROP COLUMN l_x")
+    else:
+        raise AssertionError("the ALTER never overlapped the running Q18")
+    if box["query"][0] != want.rows:
+        raise AssertionError("Q18 beside the ALTER gave other rows than before")
+    out["mdl"] = {"alter_waited": True, "attempts": attempt + 1,
+                  "query_end_after_submit_ms": (box["query"][1] - t_submit) * 1000.0,
+                  "alter_end_after_submit_ms": (box["alter"][1] - t_submit) * 1000.0}
+    cs.execute("ALTER TABLE lineitem ADD COLUMN l_x INT")
+    _both(gs, cs, "SELECT count(*), sum(l_x) FROM lineitem WHERE l_x IS NULL",
+          "the added column")
+    _both(gs, cs, "ALTER TABLE lineitem DROP COLUMN l_x", "DROP COLUMN l_x")
+
+
+def _ddl_recycle(gs, cs, out):
+    """(d) DROP TABLE into the bin, FLASHBACK, DROP and PURGE; a scratch database
+    created, filled and dropped."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    want, _ms = _both(gs, cs, SQL[3], "Q3 before DROP TABLE")
+    cust = gi.store("tpch", "customer")
+    cust_bytes = _store_bytes(gi, cust)
+    _r, out["drop_table_ms"] = _both(gs, cs, "DROP TABLE customer", "DROP TABLE")
+    bins = [_recyclebin(s) for s in (gs, cs)]
+    if bins[0] != bins[1] or bins[0] != [("__recycle__customer", "customer", "tpch")]:
+        raise AssertionError(f"SHOW RECYCLEBIN: {bins}")
+    out["recyclebin"] = bins[0]
+    out["q3_dropped_error"] = _both_raise(gs, cs, SQL[3], "Q3 after DROP TABLE")
+    _r, out["flashback_ms"] = _both(gs, cs, "FLASHBACK TABLE customer TO BEFORE DROP",
+                                    "FLASHBACK")
+    misses = gi.device_cache.misses
+    r, out["q3_after_flashback_ms"] = _both(gs, cs, SQL[3], "Q3 after FLASHBACK")
+    if r.rows != want.rows:
+        raise AssertionError("Q3 after FLASHBACK differs from Q3 before DROP TABLE")
+    out["flashback_device_cache"] = {
+        "store_bytes_before_drop": cust_bytes,
+        "store_bytes_after_flashback": _store_bytes(gi, gi.store("tpch", "customer")),
+        "q3_misses": gi.device_cache.misses - misses}
+    if gi.store("tpch", "customer") is not cust or \
+            _store_bytes(gi, cust) < cust_bytes or not cust_bytes:
+        raise AssertionError(f"FLASHBACK lost the store's cached lanes: "
+                             f"{out['flashback_device_cache']}")
+    cust_bytes = _store_bytes(gi, cust)
+    _both(gs, cs, "DROP TABLE customer", "DROP TABLE again")
+    bytes0 = gi.device_cache.nbytes
+    _r, out["purge_ms"] = _both(gs, cs, "PURGE RECYCLEBIN", "PURGE RECYCLEBIN")
+    out["device_cache_bytes_purge"] = [bytes0, gi.device_cache.nbytes, cust_bytes]
+    if gi.device_cache.nbytes != bytes0 - cust_bytes:
+        raise AssertionError(f"PURGE did not free the store's device-cache bytes: "
+                             f"{out['device_cache_bytes_purge']}")
+    if _recyclebin(gs) or _recyclebin(cs):
+        raise AssertionError("the bin is not empty after PURGE RECYCLEBIN")
+    t0 = time.perf_counter()
+    for sql in ("CREATE DATABASE ddl_scratch",
+                "CREATE TABLE ddl_scratch.t (a BIGINT, b VARCHAR(4)) "
+                "PARTITION BY HASH(a) PARTITIONS 4",
+                "INSERT INTO ddl_scratch.t VALUES (1, 'a'), (2, 'b'), (3, NULL)",
+                "SELECT count(*), max(a) FROM ddl_scratch.t",
+                "DROP DATABASE ddl_scratch"):
+        _both(gs, cs, sql, sql)
+    out["scratch_database_ms"] = (time.perf_counter() - t0) * 1000.0
+    _both_raise(gs, cs, "SELECT * FROM ddl_scratch.t", "the dropped database")
+
+
+def ddl_phase(tpch_gpu, tpch_cpu, sb_gpu, sb_cpu):
+    """ALTER, GSI, views, MDL and the recycle bin on the instances already loaded;
+    every statement on the card and on the CPU, every result equal.  Launch counters
+    are read at the phase's end."""
+    from galaxysql_tpu_torch.server.session import Session
+    t0 = time.perf_counter()
+    gs, cs = Session(tpch_gpu, "tpch"), Session(tpch_cpu, "tpch")
+    sb_gs, sb_cs = Session(sb_gpu, "sbtest"), Session(sb_cpu, "sbtest")
+    out = {}
+    steps = (("alter", lambda: _ddl_alter(gs, cs, out)),
+             ("gsi", lambda: _ddl_gsi(sb_gs, sb_cs, out)),
+             ("views", lambda: _ddl_views(gs, cs, out)),
+             ("mdl", lambda: _ddl_mdl(gs, cs, out)),
+             ("recycle_bin", lambda: _ddl_recycle(gs, cs, out)))
+    try:
+        for name, fn in steps:
+            s0 = time.perf_counter()
+            fn()
+            out.setdefault("step_ms", {})[name] = (time.perf_counter() - s0) * 1000.0
+            say("ddl_step", step=name, ms=out["step_ms"][name])
+        # (f) the job records agree
+        for card, cpu in ((gs, cs), (sb_gs, sb_cs)):
+            for sql in ("SHOW DDL", "SELECT job_id, schema_name, ddl_sql, state FROM "
+                        "information_schema.ddl_jobs ORDER BY job_id"):
+                _both(card, cpu, sql, sql)
+        out["ddl_jobs"] = [list(r) for r in gs.execute(
+            "SELECT job_id, state, ddl_sql FROM information_schema.ddl_jobs "
+            "ORDER BY job_id").rows] + [list(r) for r in sb_gs.execute(
+                "SELECT job_id, state, ddl_sql FROM information_schema.ddl_jobs "
+                "ORDER BY job_id").rows]
+    finally:
+        for x in (gs, cs, sb_gs, sb_cs):
+            x.close()
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the ddl phase: {missing}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1697,6 +2045,19 @@ def main(argv=None) -> int:
     say("wire", nvidia_smi=card, **line)
     for entry in kernels:
         entry["new_phases"]["launches"]["wire"] = line["launches"][entry["name"]]
+
+    _reset_launches()
+    ddl_capture = kernel_capture()
+    try:
+        line = ddl_phase(inst, cpu_inst, sb_gpu, sb_cpu)
+    finally:
+        ddl_capture.restore()
+    print(card, flush=True)
+    say("ddl", nvidia_smi=card, **line)
+    ddl_inputs = check_new_phase_inputs(ddl_capture, {"ddl": line["launches"]})
+    for entry in kernels:
+        entry["new_phases"]["launches"]["ddl"] = line["launches"][entry["name"]]
+        entry["new_phases"]["ddl_input"] = ddl_inputs[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

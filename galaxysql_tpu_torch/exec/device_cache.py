@@ -8,7 +8,9 @@ lanes over PCIe per query.
 
 Concurrent misses on one key are single-flighted, as in the reference: the first
 thread runs the builder and the transfer, the others wait on a per-key event and
-take its entry; a failed build frees the claim for the next waiter.  Every miss
+take its entry; a failed build frees the claim for the next waiter.  A table that
+leaves for good (DROP without the recycle bin, PURGE, DROP DATABASE, DROP INDEX of a
+GSI) drops its entries at once (`evict_store`) instead of waiting for LRU eviction.  Every miss
 adds its bytes and one transfer to `TRANSFER_STATS` (EXPLAIN ANALYZE's
 `-- transfer:` line).
 """
@@ -101,6 +103,16 @@ class DeviceCache:
     @property
     def nbytes(self) -> int:
         return self._bytes
+
+    def evict_store(self, uid: int) -> int:
+        """Drop every entry of the store `uid` (a table that left for good);
+        returns the bytes freed."""
+        freed = 0
+        with self._lock:
+            for key in [k for k in self._map if k[0] == uid]:
+                freed += _nbytes(self._map.pop(key))
+            self._bytes -= freed
+        return freed
 
     def clear(self):
         with self._lock:

@@ -330,26 +330,29 @@ class BatchScheduler:
         errors: List[Optional[BaseException]] = [None] * len(uvals)
 
         by_pid = self._route(tm, key_col, uvals, errors, len(store.partitions))
-        for pid in sorted(by_pid):
-            part = store.partitions[pid]
-            if part.num_rows == 0:
-                continue
-            sub = by_pid[pid]
-            ids, offs = batched_point_lookup(
-                store, pid, part, key_col, tm.version, [uvals[i] for i in sub],
-                snap, 0, device_cache=inst.device_cache)
-            if ids.size == 0:
-                continue
-            with part.lock:
-                lists = [Column(part.lanes[cname][ids], part.valid[cname][ids],
-                                tm.column(cname).dtype,
-                                tm.dictionaries.get(cname.lower())).to_pylist()
-                         for cname in out_cols]
-            flat = list(zip(*lists))
-            for j, u in enumerate(sub):
-                seg = flat[offs[j]:offs[j + 1]]
-                if seg:
-                    results[u].extend(seg)
+        # the shared MDL around the partition loop, as a sequential point lookup
+        # holds it: column DDL cannot swap lanes under the flush
+        with inst.mdl.shared({inst.store_key(tm.schema, tm.name)}):
+            for pid in sorted(by_pid):
+                part = store.partitions[pid]
+                if part.num_rows == 0:
+                    continue
+                sub = by_pid[pid]
+                ids, offs = batched_point_lookup(
+                    store, pid, part, key_col, tm.version, [uvals[i] for i in sub],
+                    snap, 0, device_cache=inst.device_cache)
+                if ids.size == 0:
+                    continue
+                with part.lock:
+                    lists = [Column(part.lanes[cname][ids], part.valid[cname][ids],
+                                    tm.column(cname).dtype,
+                                    tm.dictionaries.get(cname.lower())).to_pylist()
+                             for cname in out_cols]
+                flat = list(zip(*lists))
+                for j, u in enumerate(sub):
+                    seg = flat[offs[j]:offs[j + 1]]
+                    if seg:
+                        results[u].extend(seg)
 
         poison = FAIL_POINTS.value(FP_BATCH_POISON_KEY)
         if poison is not None:

@@ -4,8 +4,8 @@ Every view of the reference is a table of the `information_schema` schema, so th
 binder knows its columns.  The views whose data the port holds are filled from live
 state before any query that reads the schema (`refresh`): schemata, tables, columns,
 statistics, partitions, processlist, engines, global_variables, session_variables,
-plan_cache and batch_stats.  They are ordinary stores, read by the planner and the
-operators on the instance's device.  A query that reads any other view raises
+plan_cache, batch_stats and ddl_jobs.  They are ordinary stores, read by the planner
+and the operators on the instance's device.  A query that reads any other view raises
 `NotSupportedError` naming the module it waits for (`check_ported`), and never
 returns an empty table.
 """
@@ -161,7 +161,6 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "ddl_jobs": "ddl/jobs.py (ROADMAP Queue 1 item 3)",
     "node_info": "durable metadb boot, Instance(data_dir) (ROADMAP Queue 1 item 4)",
     "columnar_replica": "storage/columnar.py (ROADMAP Queue 1 item 9)",
     "fragment_cache": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
@@ -196,7 +195,7 @@ def ensure_tables(instance):
         tm = TableMeta("information_schema", name,
                        [ColumnMeta(c, t) for c, t in cols])
         instance.catalog.add_table(tm, if_not_exists=True)
-        instance.register_table(tm)
+        instance.register_table(tm, persist=False)
 
 
 def check_ported(rel: L.RelNode):
@@ -281,6 +280,8 @@ def refresh(instance, session=None):
     with pc._lock:
         entries = [[k[0], k[1][:120], p.workload, 0] for k, p in pc._map.items()]
     fill("plan_cache", entries)
+    fill("ddl_jobs", instance.metadb.query(
+        "SELECT job_id, schema_name, ddl_sql, state FROM ddl_engine"))
     # the reference adds the DML batcher's rows, which wait for server/dml_batch.py
     fill("batch_stats", ([n, float(v)] for n, v in
                          instance.batch_scheduler.stats_rows()))

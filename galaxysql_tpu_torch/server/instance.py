@@ -11,6 +11,12 @@ users and grants) with its `config_listener` and the `privileges` over it, the
 registered point plans of the sequential fast path (`point_plans`, cleared past 512
 entries as in the reference), the cross-session `batch_scheduler` and `counters`
 (`point_plan_queries`, `batched_point_queries`; `count` adds to them).
+
+DDL: `mdl` (statement-scope metadata locks, `meta/mdl.py`), `ddl_engine` (the
+job engine over the metadb's `ddl_engine` tables, `ddl/jobs.py`) and `recycle` (the
+recycle bin, `server/maintain.py`).  `register_table` saves the new table to the
+metadb; `drop_store` removes a table's store, its metadb row and its lanes in the
+device cache.
 """
 
 from __future__ import annotations
@@ -23,13 +29,16 @@ from typing import Dict
 import torch
 
 from galaxysql_tpu_torch.config.params import ConfigParams
+from galaxysql_tpu_torch.ddl.jobs import DdlEngine
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
 from galaxysql_tpu_torch.meta.catalog import Catalog, TableMeta
 from galaxysql_tpu_torch.meta.gms import ConfigListener, MetaDb
+from galaxysql_tpu_torch.meta.mdl import MdlManager
 from galaxysql_tpu_torch.meta.privileges import PrivilegeManager
 from galaxysql_tpu_torch.meta.tso import TimestampOracle
 from galaxysql_tpu_torch.plan.planner import Planner
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
+from galaxysql_tpu_torch.server.maintain import RecycleBin
 from galaxysql_tpu_torch.storage.table_store import TableStore
 
 
@@ -59,6 +68,9 @@ class Instance:
         self.counters: Dict[str, int] = {"point_plan_queries": 0,
                                          "batched_point_queries": 0}
         self.batch_scheduler = BatchScheduler(self)
+        self.mdl = MdlManager()
+        self.ddl_engine = DdlEngine(self)
+        self.recycle = RecycleBin(self)
 
     def _reload_global_config(self, *_):
         """Pull the SET GLOBAL values persisted in the metadb (the config
@@ -72,10 +84,20 @@ class Instance:
     def store_key(self, schema: str, table: str) -> str:
         return f"{schema.lower()}.{table.lower()}"
 
-    def register_table(self, tm: TableMeta) -> TableStore:
+    def register_table(self, tm: TableMeta, persist: bool = True) -> TableStore:
         store = TableStore(tm)
         self.stores[self.store_key(tm.schema, tm.name)] = store
+        if persist:
+            self.metadb.save_table(tm)
         return store
+
+    def drop_store(self, schema: str, table: str):
+        """The table leaves for good: its store, its metadb row and the lanes the
+        device cache holds for it."""
+        store = self.stores.pop(self.store_key(schema, table), None)
+        self.metadb.drop_table(schema, table)
+        if store is not None:
+            self.device_cache.evict_store(store.uid)
 
     def install_store(self, store: TableStore):
         """Replace a table's store (e.g. one built by `storage.transfer`)."""

@@ -1,9 +1,16 @@
 """Session: statement dispatch (trimmed port of `galaxysql_tpu/server/session.py`).
 
 Handles CREATE DATABASE, USE, CREATE TABLE, ANALYZE TABLE, SELECT, INSERT, UPDATE,
-DELETE, TRUNCATE TABLE, BEGIN / COMMIT / ROLLBACK, and the session statements: SET
-(session, user and global scope), SHOW (`server/show_handlers.py`), DESCRIBE,
-EXPLAIN [ANALYZE], CREATE USER, DROP USER, GRANT and REVOKE.  Every statement is
+DELETE, TRUNCATE TABLE, BEGIN / COMMIT / ROLLBACK, the session statements (SET in
+session, user and global scope, SHOW (`server/show_handlers.py`), DESCRIBE, EXPLAIN
+[ANALYZE], CREATE USER, DROP USER, GRANT, REVOKE, KILL) and DDL: DROP TABLE (into the
+recycle bin while ENABLE_RECYCLEBIN is on), FLASHBACK TABLE ... TO BEFORE DROP [RENAME
+TO], PURGE RECYCLEBIN / PURGE TABLE, DROP DATABASE, CREATE [OR REPLACE] VIEW, DROP
+VIEW, ALTER TABLE (ADD/DROP COLUMN, ADD/DROP INDEX, RENAME), CREATE/DROP [UNIQUE|GLOBAL]
+INDEX and ADVISE INDEX.  ALTER TABLE and the index statements run as jobs of the
+instance's `ddl_engine` (`ddl/jobs.py`); the recycle bin and the advisor are
+`server/maintain.py`.  A statement the port does not take yet raises
+`NotSupportedError` naming the ROADMAP item it waits for.  Every statement is
 authorized as in the reference (`_authorize` against the instance's
 `PrivilegeManager`); a query that reads `information_schema` refreshes its views
 first (`server/information_schema.py`).  A SELECT goes parse -> bind ->
@@ -21,8 +28,21 @@ touched partition for the group); otherwise the sequential fast path runs, as in
 the reference: a host key-get over the row store (the partition's sorted key index,
 visibility at the session's snapshot, the output columns gathered on the host), with
 no operator and no device work.  The reference's privilege check on this path is
-kept; its shared MDL and archive check are absent, as the port has neither (MDL comes
-with DDL).
+kept; its archive check waits for `storage/archive.py` (ROADMAP Queue 1 item 9).
+
+Metadata locks are the reference's: every query, DML statement, sequential point
+lookup and EXPLAIN ANALYZE holds a shared MDL (`meta/mdl.py`) on each table it reads
+or writes for the statement's execution, and the schema-mutating DDL tasks take the
+exclusive one, which waits for those statements and holds new ones back.  One repair
+on the reference: a statement does not take a second shared lock on a table it
+already holds (INSERT ... SELECT from its own table), which in the reference waits
+behind a queued exclusive request until that request times out.
+
+Global secondary indexes are maintained on the write path as in the reference:
+INSERT appends the new rows to every WRITE_ONLY or PUBLIC GSI's table, DELETE stamps
+the GSI rows of the deleted primary keys, UPDATE does both; the GSI rows carry the
+base rows' (possibly provisional) stamps and register with the transaction, so COMMIT
+and ROLLBACK finalize or undo them with the base rows.
 
 Transactions are the reference's TSO transactions under snapshot isolation: BEGIN
 takes a snapshot timestamp that doubles as the transaction id; writes inside carry
@@ -37,6 +57,7 @@ instance's device at the session's snapshot.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -45,12 +66,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from galaxysql_tpu_torch.chunk.batch import Column
+from galaxysql_tpu_torch.ddl.jobs import alter_table_job, create_index_job, drop_index_job
 from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
-                                              PartitionRouter, SINGLE, TableMeta)
+                                              PartitionRouter, SINGLE, TableMeta, ViewDef)
 from galaxysql_tpu_torch.meta.statistics import analyze_store
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.binder import Binder, Scope
@@ -59,6 +81,7 @@ from galaxysql_tpu_torch.plan.physical import (ExecContext, annotate_explain,
 from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode
 from galaxysql_tpu_torch.server import information_schema
 from galaxysql_tpu_torch.server.instance import Instance
+from galaxysql_tpu_torch.server.maintain import advise_indexes
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
 from galaxysql_tpu_torch.sql.parameterize import DecimalParam, parameterize
@@ -102,6 +125,90 @@ class Transaction:
         self.deleted: List[Tuple[Any, int, np.ndarray, np.ndarray]] = []
 
 
+def gsi_targets(instance, tm):
+    """(index, GSI table, GSI store) of each WRITE_ONLY or PUBLIC global index."""
+    out = []
+    for i in tm.indexes:
+        if i.global_index and i.status in ("WRITE_ONLY", "PUBLIC"):
+            gsi_name = f"{tm.name}${i.name}"
+            try:
+                gtm = instance.catalog.table(tm.schema, gsi_name)
+                out.append((i, gtm, instance.store(tm.schema, gsi_name)))
+            except (errors.UnknownTableError, KeyError):
+                pass
+    return out
+
+
+def gsi_write_rows(instance, tm, base_store, pid: int, start: int, n: int,
+                   ts: int, txn):
+    """Propagate base rows appended at [start, start+n) of partition `pid` into
+    every GSI store, with the same (possibly provisional) stamp; inside a
+    transaction they register with it."""
+    targets = gsi_targets(instance, tm)
+    if not targets or n == 0:
+        return
+    p = base_store.partitions[pid]
+    for _i, gtm, gstore in targets:
+        cols = gtm.column_names()
+        lanes = {c: p.lanes[c][start:start + n] for c in cols}
+        valid = {c: p.valid[c][start:start + n] for c in cols}
+        pids = gstore._route(lanes)
+        # the GSI store's append_lock: another writer's appends must not fall
+        # inside this writer's (before, append) range
+        with gstore.append_lock:
+            for gp in np.unique(pids):
+                sel = np.nonzero(pids == gp)[0]
+                gpart = gstore.partitions[int(gp)]
+                before = gpart.num_rows
+                gpart.append({k: v[sel] for k, v in lanes.items()},
+                             {k: v[sel] for k, v in valid.items()}, ts)
+                if txn is not None:
+                    txn.inserted.append((gstore, int(gp), before, sel.size))
+
+
+def _pk_void(arrays: List[np.ndarray]) -> np.ndarray:
+    """Parallel key arrays packed into one comparable lane (exact tuple matching:
+    per-column isin would match the cross product of composite keys)."""
+    return np.rec.fromarrays(arrays)
+
+
+def gsi_delete(instance, tm, base_store, pid: int, row_ids: np.ndarray,
+               ts: int, txn):
+    """Stamp the GSI rows of deleted base rows, matched on the primary key."""
+    if not tm.primary_key:
+        return
+    targets = gsi_targets(instance, tm)
+    if not targets:
+        return
+    p = base_store.partitions[pid]
+    del_keys = _pk_void([p.lanes[c][row_ids] for c in tm.primary_key])
+    for _i, gtm, gstore in targets:
+        if not all(gtm.has_column(c) for c in tm.primary_key):
+            continue
+        for gp_id, gp in enumerate(gstore.partitions):
+            vis = gp.visible_mask(None)
+            keys = _pk_void([gp.lanes[c] for c in tm.primary_key])
+            ids = np.nonzero(vis & np.isin(keys, del_keys))[0]
+            if ids.size:
+                if txn is not None:
+                    txn.deleted.append((gstore, gp_id, ids, gp.end_ts[ids].copy()))
+                gp.delete_rows(ids, ts)
+
+
+# statements of the reference the port does not take yet -> the ROADMAP item
+_WAITING_STMTS = {
+    ast.LoadData: "LOAD DATA (ROADMAP Queue 1 item 7)",
+    ast.CheckTable: "utils/fastchecker.py (ROADMAP Queue 1 item 16)",
+    ast.Rebalance: "ddl/rebalance.py and server/balancer.py (ROADMAP Queue 1 item 16)",
+    ast.CreateCclRule: "utils/ccl.py (ROADMAP Queue 1 item 16)",
+    ast.DropCclRule: "utils/ccl.py (ROADMAP Queue 1 item 16)",
+    ast.CreateSlo: "server/slo.py (ROADMAP Queue 1 item 16)",
+    ast.DropSlo: "server/slo.py (ROADMAP Queue 1 item 16)",
+    ast.BaselineStmt: "the plan-baseline surface of the operations plane "
+                      "(ROADMAP Queue 1 item 16)",
+}
+
+
 class Session:
     _SELECT_RE = __import__("re").compile(
         r"^\s*(?:/\*.*?\*/\s*)*select\b", __import__("re").I | __import__("re").S)
@@ -116,6 +223,8 @@ class Session:
         self.user_vars: Dict[str, Any] = {}
         self.user = "root"
         self.last_trace: List[str] = []
+        # tables this session's running statement holds a shared MDL on
+        self._mdl_held: set = set()
         instance.sessions[self.conn_id] = self
 
     def execute(self, sql: str, params: Optional[list] = None) -> ResultSet:
@@ -136,6 +245,25 @@ class Session:
                 self._rollback()
         finally:
             self.instance.sessions.pop(self.conn_id, None)
+
+    @contextlib.contextmanager
+    def _mdl_shared(self, keys):
+        """Statement-scope shared MDL on `keys` (`Instance.store_key`s).  A key the
+        statement already holds is not taken again: behind a queued exclusive
+        request a second shared request waits for the DDL that waits for the
+        first."""
+        new = set(keys) - self._mdl_held
+        with self.instance.mdl.shared(new):
+            self._mdl_held |= new
+            try:
+                yield
+            finally:
+                self._mdl_held -= new
+
+    def _scan_keys(self, rel) -> set:
+        """MDL keys of every table a plan scans."""
+        return {self.instance.store_key(n.table.schema, n.table.name)
+                for n in L.walk(rel) if isinstance(n, L.Scan)}
 
     def _lock_fn(self, name: str, vals: list):
         raise errors.NotSupportedError(f"{name.upper()} is not supported by this engine")
@@ -211,13 +339,36 @@ class Session:
             return self._run_dml(stmt, params)
         if isinstance(stmt, ast.CreateTable):
             return self._run_create_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return self._run_drop_table(stmt)
+        if isinstance(stmt, ast.CreateView):
+            return self._run_create_view(stmt)
+        if isinstance(stmt, ast.DropView):
+            return self._run_drop_view(stmt)
         if isinstance(stmt, ast.TruncateTable):
             return self._run_truncate(stmt)
         if isinstance(stmt, ast.AnalyzeTable):
             return self._run_analyze(stmt)
         if isinstance(stmt, ast.CreateDatabase):
             self.instance.catalog.create_schema(stmt.name, stmt.if_not_exists)
+            self.instance.metadb.save_schema(stmt.name)
             return ok()
+        if isinstance(stmt, ast.DropDatabase):
+            self.instance.recycle.purge_schema(stmt.name)
+            self._drop_database(stmt)
+            return ok()
+        if isinstance(stmt, ast.FlashbackTable):
+            return self._run_flashback_table(stmt)
+        if isinstance(stmt, ast.PurgeRecycleBin):
+            return ok(affected=self.instance.recycle.purge(stmt.name))
+        if isinstance(stmt, ast.AdviseIndex):
+            return self._run_advise_index(stmt, params)
+        if isinstance(stmt, ast.AlterTable):
+            return self._run_alter(stmt, sql)
+        if isinstance(stmt, (ast.CreateIndex, ast.DropIndex)):
+            return self._run_index_ddl(stmt, sql)
+        if isinstance(stmt, ast.KillStmt):
+            return ok(info="kill acknowledged")
         if isinstance(stmt, ast.UseDb):
             self.instance.catalog.schema(stmt.name)  # validates
             self.schema = stmt.name
@@ -256,6 +407,10 @@ class Session:
             self.instance.privileges.revoke(stmt.user, stmt.privileges, schema,
                                             stmt.table)
             return self._sync_privileges()
+        waits = _WAITING_STMTS.get(type(stmt))
+        if waits is not None:
+            raise errors.NotSupportedError(
+                f"statement {type(stmt).__name__} waits for {waits}")
         raise errors.NotSupportedError(f"statement {type(stmt).__name__}")
 
     def _sync_privileges(self) -> ResultSet:
@@ -296,8 +451,9 @@ class Session:
         if info:
             information_schema.check_ported(plan.rel)
         ctx = self._exec_context(plan, params)
-        batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
-        rows = batch.to_pylist()
+        with self._mdl_shared(self._scan_keys(plan.rel)):
+            batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
+            rows = batch.to_pylist()
         self.last_trace = ctx.trace
         if plan.workload == "TP":
             self._register_point_plan(plan)
@@ -414,7 +570,8 @@ class Session:
             brs = self._try_batched_point(pp, p, lane_val, schema)
             if brs is not None:
                 return brs
-            rows = self._point_get(tm, store, key_col, lane_val, pp["out_cols"])
+            with self._mdl_shared({self.instance.store_key(tm.schema, tm.name)}):
+                rows = self._point_get(tm, store, key_col, lane_val, pp["out_cols"])
         self.last_trace = [f"point-plan {pp['table']}.{key_col}",
                            f"elapsed={time.perf_counter() - t0:.3f}s workload=TP"]
         self.instance.count("point_plan_queries")
@@ -519,16 +676,20 @@ class Session:
     # -- DML ------------------------------------------------------------------------
 
     def _run_dml(self, stmt, params: Optional[list]) -> ResultSet:
-        if isinstance(stmt, ast.Insert):
-            if stmt.ignore or stmt.replace or stmt.on_dup_update:
-                raise errors.NotSupportedError(
-                    "INSERT IGNORE, REPLACE and ON DUPLICATE KEY UPDATE")
-            return self._run_insert(stmt, params)
-        if stmt.order_by or stmt.limit is not None:
-            raise errors.NotSupportedError("ORDER BY or LIMIT in UPDATE and DELETE")
-        if isinstance(stmt, ast.Update):
-            return self._run_update(stmt, params)
-        return self._run_delete(stmt, params)
+        """DML under the statement-scope shared MDL of every table it names."""
+        keys = {self.instance.store_key(t.schema or self._require_schema(), t.table)
+                for t in self._stmt_tables(stmt)}
+        with self._mdl_shared(keys):
+            if isinstance(stmt, ast.Insert):
+                if stmt.ignore or stmt.replace or stmt.on_dup_update:
+                    raise errors.NotSupportedError(
+                        "INSERT IGNORE, REPLACE and ON DUPLICATE KEY UPDATE")
+                return self._run_insert(stmt, params)
+            if stmt.order_by or stmt.limit is not None:
+                raise errors.NotSupportedError("ORDER BY or LIMIT in UPDATE and DELETE")
+            if isinstance(stmt, ast.Update):
+                return self._run_update(stmt, params)
+            return self._run_delete(stmt, params)
 
     def _run_insert(self, stmt: ast.Insert, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
@@ -562,9 +723,10 @@ class Session:
             ranges = [(pid, before[pid], p.num_rows - before[pid])
                       for pid, p in enumerate(store.partitions)
                       if p.num_rows - before[pid]]
-        if txn is not None:
-            for pid, start, added in ranges:
+        for pid, start, added in ranges:
+            if txn is not None:
                 txn.inserted.append((store, pid, start, added))
+            gsi_write_rows(self.instance, tm, store, pid, start, added, ts, txn)
         tm.bump_version()
         self.instance.catalog.version += 1
         return ok(affected=n)
@@ -632,6 +794,7 @@ class Session:
                 # not atomic against other sessions
                 self._check_write_conflict(p, ids)
                 old_end = p.end_ts[ids].copy()
+                gsi_delete(self.instance, tm, store, pid, ids, ts, txn)
                 p.delete_rows(ids, ts)
             if txn is not None:
                 txn.deleted.append((store, pid, ids, old_end))
@@ -691,11 +854,13 @@ class Session:
                     new_lanes[cm.name] = d
                     new_valid[cm.name] = vm.copy()
                 old_end = p.end_ts[ids].copy()
+                gsi_delete(self.instance, tm, store, pid, ids, ts, txn)
                 start = p.num_rows
                 p.update_rows(ids, new_lanes, new_valid, ts)
                 if txn is not None:
                     txn.deleted.append((store, pid, ids, old_end))
                     txn.inserted.append((store, pid, start, ids.size))
+                gsi_write_rows(self.instance, tm, store, pid, start, ids.size, ts, txn)
             n += ids.size
         tm.bump_version()
         self.instance.catalog.version += 1
@@ -751,7 +916,100 @@ class Session:
                            stmt.comment)
         if self.instance.catalog.add_table(tm, stmt.if_not_exists):
             self.instance.register_table(tm)
+            self.instance.metadb.save_schema(schema)
+            self.instance.metadb.notify(f"table.{schema}.{tm.name}")
         return ok()
+
+    # -- DDL ------------------------------------------------------------------------
+
+    def _run_drop_table(self, stmt: ast.DropTable) -> ResultSet:
+        schema = self._require_schema()
+        for name in stmt.names:
+            s = name.schema or schema
+            if self.instance.config.get("ENABLE_RECYCLEBIN", self.vars):
+                try:
+                    tm = self.instance.catalog.table(s, name.table)
+                except errors.TddlError:
+                    tm = None
+                if tm is not None and self.instance.recycle.drop(tm):
+                    continue  # parked in the bin: FLASHBACK can restore it
+            if self.instance.catalog.drop_table(s, name.table, stmt.if_exists):
+                self.instance.drop_store(s, name.table)
+        return ok()
+
+    def _drop_database(self, stmt: ast.DropDatabase):
+        cat = self.instance.catalog
+        key = stmt.name.lower()
+        if key in cat.schemas:
+            for t in list(cat.schemas[key].tables.values()):
+                self.instance.drop_store(t.schema, t.name)
+        cat.drop_schema(stmt.name, stmt.if_exists)
+        self.instance.metadb.drop_schema(stmt.name)
+        if self.schema and self.schema.lower() == key:
+            self.schema = None
+
+    def _run_flashback_table(self, stmt: ast.FlashbackTable) -> ResultSet:
+        schema = stmt.name.schema or self._require_schema()
+        restored = self.instance.recycle.flashback(schema, stmt.name.table,
+                                                   stmt.rename_to)
+        return ok(info=f"restored as {restored}")
+
+    def _run_create_view(self, stmt: ast.CreateView) -> ResultSet:
+        schema = stmt.name.schema or self._require_schema()
+        # the view must bind against the current metadata, and an explicit column
+        # list must match the SELECT's output arity
+        plan = self.instance.planner.bind_statement(stmt.select, schema, [], self)
+        if stmt.columns is not None and len(stmt.columns) != len(plan.display_names):
+            raise errors.TddlError(
+                f"View '{stmt.name.table}' column list length mismatch")
+        v = ViewDef(schema, stmt.name.table, stmt.columns, stmt.select_sql)
+        self.instance.catalog.add_view(v, or_replace=stmt.or_replace)
+        self.instance.metadb.save_view(v)
+        return ok()
+
+    def _run_drop_view(self, stmt: ast.DropView) -> ResultSet:
+        schema_default = self._require_schema()
+        for nm in stmt.names:
+            schema = nm.schema or schema_default
+            if self.instance.catalog.drop_view(schema, nm.table, stmt.if_exists):
+                self.instance.metadb.drop_view(schema, nm.table)
+        return ok()
+
+    def _run_alter(self, stmt: ast.AlterTable, sql: str) -> ResultSet:
+        schema = stmt.table.schema or self._require_schema()
+        self.instance.catalog.table(schema, stmt.table.table)  # validate early
+        if any(a[0] == "repartition" for a in stmt.actions):
+            raise errors.NotSupportedError(
+                "ALTER TABLE ... PARTITION BY waits for ddl/repartition.py "
+                "(ROADMAP Queue 1 item 16)")
+        if any(a[0] in ("split_partition", "merge_partitions", "move_partition")
+               for a in stmt.actions):
+            raise errors.NotSupportedError(
+                "SPLIT/MERGE/MOVE PARTITION waits for ddl/rebalance.py "
+                "(ROADMAP Queue 1 item 16)")
+        job = alter_table_job(schema, sql, stmt.table.table, stmt.actions)
+        self.instance.ddl_engine.submit_and_run(job)
+        return ok()
+
+    def _run_index_ddl(self, stmt, sql: str) -> ResultSet:
+        schema = stmt.table.schema or self._require_schema()
+        if isinstance(stmt, ast.CreateIndex):
+            idx = stmt.index
+            job = create_index_job(schema, sql, stmt.table.table,
+                                   idx.name or f"i_{idx.columns[0]}", idx.columns,
+                                   idx.unique, idx.global_index, idx.covering)
+        else:
+            job = drop_index_job(schema, sql, stmt.table.table, stmt.name)
+        self.instance.ddl_engine.submit_and_run(job)
+        return ok()
+
+    def _run_advise_index(self, stmt: ast.AdviseIndex,
+                          params: Optional[list]) -> ResultSet:
+        schema = self._require_schema()
+        plan = self.instance.planner.bind_statement(stmt.select, schema,
+                                                    params or [], self)
+        return ResultSet(["TABLE", "COLUMN", "REASON", "SUGGESTION"],
+                         [dt.VARCHAR] * 4, advise_indexes(self.instance, plan))
 
     # -- session statements ----------------------------------------------------------
 
@@ -793,7 +1051,8 @@ class Session:
             ctx.collect_stats = True
             x0 = dict(TRANSFER_STATS)
             t0 = time.time()
-            batch = run_to_batch(build_operator(plan.rel, ctx))
+            with self._mdl_shared(self._scan_keys(plan.rel)):
+                batch = run_to_batch(build_operator(plan.rel, ctx))
             elapsed = time.time() - t0
             rows = batch.num_live()
             lines = annotate_explain(plan.rel, ctx.op_stats)

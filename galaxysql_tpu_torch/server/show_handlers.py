@@ -2,7 +2,8 @@
 
 The kinds whose data the port holds, with the reference's columns and text: databases,
 tables, columns, create table, variables, processlist, index / indexes / keys,
-warnings, trace, status, engines, charset, collation and batch stats.  Every other
+warnings, trace, status, engines, charset, collation, batch stats, the recycle bin
+and the DDL jobs.  Every other
 kind raises `NotSupportedError` naming the module it waits for.
 """
 
@@ -17,8 +18,6 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "recyclebin": "DROP TABLE with the recycle bin (ROADMAP Queue 1 item 3)",
-    "ddl": "ddl/jobs.py (ROADMAP Queue 1 item 3)",
     "binlog": "txn/cdc.py (ROADMAP Queue 1 item 5)",
     "columnar_replica": "storage/columnar.py (ROADMAP Queue 1 item 9)",
     "fragment": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
@@ -75,6 +74,15 @@ def handle(session, stmt: ast.Show):
                        if not t.name.startswith("__recycle__"))
         names = _like_filter(names, stmt.like)
         return ResultSet([f"Tables_in_{schema}"], [dt.VARCHAR], [(n,) for n in names])
+    if kind == "recyclebin":
+        return ResultSet(["NAME", "ORIGINAL_NAME", "SCHEMA_NAME", "DROP_TIME"],
+                         [dt.VARCHAR] * 4, inst.recycle.rows())
+    if kind == "ddl":
+        rows = inst.metadb.query(
+            "SELECT job_id, schema_name, state, ddl_sql FROM ddl_engine "
+            "ORDER BY job_id DESC LIMIT 50")
+        return ResultSet(["Job_id", "Schema", "State", "SQL"],
+                         [dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR], rows)
     if kind == "columns":
         return session._describe(ast.TableName([stmt.target]))
     if kind == "create_table":

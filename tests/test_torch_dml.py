@@ -416,7 +416,16 @@ def test_statements_the_port_takes_now():
     s.execute("USE d")
     s.execute("CREATE TABLE t (a BIGINT)")
     for sql in ("INSERT INTO t VALUES (1)", "UPDATE t SET a = 2", "DELETE FROM t",
-                "TRUNCATE TABLE t", "BEGIN", "COMMIT", "BEGIN", "ROLLBACK"):
+                "TRUNCATE TABLE t", "BEGIN", "COMMIT", "BEGIN", "ROLLBACK",
+                "ALTER TABLE t ADD COLUMN b INT DEFAULT 1, ADD INDEX i_b (b)",
+                "CREATE GLOBAL INDEX g_a ON t (a) COVERING (b)", "DROP INDEX g_a ON t",
+                "CREATE UNIQUE INDEX u_b ON t (b)", "ALTER TABLE t DROP INDEX u_b",
+                "ALTER TABLE t RENAME TO t2", "ALTER TABLE t2 RENAME TO t",
+                "ALTER TABLE t DROP COLUMN b", "CREATE VIEW v AS SELECT a FROM t",
+                "CREATE OR REPLACE VIEW v AS SELECT a + 1 AS b FROM t", "DROP VIEW v",
+                "ADVISE INDEX SELECT a FROM t WHERE a = 1", "DROP TABLE t",
+                "SHOW RECYCLEBIN", "FLASHBACK TABLE t TO BEFORE DROP", "DROP TABLE t",
+                "PURGE RECYCLEBIN", "CREATE DATABASE e", "DROP DATABASE e"):
         s.execute(sql)
     with pytest.raises(errors.NotSupportedError):
         s.execute("INSERT INTO t VALUES (1) ON DUPLICATE KEY UPDATE a = 3")

@@ -115,7 +115,9 @@ def test_set_scopes_then_show_variables():
     assert t.pi.metadb.kv_get("config.param.ENABLE_BATCH_SCHEDULER") == \
         t.ji.metadb.kv_get("config.param.ENABLE_BATCH_SCHEDULER")
     t.pi.config.set_instance("ENABLE_BATCH_SCHEDULER", 1)
-    assert t.pi.config_listener.poll() == ["config.params"]
+    # (CREATE TABLE notifies its table's data id, as in the reference)
+    assert sorted(t.pi.config_listener.poll()) == \
+        ["config.params", "table.s.b", "table.s.h", "table.s.one"]
     assert t.pi.config.get("ENABLE_BATCH_SCHEDULER") in (0, False)
     # a second session sees the global value, not the first one's session value
     t.run("SHOW VARIABLES LIKE 'max_exec%'", name="other")
@@ -130,6 +132,7 @@ SHOWS = [
     "SHOW PROCESSLIST", "SHOW FULL PROCESSLIST", "SHOW WARNINGS", "SHOW STATUS",
     "SHOW ENGINES", "SHOW CHARSET", "SHOW COLLATION", "SHOW COLLATION LIKE 'utf8mb4%'",
     "SHOW TABLES FROM nowhere", "SHOW CREATE TABLE nope",
+    "SHOW RECYCLEBIN", "SHOW DDL",
 ]
 
 
@@ -186,7 +189,7 @@ def test_describe_and_show_create(twin, table):
 
 
 VIEWS = ["schemata", "tables", "columns", "statistics", "partitions", "processlist",
-         "engines", "global_variables", "session_variables", "plan_cache"]
+         "engines", "global_variables", "session_variables", "plan_cache", "ddl_jobs"]
 
 
 @pytest.mark.parametrize("view", VIEWS)
