@@ -29,7 +29,9 @@ own, its launch counters set to 0 just before its timed runs and read just after
 
 7. analyzed_tpch: `ANALYZE TABLE` on the eight TPC-H tables, then all 22 queries twice
    each (the second run timed), with each query's launches and join order; rows must
-   equal the port on the CPU over the same lanes, also ANALYZEd;
+   equal the port on the CPU over the same lanes, also ANALYZEd (ANALYZED_CPU_SKIP's
+   rows are held to the CPU's in the dml phase, before its refresh, on ANALYZEd
+   copies of the same lanes);
 8. tpcds: `tpcds.generate(--sf)` loaded with `insert_pylists`, ANALYZEd, the 10
    queries twice each; rows must equal the port on the CPU;
 9. window: window queries over `orders` and `lineitem` (every `WindowSpec` kind and
@@ -39,14 +41,17 @@ own, its launch counters set to 0 just before its timed runs and read just after
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
 order, and every result must be equal (of the 22 queries after the refresh, the
-DML_CPU_QUERIES):
+DML_CPU_QUERIES; Q1, Q3 and Q18 are held to W's rows inside the refresh, which the
+CPU gave for the same rows):
 
 10. dml: (a) TPC-H's refresh functions in a transaction, after ANALYZE: session W
     runs BEGIN, RF1 (SF x 1,500 new orders and their lineitems,
     `storage/tpch_refresh.py`) as a few multi-row INSERTs and RF2 (SF x 1,500 orders
     and their lineitems deleted); Q1, Q3 and Q18 in W see its writes, in a second
-    session R the snapshot from before; COMMIT; then all 22 queries twice each (the
-    second run timed), DML_CPU_QUERIES of them also on the CPU.  (b) A rollback: an
+    session R the snapshot from before (R's rows held to its rows from before the
+    refresh, which the CPU gave); COMMIT; then all 22 queries twice each (the
+    second run timed), DML_CPU_QUERIES of them also on the CPU and Q1, Q3 and Q18
+    held to W's rows inside the refresh.  (b) A rollback: an
     UPDATE of lineitem and a DELETE of orders, Q4 and Q6 inside, ROLLBACK, and Q4
     and Q6 equal their rows from before.  (c) A write conflict: W updates an order
     in a transaction, R's update of the same row raises `TransactionError`, W
@@ -124,12 +129,38 @@ card's and the CPU's instance in the same order and every result must be equal:
     set to 0 at the phase's start and read at its end; all four kernels must have
     launched.
 
-Floats in 7-10 and 13 compare as `tests/test_tpcds.py` compares them (relative
+Then durable state, last.  The main path's card instance has kept its metadb on disk,
+in a temporary directory, since the load (the CPU twin's is in memory):
+
+14. durable: (0) `customer`, which the ddl phase purged, is created again on both
+    from its lanes as loaded.  (a) DURABLE_SESSIONS sessions commit DURABLE_TXNS
+    transactions each of `UPDATE orders SET o_comment = ... WHERE o_orderkey = ...`
+    on keys of their own, under `TRANSACTION_POLICY = 'TSO'` and then `'XA'`, and one
+    session DURABLE_SEQUENTIAL more one after another: COMMIT p50/p99, transactions a
+    second, the group-commit gate's rows a flush; every acknowledged transaction's
+    tx-log row must read DONE at its commit timestamp.  (b) Left unresolved on the
+    card: txn A (XA, RF1, stopped by FP_BEFORE_COMMIT with PREPARED logged), txn B
+    (RF2 of other orders, prepared, COMMITTED logged at a fresh TSO, its stamps not
+    applied) and `ALTER TABLE supplier ADD COLUMN s_flag BIGINT DEFAULT 7` stopped by
+    FP_BEFORE_DDL_TASK; the CPU twin rolls A back, commits B and completes the
+    ALTER.  (c) `Instance.save()`, timed, and the bytes on disk by table.  (d)
+    `Instance(data_dir=...)` on the card, its boot split into the catalog, the store
+    loads, `recover_persisted` (which must return A rolled back and B committed) and
+    `ddl_engine.recover`; the tx log must read ABORTED for A and DONE at B's commit
+    timestamp, no stamp may be negative, `ddl_jobs` must show the ALTER done and
+    `node_info` the booted node.  (e) On the booted instance Q1, Q3, Q5 and Q6, first
+    run (every lane shipped again) and warm, equal to the CPU twin; every write of
+    (a) read back with its comment; `s_flag` 7 on both.  One `durable_step` line per
+    step with its ms.  Launch counters are set to 0 at the phase's start and read at
+    its end; all four kernels must have launched.  The directory is removed at the
+    end of the script.
+
+Floats in 7-10, 13 and 14 compare as `tests/test_tpcds.py` compares them (relative
 and absolute 1e-6); every other value must be equal.  The largest input the phases
-7-9 gave each kernel, and apart from it the largest input the dml phase gave it and
-the largest the ddl phase gave it, are then held against the kernel's plain version
+7-9 gave each kernel, and apart from it the largest input each of the dml, ddl and
+durable phases gave it, are then held against the kernel's plain version
 CHECK_REPEATS times and timed, beside the main path's, in the kernel's `new_phases`
-entry (`dml_input`, `ddl_input`).
+entry (`dml_input`, `ddl_input`, `durable_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -141,9 +172,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
@@ -167,7 +200,15 @@ WIRE_SERIAL_STATEMENTS = 400  # point selects of one connection alone, batching 
 WIRE_POOL = 80              # the wire server's statement threads (>= every connection)
 # the queries after the refresh that are also run on the CPU and compared: all 22
 # put the script past 600 s on the card's machine, so the CPU side is cut to these
-DML_CPU_QUERIES = (1, 3, 4, 5, 6, 10, 12, 18, 21)
+# (Q1, Q3 and Q18 are held to W's rows inside the refresh, which the CPU gave)
+DML_CPU_QUERIES = (4, 5, 6, 10, 12, 21)
+# analyzed_tpch queries held to the CPU by the dml phase instead, before its refresh,
+# on the same ANALYZEd lanes (Q18 alone is 30-50 s of CPU)
+ANALYZED_CPU_SKIP = (18,)
+DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phase
+DURABLE_TXNS = 8            # transactions each of them commits, per policy
+DURABLE_SEQUENTIAL = 64     # transactions one session commits one after another
+DURABLE_QUERIES = (1, 3, 5, 6)
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
                     "galaxysql_tpu/kernels/pallas_join.py:123"),
@@ -193,12 +234,14 @@ def card_line() -> str:
 
 # -- main path ------------------------------------------------------------------
 
-def load_tpch(sf: float, device="cuda"):
+def load_tpch(sf: float, device="cuda", data_dir=None):
+    """TPC-H at `sf` in an instance on `device`, its metadb and checkpoints in
+    `data_dir` (in memory without one)."""
     from galaxysql_tpu_torch.server.instance import Instance
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import tpch
     data = tpch.generate(sf)
-    inst = Instance(device=device)
+    inst = Instance(data_dir=data_dir, device=device)
     s = Session(inst)
     s.execute("CREATE DATABASE tpch")
     s.execute("USE tpch")
@@ -767,12 +810,13 @@ def join_order(rel) -> str:
     return kids[0] if len(kids) == 1 else ("[" + ", ".join(kids) + "]" if kids else "")
 
 
-def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None):
+def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=None):
     """Each query twice on the card (the second run timed, launch counters set to 0
     just before the timed runs and read just after), once on the CPU; rows compared.
     With `reset=False` neither the launch counters nor the peak memory are set back:
     they then count from the caller's own start.  `cpu_queries` names the queries
-    compared on the CPU (default: all)."""
+    compared on the CPU (default: all); `held` maps queries to rows they must equal
+    instead, rows the CPU gave for the same data earlier."""
     import torch
     first, timed, per_query, rows_n, plans = {}, {}, {}, {}, {}
     rows = {}
@@ -802,11 +846,14 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None):
     for name, sql in queries.items():
         plans[name] = join_order(s_gpu.instance.planner.plan_select(
             sql, schema, [], s_gpu).rel)
-        if cpu_queries is not None and name not in cpu_queries:
+        if held and name in held:
+            want = held[name]
+        elif cpu_queries is not None and name not in cpu_queries:
             continue
-        t0 = time.perf_counter()
-        want = s_cpu.execute(sql).rows
-        cpu_ms[name] = (time.perf_counter() - t0) * 1000.0
+        else:
+            t0 = time.perf_counter()
+            want = s_cpu.execute(sql).rows
+            cpu_ms[name] = (time.perf_counter() - t0) * 1000.0
         ok, f, w = _rows_match(rows[name], want)
         if not ok:
             raise AssertionError(f"{name}: rows on the card differ from the port on the "
@@ -821,7 +868,8 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None):
 
 def analyzed_tpch(inst):
     """Fresh card and CPU instances over the main path's TPC-H lanes, both ANALYZEd
-    before any query (so no plan baseline predates the statistics)."""
+    before any query (so no plan baseline predates the statistics).  The rows of the
+    ANALYZED_CPU_SKIP queries are returned for the dml phase to hold to the CPU."""
     from galaxysql_tpu_torch.plan import logical as L
     from galaxysql_tpu_torch.storage import tpch
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
@@ -829,11 +877,14 @@ def analyzed_tpch(inst):
     ci, cs = _copy_instance(inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cpu")
     analyze_ms = _analyze(gs, tpch.TABLE_ORDER)
     _analyze(cs, tpch.TABLE_ORDER)
-    line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)})
+    line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
+                     cpu_queries={f"Q{q}" for q in range(1, 23)
+                                  if q not in ANALYZED_CPU_SKIP})
     line["analyze_ms"] = analyze_ms
     line["q5_plan_analyzed"] = L.explain(
         gi.planner.plan_select(SQL[5], "tpch", [], gs).rel).splitlines()
-    return line, (gi, gs, ci, cs)
+    held = {q: gs.execute(SQL[q]).rows for q in ANALYZED_CPU_SKIP}
+    return line, (gi, gs, ci, cs), held
 
 
 def tpcds_phase(sf):
@@ -896,7 +947,7 @@ def _cache_line(inst, since):
             "device_cache_hits": c.hits - since[1]}
 
 
-def dml_tpch(src_inst, sf):
+def dml_tpch(src_inst, sf, held):
     """(a) refresh in a transaction, (b) rollback, (c) conflict, on fresh copies."""
     import numpy as np
     import torch
@@ -912,6 +963,10 @@ def dml_tpch(src_inst, sf):
     inside_q = (1, 3, 18)
     before = {q: _both(gr, cr, SQL[q], f"Q{q} before the refresh")[0].rows
               for q in inside_q}
+    for q, rows in held.items():  # analyzed_tpch's card rows, on the same lanes
+        if not _rows_match(rows, before[q])[0]:
+            raise AssertionError(f"Q{q}: analyzed_tpch's rows differ from the dml "
+                                 "phase's before its refresh")
     since = (gi.device_cache.misses, gi.device_cache.hits)
 
     keys = np.concatenate([p.lanes["o_orderkey"]
@@ -933,12 +988,14 @@ def dml_tpch(src_inst, sf):
     n_lines = len(rows["lineitem"]["l_orderkey"])
     if sum(affected[:len(rf1)]) != n_orders + n_lines or affected[-1] != n_orders:
         raise AssertionError(f"refresh affected {affected}")
-    inside_ms, outside_ms = {}, {}
+    inside, inside_ms, outside_ms = {}, {}, {}
     for q in inside_q:
         rs, inside_ms[f"Q{q}"] = _both(gw, cw, SQL[q], f"Q{q} inside the refresh")
+        inside[f"Q{q}"] = rs.rows  # after COMMIT the card's rows are held to these
         if q == 1 and rs.rows == before[q]:
             raise AssertionError("Q1 inside the refresh does not see its writes")
-        rs, outside_ms[f"Q{q}"] = _both(gr, cr, SQL[q], f"Q{q} in the other session")
+        # held to its rows from before the refresh, which the CPU gave too
+        rs, outside_ms[f"Q{q}"] = _timed(gr, SQL[q])
         if rs.rows != before[q]:
             raise AssertionError(f"Q{q} in the other session does not see the snapshot "
                                  "from before the refresh")
@@ -948,7 +1005,8 @@ def dml_tpch(src_inst, sf):
                 rf1_ms=rf1_ms, rf2_ms=rf2_ms, rf2_rows_deleted=affected[len(rf1):],
                 inside_ms=inside_ms, other_session_ms=outside_ms, commit_ms=commit_ms)
     after = run_phase(gw, cw, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
-                      reset=False, cpu_queries={f"Q{q}" for q in DML_CPU_QUERIES})
+                      reset=False, cpu_queries={f"Q{q}" for q in DML_CPU_QUERIES},
+                      held=inside)
     line["after_commit"] = {k: after[k] for k in (
         "query_ms", "first_run_ms", "launches_per_query", "result_rows", "cpu_ms",
         "float_cells", "max_float_rel_diff", "equal")}
@@ -1038,12 +1096,12 @@ def dml_oltp(seed=20241017):
     return line
 
 
-def dml_phase(inst, sf):
+def dml_phase(inst, sf, held):
     import torch
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    line = dml_tpch(inst, sf)
+    line = dml_tpch(inst, sf, held)
     line["oltp"] = dml_oltp()
     line["launches"] = _launch_counts()
     line["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
@@ -1942,6 +2000,363 @@ def ddl_phase(tpch_gpu, tpch_cpu, sb_gpu, sb_cpu):
     return out
 
 
+# -- durable state: a checkpoint and a boot on the card -----------------------------------
+
+def _commit_storm(gi, keys, policy):
+    """DURABLE_SESSIONS threads on instance `gi`, one `Session` each under
+    TRANSACTION_POLICY `policy`, each committing DURABLE_TXNS transactions of one
+    UPDATE of `o_comment` on an order of its own (sessions and threads are made
+    before the clock starts).  Returns the COMMIT latencies, (key, comment, txn id,
+    acknowledged commit ts) of every transaction and the wall seconds."""
+    import threading
+    from galaxysql_tpu_torch.server.session import Session
+    conns = [Session(gi, "tpch") for _ in range(DURABLE_SESSIONS)]
+    for c in conns:
+        c.execute(f"SET TRANSACTION_POLICY = '{policy}'")
+    lat = [[] for _ in conns]
+    done = [[] for _ in conns]
+    failures = []
+    start = threading.Barrier(len(conns) + 1)
+
+    def run(i):
+        try:
+            start.wait(timeout=120)
+            for j in range(DURABLE_TXNS):
+                key = int(keys[i * DURABLE_TXNS + j])
+                comment = f"durable-{policy.lower()}-{key}"
+                conns[i].execute("BEGIN")
+                rs = conns[i].execute(f"UPDATE orders SET o_comment = '{comment}' "
+                                      f"WHERE o_orderkey = {key}")
+                if rs.affected != 1:
+                    raise AssertionError(f"UPDATE of order {key} affected {rs.affected}")
+                txn_id = conns[i].txn.txn_id
+                t0 = time.perf_counter()
+                conns[i].execute("COMMIT")
+                lat[i].append((time.perf_counter() - t0) * 1000.0)
+                done[i].append((key, comment, txn_id, conns[i]._last_commit_ts))
+        except BaseException as e:  # carried to the main thread
+            failures.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(conns))]
+    for t in threads:
+        t.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for c in conns:
+        c.close()
+    if failures:
+        raise failures[0]
+    return [x for row in lat for x in row], [x for row in done for x in row], wall
+
+
+def _check_logged(gi, txn_id, cts):
+    got = gi.metadb.tx_log_get(txn_id)
+    if got != ("DONE", cts):
+        raise AssertionError(f"txn {txn_id} was acknowledged at {cts}; its tx-log row "
+                             f"is {got}")
+
+
+def _durable_writes(gs, cs, keys, out):
+    """(a) Acknowledged writes: DURABLE_SESSIONS sessions commit DURABLE_TXNS
+    transactions each, under the TSO policy and then under XA, and one session
+    DURABLE_SEQUENTIAL transactions one after another (TSO).  Each transaction's
+    tx-log row must read DONE at the commit timestamp its session acknowledged.  The
+    CPU twin runs the same transactions the same way, after the card.  Returns {key:
+    comment} of every acknowledged write."""
+    gi = gs.instance
+    acked = {}
+    n = DURABLE_SESSIONS * DURABLE_TXNS
+    for i, policy in enumerate(("TSO", "XA")):
+        batches0 = gi.counters["group_commit_batches"]
+        rows0 = gi.counters["group_committed_txns"]
+        part = keys[i * n:(i + 1) * n]
+        lat, done, wall = _commit_storm(gi, part, policy)
+        batches = gi.counters["group_commit_batches"] - batches0
+        rows = gi.counters["group_committed_txns"] - rows0
+        out[f"concurrent_{policy.lower()}"] = {
+            "sessions": DURABLE_SESSIONS, "transactions": len(done),
+            "commit_p50_ms": _pct(lat, 50), "commit_p99_ms": _pct(lat, 99),
+            "transactions_per_s": len(done) / wall, "seconds": wall,
+            # each transaction logs COMMITTED and DONE through the gate
+            "group_commit_batches": batches, "group_committed_rows": rows,
+            "rows_per_batch": rows / max(batches, 1)}
+        for key, comment, txn_id, cts in done:
+            _check_logged(gi, txn_id, cts)
+            acked[key] = comment
+        t0 = time.perf_counter()
+        _commit_storm(cs.instance, part, policy)
+        out[f"concurrent_{policy.lower()}"]["cpu_twin_seconds"] = time.perf_counter() - t0
+    lat = []
+    for key in keys[2 * n:2 * n + DURABLE_SEQUENTIAL]:
+        key, comment = int(key), f"durable-seq-{int(key)}"
+        for s in (gs, cs):
+            s.execute("BEGIN")
+            if s.execute(f"UPDATE orders SET o_comment = '{comment}' "
+                         f"WHERE o_orderkey = {key}").affected != 1:
+                raise AssertionError(f"UPDATE of order {key} missed")
+            txn_id = s.txn.txn_id
+            t0 = time.perf_counter()
+            s.execute("COMMIT")
+            if s is gs:
+                lat.append((time.perf_counter() - t0) * 1000.0)
+                _check_logged(gi, txn_id, s._last_commit_ts)
+        acked[key] = comment
+    out["sequential_tso"] = {"transactions": len(lat), "commit_p50_ms": _pct(lat, 50),
+                             "commit_p99_ms": _pct(lat, 99),
+                             "commit_mean_ms": statistics.mean(lat)}
+    return acked
+
+
+def _crashes(fn, *args) -> bool:
+    from galaxysql_tpu_torch.utils.failpoint import FailPointError
+    try:
+        fn(*args)
+    except FailPointError:
+        return True
+    return False
+
+
+def _durable_crash_state(gs, cs, sf, rf2, out):
+    """(b) Left in place, unresolved, for the checkpoint: txn A (XA: RF1, stopped by
+    FP_BEFORE_COMMIT with PREPARED logged), txn B (RF2, prepared, COMMITTED logged at
+    a fresh TSO, its stamps not applied) and an ALTER job stopped by
+    FP_BEFORE_DDL_TASK before its first task.  The CPU twin ends them as recovery
+    must: A rolled back, B committed, the ALTER done.  Returns (A's txn id, B's txn
+    id, B's commit ts)."""
+    import numpy as np
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import tpch_refresh
+    from galaxysql_tpu_torch.txn.xa import participants_of
+    from galaxysql_tpu_torch.utils.failpoint import (FAIL_POINTS, FP_BEFORE_COMMIT,
+                                                     FP_BEFORE_DDL_TASK)
+    gi = gs.instance
+    sa, ca = Session(gi, "tpch"), Session(cs.instance, "tpch")
+    sb, cb = Session(gi, "tpch"), Session(cs.instance, "tpch")
+    for s in (sa, ca):
+        s.execute("SET TRANSACTION_POLICY = 'XA'")
+    max_key = int(max(np.max(p.lanes["o_orderkey"])
+                      for p in gi.store("tpch", "orders").partitions if p.num_rows))
+    t0 = time.perf_counter()
+    _both(sa, ca, "BEGIN", "BEGIN")
+    for sql in tpch_refresh.rf1_statements(tpch_refresh.rf1_rows(sf, max_key)):
+        _both(sa, ca, sql, "RF1 in txn A")
+    txn_a = sa.txn.txn_id
+    FAIL_POINTS.arm(FP_BEFORE_COMMIT)
+    try:
+        if not _crashes(sa.execute, "COMMIT"):
+            raise AssertionError("txn A's COMMIT passed FP_BEFORE_COMMIT")
+    finally:
+        FAIL_POINTS.clear()
+    ca.execute("ROLLBACK")
+    if gi.metadb.tx_log_get(txn_a) != ("PREPARED", 0):
+        raise AssertionError(f"txn A logged {gi.metadb.tx_log_get(txn_a)}")
+    out["txn_a_ms"] = (time.perf_counter() - t0) * 1000.0
+
+    t0 = time.perf_counter()
+    _both(sb, cb, "BEGIN", "BEGIN")
+    for sql in tpch_refresh.rf2_statements(rf2):
+        _both(sb, cb, sql, "RF2 in txn B")
+    txn_b = sb.txn.txn_id
+    if not all(sp.prepare() for sp in participants_of(sb.txn)):
+        raise AssertionError("txn B's participants did not prepare")
+    gi.metadb.tx_log_put(txn_b, "PREPARED")
+    commit_b = gi.tso.next_timestamp()
+    gi.metadb.tx_log_put(txn_b, "COMMITTED", commit_b)
+    sb.txn = None  # the coordinator dies after its commit point, before stamping
+    cb.execute("COMMIT")
+    out["txn_b_ms"] = (time.perf_counter() - t0) * 1000.0
+
+    alter = "ALTER TABLE supplier ADD COLUMN s_flag BIGINT DEFAULT 7"
+    FAIL_POINTS.arm(FP_BEFORE_DDL_TASK, 1)
+    try:
+        if not _crashes(gs.execute, alter):
+            raise AssertionError("the ALTER passed FP_BEFORE_DDL_TASK")
+    finally:
+        FAIL_POINTS.clear()
+    cs.execute(alter)
+    out["ddl_jobs_running"] = [list(r) for r in gi.metadb.query(
+        "SELECT job_id, ddl_sql FROM ddl_engine WHERE state = 'RUNNING'")]
+    if [r[1] for r in out["ddl_jobs_running"]] != [alter]:
+        raise AssertionError(f"running DDL jobs: {out['ddl_jobs_running']}")
+    for s in (sa, ca, sb, cb):
+        s.close()
+    out["in_doubt"] = {"a": txn_a, "b": txn_b, "b_commit_ts": commit_b}
+    return txn_a, txn_b, commit_b
+
+
+def _disk_bytes(data_dir):
+    """Bytes on disk under `data_dir`, by table directory, and the metadb."""
+    import os
+    out = {}
+    for root, _dirs, files in os.walk(data_dir):
+        rel = os.path.relpath(root, data_dir)
+        for f in files:
+            key = f if rel == "." else rel.replace(os.sep, ".")
+            out[key] = out.get(key, 0) + os.path.getsize(os.path.join(root, f))
+    return out
+
+
+def _timed_boot(data_dir, device):
+    """`Instance(data_dir=..., device=...)`, with its boot split into the catalog, the
+    store loads, `recover_persisted` and `ddl_engine.recover` (each wrapped for the
+    call).  Returns (instance, whole ms, ms by part, each part's last result)."""
+    from galaxysql_tpu_torch.ddl.jobs import DdlEngine
+    from galaxysql_tpu_torch.meta.gms import MetaDb
+    from galaxysql_tpu_torch.server import instance as instance_mod
+    from galaxysql_tpu_torch.storage.table_store import TableStore
+    parts = {"catalog": (MetaDb, "load_catalog"), "store_loads": (TableStore, "load"),
+             "recover_persisted": (instance_mod, "recover_persisted"),
+             "ddl_recover": (DdlEngine, "recover")}
+    ms = {k: 0.0 for k in parts}
+    results = {}
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                results[name] = fn(*args, **kwargs)
+                return results[name]
+            finally:
+                ms[name] += (time.perf_counter() - t0) * 1000.0
+        return wrapped
+
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in parts.values()]
+    for name, (owner, attr) in parts.items():
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    try:
+        t0 = time.perf_counter()
+        inst = instance_mod.Instance(data_dir=data_dir, device=device)
+        whole = (time.perf_counter() - t0) * 1000.0
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    return inst, whole, ms, results
+
+
+def durable_phase(tpch_gpu, tpch_cpu, customer, sf):
+    """(0) customer again, (a) acknowledged writes, (b) the crash state, (c) the
+    checkpoint, (d) a boot on the card, (e) the main path on the booted instance."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import tpch, tpch_refresh, transfer
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gs, cs = Session(tpch_gpu, "tpch"), Session(tpch_cpu, "tpch")
+    out = {"data_dir_before": _disk_bytes(tpch_gpu.data_dir)}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out.setdefault("step_ms", {})[name] = (time.perf_counter() - t0) * 1000.0
+        say("durable_step", step=name, ms=out["step_ms"][name])
+        return r
+
+    def restore_customer():
+        # the ddl phase purged customer; Q3 and Q5 read it
+        parts, dicts = customer
+        for s in (gs, cs):
+            s.execute(tpch.TPCH_DDL["customer"])
+            s.instance.install_store(transfer.store_from_arrays(
+                s.instance.catalog.table("tpch", "customer"), parts, dicts))
+    step("customer", restore_customer)
+
+    orders = tpch_gpu.store("tpch", "orders")
+    live = np.concatenate([p.lanes["o_orderkey"][p.visible_mask(None)]
+                           for p in orders.partitions])
+    rf2 = tpch_refresh.rf2_keys(sf, live)
+    keys = np.random.default_rng(20241017).choice(
+        np.setdiff1d(live, rf2), 2 * DURABLE_SESSIONS * DURABLE_TXNS + DURABLE_SEQUENTIAL,
+        replace=False)
+    acked = step("acknowledged_writes", lambda: _durable_writes(gs, cs, keys, out))
+    txn_a, txn_b, commit_b = step("crash_state",
+                                  lambda: _durable_crash_state(gs, cs, sf, rf2, out))
+
+    def checkpoint():
+        t0 = time.perf_counter()
+        tpch_gpu.save()
+        out["save_ms"] = (time.perf_counter() - t0) * 1000.0
+        out["bytes_on_disk"] = _disk_bytes(tpch_gpu.data_dir)
+    step("checkpoint", checkpoint)
+    out["device_bytes_before_boot"] = int(torch.cuda.memory_allocated())
+
+    gi, boot_ms, parts_ms, results = step(
+        "boot", lambda: _timed_boot(tpch_gpu.data_dir, tpch_gpu.device))
+    out.update(boot_ms=boot_ms, boot_parts_ms=parts_ms, node_id=gi.node_id)
+    recovered = results["recover_persisted"]
+    out["recover_persisted"] = {str(k): v for k, v in recovered.items()}
+    if recovered != {txn_a: "rolled_back", txn_b: "committed"}:
+        raise AssertionError(f"recover_persisted returned {recovered}")
+    logged = (gi.metadb.tx_log_get(txn_a), gi.metadb.tx_log_get(txn_b))
+    out["tx_log_after_boot"] = [list(x) for x in logged]
+    if logged != (("ABORTED", 0), ("DONE", commit_b)):
+        raise AssertionError(f"tx log after the boot: {logged}")
+    negative = [k for k, st in gi.stores.items()
+                if any((p.begin_ts < 0).any() or (p.end_ts < 0).any()
+                       for p in st.partitions)]
+    if negative:
+        raise AssertionError(f"negative stamps left in {negative}")
+    out["ddl_resumed"] = results["ddl_recover"]
+    if results["ddl_recover"] != [r[0] for r in out["ddl_jobs_running"]]:
+        raise AssertionError(f"ddl_engine.recover resumed {results['ddl_recover']}")
+    g2 = Session(gi, "tpch")
+    cpu_ms = out["after_boot_cpu_ms"] = {}
+
+    def both(sql, what):
+        t0 = time.perf_counter()
+        rs, ms = _both(g2, cs, sql, what)
+        cpu_ms[what] = (time.perf_counter() - t0) * 1000.0 - ms
+        return rs, ms
+    try:
+        def after_boot():
+            jobs, out["ddl_jobs_ms"] = both(
+                "SELECT job_id, schema_name, ddl_sql, state FROM "
+                "information_schema.ddl_jobs ORDER BY job_id", "ddl_jobs")
+            if jobs.rows[-1][2:] != (out["ddl_jobs_running"][0][1], "DONE"):
+                raise AssertionError(f"the resumed ALTER: {jobs.rows[-1]}")
+            nodes = g2.execute("SELECT node_id, role FROM information_schema.node_info")
+            if (gi.node_id, "coordinator") not in nodes.rows:
+                raise AssertionError(f"node_info lacks this node: {nodes.rows}")
+            out["node_info"] = [list(r) for r in nodes.rows]
+            misses = gi.device_cache.misses
+            for q in DURABLE_QUERIES:
+                rs, first = both(SQL[q], f"Q{q} after the boot")
+                warm, ms = _timed(g2, SQL[q])
+                if warm.rows != rs.rows:
+                    raise AssertionError(f"Q{q}'s warm run after the boot differs")
+                out.setdefault("first_run_ms", {})[f"Q{q}"] = first
+                out.setdefault("query_ms", {})[f"Q{q}"] = ms
+            out["first_run_device_cache_misses"] = gi.device_cache.misses - misses
+            back, out["read_back_ms"] = both(
+                "SELECT o_orderkey, o_comment FROM orders WHERE o_comment "
+                "LIKE 'durable-%' ORDER BY o_orderkey", "acknowledged writes")
+            if dict(back.rows) != acked or len(back.rows) != len(acked):
+                raise AssertionError(f"{len(back.rows)} acknowledged writes read back "
+                                     f"of {len(acked)}, or with other comments")
+            out["acknowledged_writes"] = len(acked)
+            flag, _ms = both("SELECT count(*), min(s_flag), max(s_flag) "
+                             "FROM supplier", "s_flag")
+            out["s_flag"] = list(flag.rows[0])
+            if flag.rows[0][1:] != (7, 7) or \
+                    flag.rows[0][0] != tpch_gpu.store("tpch", "supplier").row_count():
+                raise AssertionError(f"s_flag after the boot: {flag.rows}")
+        step("after_boot", after_boot)
+    finally:
+        for s in (gs, cs, g2):
+            s.close()
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the durable phase: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1952,7 +2367,17 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(args, data_dir)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run(args, data_dir) -> int:
+    import torch
     from galaxysql_tpu_torch.kernels import cuda_agg, cuda_build, cuda_join
+    from galaxysql_tpu_torch.storage import transfer
 
     card = card_line()
     print(card, flush=True)
@@ -1964,7 +2389,7 @@ def main(argv=None) -> int:
         sources=list(cuda_build.SOURCES))
 
     t0 = time.perf_counter()
-    inst, s, table_rows = load_tpch(args.sf)
+    inst, s, table_rows = load_tpch(args.sf, data_dir=data_dir)
     say("load", sf=args.sf, seconds=round(time.perf_counter() - t0, 3), rows=table_rows)
 
     capture = kernel_capture()
@@ -1999,7 +2424,7 @@ def main(argv=None) -> int:
     phase_capture = kernel_capture()
     launches_by_phase = {}
     try:
-        line, (_gi, gs, _ci, cs) = analyzed_tpch(inst)
+        line, (_gi, gs, _ci, cs), held = analyzed_tpch(inst)
         line["q5_plan_no_stats"] = q5_no_stats.splitlines()
         launches_by_phase["analyzed_tpch"] = line["launches"]
         say("analyzed_tpch", sf=args.sf, **line)
@@ -2020,7 +2445,7 @@ def main(argv=None) -> int:
 
     dml_capture = kernel_capture()
     try:
-        line = dml_phase(inst, args.sf)
+        line = dml_phase(inst, args.sf, held)
     finally:
         dml_capture.restore()
     print(card, flush=True)
@@ -2046,6 +2471,7 @@ def main(argv=None) -> int:
     for entry in kernels:
         entry["new_phases"]["launches"]["wire"] = line["launches"][entry["name"]]
 
+    customer = transfer.arrays_of(inst.store("tpch", "customer"))  # ddl purges it
     _reset_launches()
     ddl_capture = kernel_capture()
     try:
@@ -2058,6 +2484,20 @@ def main(argv=None) -> int:
     for entry in kernels:
         entry["new_phases"]["launches"]["ddl"] = line["launches"][entry["name"]]
         entry["new_phases"]["ddl_input"] = ddl_inputs[entry["name"]]
+
+    _reset_launches()
+    durable_capture = kernel_capture()
+    try:
+        line = durable_phase(inst, cpu_inst, customer, args.sf)
+    finally:
+        durable_capture.restore()
+    print(card, flush=True)
+    say("durable", nvidia_smi=card, **line)
+    durable_inputs = check_new_phase_inputs(durable_capture,
+                                            {"durable": line["launches"]})
+    for entry in kernels:
+        entry["new_phases"]["launches"]["durable"] = line["launches"][entry["name"]]
+        entry["new_phases"]["durable_input"] = durable_inputs[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,10 +11,13 @@ metadb's users), the TLS upgrade, the compressed protocol, COM_QUERY
 packet until the change log (`txn/cdc.py`) is ported.
 
     python -m galaxysql_tpu_torch.net.server [--host H] [--port P] [--init-sql SQL]
-                                             [--announce] [--device cuda|cpu]
+                                             [--data-dir DIR] [--announce]
+                                             [--device cuda|cpu]
 
-serves a fresh instance on the card (`--device cpu` for the CPU); `--announce`
-prints `SERVER_READY <port>` once listening.
+serves an instance on the card (`--device cpu` for the CPU), booted from DIR's
+metadb and last checkpoint when `--data-dir` is given (a fresh in-memory one
+otherwise); `--announce` prints `SERVER_READY <port>` once listening.  The server
+never checkpoints: a checkpoint is `Instance.save()`, as in the reference.
 """
 
 from __future__ import annotations
@@ -404,10 +407,13 @@ def main(argv=None):  # pragma: no cover - manual entry point
                     help="semicolon-separated bootstrap statements")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the torch device every query runs on (default: cuda)")
+    ap.add_argument("--data-dir", default=None,
+                    help="the metadb and checkpoint directory to boot from "
+                         "(default: an in-memory metadb)")
     ap.add_argument("--announce", action="store_true",
                     help="print 'SERVER_READY <mysql_port>' once listening")
     args = ap.parse_args(argv)
-    inst = Instance(device=args.device)
+    inst = Instance(data_dir=args.data_dir, device=args.device)
     if args.init_sql:
         sess = Session(inst)
         sess.execute_all(args.init_sql)

@@ -4,10 +4,10 @@ Every view of the reference is a table of the `information_schema` schema, so th
 binder knows its columns.  The views whose data the port holds are filled from live
 state before any query that reads the schema (`refresh`): schemata, tables, columns,
 statistics, partitions, processlist, engines, global_variables, session_variables,
-plan_cache, batch_stats and ddl_jobs.  They are ordinary stores, read by the planner
-and the operators on the instance's device.  A query that reads any other view raises
-`NotSupportedError` naming the module it waits for (`check_ported`), and never
-returns an empty table.
+plan_cache, batch_stats, node_info (the metadb's node registry) and ddl_jobs.  They
+are ordinary stores, read by the planner and the operators on the instance's device.
+A query that reads any other view raises `NotSupportedError` naming the module it
+waits for (`check_ported`), and never returns an empty table.
 """
 
 from __future__ import annotations
@@ -161,7 +161,6 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "node_info": "durable metadb boot, Instance(data_dir) (ROADMAP Queue 1 item 4)",
     "columnar_replica": "storage/columnar.py (ROADMAP Queue 1 item 9)",
     "fragment_cache": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
     "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
@@ -280,6 +279,7 @@ def refresh(instance, session=None):
     with pc._lock:
         entries = [[k[0], k[1][:120], p.workload, 0] for k, p in pc._map.items()]
     fill("plan_cache", entries)
+    fill("node_info", instance.metadb.alive_nodes())
     fill("ddl_jobs", instance.metadb.query(
         "SELECT job_id, schema_name, ddl_sql, state FROM ddl_engine"))
     # the reference adds the DML batcher's rows, which wait for server/dml_batch.py

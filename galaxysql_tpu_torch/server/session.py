@@ -46,9 +46,12 @@ and ROLLBACK finalize or undo them with the base rows.
 
 Transactions are the reference's TSO transactions under snapshot isolation: BEGIN
 takes a snapshot timestamp that doubles as the transaction id; writes inside carry
-provisional (-txn_id) stamps that only the owner sees; COMMIT stamps them with one
-commit timestamp (`txn/xa.py`); a row another live transaction wrote, or one deleted
-after the snapshot, cannot be written again (first writer wins, `TransactionError`).
+provisional (-txn_id) stamps that only the owner sees; COMMIT logs the commit point
+in the metadb's transaction log through the group-commit gate, stamps them with its
+commit timestamp and logs DONE, or under `TRANSACTION_POLICY = 'XA'` runs the
+two-phase coordinator (`txn/xa.py`); a row another live transaction wrote, or one
+deleted after the snapshot, cannot be written again (first writer wins,
+`TransactionError`).
 The WHERE of UPDATE and DELETE and UPDATE's SET expressions run as the reference runs
 them, `ExprCompiler(np)` over the partitions' host lanes, so the stored lanes equal
 the reference's bit for bit; every read, including INSERT ... SELECT, runs on the
@@ -225,6 +228,8 @@ class Session:
         self.last_trace: List[str] = []
         # tables this session's running statement holds a shared MDL on
         self._mdl_held: set = set()
+        # commit timestamp of this session's last COMMIT
+        self._last_commit_ts = 0
         instance.sessions[self.conn_id] = self
 
     def execute(self, sql: str, params: Optional[list] = None) -> ResultSet:
@@ -643,18 +648,45 @@ class Session:
             self.txn = Transaction(self.instance.tso.next_timestamp())
 
     def _commit(self):
-        """The TSO policy: one commit timestamp, then every touched store's
-        participant stamps its provisional rows with it."""
         txn = self.txn
         self.txn = None
         if txn is None:
             return
+        self._commit_txn(txn)
+
+    def _commit_txn(self, txn):
+        """COMMIT under the session's TRANSACTION_POLICY.  'XA' runs the two-phase
+        coordinator (prepare, PREPARED, commit point, stamps, DONE).  The TSO
+        policy logs the commit point first, through the group-commit gate, then
+        stamps every touched store and logs DONE: a crash between the two is
+        resolved at boot as committed on every store, never half.  The
+        reference's `cdc.flush_txn` after a commit waits for the change log
+        (ROADMAP Queue 1 item 5)."""
+        policy = str(self.instance.config.get("TRANSACTION_POLICY", self.vars))
+        if policy.upper() == "XA":
+            try:
+                cts = self.instance.xa_coordinator.commit(txn)
+            except errors.TransactionError as e:
+                if getattr(e, "commit_ts", None) is not None and \
+                        (txn.inserted or txn.deleted):
+                    self.instance.catalog.version += 1
+                raise
+            if txn.inserted or txn.deleted:
+                self.instance.catalog.version += 1
+            self._last_commit_ts = cts
+            return
         parts = participants_of(txn)
-        commit_ts = self.instance.tso.next_timestamp()
-        for sp in parts:
-            sp.commit(commit_ts)
+        gate = self.instance.xa_coordinator.group_gate
+        if parts:
+            commit_ts = gate.commit_point(txn.txn_id)
+            for sp in parts:
+                sp.commit(commit_ts)
+            gate.log_state(txn.txn_id, "DONE", commit_ts)
+        else:
+            commit_ts = self.instance.tso.next_timestamp()
         if txn.inserted or txn.deleted:
             self.instance.catalog.version += 1
+        self._last_commit_ts = commit_ts
 
     def _rollback(self):
         txn = self.txn

@@ -8,7 +8,9 @@ route to partitions with the catalog's `PartitionRouter`, so a table loaded into
 port lands in the same partitions as in the reference.  The scan reads these lanes
 through the device cache (`plan/physical.py`).  Loading is `insert_pylists` (Python
 values, encoded as the reference encodes them) or `insert_arrays` (numpy columns);
-`storage/transfer.py` adopts the lanes of a reference store as they are.
+`storage/transfer.py` adopts the lanes of a reference store as they are.  `save` and
+`load` write and read the reference's checkpoint files, so a data directory crosses
+between the two packages in both directions.
 
 Writes follow the reference: an insert appends rows stamped with its timestamp, a
 delete stamps `end_ts` in place, an update does both (the new versions move to the
@@ -19,7 +21,10 @@ end of their partition).  Inside a transaction the stamps are provisional
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -283,6 +288,61 @@ class TableStore:
             p.lane_gen = old[p.pid].lane_gen
             p.invalidate_indexes()
         self.table.stats.row_count = 0
+
+    # -- persistence -------------------------------------------------------------
+
+    def save(self, directory: str):
+        """The reference's checkpoint format: one `np.savez_compressed` file
+        `p{pid}.npz` a partition (`lane__<col>`, `valid__<col>`, `begin_ts`,
+        `end_ts`) and `dictionaries.json` (each string column's values in code
+        order).  The partitions are written in parallel (zlib releases the GIL);
+        the files are those the reference writes one by one
+        (`tools/save_cost.py` times both orders)."""
+        os.makedirs(directory, exist_ok=True)
+        workers = min(len(self.partitions), os.cpu_count() or 1)
+        with ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
+            for _ in pool.map(lambda p: self.write_partition(directory, p),
+                              self.partitions):
+                pass
+        self.write_dictionaries(directory)
+
+    def write_partition(self, directory: str, p: Partition):
+        with p.lock:
+            arrays = {f"lane__{k}": v for k, v in p.lanes.items()}
+            arrays.update({f"valid__{k}": v for k, v in p.valid.items()})
+            arrays["begin_ts"] = p.begin_ts
+            arrays["end_ts"] = p.end_ts
+        np.savez_compressed(os.path.join(directory, f"p{p.pid}.npz"), **arrays)
+
+    def write_dictionaries(self, directory: str):
+        dicts = {k: d.values for k, d in self.table.dictionaries.items()}
+        with open(os.path.join(directory, "dictionaries.json"), "w") as f:
+            json.dump(dicts, f)
+
+    def load(self, directory: str):
+        """Read what `save` wrote (or the reference's `save`): the dictionary values
+        are encoded in their saved order, so the codes come back the same."""
+        dpath = os.path.join(directory, "dictionaries.json")
+        if os.path.exists(dpath):
+            with open(dpath) as f:
+                dicts = json.load(f)
+            for k, values in dicts.items():
+                d = self.table.dictionaries.get(k)
+                if d is not None:
+                    for v in values:
+                        d.encode_one(v)
+        for p in self.partitions:
+            path = os.path.join(directory, f"p{p.pid}.npz")
+            if not os.path.exists(path):
+                continue
+            with np.load(path, allow_pickle=False) as z, p.lock:
+                p.begin_ts = z["begin_ts"]
+                p.end_ts = z["end_ts"]
+                for c in self.table.columns:
+                    p.lanes[c.name] = z[f"lane__{c.name}"]
+                    p.valid[c.name] = z[f"valid__{c.name}"]
+                p.invalidate_indexes()  # the point path's key index is rebuilt
+        self.table.stats.row_count = self.row_count()
 
 
 def _encode_pylist(values: Sequence[Any], typ: dt.DataType,
