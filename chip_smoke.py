@@ -51,9 +51,10 @@ CPU gave for the same rows):
     session R the snapshot from before (R's rows held to its rows from before the
     refresh, which the CPU gave); COMMIT; then all 22 queries twice each (the
     second run timed), DML_CPU_QUERIES of them also on the CPU and Q1, Q3 and Q18
-    held to W's rows inside the refresh.  (b) A rollback: an
-    UPDATE of lineitem and a DELETE of orders, Q4 and Q6 inside, ROLLBACK, and Q4
-    and Q6 equal their rows from before.  (c) A write conflict: W updates an order
+    held to W's rows inside the refresh.  (b) A rollback, on the card alone: an
+    UPDATE of lineitem and a DELETE of orders (each with the ms of its binlog
+    capture), Q4 and Q6 inside, ROLLBACK, and Q4 and Q6 equal their rows from
+    before, which the CPU gave; the binlog holds nothing of it.  (c) A write conflict: W updates an order
     in a transaction, R's update of the same row raises `TransactionError`, W
     commits and R's retry succeeds.  (d) The sysbench `oltp_read_write` mix
     (`storage/sysbench.py`) on one 1,000,000-row table, OLTP_TRANSACTIONS
@@ -152,15 +153,44 @@ in a temporary directory, since the load (the CPU twin's is in memory):
     run (every lane shipped again) and warm, equal to the CPU twin; every write of
     (a) read back with its comment; `s_flag` 7 on both.  One `durable_step` line per
     step with its ms.  Launch counters are set to 0 at the phase's start and read at
-    its end; all four kernels must have launched.  The directory is removed at the
-    end of the script.
+    its end; all four kernels must have launched.  The booted instance's Q5 is not
+    run on the CPU twin (7-9 s without statistics): every visible row of the
+    columns Q5 reads must equal the twin's instead (`_same_visible`).  One
+    session's COMMIT carries the ms of its binlog write (`flush_txn`).
 
-Floats in 7-10, 13 and 14 compare as `tests/test_tpcds.py` compares them (relative
+Then the binlog, batched point writes and the async GSI applier, last, on the booted
+instance B and its CPU twin and on the point phase's `sbtest1` instances:
+
+15. cdc: (a) `g_k ON sbtest1 (k) COVERING (c)` again (the ddl phase dropped it);
+    CDC_SESSIONS sessions of CDC_PER_SESSION autocommit writes each, sysbench's
+    oltp_update_non_index (`SET c`), oltp_insert and oltp_delete on ids of their
+    own, once with ENABLE_DML_BATCHING = 1 and once with 0 on fresh ids: QPS,
+    p50/p99, members a flush, fallbacks and singletons, the applier's peak backlog
+    and lag; after its last write each session reads each of its keys through
+    `g_k` (EXPLAIN must scan `sbtest1$g_k`) and sees its writes; after the drain
+    `g_k`'s rows equal sbtest1's, and every touched id, count(*) and sum(k) equal
+    the CPU twin's (which runs the same sessions, batched).  (b) B's binlog after
+    `head` (its max seq): a replica R of lineitem, orders and customer made at
+    `head`; CDC_SESSIONS sessions × CDC_ORDERS_PER_SESSION batched writes on orders
+    (UPDATE of o_comment, a quarter matching Q13's '%special%requests%'; INSERT of
+    new orders; DELETE) and one transaction of CDC_TXN_UPDATES UPDATEs (one
+    commit timestamp); SHOW BINLOG EVENTS, `cdc.events_after_seq(head)` and
+    COM_BINLOG_DUMP through the port's `MySQLServer` in front of B must give the
+    same events; `cdc.replay` onto R stops after half of them, then the whole
+    stream applies the rest and a third call applies none; Q1, Q3 and Q13 on R
+    (first run, every lane shipped, and warm) equal B's; B's rows of every touched
+    key equal the CPU twin's.  One `cdc_step` line per step with its ms; launch
+    counters set to 0 at the phase's start and read at its end; all four kernels
+    must have launched.  (The checkpoint's drain of the applier is not run here: B
+    holds no GSI; `tests/test_torch_dml_batch.py` holds it on the CPU.)  The
+    directory is removed at the end of the script.
+
+Floats in 7-10, 13, 14 and 15 compare as `tests/test_tpcds.py` compares them (relative
 and absolute 1e-6); every other value must be equal.  The largest input the phases
-7-9 gave each kernel, and apart from it the largest input each of the dml, ddl and
-durable phases gave it, are then held against the kernel's plain version
+7-9 gave each kernel, and apart from it the largest input each of the dml, ddl,
+durable and cdc phases gave it, are then held against the kernel's plain version
 CHECK_REPEATS times and timed, beside the main path's, in the kernel's `new_phases`
-entry (`dml_input`, `ddl_input`, `durable_input`).
+entry (`dml_input`, `ddl_input`, `durable_input`, `cdc_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -170,6 +200,7 @@ exits non-zero without that line; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -209,6 +240,12 @@ DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phas
 DURABLE_TXNS = 8            # transactions each of them commits, per policy
 DURABLE_SEQUENTIAL = 64     # transactions one session commits one after another
 DURABLE_QUERIES = (1, 3, 5, 6)
+CDC_SESSIONS = 64           # concurrent writing sessions in the cdc phase
+CDC_PER_SESSION = 16        # sbtest1 writes each of them runs, per pass
+CDC_ORDERS_PER_SESSION = 8  # orders writes each of them runs
+CDC_TXN_UPDATES = 16        # UPDATEs of the one explicit transaction on orders
+CDC_REPLICA_TABLES = ("lineitem", "orders", "customer")  # what Q1, Q3 and Q13 read
+CDC_QUERIES = (1, 3, 13)
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
                     "galaxysql_tpu/kernels/pallas_join.py:123"),
@@ -1014,25 +1051,38 @@ def dml_tpch(src_inst, sf, held):
     line["after_commit"]["first_run_ms_sum"] = sum(after["first_run_ms"].values())
     line.update(_cache_line(gi, since))
 
-    # (b) rollback
+    # (b) rollback, on the card alone: its rows after ROLLBACK are held to its rows
+    # from before, which the CPU gave; the twin, which never ran it, holds the same
+    # state again after the ROLLBACK.  The binlog capture of each statement (its
+    # row images, buffered on the transaction and dropped by ROLLBACK) is timed.
     rb_q = (4, 6)
     before = {q: _both(gw, cw, SQL[q], f"Q{q} before the rollback")[0].rows
               for q in rb_q}
     rb = {}
-    for sql in ("BEGIN",
-                "UPDATE lineitem SET l_discount = l_discount + 0.01 "
-                "WHERE l_shipdate < DATE '1993-01-01'",
-                "DELETE FROM orders WHERE o_orderdate < DATE '1992-03-01'"):
-        rs, ms = _both(gw, cw, sql, sql[:30])
-        rb[sql.split()[0].lower()] = {"ms": ms, "affected": rs.affected}
+    logged = gi.metadb.query("SELECT count(*) FROM binlog_events")[0][0]
+    with _Timer(gi.cdc, "capture_rows") as capture:
+        for sql in ("BEGIN",
+                    "UPDATE lineitem SET l_discount = l_discount + 0.01 "
+                    "WHERE l_shipdate < DATE '1993-01-01'",
+                    "DELETE FROM orders WHERE o_orderdate < DATE '1992-03-01'"):
+            c0 = capture.line()
+            rs, ms = _timed(gw, sql)
+            c1 = capture.line()
+            rb[sql.split()[0].lower()] = {
+                "ms": ms, "affected": rs.affected,
+                "capture_ms": c1["ms"] - c0["ms"],
+                "capture_events": c1["calls"] - c0["calls"],
+                "capture_payload_bytes": c1["payload_bytes"] - c0["payload_bytes"]}
     for q in rb_q:
-        _rs, rb[f"Q{q}_inside_ms"] = _both(gw, cw, SQL[q], f"Q{q} inside the rollback")
-    _rs, rb["rollback_ms"] = _both(gw, cw, "ROLLBACK", "ROLLBACK")
+        _rs, rb[f"Q{q}_inside_ms"] = _timed(gw, SQL[q])
+    _rs, rb["rollback_ms"] = _timed(gw, "ROLLBACK")
     for q in rb_q:
-        rs, rb[f"Q{q}_after_ms"] = _both(gw, cw, SQL[q], f"Q{q} after the rollback")
+        rs, rb[f"Q{q}_after_ms"] = _timed(gw, SQL[q])
         if rs.rows != before[q]:
             raise AssertionError(f"Q{q} after ROLLBACK differs from before the "
                                  "transaction")
+    if gi.metadb.query("SELECT count(*) FROM binlog_events")[0][0] != logged:
+        raise AssertionError("the rolled-back transaction reached the binlog")
     line["rollback"] = rb
 
     # (c) conflict: first writer wins
@@ -1143,43 +1193,13 @@ def _sequential(s_gpu, s_cpu, stmts):
 
 
 def _closed_loop(inst, schema, stmt, n_sessions, per_session, expected):
-    """`n_sessions` Python threads, one `Session` each, each running
-    `per_session` statements `stmt(i, j)` back to back (sessions and threads are
-    made before the clock starts).  Every row must equal `expected[sql]`.  Returns
-    the QPS and per-statement latencies."""
-    import threading
-    from galaxysql_tpu_torch.server.session import Session
-    sessions = [Session(inst, schema) for _ in range(n_sessions)]
-    lat = [[] for _ in range(n_sessions)]
-    errors = []
-    start = threading.Barrier(n_sessions + 1)
-
-    def run(i):
-        try:
-            start.wait(timeout=120)
-            for j in range(per_session):
-                sql = stmt(i, j)
-                t0 = time.perf_counter()
-                rows = sessions[i].execute(sql).rows
-                lat[i].append((time.perf_counter() - t0) * 1000.0)
-                if rows != expected[sql]:
-                    raise AssertionError(f"{sql}: {rows} / {expected[sql]}")
-        except BaseException as e:  # carried to the main thread
-            errors.append(e)
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_sessions)]
-    for t in threads:
-        t.start()
-    start.wait(timeout=120)
-    t0 = time.perf_counter()
-    for t in threads:
-        t.join()
-    wall = time.perf_counter() - t0
-    for sx in sessions:
-        sx.close()
-    if errors:
-        raise errors[0]
-    flat = [x for row in lat for x in row]
+    """`n_sessions` sessions each running `per_session` statements `stmt(i, j)` back
+    to back (`_storm`); every row must equal `expected[sql]`.  Returns the QPS and
+    per-statement latencies."""
+    scripts = [[(sql, lambda rows, want=expected[sql]: rows == want)
+                for sql in (stmt(i, j) for j in range(per_session))]
+               for i in range(n_sessions)]
+    flat, wall = _storm(inst, schema, scripts)
     return {"qps": len(flat) / wall, "p50_ms": _pct(flat, 50), "p99_ms": _pct(flat, 99),
             "seconds": wall}
 
@@ -2090,23 +2110,27 @@ def _durable_writes(gs, cs, keys, out):
         _commit_storm(cs.instance, part, policy)
         out[f"concurrent_{policy.lower()}"]["cpu_twin_seconds"] = time.perf_counter() - t0
     lat = []
-    for key in keys[2 * n:2 * n + DURABLE_SEQUENTIAL]:
-        key, comment = int(key), f"durable-seq-{int(key)}"
-        for s in (gs, cs):
-            s.execute("BEGIN")
-            if s.execute(f"UPDATE orders SET o_comment = '{comment}' "
-                         f"WHERE o_orderkey = {key}").affected != 1:
-                raise AssertionError(f"UPDATE of order {key} missed")
-            txn_id = s.txn.txn_id
-            t0 = time.perf_counter()
-            s.execute("COMMIT")
-            if s is gs:
-                lat.append((time.perf_counter() - t0) * 1000.0)
-                _check_logged(gi, txn_id, s._last_commit_ts)
-        acked[key] = comment
+    # the binlog write of each COMMIT (`cdc.flush_txn`, one more sqlite commit) is
+    # timed inside it
+    with _Timer(gi.cdc, "flush_txn") as flush:
+        for key in keys[2 * n:2 * n + DURABLE_SEQUENTIAL]:
+            key, comment = int(key), f"durable-seq-{int(key)}"
+            for s in (gs, cs):
+                s.execute("BEGIN")
+                if s.execute(f"UPDATE orders SET o_comment = '{comment}' "
+                             f"WHERE o_orderkey = {key}").affected != 1:
+                    raise AssertionError(f"UPDATE of order {key} missed")
+                txn_id = s.txn.txn_id
+                t0 = time.perf_counter()
+                s.execute("COMMIT")
+                if s is gs:
+                    lat.append((time.perf_counter() - t0) * 1000.0)
+                    _check_logged(gi, txn_id, s._last_commit_ts)
+            acked[key] = comment
     out["sequential_tso"] = {"transactions": len(lat), "commit_p50_ms": _pct(lat, 50),
                              "commit_p99_ms": _pct(lat, 99),
-                             "commit_mean_ms": statistics.mean(lat)}
+                             "commit_mean_ms": statistics.mean(lat),
+                             "flush_txn_mean_ms": flush.ms / max(flush.calls, 1)}
     return acked
 
 
@@ -2236,6 +2260,45 @@ def _timed_boot(data_dir, device):
     return inst, whole, ms, results
 
 
+Q5_COLUMNS = {"customer": ("c_custkey", "c_nationkey"),
+              "orders": ("o_orderkey", "o_custkey", "o_orderdate"),
+              "lineitem": ("l_orderkey", "l_suppkey", "l_extendedprice", "l_discount"),
+              "supplier": ("s_suppkey", "s_nationkey"),
+              "nation": ("n_nationkey", "n_name", "n_regionkey"),
+              "region": ("r_regionkey", "r_name")}
+
+
+def _same_visible(a, b, columns):
+    """The visible rows of `columns` (table -> column names) in instance `a` equal
+    those in `b`, partition by partition: in row order where the two wrote their
+    partitions in the same order, else as sorted rows (concurrent sessions append
+    new versions in their own order).  String columns compare by value."""
+    import numpy as np
+    for table, cols in columns.items():
+        ta, tb = a.catalog.table("tpch", table), b.catalog.table("tpch", table)
+        for pa, pb in zip(a.store("tpch", table).partitions,
+                          b.store("tpch", table).partitions):
+            sides = []
+            for t, p in ((ta, pa), (tb, pb)):
+                with p.lock:
+                    vis = p.visible_mask(None)
+                    arrs = []
+                    for c in cols:
+                        lane = p.lanes[c][vis]
+                        if t.column(c).dtype.is_string:
+                            lane = np.asarray(t.dictionaries[c].values, dtype=object)[lane]
+                        arrs.append(np.where(p.valid[c][vis], lane, None)
+                                    if not p.valid[c][vis].all() else lane)
+                sides.append(arrs)
+            same = all(np.array_equal(x, y) for x, y in zip(*sides))
+            if not same and all(x.dtype != object for x in sides[0]):
+                same = all(np.array_equal(x, y) for x, y in zip(
+                    *[[col[np.lexsort(arrs[::-1])] for col in arrs] for arrs in sides]))
+            if not same:
+                raise AssertionError(f"{table} partition {pa.pid}: the visible rows of "
+                                     f"{cols} differ between the card and the CPU")
+
+
 def durable_phase(tpch_gpu, tpch_cpu, customer, sf):
     """(0) customer again, (a) acknowledged writes, (b) the crash state, (c) the
     checkpoint, (d) a boot on the card, (e) the main path on the booted instance."""
@@ -2324,7 +2387,16 @@ def durable_phase(tpch_gpu, tpch_cpu, customer, sf):
             out["node_info"] = [list(r) for r in nodes.rows]
             misses = gi.device_cache.misses
             for q in DURABLE_QUERIES:
-                rs, first = both(SQL[q], f"Q{q} after the boot")
+                if q == 5:
+                    # the CPU twin's Q5 (no statistics, 7-9 s) is cut: every row
+                    # Q5 reads equals the twin's instead (the card's Q5 path is held
+                    # to the CPU on the main path, in analyzed_tpch and in dml)
+                    t0 = time.perf_counter()
+                    _same_visible(gi, tpch_cpu, Q5_COLUMNS)
+                    out["q5_inputs_equal_ms"] = (time.perf_counter() - t0) * 1000.0
+                    rs, first = _timed(g2, SQL[q])
+                else:
+                    rs, first = both(SQL[q], f"Q{q} after the boot")
                 warm, ms = _timed(g2, SQL[q])
                 if warm.rows != rs.rows:
                     raise AssertionError(f"Q{q}'s warm run after the boot differs")
@@ -2354,6 +2426,442 @@ def durable_phase(tpch_gpu, tpch_cpu, customer, sf):
         raise AssertionError(f"kernels not launched in the durable phase: {missing}")
     out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
     out["seconds"] = time.perf_counter() - t_phase
+    return out, gi
+
+
+# -- the binlog, batched point writes and async GSI apply --------------------------------
+
+class _Timer:
+    """Wraps `owner.attr` (a function or method) for the life of a `with` block and
+    sums the ms of its calls; for `cdc.capture_rows` also the payload bytes of the
+    events a call left on its transaction (its seventh argument) or its sink."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.ms, self.calls, self.bytes = 0.0, 0, 0
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.owner, self.attr)
+        self.had = self.attr in vars(self.owner)
+
+        def timed(*args, **kwargs):
+            sink = kwargs.get("sink")
+            txn = kwargs.get("txn", args[6] if len(args) > 6 else None)
+            box = sink if sink is not None else getattr(txn, "cdc_events", None)
+            n0 = len(box) if box is not None else 0
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1000.0
+                self.calls += 1
+                if box is not None:
+                    self.bytes += sum(len(ev[3]) for ev in box[n0:])
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        if self.had:
+            setattr(self.owner, self.attr, self.fn)
+        else:
+            delattr(self.owner, self.attr)  # the instance attribute set above
+
+    def line(self):
+        return {"ms": self.ms, "calls": self.calls, "payload_bytes": self.bytes}
+
+
+def _storm(inst, schema, scripts, reads=None):
+    """One thread and one `Session` per script, started together (sessions and
+    threads are made before the clock starts): each runs its statements back to back,
+    timed, each a SQL string or a `(sql, check)` pair where `check(rows)` must hold,
+    then its untimed `reads`, `(sql, check)` pairs.  Returns the timed statements'
+    latencies and the wall seconds until the last of them ended."""
+    import threading
+    from galaxysql_tpu_torch.server.session import Session
+    reads = reads or [[] for _ in scripts]
+    conns = [Session(inst, schema) for _ in scripts]
+    lat = [[] for _ in scripts]
+    ends = [0.0] * len(scripts)
+    failures = []
+    start = threading.Barrier(len(scripts) + 1)
+
+    def run(i):
+        try:
+            start.wait(timeout=120)
+            for item in scripts[i]:
+                sql, check = (item, None) if isinstance(item, str) else item
+                t0 = time.perf_counter()
+                rows = conns[i].execute(sql).rows
+                lat[i].append((time.perf_counter() - t0) * 1000.0)
+                if check is not None and not check(rows):
+                    raise AssertionError(f"session {i}: {sql} gave {rows[:4]}")
+            ends[i] = time.perf_counter()
+            for sql, check in reads[i]:
+                rows = conns[i].execute(sql).rows
+                if not check(rows):
+                    raise AssertionError(f"session {i}: {sql} gave {rows[:4]}")
+        except BaseException as e:  # carried to the main thread
+            failures.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(scripts))]
+    for t in threads:
+        t.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    for c in conns:
+        c.close()
+    if failures:
+        raise failures[0]
+    return [x for row in lat for x in row], max(ends) - t0
+
+
+def _sbtest_traffic(gi, rng, live, next_id, tag):
+    """CDC_SESSIONS sessions of CDC_PER_SESSION autocommit writes each on keys of
+    their own: sysbench's oltp_update_non_index (`SET c`, a column `g_k` covers),
+    oltp_insert (ids above the table's) and oltp_delete, in turn.  Returns the
+    scripts, each session's reads through `g_k` with their checks, and the ids
+    touched."""
+    import numpy as np
+    per = CDC_PER_SESSION
+    n_upd = len(range(0, per, 3))
+    n_del = len(range(2, per, 3))
+    own = rng.choice(live, CDC_SESSIONS * (n_upd + n_del), replace=False)
+    store = gi.store("sbtest", "sbtest1")
+    k_of = {}
+    for p in store.partitions:
+        with p.lock:
+            vis = p.visible_mask(None)
+            ids = p.lanes["id"][vis]
+            sel = np.isin(ids, own)
+            k_of.update(zip(ids[sel].tolist(), p.lanes["k"][vis][sel].tolist()))
+    scripts, reads, touched = [], [], []
+    for i in range(CDC_SESSIONS):
+        keys = iter(own[i * (n_upd + n_del):(i + 1) * (n_upd + n_del)].tolist())
+        script, checks = [], []
+        for j in range(per):
+            if j % 3 == 0:
+                rid, c = next(keys), f"cdc-{tag}-{i}-{j}"
+                script.append(f"UPDATE sbtest1 SET c = '{c}' WHERE id = {rid}")
+                checks.append((f"SELECT id, c FROM sbtest1 WHERE k = {k_of[rid]}",
+                               lambda rows, r=(rid, c): r in rows))
+            elif j % 3 == 1:
+                rid, k, c = next_id + i * per + j, 3_000_000 + next_id + i * per + j, \
+                    f"cdc-new-{tag}-{i}-{j}"
+                script.append(f"INSERT INTO sbtest1 (id, k, c, pad) VALUES "
+                              f"({rid}, {k}, '{c}', 'cdc')")
+                checks.append((f"SELECT id, c FROM sbtest1 WHERE k = {k}",
+                               lambda rows, r=(rid, c): rows == [r]))
+            else:
+                rid = next(keys)
+                script.append(f"DELETE FROM sbtest1 WHERE id = {rid}")
+                checks.append((f"SELECT id, c FROM sbtest1 WHERE k = {k_of[rid]}",
+                               lambda rows, r=rid: r not in [x[0] for x in rows]))
+            touched.append(rid)
+        scripts.append(script)
+        reads.append(checks)
+    return scripts, reads, touched
+
+
+def _dml_pass(gi, scripts, reads):
+    """One storm on `gi`'s sbtest1 with the DML batcher's and the applier's
+    numbers of that run."""
+    import statistics as st
+    from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
+    sched, applier = gi.dml_batch_scheduler, gi.applier
+    before = dict(sched.counts)
+    applies0 = gi.counters["gsi_async_applies"]
+    n_groups = len(sched.group_sizes)
+    applier.peak_backlog, applier.peak_lag_ms = 0, 0.0
+    x0, misses0 = dict(TRANSFER_STATS), gi.device_cache.misses
+    lat, wall = _storm(gi, "sbtest", scripts, reads)
+    groups = list(sched.group_sizes)[n_groups:]
+    line = {"statements": len(lat), "qps": len(lat) / wall, "p50_ms": _pct(lat, 50),
+            "p99_ms": _pct(lat, 99), "seconds": wall,
+            **{k: sched.counts[k] - before[k] for k in sched.counts},
+            "members_per_flush_mean": st.mean(groups) if groups else 0.0,
+            "members_per_flush_p50": st.median(groups) if groups else 0.0,
+            "gsi_async_applies": gi.counters["gsi_async_applies"] - applies0,
+            # the flushes' key lookups re-ship each touched partition's sorted lanes
+            # after every write (version-keyed device cache)
+            "device_cache_misses": gi.device_cache.misses - misses0,
+            "h2d_bytes": TRANSFER_STATS["bytes"] - x0["bytes"]}
+    if not applier.drain():
+        raise AssertionError("the async applier did not drain")
+    line.update(peak_gsi_apply_backlog=applier.peak_backlog,
+                peak_gsi_apply_lag_ms=applier.peak_lag_ms)
+    return line
+
+
+def _cdc_sbtest(sb_gpu, sb_cpu, out):
+    """(a) batched point writes with async GSI apply on sbtest1, batching on and
+    off, the card against its CPU twin."""
+    import numpy as np
+    from galaxysql_tpu_torch.server.session import Session
+    gs, cs = Session(sb_gpu, "sbtest"), Session(sb_cpu, "sbtest")
+    try:
+        for s in (gs, cs):
+            if not any(i.name == "g_k" for i in
+                       s.instance.catalog.table("sbtest", "sbtest1").indexes):
+                s.execute("CREATE GLOBAL INDEX g_k ON sbtest1 (k) COVERING (c)")
+            plan = "\n".join(r[0] for r in s.execute(
+                "EXPLAIN SELECT id, c FROM sbtest1 WHERE k = 17").rows)
+            if "sbtest1$g_k" not in plan:
+                raise AssertionError(f"the read does not scan the GSI:\n{plan}")
+        out["explain"] = plan.splitlines()
+        store = sb_gpu.store("sbtest", "sbtest1")
+        live = np.concatenate([p.lanes["id"][p.visible_mask(None)]
+                               for p in store.partitions])
+        next_id = int(max(int(p.lanes["id"].max()) for p in store.partitions)) + 100_000
+        # one sequential run of each shape registers its DML batch plan
+        for sql in (f"UPDATE sbtest1 SET c = 'cdc-plan' WHERE id = {int(live[0])}",
+                    f"INSERT INTO sbtest1 (id, k, c, pad) VALUES ({next_id - 1}, "
+                    f"{3_000_000 + next_id - 1}, 'cdc-plan', 'cdc')",
+                    f"DELETE FROM sbtest1 WHERE id = {next_id - 1}"):
+            _both(gs, cs, sql, "a DML batch plan's first run")
+        live = live[1:]
+        rng = np.random.default_rng(20241017)
+        touched = []
+        for tag, on in (("on", 1), ("off", 0)):
+            scripts, reads, ids = _sbtest_traffic(sb_gpu, rng, live, next_id, tag)
+            live = np.setdiff1d(live, ids)
+            next_id += CDC_SESSIONS * CDC_PER_SESSION
+            touched += ids
+            sb_gpu.config.set_instance("ENABLE_DML_BATCHING", on)
+            try:
+                out[f"batching_{tag}"] = _dml_pass(sb_gpu, scripts, reads)
+            finally:
+                sb_gpu.config.set_instance("ENABLE_DML_BATCHING", 1)
+            # the twin's end state does not depend on the order: batched, from as
+            # many threads
+            t0 = time.perf_counter()
+            _dml_pass(sb_cpu, scripts, reads)
+            out[f"batching_{tag}"]["cpu_twin_seconds"] = time.perf_counter() - t0
+        if out["batching_on"]["dml_batch_flushes"] == 0 or \
+                out["batching_off"]["dml_batched_queries"]:
+            raise AssertionError(f"batching on / off did not hold: "
+                                 f"{out['batching_on']} / {out['batching_off']}")
+        for inst, name in ((sb_gpu, "card"), (sb_cpu, "cpu")):
+            if not np.array_equal(_gsi_rows(inst, "sbtest", "sbtest1", ["k", "c", "id"]),
+                                  _gsi_rows(inst, "sbtest", "sbtest1$g_k",
+                                            ["k", "c", "id"])):
+                raise AssertionError(f"g_k's rows differ from sbtest1's ({name})")
+        out["gsi_equals_base"] = True
+        inlist = ", ".join(str(int(k)) for k in sorted(touched))
+        _both(gs, cs, f"SELECT id, k, c, pad FROM sbtest1 WHERE id IN ({inlist}) "
+              "ORDER BY id", "the touched ids")
+        rs, _ms = _both(gs, cs, "SELECT count(*), sum(k) FROM sbtest1", "count and sum")
+        out["touched_ids"] = len(touched)
+        out["count_sum_k"] = list(rs.rows[0])
+    finally:
+        gs.close()
+        cs.close()
+
+
+def _order_insert(key, cust, i, j):
+    """A new order's INSERT (the nine TPC-H columns; a column an ALTER added takes
+    its default)."""
+    return ("INSERT INTO orders (o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+            "o_orderdate, o_orderpriority, o_clerk, o_shippriority, o_comment) "
+            f"VALUES ({key}, {cust}, 'O', {1000 + i * 100 + j}.25, "
+            f"'1996-0{1 + j % 9}-1{i % 10}', '{1 + j % 5}-URGENT', "
+            f"'Clerk#0000000{i % 100:02d}', 0, "
+            f"'cdc new {i}-{j}{' special requests' if j % 4 == 1 else ''}')")
+
+
+def _cdc_orders_traffic(b_inst, rng):
+    """CDC_SESSIONS sessions of CDC_ORDERS_PER_SESSION autocommit writes each on
+    orders, on keys of their own: UPDATE of o_comment (a quarter matching Q13's
+    '%special%requests%'), INSERT of a new order of an existing customer, DELETE."""
+    import numpy as np
+    store = b_inst.store("tpch", "orders")
+    live = np.concatenate([p.lanes["o_orderkey"][p.visible_mask(None)]
+                           for p in store.partitions])
+    top = int(max(int(p.lanes["o_orderkey"].max()) for p in store.partitions))
+    custs = np.concatenate([p.lanes["c_custkey"][p.visible_mask(None)]
+                            for p in b_inst.store("tpch", "customer").partitions])
+    per = CDC_ORDERS_PER_SESSION
+    n_upd, n_del = len(range(0, per, 3)), len(range(2, per, 3))
+    own = rng.choice(live, CDC_SESSIONS * (n_upd + n_del) + CDC_TXN_UPDATES + 3,
+                     replace=False).tolist()
+    spare, own = own[:CDC_TXN_UPDATES + 3], own[CDC_TXN_UPDATES + 3:]
+    scripts, touched = [], list(spare)
+    for i in range(CDC_SESSIONS):
+        keys = iter(own[i * (n_upd + n_del):(i + 1) * (n_upd + n_del)])
+        script = []
+        for j in range(per):
+            if j % 3 == 0:
+                key = next(keys)
+                words = "special packages requests" if (i + j) % 4 == 0 else "plain"
+                script.append(f"UPDATE orders SET o_comment = 'cdc {i}-{j} {words}' "
+                              f"WHERE o_orderkey = {key}")
+            elif j % 3 == 1:
+                key = top + 1 + i * per + j
+                script.append(_order_insert(key, int(custs[(i * per + j) % custs.size]),
+                                            i, j))
+            else:
+                key = next(keys)
+                script.append(f"DELETE FROM orders WHERE o_orderkey = {key}")
+            touched.append(key)
+        scripts.append(script)
+    return scripts, spare, top + CDC_SESSIONS * per + 1, int(custs[0]), touched
+
+
+def _cdc_replica(b_inst, b_cpu, out):
+    """(b) the binlog of B (the booted TPC-H instance, its metadb on disk) after
+    `head`, read three ways and replayed onto a replica R made at `head`."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.net.client import MiniClient
+    from galaxysql_tpu_torch.net.server import MySQLServer
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import transfer
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    from galaxysql_tpu_torch.txn import cdc
+    bs, cs = Session(b_inst, "tpch"), Session(b_cpu, "tpch")
+    rs_ = None
+    served = None
+    try:
+        head = b_inst.metadb.query("SELECT max(seq) FROM binlog_events")[0][0] or 0
+        # R: a replica of B's lineitem, orders and customer at `head`, as SHOW CREATE
+        # TABLE describes them on B (the ddl phase added o_band to orders)
+        t0 = time.perf_counter()
+        r_inst = Instance(device=b_inst.device)
+        rs_ = Session(r_inst)
+        rs_.execute("CREATE DATABASE tpch")
+        rs_.execute("USE tpch")
+        for t in CDC_REPLICA_TABLES:
+            rs_.execute(bs.execute(f"SHOW CREATE TABLE {t}").rows[0][1])
+            parts, dicts = transfer.arrays_of(b_inst.store("tpch", t))
+            r_inst.install_store(transfer.store_from_arrays(
+                r_inst.catalog.table("tpch", t), parts, dicts))
+        out["replica_copy_ms"] = (time.perf_counter() - t0) * 1000.0
+        out["head_seq"] = head
+
+        rng = np.random.default_rng(20241018)
+        scripts, spare, new_key, cust, touched = _cdc_orders_traffic(b_inst, rng)
+        # one sequential run of each shape registers its DML batch plan
+        for sql in (f"UPDATE orders SET o_comment = 'cdc plan' WHERE o_orderkey = "
+                    f"{spare.pop()}", _order_insert(new_key, cust, 99, 1),
+                    f"DELETE FROM orders WHERE o_orderkey = {new_key}"):
+            _both(bs, cs, sql, "an orders batch plan's first run")
+        touched.append(new_key)
+        flushes0 = b_inst.dml_batch_scheduler.counts["dml_batch_flushes"]
+        lat, wall = _storm(b_inst, "tpch", scripts)
+        out["orders_writes"] = {
+            "statements": len(lat), "qps": len(lat) / wall, "p50_ms": _pct(lat, 50),
+            "p99_ms": _pct(lat, 99),
+            "flushes": b_inst.dml_batch_scheduler.counts["dml_batch_flushes"] - flushes0}
+        t0 = time.perf_counter()
+        _storm(b_cpu, "tpch", scripts)
+        out["orders_writes"]["cpu_twin_seconds"] = time.perf_counter() - t0
+        if out["orders_writes"]["flushes"] == 0:
+            raise AssertionError("no orders write was batched")
+        _both(bs, cs, "BEGIN", "BEGIN")
+        for j, key in enumerate(spare[:CDC_TXN_UPDATES]):
+            _both(bs, cs, f"UPDATE orders SET o_comment = 'cdc txn {j} special "
+                  f"requests' WHERE o_orderkey = {key}", "the transaction's UPDATE")
+        _rs, out["txn_commit_ms"] = _both(bs, cs, "COMMIT", "COMMIT")
+
+        # the log after head, three ways
+        events = b_inst.cdc.events_after_seq(head, 1 << 30)
+        shown = [tuple(r) for r in bs.execute("SHOW BINLOG EVENTS").rows if r[0] > head]
+        if shown != [tuple(e) for e in events]:
+            raise AssertionError(f"SHOW BINLOG EVENTS after head: {len(shown)} events, "
+                                 f"events_after_seq: {len(events)}")
+        txn_ts = {e[1] for e in events[-2 * CDC_TXN_UPDATES:]}
+        if len(txn_ts) != 1:
+            raise AssertionError(f"the transaction's events carry {len(txn_ts)} "
+                                 "commit timestamps")
+        served = _Served([MySQLServer(b_inst, port=0, users={"root": ""}, pool_size=4)])
+        c = MiniClient("127.0.0.1", served.servers[0].port, timeout=120.0)
+        t0 = time.perf_counter()
+        dumped = c.binlog_dump(head)
+        out["binlog_dump_ms"] = (time.perf_counter() - t0) * 1000.0
+        c.close()
+        if [(e["seq"], e["commit_ts"], e["schema"], e["table"], e["kind"], e["payload"])
+                for e in dumped] != [tuple(e) for e in events]:
+            raise AssertionError("COM_BINLOG_DUMP from head differs from "
+                                 "events_after_seq")
+        kinds = {}
+        for e in events:
+            kinds[e[4]] = kinds.get(e[4], 0) + 1
+        out["events"] = {"count": len(events), "by_kind": kinds,
+                         "payload_bytes": sum(len(e[5]) for e in events),
+                         "commit_timestamps": len({e[1] for e in events})}
+
+        # replay onto R: a consumer crash halfway, the stream redelivered, again
+        with contextlib.ExitStack() as stack:
+            deletes = stack.enter_context(_Timer(cdc, "_replay_delete"))
+            inserts = [stack.enter_context(_Timer(r_inst.store("tpch", t),
+                                                  "insert_pylists"))
+                       for t in CDC_REPLICA_TABLES]
+            t0 = time.perf_counter()
+            half = len(events) // 2
+            applied = [cdc.replay(events, r_inst, stop_after=half),
+                       cdc.replay(events, r_inst), cdc.replay(events, r_inst)]
+            replay_ms = (time.perf_counter() - t0) * 1000.0
+        if applied != [half, len(events) - half, 0]:
+            raise AssertionError(f"replay applied {applied} of {len(events)} events")
+        out["replay"] = {"applied": applied, "ms": replay_ms,
+                         "insert_ms": sum(t.ms for t in inserts),
+                         "delete_ms": deletes.ms}
+
+        # Q1, Q3 and Q13 on R (every lane shipped) against B
+        out["queries"] = {}
+        for q in CDC_QUERIES:
+            want, b_first = _timed(bs, SQL[q])
+            _w, b_warm = _timed(bs, SQL[q])
+            got, r_first = _timed(rs_, SQL[q])
+            _g, r_warm = _timed(rs_, SQL[q])
+            if not (_rows_match(got.rows, want.rows)[0] and
+                    _rows_match(_g.rows, want.rows)[0] and _w.rows == want.rows):
+                raise AssertionError(f"Q{q} on the replica differs from the source")
+            out["queries"][f"Q{q}"] = {"replica_first_ms": r_first,
+                                       "replica_warm_ms": r_warm,
+                                       "source_first_ms": b_first,
+                                       "source_warm_ms": b_warm,
+                                       "rows": len(want.rows)}
+        torch.cuda.synchronize()
+        # B against its CPU twin on every touched key
+        inlist = ", ".join(str(int(k)) for k in sorted(set(touched)))
+        _both(bs, cs, f"SELECT * FROM orders WHERE o_orderkey IN ({inlist}) "
+              "ORDER BY o_orderkey", "the touched orders")
+        out["touched_keys"] = len(set(touched))
+    finally:
+        if served is not None:
+            served.stop()
+        for x in (bs, cs, rs_):
+            if x is not None:
+                x.close()
+
+
+def cdc_phase(b_inst, b_cpu, sb_gpu, sb_cpu):
+    """(a) batched point writes with async GSI apply on sbtest1, (b) the binlog and
+    a replica at SF 1, each step on the card and its CPU twin."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"sbtest": {}, "replica": {}}
+    for name, fn in (("sbtest_writes", lambda: _cdc_sbtest(sb_gpu, sb_cpu,
+                                                           out["sbtest"])),
+                     ("binlog_replica", lambda: _cdc_replica(b_inst, b_cpu,
+                                                             out["replica"]))):
+        t0 = time.perf_counter()
+        fn()
+        out.setdefault("step_ms", {})[name] = (time.perf_counter() - t0) * 1000.0
+        say("cdc_step", step=name, ms=out["step_ms"][name])
+    out["checkpoint_drain"] = ("not run on the card: the durable instance holds no "
+                               "GSI; tests/test_torch_dml_batch.py holds save() "
+                               "draining a delayed applier on the CPU")
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the cdc phase: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2372,6 +2880,9 @@ def main(argv=None) -> int:
         return run(args, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+
+
+T_START = time.perf_counter()
 
 
 def run(args, data_dir) -> int:
@@ -2488,7 +2999,7 @@ def run(args, data_dir) -> int:
     _reset_launches()
     durable_capture = kernel_capture()
     try:
-        line = durable_phase(inst, cpu_inst, customer, args.sf)
+        line, booted = durable_phase(inst, cpu_inst, customer, args.sf)
     finally:
         durable_capture.restore()
     print(card, flush=True)
@@ -2498,6 +3009,20 @@ def run(args, data_dir) -> int:
     for entry in kernels:
         entry["new_phases"]["launches"]["durable"] = line["launches"][entry["name"]]
         entry["new_phases"]["durable_input"] = durable_inputs[entry["name"]]
+
+    _reset_launches()
+    cdc_capture = kernel_capture()
+    try:
+        line = cdc_phase(booted, cpu_inst, sb_gpu, sb_cpu)
+    finally:
+        cdc_capture.restore()
+    print(card, flush=True)
+    say("cdc", nvidia_smi=card, **line)
+    cdc_inputs = check_new_phase_inputs(cdc_capture, {"cdc": line["launches"]})
+    for entry in kernels:
+        entry["new_phases"]["launches"]["cdc"] = line["launches"][entry["name"]]
+        entry["new_phases"]["cdc_input"] = cdc_inputs[entry["name"]]
+    say("script", seconds=time.perf_counter() - T_START)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -144,6 +144,9 @@ def dictionary_union_translation(target: Dictionary,
     return t
 
 
+_EXACT_FLOAT = 1 << 53  # integers below this convert to float64 exactly
+
+
 @dataclasses.dataclass
 class Column:
     """One column lane: `data` + optional validity mask (True = non-null)."""
@@ -171,28 +174,39 @@ class Column:
         return to_numpy(self.valid)
 
     def to_pylist(self) -> List[Any]:
+        """Python values (None = NULL), those the reference's value-by-value loop
+        gives, from whole-array numpy operations: a decimal lane below 2**53
+        converts to float64 exactly and takes one correctly rounded division, as
+        Python's int / int does; a date's text is formatted once per distinct day."""
         data = self.np_data()
         valid = self.np_valid()
         t = self.dtype
-        out: List[Any] = []
         if t.is_string and self.dictionary is not None:
             decoded = self.dictionary.decode(data)
-            return [decoded[i] if valid[i] else None for i in range(len(decoded))]
-        for i in range(data.shape[0]):
-            if not valid[i]:
-                out.append(None)
-            elif t.clazz == dt.TypeClass.DECIMAL:
-                out.append(int(data[i]) / (10 ** t.scale))
-            elif t.clazz == dt.TypeClass.DATE:
-                out.append(temporal.format_date(int(data[i])))
-            elif t.clazz == dt.TypeClass.DATETIME:
-                out.append(temporal.format_datetime(int(data[i])))
-            elif t.clazz == dt.TypeClass.FLOAT:
-                out.append(float(data[i]))
-            elif t.clazz == dt.TypeClass.BOOL:
-                out.append(bool(data[i]))
+            return [v if ok else None for v, ok in zip(decoded, valid.tolist())]
+        if t.clazz == dt.TypeClass.DECIMAL:
+            scale = 10 ** t.scale
+            if scale < _EXACT_FLOAT and (data.size == 0 or
+                                         np.abs(data.astype(np.int64)).max() < _EXACT_FLOAT):
+                out = (data.astype(np.float64) / float(scale)).tolist()
             else:
-                out.append(int(data[i]))
+                out = [int(v) / scale for v in data.tolist()]
+        elif t.clazz in (dt.TypeClass.DATE, dt.TypeClass.DATETIME):
+            fmt = temporal.format_date if t.clazz == dt.TypeClass.DATE \
+                else temporal.format_datetime
+            uniq, inverse = np.unique(data, return_inverse=True)
+            text = [fmt(int(v)) for v in uniq.tolist()]
+            out = [text[i] for i in inverse.reshape(-1).tolist()]
+        elif t.clazz == dt.TypeClass.FLOAT:
+            out = data.astype(np.float64).tolist()
+        elif t.clazz == dt.TypeClass.BOOL:
+            out = data.astype(np.bool_).tolist()
+        elif data.dtype.kind in "iu":
+            out = data.tolist()
+        else:
+            out = [int(v) for v in data.tolist()]
+        if not valid.all():
+            out = [v if ok else None for v, ok in zip(out, valid.tolist())]
         return out
 
 

@@ -7,8 +7,8 @@ one `Session` of the instance, whose queries run on the instance's device.
 Served commands: handshake and auth (mysql_native_password, by the `users` map or the
 metadb's users), the TLS upgrade, the compressed protocol, COM_QUERY
 (multi-statement), COM_INIT_DB, COM_PING, COM_FIELD_LIST, COM_STMT_PREPARE / EXECUTE
-/ CLOSE / RESET, COM_SET_OPTION and COM_QUIT.  COM_BINLOG_DUMP answers with an error
-packet until the change log (`txn/cdc.py`) is ported.
+/ CLOSE / RESET, COM_SET_OPTION, COM_QUIT and COM_BINLOG_DUMP (the change log of
+`txn/cdc.py`, paged by seq).
 
     python -m galaxysql_tpu_torch.net.server [--host H] [--port P] [--init-sql SQL]
                                              [--data-dir DIR] [--announce]
@@ -23,6 +23,7 @@ never checkpoints: a checkpoint is `Instance.save()`, as in the reference.
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import secrets
 import struct
@@ -270,11 +271,41 @@ class Connection:
         except Exception as e:  # pragma: no cover - hardening
             self.send(P.err_packet(1105, "HY000", f"{type(e).__name__}: {e}"))
 
+    BINLOG_DUMP_NON_BLOCK = 0x01
+
     async def binlog_dump(self, payload: bytes):
-        """COM_BINLOG_DUMP streams the change log in the reference; the port has
-        none yet, so the command gets an error packet."""
-        raise errors.NotSupportedError(
-            "COM_BINLOG_DUMP waits for txn/cdc.py (ROADMAP Queue 1 item 5)")
+        """COM_BINLOG_DUMP: stream the change log (`txn/cdc.py`) from a position.
+
+        Each packet is [0x00][json event] with seq, commit_ts, schema, table, kind
+        and payload, the wire form `net/client.py` reads and `cdc.replay` applies.
+        The position is the last event SEQ seen (0 = from the start): by seq, so a
+        transaction whose events straddle a page resumes without loss.  With
+        BINLOG_DUMP_NON_BLOCK the stream ends in EOF at the log's end; otherwise it
+        keeps tailing until the client drops."""
+        pos = struct.unpack_from("<I", payload, 1)[0]
+        flags = struct.unpack_from("<H", payload, 5)[0] \
+            if len(payload) >= 7 else self.BINLOG_DUMP_NON_BLOCK
+        since = int(pos)
+        if len(payload) >= 19:
+            # seq positions may exceed the 4-byte pos field: clients append the
+            # full 64-bit watermark where the file name would sit
+            since = struct.unpack_from("<Q", payload, 11)[0]
+        cdc = self.session.instance.cdc
+        page = 10000
+        while not self.closed:
+            events = await self.run_blocking(cdc.events_after_seq, since, page)
+            for seq, cts, schema, table, kind, pl in events:
+                ev = {"seq": seq, "commit_ts": cts, "schema": schema,
+                      "table": table, "kind": kind, "payload": pl}
+                self.send(b"\x00" + json.dumps(ev).encode("utf8"))
+                since = max(since, seq)
+            await self.flush()
+            if len(events) == page:
+                continue  # more pages pending: drain before EOF or tailing
+            if flags & self.BINLOG_DUMP_NON_BLOCK:
+                self.send(P.eof_packet(self._status()))
+                return
+            await asyncio.sleep(0.2)  # tail the log
 
     async def run_blocking(self, fn, *args):
         loop = asyncio.get_running_loop()

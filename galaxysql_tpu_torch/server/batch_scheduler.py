@@ -75,6 +75,10 @@ class BatchRequest:
     fallback: bool = False
     wait_us: float = 0.0
     trace: List[str] = dataclasses.field(default_factory=list)
+    # DML members (`server/dml_batch.py`): affected-row count and the async-apply
+    # watermark the session fences its own reads on (0 = nothing async)
+    affected: int = 0
+    apply_seq: int = 0
 
 
 class _Group:
@@ -97,6 +101,11 @@ class _Group:
 
 class BatchScheduler:
     """Per-Instance scheduler; sessions reach it via `_try_batched_point`."""
+
+    # the config parameter naming the fixed-window override, and the prefix of the
+    # counters' names (the DML batcher rebinds both: `server/dml_batch.py`)
+    WINDOW_PARAM = "BATCH_WINDOW_US"
+    PREFIX = ""
 
     MIN_WINDOW_S = 100e-6
     MAX_WINDOW_S = 500e-6
@@ -125,15 +134,15 @@ class BatchScheduler:
         self._window_open_s = 0.0
         self._born = time.perf_counter()
         self._stats_lock = threading.Lock()
-        self.counts = {"batched_queries": 0, "batch_flushes": 0,
-                       "batch_fallbacks": 0, "batch_singletons": 0}
+        self.counts = {self.PREFIX + n: 0 for n in (
+            "batched_queries", "batch_flushes", "batch_fallbacks", "batch_singletons")}
         self.group_sizes: collections.deque = collections.deque(maxlen=_HISTORY)
         self.wait_ms: collections.deque = collections.deque(maxlen=_HISTORY)
         self.trace: collections.deque = collections.deque(maxlen=256)
 
     def _count(self, name: str, n: int = 1):
         with self._stats_lock:
-            self.counts[name] += n
+            self.counts[self.PREFIX + name] += n
 
     # -- gating ----------------------------------------------------------------
 
@@ -166,7 +175,7 @@ class BatchScheduler:
         >= MIN_INFLIGHT point queries are in flight, sized to collect
         ~TARGET_GROUP keys at the observed arrival rate, clamped to
         [MIN_WINDOW_S, MAX_WINDOW_S]."""
-        fixed = self.instance.config.get("BATCH_WINDOW_US")
+        fixed = self.instance.config.get(self.WINDOW_PARAM)
         if fixed:
             return float(fixed) / 1e6
         if self._inflight < self.MIN_INFLIGHT:
@@ -202,7 +211,7 @@ class BatchScheduler:
                 window = self._window_s()
                 if window <= 0.0:
                     return None
-                fixed = bool(self.instance.config.get("BATCH_WINDOW_US"))
+                fixed = bool(self.instance.config.get(self.WINDOW_PARAM))
                 target = None if fixed else min(max(self._inflight, 2), cap)
                 g = _Group(gkey, pp, pinned_ts, now, target)
                 req = BatchRequest(lane_val, now)

@@ -282,6 +282,6 @@ def refresh(instance, session=None):
     fill("node_info", instance.metadb.alive_nodes())
     fill("ddl_jobs", instance.metadb.query(
         "SELECT job_id, schema_name, ddl_sql, state FROM ddl_engine"))
-    # the reference adds the DML batcher's rows, which wait for server/dml_batch.py
     fill("batch_stats", ([n, float(v)] for n, v in
-                         instance.batch_scheduler.stats_rows()))
+                         instance.batch_scheduler.stats_rows() +
+                         instance.dml_batch_scheduler.stats_rows()))

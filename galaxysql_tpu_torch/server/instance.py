@@ -18,9 +18,10 @@ stamps of transactions in doubt against the transaction log
 interrupted DDL jobs.  So a boot brings back what the last `save()` wrote, plus the
 outcomes the transaction log decides for the provisional stamps in it.  Without a
 `data_dir` the metadb is in memory and `save()` does nothing.  Left out of boot and
-save: the compile cache (not queued: the CUDA build cache is keyed by source hash),
-the archive and the columnar replica (ROADMAP Queue 1 item 9) and the async applier
-drain before a checkpoint (item 5).
+save: the compile cache (not queued: the CUDA build cache is keyed by source hash) and
+the archive and the columnar replica (ROADMAP Queue 1 item 9).  `save()` first
+drains the async applier and raises `TddlError` when it does not drain: a checkpoint
+must never hold a base table whose GSI rows are still queued.
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
@@ -28,7 +29,10 @@ the sequential fast path (`point_plans`, cleared past 512 entries as in the
 reference), the cross-session `batch_scheduler`, the commit coordinator
 (`xa_coordinator`, `txn/xa.py`, with the group-commit gate) and `counters`
 (`point_plan_queries`, `batched_point_queries`, `group_commit_batches`,
-`group_committed_txns`; `count` adds to them).
+`group_committed_txns`, `gsi_async_applies`, `async_apply_failures`; `count` adds to
+them).  The write side: `cdc` (the binlog, `txn/cdc.py`), the registered DML batch
+plans (`dml_plans`) and their `dml_batch_scheduler` (`server/dml_batch.py`), and the
+`applier` of async GSI maintenance (`txn/async_apply.py`).
 
 DDL: `mdl` (statement-scope metadata locks, `meta/mdl.py`), `ddl_engine` (the
 job engine over the metadb's `ddl_engine` tables, `ddl/jobs.py`) and `recycle` (the
@@ -58,9 +62,13 @@ from galaxysql_tpu_torch.meta.privileges import PrivilegeManager
 from galaxysql_tpu_torch.meta.tso import TimestampOracle
 from galaxysql_tpu_torch.plan.planner import Planner
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
+from galaxysql_tpu_torch.server.dml_batch import DmlBatchScheduler
 from galaxysql_tpu_torch.server.maintain import RecycleBin
 from galaxysql_tpu_torch.storage.table_store import TableStore
+from galaxysql_tpu_torch.txn.async_apply import AsyncApplier
+from galaxysql_tpu_torch.txn.cdc import CdcManager
 from galaxysql_tpu_torch.txn.xa import TwoPhaseCoordinator, recover_persisted
+from galaxysql_tpu_torch.utils import errors
 
 
 class Instance:
@@ -84,6 +92,8 @@ class Instance:
                              if data_dir else None)
         self.config_listener = ConfigListener(self.metadb)
         self.privileges = PrivilegeManager(self.metadb)
+        # the change log lives in the metadb beside the transaction log
+        self.cdc = CdcManager(self)
         self.node_id = f"cn-{uuid.uuid4().hex[:8]}"
         self.catalog.create_schema("information_schema", if_not_exists=True)
         # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
@@ -91,8 +101,14 @@ class Instance:
         self.counters: Dict[str, int] = {"point_plan_queries": 0,
                                          "batched_point_queries": 0,
                                          "group_commit_batches": 0,
-                                         "group_committed_txns": 0}
+                                         "group_committed_txns": 0,
+                                         "gsi_async_applies": 0,
+                                         "async_apply_failures": 0}
         self.batch_scheduler = BatchScheduler(self)
+        # (schema, parameterized SQL) -> DML batch plan (`dml_batch.try_register`)
+        self.dml_plans: Dict[tuple, dict] = {}
+        self.dml_batch_scheduler = DmlBatchScheduler(self)
+        self.applier = AsyncApplier(self)
         self.xa_coordinator = TwoPhaseCoordinator(self)
         self.mdl = MdlManager()
         self.ddl_engine = DdlEngine(self)
@@ -146,6 +162,13 @@ class Instance:
         without one)."""
         if not self.data_dir:
             return
+        # pending async GSI applies land before the snapshot: a checkpoint taken
+        # mid-apply would persist a base table whose GSI rows exist only in the
+        # in-memory queue, which has no redo source
+        if not self.applier.drain():
+            raise errors.TddlError(
+                "checkpoint aborted: async GSI/replica applies did not "
+                "drain (backlog wedged); retry after the applier recovers")
         # taken BEFORE the store snapshots: a transaction committing while save()
         # runs may leave provisional stamps in an already-written file
         t0 = time.time()

@@ -42,7 +42,22 @@ Global secondary indexes are maintained on the write path as in the reference:
 INSERT appends the new rows to every WRITE_ONLY or PUBLIC GSI's table, DELETE stamps
 the GSI rows of the deleted primary keys, UPDATE does both; the GSI rows carry the
 base rows' (possibly provisional) stamps and register with the transaction, so COMMIT
-and ROLLBACK finalize or undo them with the base rows.
+and ROLLBACK finalize or undo them with the base rows.  Every write bumps the GSI
+tables' versions with the base table's (`_note_write`), so no cached lane of a GSI
+is served after a write.
+
+The change log (`txn/cdc.py`) is the reference's: INSERT logs its appended rows,
+DELETE the rows it deletes, UPDATE both images; an autocommit statement's events are
+written at its timestamp, a transaction's buffer on it and are written by COMMIT at
+the commit timestamp (all three commit paths), and ROLLBACK drops them.  TRUNCATE
+logs nothing, as in the reference.
+
+Batched point writes are the reference's (`server/dml_batch.py`): an autocommit
+INSERT/UPDATE/DELETE whose shape registered a DML batch plan after a sequential run
+skips parse and bind and goes to the cross-session DML batcher; its GSI work may go
+to the async applier (`txn/async_apply.py`), and the session's next statement waits
+for its own applies (`_apply_fence`).  A sequential DML on a GSI-bearing table waits
+for every pending apply first (the global barrier).
 
 Transactions are the reference's TSO transactions under snapshot isolation: BEGIN
 takes a snapshot timestamp that doubles as the transaction id; writes inside carry
@@ -82,14 +97,14 @@ from galaxysql_tpu_torch.plan.binder import Binder, Scope
 from galaxysql_tpu_torch.plan.physical import (ExecContext, annotate_explain,
                                                build_operator)
 from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode
-from galaxysql_tpu_torch.server import information_schema
+from galaxysql_tpu_torch.server import dml_batch, information_schema
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.maintain import advise_indexes
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
 from galaxysql_tpu_torch.sql.parameterize import DecimalParam, parameterize
 from galaxysql_tpu_torch.sql.parser import parse
-from galaxysql_tpu_torch.storage.table_store import INFINITY_TS
+from galaxysql_tpu_torch.storage.table_store import INFINITY_TS, visible_rows
 from galaxysql_tpu_torch.txn.xa import participants_of
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
@@ -126,6 +141,8 @@ class Transaction:
         self.inserted: List[Tuple[Any, int, int, int]] = []
         # (store, pid, row_ids, old_end_ts) provisional deletes
         self.deleted: List[Tuple[Any, int, np.ndarray, np.ndarray]] = []
+        # binlog events buffered until COMMIT (`txn/cdc.py`); ROLLBACK drops them
+        self.cdc_events: List[tuple] = []
 
 
 def gsi_targets(instance, tm):
@@ -177,21 +194,30 @@ def _pk_void(arrays: List[np.ndarray]) -> np.ndarray:
 
 def gsi_delete(instance, tm, base_store, pid: int, row_ids: np.ndarray,
                ts: int, txn):
-    """Stamp the GSI rows of deleted base rows, matched on the primary key."""
+    """Stamp the GSI rows of deleted base rows, matched on the primary key.  A
+    one-column key is looked up in each GSI partition's sorted key index
+    (`Partition.key_candidates_many`); a composite one is matched over every row,
+    as the reference matches both."""
     if not tm.primary_key:
         return
     targets = gsi_targets(instance, tm)
     if not targets:
         return
     p = base_store.partitions[pid]
-    del_keys = _pk_void([p.lanes[c][row_ids] for c in tm.primary_key])
+    del_lanes = [p.lanes[c][row_ids] for c in tm.primary_key]
+    del_keys = _pk_void(del_lanes) if len(del_lanes) > 1 else None
     for _i, gtm, gstore in targets:
         if not all(gtm.has_column(c) for c in tm.primary_key):
             continue
         for gp_id, gp in enumerate(gstore.partitions):
-            vis = gp.visible_mask(None)
-            keys = _pk_void([gp.lanes[c] for c in tm.primary_key])
-            ids = np.nonzero(vis & np.isin(keys, del_keys))[0]
+            if len(tm.primary_key) == 1:
+                with gp.lock:
+                    ids = gp.key_candidates_many(tm.primary_key[0], del_lanes[0])
+                    ids = ids[visible_rows(gp.begin_ts[ids], gp.end_ts[ids], None)]
+            else:
+                vis = gp.visible_mask(None)
+                keys = _pk_void([gp.lanes[c] for c in tm.primary_key])
+                ids = np.nonzero(vis & np.isin(keys, del_keys))[0]
             if ids.size:
                 if txn is not None:
                     txn.deleted.append((gstore, gp_id, ids, gp.end_ts[ids].copy()))
@@ -215,6 +241,8 @@ _WAITING_STMTS = {
 class Session:
     _SELECT_RE = __import__("re").compile(
         r"^\s*(?:/\*.*?\*/\s*)*select\b", __import__("re").I | __import__("re").S)
+    _DML_RE = __import__("re").compile(
+        r"^\s*(?:insert|update|delete)\b", __import__("re").I)
 
     def __init__(self, instance: Instance, schema: Optional[str] = None):
         self.instance = instance
@@ -230,6 +258,8 @@ class Session:
         self._mdl_held: set = set()
         # commit timestamp of this session's last COMMIT
         self._last_commit_ts = 0
+        # the async applier's watermark of this session's own batched writes
+        self._apply_mark = 0
         instance.sessions[self.conn_id] = self
 
     def execute(self, sql: str, params: Optional[list] = None) -> ResultSet:
@@ -277,7 +307,74 @@ class Session:
         if self._SELECT_RE.match(sql):
             # the plan cache keys on the parameterized text and carries the AST
             return self._run_query(None, sql, params)
+        if self.txn is None and self.instance.dml_plans and \
+                "/*" not in sql and self._DML_RE.match(sql):
+            # the DML hot path: a registered batch plan runs without parse or bind,
+            # coalesced with plan-identical statements of other sessions.  The
+            # whole statement, batched or sequential, brackets the batcher's
+            # in-flight count, the signal its adaptive window keys off
+            sched = self.instance.dml_batch_scheduler
+            sched.point_begin()
+            try:
+                rs = self._try_batched_dml(sql, params)
+                if rs is not None:
+                    return rs
+                return self.execute_statement(parse(sql), sql, params)
+            finally:
+                sched.point_end()
         return self.execute_statement(parse(sql), sql, params)
+
+    def _try_batched_dml(self, sql: str, params: Optional[list]) -> Optional[ResultSet]:
+        """Submit this autocommit point DML to the cross-session write batcher.
+        Returns the scattered result, or None when the session must run the
+        sequential path (no plan, batching off, window closed, singleton group or
+        a group-scope fallback)."""
+        sched = self.instance.dml_batch_scheduler
+        if not sched.enabled(self) or not self.schema:
+            return None
+        schema = self.schema
+        p = parameterize(sql)
+        key = (schema.lower(), p.cache_key)
+        pp = self.instance.dml_plans.get(key)
+        if pp is None:
+            return None
+        if pp["schema_version"] != self.instance.catalog.schema_version:
+            self.instance.dml_plans.pop(key, None)
+            return None
+        try:
+            vals = p.resolve(params or [])
+        except Exception:
+            return None
+        # the privilege gate the sequential path applies to its statement
+        priv = {"insert": "INSERT", "update": "UPDATE", "delete": "DELETE"}[pp["kind"]]
+        self.instance.privileges.check(self.user, priv, pp["schema"], pp["table"])
+        self._apply_fence()
+        gkey = (schema.lower(), p.cache_key, pp["schema_version"])
+        req = sched.submit(gkey, pp, vals, None)
+        if req is None:
+            return None
+        if req.error is not None:
+            raise req.error  # isolated to this session; the other members go on
+        if req.apply_seq:
+            self._apply_mark = max(self._apply_mark, req.apply_seq)
+        self.last_trace = req.trace
+        return ok(affected=req.affected)
+
+    def _apply_wait_s(self) -> float:
+        # not `ms or default`: a configured 0 means never wait
+        ms = self.instance.config.get("APPLY_WAIT_MS", self.vars)
+        return (10_000.0 if ms is None else float(ms)) / 1000.0
+
+    def _apply_fence(self):
+        """Read-your-writes: wait (bounded) until this session's own async GSI
+        applies have landed.  One int compare when idle."""
+        mark = self._apply_mark
+        if not mark:
+            return
+        applier = self.instance.applier
+        if applier.applied_seq < mark:
+            applier.wait_applied(mark, self._apply_wait_s())
+        self._apply_mark = 0
 
     _PRIV_BY_STMT = {
         ast.Select: "SELECT", ast.SetOpSelect: "SELECT", ast.Insert: "INSERT",
@@ -341,7 +438,7 @@ class Session:
         if isinstance(stmt, (ast.Select, ast.SetOpSelect)):
             return self._run_query(stmt, sql, params)
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete)):
-            return self._run_dml(stmt, params)
+            return self._run_dml(stmt, sql, params)
         if isinstance(stmt, ast.CreateTable):
             return self._run_create_table(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -436,6 +533,8 @@ class Session:
 
     def _run_query(self, stmt, sql: str, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
+        # read-your-writes: this session's own async GSI applies land first
+        self._apply_fence()
         info = "information_schema" in (sql or "").lower() or \
             schema.lower() == "information_schema"
         if info:
@@ -659,18 +758,23 @@ class Session:
         coordinator (prepare, PREPARED, commit point, stamps, DONE).  The TSO
         policy logs the commit point first, through the group-commit gate, then
         stamps every touched store and logs DONE: a crash between the two is
-        resolved at boot as committed on every store, never half.  The
-        reference's `cdc.flush_txn` after a commit waits for the change log
-        (ROADMAP Queue 1 item 5)."""
+        resolved at boot as committed on every store, never half.  Either way the
+        transaction's binlog events are written at its commit timestamp
+        (`cdc.flush_txn`), also when XA raises after its commit point."""
         policy = str(self.instance.config.get("TRANSACTION_POLICY", self.vars))
         if policy.upper() == "XA":
             try:
                 cts = self.instance.xa_coordinator.commit(txn)
             except errors.TransactionError as e:
-                if getattr(e, "commit_ts", None) is not None and \
-                        (txn.inserted or txn.deleted):
-                    self.instance.catalog.version += 1
+                cts = getattr(e, "commit_ts", None)
+                if cts is not None:
+                    # committed with in-doubt participants: the outcome is
+                    # decided, so the binlog records it at the commit ts
+                    self.instance.cdc.flush_txn(txn, cts)
+                    if txn.inserted or txn.deleted:
+                        self.instance.catalog.version += 1
                 raise
+            self.instance.cdc.flush_txn(txn, cts)
             if txn.inserted or txn.deleted:
                 self.instance.catalog.version += 1
             self._last_commit_ts = cts
@@ -684,6 +788,7 @@ class Session:
             gate.log_state(txn.txn_id, "DONE", commit_ts)
         else:
             commit_ts = self.instance.tso.next_timestamp()
+        self.instance.cdc.flush_txn(txn, commit_ts)
         if txn.inserted or txn.deleted:
             self.instance.catalog.version += 1
         self._last_commit_ts = commit_ts
@@ -707,21 +812,46 @@ class Session:
 
     # -- DML ------------------------------------------------------------------------
 
-    def _run_dml(self, stmt, params: Optional[list]) -> ResultSet:
-        """DML under the statement-scope shared MDL of every table it names."""
+    def _run_dml(self, stmt, sql: str, params: Optional[list]) -> ResultSet:
+        """DML under the statement-scope shared MDL of every table it names, after
+        the session's own async applies (the fence) and, on a GSI-bearing table
+        with applies pending, after all of them (a sequential delete racing ahead
+        of a queued GSI insert would orphan the index row).  A successful
+        autocommit statement registers its DML batch plan."""
+        tables = self._stmt_tables(stmt)
         keys = {self.instance.store_key(t.schema or self._require_schema(), t.table)
-                for t in self._stmt_tables(stmt)}
+                for t in tables}
+        self._apply_fence()
+        applier = self.instance.applier
+        if applier.pending():
+            try:
+                tms = [self.instance.catalog.table(t.schema or self.schema, t.table)
+                       for t in tables]
+            except errors.TddlError:
+                tms = []
+            if any(gsi_targets(self.instance, tm) for tm in tms):
+                applier.barrier(self._apply_wait_s())
         with self._mdl_shared(keys):
             if isinstance(stmt, ast.Insert):
                 if stmt.ignore or stmt.replace or stmt.on_dup_update:
                     raise errors.NotSupportedError(
                         "INSERT IGNORE, REPLACE and ON DUPLICATE KEY UPDATE")
-                return self._run_insert(stmt, params)
-            if stmt.order_by or stmt.limit is not None:
+                rs = self._run_insert(stmt, params)
+            elif stmt.order_by or stmt.limit is not None:
                 raise errors.NotSupportedError("ORDER BY or LIMIT in UPDATE and DELETE")
-            if isinstance(stmt, ast.Update):
-                return self._run_update(stmt, params)
-            return self._run_delete(stmt, params)
+            elif isinstance(stmt, ast.Update):
+                rs = self._run_update(stmt, params)
+            else:
+                rs = self._run_delete(stmt, params)
+        if self.txn is None:
+            dml_batch.try_register(self, stmt, sql, params)
+        return rs
+
+    def _note_write(self, tm: TableMeta):
+        """After a write: the GSI tables took the same write, so their versions
+        move with the base table's and no cached lane of theirs is served."""
+        for _i, gtm, _gstore in gsi_targets(self.instance, tm):
+            gtm.bump_version()
 
     def _run_insert(self, stmt: ast.Insert, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
@@ -759,7 +889,9 @@ class Session:
             if txn is not None:
                 txn.inserted.append((store, pid, start, added))
             gsi_write_rows(self.instance, tm, store, pid, start, added, ts, txn)
+            self.instance.cdc.capture_range(tm, store, pid, start, added, ts, txn, self)
         tm.bump_version()
+        self._note_write(tm)
         self.instance.catalog.version += 1
         return ok(affected=n)
 
@@ -826,6 +958,8 @@ class Session:
                 # not atomic against other sessions
                 self._check_write_conflict(p, ids)
                 old_end = p.end_ts[ids].copy()
+                self.instance.cdc.capture_rows(tm, store, pid, ids, "delete", ts, txn,
+                                               self)
                 gsi_delete(self.instance, tm, store, pid, ids, ts, txn)
                 p.delete_rows(ids, ts)
             if txn is not None:
@@ -833,6 +967,7 @@ class Session:
             n += ids.size
         tm.stats.row_count = max(tm.stats.row_count - n, 0)
         tm.bump_version()
+        self._note_write(tm)
         self.instance.catalog.version += 1
         return ok(affected=n)
 
@@ -886,6 +1021,8 @@ class Session:
                     new_lanes[cm.name] = d
                     new_valid[cm.name] = vm.copy()
                 old_end = p.end_ts[ids].copy()
+                self.instance.cdc.capture_rows(tm, store, pid, ids, "delete", ts, txn,
+                                               self)
                 gsi_delete(self.instance, tm, store, pid, ids, ts, txn)
                 start = p.num_rows
                 p.update_rows(ids, new_lanes, new_valid, ts)
@@ -893,8 +1030,11 @@ class Session:
                     txn.deleted.append((store, pid, ids, old_end))
                     txn.inserted.append((store, pid, start, ids.size))
                 gsi_write_rows(self.instance, tm, store, pid, start, ids.size, ts, txn)
+                self.instance.cdc.capture_range(tm, store, pid, start, ids.size, ts,
+                                                txn, self)
             n += ids.size
         tm.bump_version()
+        self._note_write(tm)
         self.instance.catalog.version += 1
         return ok(affected=n)
 

@@ -2,8 +2,9 @@
 
 The kinds whose data the port holds, with the reference's columns and text: databases,
 tables, columns, create table, variables, processlist, index / indexes / keys,
-warnings, trace, status, engines, charset, collation, batch stats, the recycle bin
-and the DDL jobs.  Every other
+warnings, trace, status, engines, charset, collation, batch stats (the point
+batcher's rows, then the DML batcher's and the async applier's), the binlog events,
+the recycle bin and the DDL jobs.  Every other
 kind raises `NotSupportedError` naming the module it waits for.
 """
 
@@ -18,7 +19,6 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "binlog": "txn/cdc.py (ROADMAP Queue 1 item 5)",
     "columnar_replica": "storage/columnar.py (ROADMAP Queue 1 item 9)",
     "fragment": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
     "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
@@ -85,6 +85,12 @@ def handle(session, stmt: ast.Show):
                          [dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR], rows)
     if kind == "columns":
         return session._describe(ast.TableName([stmt.target]))
+    if kind == "binlog":
+        # SHOW BINLOG EVENTS: the ordered global change stream (`txn/cdc.py`)
+        return ResultSet(
+            ["SEQ", "COMMIT_TSO", "SCHEMA_NAME", "TABLE_NAME", "KIND", "PAYLOAD"],
+            [dt.BIGINT, dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR],
+            inst.cdc.events())
     if kind == "create_table":
         return _create_table(inst.catalog.table(session.schema, stmt.target))
     if kind == "variables":
@@ -119,10 +125,10 @@ def handle(session, stmt: ast.Show):
                          [dt.VARCHAR, dt.BIGINT, dt.VARCHAR, dt.BIGINT, dt.VARCHAR,
                           dt.VARCHAR, dt.VARCHAR], rows)
     if kind == "batch" and (stmt.target or "").lower() == "stats":
-        # the cross-session point-query batching scheduler: group sizes, waits,
-        # hit ratio, window occupancy (the reference adds the DML batcher's rows,
-        # which wait for server/dml_batch.py)
-        rows = inst.batch_scheduler.stats_rows()
+        # the cross-session point-query batching scheduler (group sizes, waits,
+        # hit ratio, window occupancy), then the DML batcher's group rows and the
+        # async applier's backlog and lag
+        rows = inst.batch_scheduler.stats_rows() + inst.dml_batch_scheduler.stats_rows()
         return ResultSet(["Stat", "Value"], [dt.VARCHAR, dt.DOUBLE],
                          [(n, float(v)) for n, v in rows])
     if kind == "warnings":

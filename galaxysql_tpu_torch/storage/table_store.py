@@ -119,6 +119,30 @@ class Partition:
                 ids = np.concatenate([ids, tail]) if tail.size else ids
             return ids
 
+    def key_candidates_many(self, col: str, lane_values: np.ndarray) -> np.ndarray:
+        """Row ids (ascending, unique) whose `col` lane equals any of the
+        (lane-encoded) values: `key_candidates` for a whole array of keys, the
+        sorted index's ranges found by one `searchsorted` pair and expanded, and
+        the appended tail probed with `np.isin`.  MVCC-unaware, like
+        `key_candidates`."""
+        wanted = np.unique(np.asarray(lane_values, dtype=self.lanes[col].dtype))
+        with self.lock:
+            n = self.num_rows
+            if n == 0 or wanted.size == 0:
+                return np.zeros(0, dtype=np.int64)
+            n0, perm, skeys = self.key_index(col)
+            lo = np.searchsorted(skeys, wanted, side="left")
+            cnt = np.searchsorted(skeys, wanted, side="right") - lo
+            keep = cnt > 0
+            lo, cnt = lo[keep], cnt[keep]
+            # CSR expansion of the [lo, lo + cnt) ranges of the sorted index
+            pos = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(int(cnt.sum()))
+            ids = perm[pos]
+            if n > n0:
+                tail = np.nonzero(np.isin(self.lanes[col][n0:n], wanted))[0] + n0
+                ids = np.concatenate([ids, tail])
+            return np.unique(ids).astype(np.int64)
+
     def key_rows(self, col: str, lane_value, snapshot_ts: Optional[int],
                  txn_id: int = 0) -> np.ndarray:
         """Row ids of the versions visible at the snapshot whose `col` lane equals

@@ -142,14 +142,39 @@ def test_show_kind(twin, sql):
 
 
 def test_show_batch_stats(twin):
-    """The point scheduler's rows equal the reference's; the reference appends its
-    DML batcher's rows, which wait for `server/dml_batch.py`."""
+    """The point scheduler's rows, then the DML batcher's and the async applier's,
+    with the reference's names in its order; values equal but for the DML group-size
+    and wait quantiles, which the reference keeps in its process-wide metrics
+    registry (ROADMAP Queue 1 item 16)."""
     js, ps = twin.session()
     want, got = js.execute("SHOW BATCH STATS"), ps.execute("SHOW BATCH STATS")
     assert got.names == want.names and _types(got) == _types(want)
-    names = {n for n, _v in twin.pi.batch_scheduler.stats_rows()}
-    assert got.rows == [r for r in want.rows if r[0] in names]
-    assert [r[0] for r in got.rows] == [n for n, _v in twin.ji.batch_scheduler.stats_rows()]
+    assert [r[0] for r in got.rows] == \
+        [n for n, _v in twin.ji.batch_scheduler.stats_rows()] + \
+        [n for n, _v in twin.ji.dml_batch_scheduler.stats_rows()]
+    assert _comparable(got.rows) == _comparable(want.rows)
+
+
+def _comparable(rows):
+    return [r for r in rows if not r[0].startswith(("dml_group_size", "dml_wait_ms"))]
+
+
+def test_show_binlog_events(twin):
+    """SHOW BINLOG EVENTS after the same writes: equal columns, types, kinds, tables
+    and payloads; commit timestamps and seqs compare by their order."""
+    t = Twin()
+    t.run("INSERT INTO one VALUES (3, 2.5)")
+    t.run("UPDATE h SET amt = 9.99 WHERE name = 'bob'")
+    t.run("DELETE FROM b WHERE code = 'de'")
+    js, ps = t.session()
+    want, got = js.execute("SHOW BINLOG EVENTS"), ps.execute("SHOW BINLOG EVENTS")
+    assert got.names == want.names and _types(got) == _types(want)
+
+    def norm(rows):
+        seqs = {v: i for i, v in enumerate(sorted({r[0] for r in rows}))}
+        tss = {v: i for i, v in enumerate(sorted({r[1] for r in rows}))}
+        return [(seqs[r[0]], tss[r[1]]) + tuple(r[2:]) for r in rows]
+    assert norm(got.rows) == norm(want.rows) and len(got.rows) == len(want.rows) > 3
 
 
 def test_show_trace_of_a_point_select(twin):
@@ -211,12 +236,13 @@ def test_information_schema_queries(twin):
 
 
 def test_information_schema_batch_stats(twin):
-    """The point scheduler's rows, as SHOW BATCH STATS gives them."""
+    """The point scheduler's and the DML batcher's rows, as SHOW BATCH STATS gives
+    them."""
     js, ps = twin.session()
     sql = "SELECT stat_name, value FROM information_schema.batch_stats"
     want, got = js.execute(sql), ps.execute(sql)
-    names = {n for n, _v in twin.pi.batch_scheduler.stats_rows()}
-    assert got.rows == [r for r in want.rows if r[0] in names] and got.rows
+    assert _comparable(got.rows) == _comparable(want.rows) and got.rows
+    assert [r[0] for r in got.rows] == [r[0] for r in want.rows]
 
 
 @pytest.mark.parametrize("view", sorted(information_schema.WAITING))

@@ -297,14 +297,35 @@ def test_transaction_rollback_over_the_wire(servers):
     assert got[-1][1] == [("1", "100")]
 
 
-def test_binlog_dump_answers_with_an_error_packet(servers):
-    """The port has no change log yet: COM_BINLOG_DUMP gets an error packet, and
-    the connection stays usable."""
-    for mod in CLIENTS.values():
-        c = _connect(mod, servers["port_server"])
-        assert _error(lambda: c.binlog_dump(0)) == (1235, "42000")
+def test_binlog_dump_streams_the_change_log(servers):
+    """COM_BINLOG_DUMP from 0 and from the last seq seen, in every pairing: the
+    events of the scenario's own schema, their kinds, tables and payloads, equal;
+    seqs and commit timestamps by their order.  The connection stays usable."""
+    def scenario(mod, served, tag):
+        c = _connect(mod, served)
+        db = f"bl_{tag}"
+        c.query_all(f"CREATE DATABASE {db}; USE {db}")
+        c.query("CREATE TABLE ev (id INT PRIMARY KEY, v VARCHAR(10), "
+                "amt DECIMAL(8,2), d DATE) PARTITION BY HASH(id) PARTITIONS 2")
+        c.query("INSERT INTO ev VALUES (1, 'a', 1.50, '2024-01-05'), "
+                "(2, NULL, NULL, NULL), (3, 'c', -2.25, '1999-12-31')")
+        c.query("UPDATE ev SET v = 'u' WHERE id = 3")
+        c.query("DELETE FROM ev WHERE id = 1")
+        events = c.binlog_dump(0)
+        mine = [e for e in events if e["schema"] == db]
+        last = max(e["seq"] for e in events)
+        after = c.binlog_dump(last)
+        c.query("INSERT INTO ev VALUES (4, 'd', 0.01, NULL)")
+        tail = [(e["table"], e["kind"], e["payload"]) for e in c.binlog_dump(last)]
         assert c.ping()
         c.close()
+        seqs = {s: i for i, s in enumerate(sorted(e["seq"] for e in mine))}
+        tss = {t: i for i, t in enumerate(sorted({e["commit_ts"] for e in mine}))}
+        return ([(seqs[e["seq"]], tss[e["commit_ts"]], e["table"], e["kind"],
+                  e["payload"]) for e in mine], after, tail)
+    events, after, tail = _all_pairings(servers, scenario)
+    assert [e[3] for e in events] == ["insert", "insert", "delete", "insert", "delete"]
+    assert after == [] and len(tail) == 1
 
 
 def test_point_selects_from_16_connections_with_batching(servers):
