@@ -11,7 +11,10 @@ Phases, one line each on standard output:
    through `Instance(device="cuda")` and `Session`, time the second run; every kernel
    launch counter is set to 0 just before the timed runs and read just after, and
    each kernel must have launched; then each query again WARM_REPEATS times, for the
-   spread of warm times within the call;
+   spread of warm times within the call.  The instance runs with `SET GLOBAL
+   JOIN_SPILL_BYTES = MAIN_JOIN_SPILL_BYTES`; Q5 runs once more in a session at the
+   default 256 MiB, where it grace-joins (`main_path_default_spill`: its ms, spill
+   bytes and files; rows equal to the main path's);
 4. kernels: each kernel's wrapper against its plain PyTorch version on the same CUDA
    tensors — the inputs the main path gave it, plus seeded edge cases (NULL lanes,
    duplicates, negative keys, dead rows, empty input, an overflowing round limit, a
@@ -28,12 +31,15 @@ Then ANALYZE, all of TPC-H, TPC-DS and window functions, each phase on instances
 own, its launch counters set to 0 just before its timed runs and read just after:
 
 7. analyzed_tpch: `ANALYZE TABLE` on the eight TPC-H tables, then all 22 queries twice
-   each (the second run timed), with each query's launches and join order; rows must
-   equal the port on the CPU over the same lanes, also ANALYZEd (ANALYZED_CPU_SKIP's
-   rows are held to the CPU's in the dml phase, before its refresh, on ANALYZEd
-   copies of the same lanes);
-8. tpcds: `tpcds.generate(--sf)` loaded with `insert_pylists`, ANALYZEd, the 10
-   queries twice each; rows must equal the port on the CPU;
+   each (the second run timed), with each query's launches, join order and, where the
+   default thresholds made it spill, its spill bytes and files; rows must equal the
+   port on the CPU over the same lanes with the same statistics (the CPU twin takes
+   the card's, `_take_statistics`; ANALYZED_CPU_SKIP's rows are held to the CPU's in
+   the dml phase, before its refresh, on copies of the same lanes, and
+   ANALYZED_CARD_ONLY's are not compared at SF 1);
+8. tpcds: `tpcds.generate(--sf)` loaded with `insert_pylists`, ANALYZEd (the CPU twin
+   takes the card's statistics), the 10 queries twice each; rows must equal the port
+   on the CPU;
 9. window: window queries over `orders` and `lineitem` (every `WindowSpec` kind and
    frame, NULL partition keys, one partition spanning every row), compared with the
    port on the CPU through an outer aggregate.
@@ -41,13 +47,15 @@ own, its launch counters set to 0 just before its timed runs and read just after
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
 order, and every result must be equal (of the 22 queries after the refresh, the
-DML_CPU_QUERIES; Q1, Q3 and Q18 are held to W's rows inside the refresh, which the
-CPU gave for the same rows):
+DML_CPU_QUERIES; Q1 and Q3 are held to W's rows inside the refresh, which the CPU
+gave for the same rows, and Q18 (DML_CARD_ONLY) to W's rows on the card):
 
-10. dml: (a) TPC-H's refresh functions in a transaction, after ANALYZE: session W
+10. dml: (a) TPC-H's refresh functions in a transaction, with analyzed_tpch's
+    statistics (both copies take them instead of running ANALYZE again): session W
     runs BEGIN, RF1 (SF x 1,500 new orders and their lineitems,
     `storage/tpch_refresh.py`) as a few multi-row INSERTs and RF2 (SF x 1,500 orders
-    and their lineitems deleted); Q1, Q3 and Q18 in W see its writes, in a second
+    and their lineitems deleted); Q1, Q3 and Q18 in W see its writes (Q18 on the
+    card alone), in a second
     session R the snapshot from before (R's rows held to its rows from before the
     refresh, which the CPU gave); COMMIT; then all 22 queries twice each (the
     second run timed), DML_CPU_QUERIES of them also on the CPU and Q1, Q3 and Q18
@@ -57,7 +65,7 @@ CPU gave for the same rows):
     before, which the CPU gave; the binlog holds nothing of it.  (c) A write conflict: W updates an order
     in a transaction, R's update of the same row raises `TransactionError`, W
     commits and R's retry succeeds.  (d) The sysbench `oltp_read_write` mix
-    (`storage/sysbench.py`) on one 1,000,000-row table, OLTP_TRANSACTIONS
+    (`storage/sysbench.py`) on one DML_OLTP_ROWS-row table, OLTP_TRANSACTIONS
     transactions.  Launch counters are set to 0 at the phase's start and read at
     its end.
 
@@ -90,9 +98,9 @@ of this script:
 12. wire: (a) Q1, Q3, Q5 and Q6 through `net.client.MiniClient` in the text protocol
     and as prepared statements, WIRE_REPEATS timed warm runs each after one untimed
     run, beside as many in-process runs on the same instance; every answer, converted
-    back to Python values, must equal the in-process rows.  (b) EXPLAIN ANALYZE of Q5
-    over the wire: its node lines and `actual rows` per node must equal the same
-    statement on the CPU instance of phase 6.  (c) SHOW TABLES, DESCRIBE lineitem and
+    back to Python values, must equal the in-process rows.  (b) EXPLAIN ANALYZE of
+    WIRE_EXPLAIN_QUERY over the wire: its node lines and `actual rows` per node must
+    equal the same statement on the CPU instance of phase 6.  (c) SHOW TABLES, DESCRIBE lineitem and
     an `information_schema.tables` query over the wire, equal to the CPU instance's.
     (d) sysbench `oltp_point_select` from WIRE_PROCESSES client processes
     (`galaxysql_tpu_torch/tools/wire_clients.py`) of WIRE_CONNECTIONS connections
@@ -140,9 +148,9 @@ in a temporary directory, since the load (the CPU twin's is in memory):
     session DURABLE_SEQUENTIAL more one after another: COMMIT p50/p99, transactions a
     second, the group-commit gate's rows a flush; every acknowledged transaction's
     tx-log row must read DONE at its commit timestamp.  (b) Left unresolved on the
-    card: txn A (XA, RF1, stopped by FP_BEFORE_COMMIT with PREPARED logged), txn B
-    (RF2 of other orders, prepared, COMMITTED logged at a fresh TSO, its stamps not
-    applied) and `ALTER TABLE supplier ADD COLUMN s_flag BIGINT DEFAULT 7` stopped by
+    card: txn A (XA, RF1 at DURABLE_RF1_SF, stopped by FP_BEFORE_COMMIT with PREPARED
+    logged), txn B (RF2 of other orders, prepared, COMMITTED logged at a fresh TSO,
+    its stamps not applied) and `ALTER TABLE supplier ADD COLUMN s_flag BIGINT DEFAULT 7` stopped by
     FP_BEFORE_DDL_TASK; the CPU twin rolls A back, commits B and completes the
     ALTER.  (c) `Instance.save()`, timed, and the bytes on disk by table.  (d)
     `Instance(data_dir=...)` on the card, its boot split into the catalog, the store
@@ -158,7 +166,7 @@ in a temporary directory, since the load (the CPU twin's is in memory):
     columns Q5 reads must equal the twin's instead (`_same_visible`).  One
     session's COMMIT carries the ms of its binlog write (`flush_txn`).
 
-Then the binlog, batched point writes and the async GSI applier, last, on the booted
+Then the binlog, batched point writes and the async GSI applier, on the booted
 instance B and its CPU twin and on the point phase's `sbtest1` instances:
 
 15. cdc: (a) `g_k ON sbtest1 (k) COVERING (c)` again (the ddl phase dropped it);
@@ -185,12 +193,44 @@ instance B and its CPU twin and on the point phase's `sbtest1` instances:
     holds no GSI; `tests/test_torch_dml_batch.py` holds it on the CPU.)  The
     directory is removed at the end of the script.
 
-Floats in 7-10, 13, 14 and 15 compare as `tests/test_tpcds.py` compares them (relative
-and absolute 1e-6); every other value must be equal.  The largest input the phases
-7-9 gave each kernel, and apart from it the largest input each of the dml, ddl,
-durable and cdc phases gave it, are then held against the kernel's plain version
-CHECK_REPEATS times and timed, beside the main path's, in the kernel's `new_phases`
-entry (`dml_input`, `ddl_input`, `durable_input`, `cdc_input`).
+Then bulk load, disk spill and streamed scans, last, on analyzed_tpch's card instance
+(kept for these two phases), the point phase's card `sbtest1` and an instance of
+their own:
+
+16. load_data: (a) SF 1 orders written as a dbgen `.tbl` file ('|' after every
+    field) and `LOAD DATA INFILE ... INTO TABLE orders_l FIELDS TERMINATED BY '|'` into
+    an empty table shaped like orders: orders_l must equal orders row for row (visible
+    rows sorted by key, strings decoded), and TPC-H Q13 over customer and orders_l must
+    equal Q13 over orders; (b) LOAD_SB_ROWS sysbench rows loaded into `sbtest1` while
+    its covering GSI `g_k` exists: `g_k` must equal sbtest1's projection after the
+    load, and LOAD_POINT_SELECTS point selects of loaded ids must read their rows on
+    the fast path; (c) LOAD_TXN_ROWS rows loaded inside BEGIN ... ROLLBACK leave
+    nothing behind.  No load may write a binlog event.  Each load's ms, rows a second,
+    file bytes, its host split and the device-cache bytes before and after.
+17. spill: (a) TPC-H queries with SORT_SPILL_BYTES / JOIN_SPILL_BYTES lowered
+    (SPILL_SQL) on analyzed_tpch's instance, their rows equal to its unspilled rows
+    from analyzed_tpch; together they spill a grace join of every join type the 22
+    queries use and a sort (operator counters, ms spilled and unspilled, spill bytes
+    and files).  (b) `li23`, a lineitem-shaped table of LI23_ROWS rows (TPC-H SF 23's
+    lineitem) in 16 HASH partitions on `l_orderkey`, values from the seed on TPC-H's
+    domains, loaded with `insert_arrays`, and `supplier23`: TPC-H Q6, a GROUP BY
+    l_suppkey whose partials spill at the default threshold, and a join with
+    supplier23, each first and warm, every scan of li23 streaming 16 batches, every
+    answer equal to numpy over the generated values.  (c) `SortOp` over
+    SORT_BATCH_ROWS-row card batches of lineitem's lanes at SPILL_BYTES: at least 4
+    sorted runs, ASC and DESC, a NULL lane, LIMIT/OFFSET, equal to the in-memory
+    `SortOp` on the same batches; then a sort whose input raises mid-stream.  The spill
+    directory must be empty after every query, the failing one included.  Launch
+    counters are set to 0 at each phase's start and read at its end; all four kernels
+    must have launched in each.
+
+Floats in 7-10, 13, 14, 15 and 17 compare as `tests/test_tpcds.py` compares them
+(relative and absolute 1e-6); every other value must be equal.  The largest input the
+phases 7-9 gave each kernel, and apart from it the largest input each of the dml,
+ddl, durable, cdc and spill phases gave it, are then held against the kernel's plain
+version CHECK_REPEATS times and timed, beside the main path's, in the kernel's
+`new_phases` entry (`dml_input`, `ddl_input`, `durable_input`, `cdc_input`,
+`spill_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -203,6 +243,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -216,8 +257,16 @@ SPIN_CYCLES = 50_000_000    # ~25 ms of the card's clock: longer than enqueueing
 CHECK_REPEATS = 20          # kernel runs held against one plain result, per input
 WARM_REPEATS = 7            # extra warm runs of each query after the main path
 QUERIES = (1, 3, 5, 6)
-OLTP_ROWS = 1_000_000       # rows of the sysbench table in the dml phase
-OLTP_TRANSACTIONS = 20      # oltp_read_write transactions in the dml phase
+# JOIN_SPILL_BYTES of the main path's instances (SET GLOBAL, so the booted instance of
+# the durable phase keeps it): Q5 without statistics builds a join side of more than
+# 1 GiB and grace-joins it at the default 256 MiB and at 1 GiB (13.5-16.6 s against
+# 85 ms in memory on an H100), which the phases that repeat Q5 would pay some 25 times;
+# 8 GiB is above the main path's peak device bytes (7.49 GB), so its joins stay in
+# memory.  The main path runs Q5 once at the default as well (`default_spill_q5`).
+MAIN_JOIN_SPILL_BYTES = 8 << 30
+OLTP_ROWS = 1_000_000       # rows of the sysbench table of the point phase
+DML_OLTP_ROWS = 250_000     # rows of the dml phase's sysbench table (a cut for time)
+OLTP_TRANSACTIONS = 10      # oltp_read_write transactions in the dml phase
 POINT_STATEMENTS = 1000     # sequential oltp_point_select statements in the point phase
 POINT_SESSIONS = (64, 256)  # closed-loop session counts of the point phase
 POINT_PER_SESSION = 16      # statements each session runs in a closed loop
@@ -229,23 +278,51 @@ WIRE_STATEMENTS = 40        # point selects each connection runs, per setting
 WIRE_RAMP_STATEMENTS = 8    # untimed point selects a connection runs before them
 WIRE_SERIAL_STATEMENTS = 400  # point selects of one connection alone, batching off
 WIRE_POOL = 80              # the wire server's statement threads (>= every connection)
+# the query whose EXPLAIN ANALYZE the wire phase holds to the CPU: Q3 (three joins, a
+# GROUP BY, ORDER BY/LIMIT), not Q5, whose CPU twin takes 12-14 s
+WIRE_EXPLAIN_QUERY = 3
 # the queries after the refresh that are also run on the CPU and compared: all 22
 # put the script past 600 s on the card's machine, so the CPU side is cut to these
-# (Q1, Q3 and Q18 are held to W's rows inside the refresh, which the CPU gave)
+# (Q1 and Q3 are held to W's rows inside the refresh, which the CPU gave)
 DML_CPU_QUERIES = (4, 5, 6, 10, 12, 21)
+# queries run inside the refresh on the card alone (for time: the CPU's Q18 is
+# 30-50 s); their rows after COMMIT are held to the card's rows inside it
+DML_CARD_ONLY = (18,)
+# analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
+# twin takes 29-38 s); tests/test_torch_tpch.py holds them to the reference at SF 0.01
+ANALYZED_CARD_ONLY = (20,)
 # analyzed_tpch queries held to the CPU by the dml phase instead, before its refresh,
 # on the same ANALYZEd lanes (Q18 alone is 30-50 s of CPU)
 ANALYZED_CPU_SKIP = (18,)
 DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phase
-DURABLE_TXNS = 8            # transactions each of them commits, per policy
-DURABLE_SEQUENTIAL = 64     # transactions one session commits one after another
+DURABLE_TXNS = 4            # transactions each of them commits, per policy
+DURABLE_SEQUENTIAL = 32     # transactions one session commits one after another
+DURABLE_RF1_SF = 0.1        # the scale of txn A's RF1, a fraction of sf (a cut for time)
 DURABLE_QUERIES = (1, 3, 5, 6)
 CDC_SESSIONS = 64           # concurrent writing sessions in the cdc phase
-CDC_PER_SESSION = 16        # sbtest1 writes each of them runs, per pass
+CDC_PER_SESSION = 8         # sbtest1 writes each of them runs, per pass
 CDC_ORDERS_PER_SESSION = 8  # orders writes each of them runs
 CDC_TXN_UPDATES = 16        # UPDATEs of the one explicit transaction on orders
 CDC_REPLICA_TABLES = ("lineitem", "orders", "customer")  # what Q1, Q3 and Q13 read
 CDC_QUERIES = (1, 3, 13)
+LOAD_SB_ROWS = 100_000      # sysbench-shaped rows LOAD DATA appends to sbtest1
+LOAD_POINT_SELECTS = 200    # point selects of loaded sbtest1 ids on the fast path
+LOAD_TXN_ROWS = 10_000      # orders rows of the load rolled back
+SPILL_BYTES = 32 << 20      # SORT_SPILL_BYTES and JOIN_SPILL_BYTES of the spill phase
+# TPC-H queries the spill phase runs, by (SORT_SPILL_BYTES, JOIN_SPILL_BYTES): at
+# SPILL_BYTES, Q4, Q18 and Q21 spill a semi, an inner and an anti grace join; no
+# left-join build (Q13's is ~25 MB) and no sort input of the 22 queries reaches 32 MiB
+# at SF 1, so Q13 runs its joins at 8 MiB (a left grace join) and Q10 its sort at
+# 1 MiB (a spilled sort)
+SPILL_SQL = (((SPILL_BYTES, SPILL_BYTES), (4, 18, 21)),
+             ((SPILL_BYTES, 8 << 20), (13,)),
+             ((1 << 20, SPILL_BYTES), (10,)))
+SPILL_QUERIES = tuple(q for _b, qs in SPILL_SQL for q in qs)
+LI23_ROWS = 23 * 6_000_000  # TPC-H SF 23's lineitem: the first whole SF past 2^27 rows
+LI23_SUPPLIERS = 23 * 10_000
+LI23_PARTS = 23 * 200_000
+LI23_PARTITIONS = 16
+SORT_BATCH_ROWS = 1 << 20   # rows of each batch of the operator-level external sort
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
                     "galaxysql_tpu/kernels/pallas_join.py:123"),
@@ -346,7 +423,7 @@ def run_main_path(s, capture):
     import torch
     from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
-    first, first_ms = {}, {}
+    first, first_ms, spilled = {}, {}, {}
     for q in QUERIES:
         t0 = time.perf_counter()
         first[q] = s.execute(SQL[q]).rows
@@ -357,6 +434,7 @@ def run_main_path(s, capture):
     timed, per_query, rows = {}, {}, {}
     for q in QUERIES:
         before = {**cuda_join.LAUNCHES, **cuda_agg.LAUNCHES}
+        spill0 = _spill_totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rs = s.execute(SQL[q])
@@ -364,6 +442,9 @@ def run_main_path(s, capture):
         timed[q] = (time.perf_counter() - t0) * 1000.0
         after = {**cuda_join.LAUNCHES, **cuda_agg.LAUNCHES}
         per_query[q] = {k: after[k] - before[k] for k in after}
+        spill1 = _spill_totals()
+        if spill1 != spill0:
+            spilled[q] = {k: spill1[k] - spill0[k] for k in spill1}
         rows[q] = rs.rows
         if rs.rows != first[q]:
             raise AssertionError(f"Q{q}: second run returned other rows than the first")
@@ -371,7 +452,34 @@ def run_main_path(s, capture):
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return rows, timed, first_ms, per_query, launches
+    return rows, timed, first_ms, per_query, launches, spilled
+
+
+def default_spill_q5(inst, rows):
+    """Q5 without statistics once more, in a session at the default JOIN_SPILL_BYTES
+    (256 MiB): its rows must equal the main path's; its ms and spill bytes and files."""
+    import torch
+    from galaxysql_tpu_torch.config import params
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    s = Session(inst, "tpch")
+    try:
+        default = params.JOIN_SPILL_BYTES.default
+        s.execute(f"SET JOIN_SPILL_BYTES = {default}")
+        spill0 = _spill_totals()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = s.execute(SQL[5]).rows
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0
+        spill1 = _spill_totals()
+    finally:
+        s.close()
+    if got != rows[5]:
+        raise AssertionError("Q5 at the default JOIN_SPILL_BYTES differs from the main "
+                             "path's Q5")
+    return {"join_spill_bytes": default, "ms": ms,
+            **{k: spill1[k] - spill0[k] for k in spill1}}
 
 
 def warm_repeats(s, rows):
@@ -758,6 +866,7 @@ def cpu_reference(gpu_inst, rows_gpu):
     s = Session(inst)
     s.execute("CREATE DATABASE tpch")
     s.execute("USE tpch")
+    s.execute(f"SET GLOBAL JOIN_SPILL_BYTES = {MAIN_JOIN_SPILL_BYTES}")
     for t in tpch.TABLE_ORDER:
         s.execute(tpch.TPCH_DDL[t])
         parts, dicts = transfer.arrays_of(gpu_inst.store("tpch", t))
@@ -775,6 +884,13 @@ def cpu_reference(gpu_inst, rows_gpu):
 
 
 # -- ANALYZE, all of TPC-H, TPC-DS, window functions ---------------------------------
+
+def _spill_totals():
+    """The process's spill counters (`utils/metrics.py`): bytes and files written."""
+    from galaxysql_tpu_torch.utils import metrics
+    return {"spill_bytes": metrics.SPILL_BYTES.value,
+            "spill_files": metrics.SPILL_FILES.value}
+
 
 def _launch_counts():
     from galaxysql_tpu_torch.kernels import cuda_agg, cuda_join
@@ -835,6 +951,21 @@ def _analyze(s, tables) -> float:
     return (time.perf_counter() - t0) * 1000.0
 
 
+def _take_statistics(src_inst, dst_inst, schema, tables) -> float:
+    """What `ANALYZE TABLE` leaves on `dst_inst`'s tables, copied from `src_inst`'s,
+    which hold the same lanes; returns its ms.  A cut for time: ANALYZE itself runs
+    on the card in analyzed_tpch and tpcds, and gives equal statistics on equal
+    lanes (tests/test_torch_tpch.py)."""
+    import copy
+    t0 = time.perf_counter()
+    for t in tables:
+        dst_inst.catalog.table(schema, t).stats = copy.deepcopy(
+            src_inst.catalog.table(schema, t).stats)
+    dst_inst.catalog.version += 1
+    dst_inst.catalog.stats_version += 1
+    return (time.perf_counter() - t0) * 1000.0
+
+
 def join_order(rel) -> str:
     """The join tree of a logical plan: scans by table name, joins by kind."""
     from galaxysql_tpu_torch.plan import logical as L
@@ -847,15 +978,17 @@ def join_order(rel) -> str:
     return kids[0] if len(kids) == 1 else ("[" + ", ".join(kids) + "]" if kids else "")
 
 
-def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=None):
+def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=None,
+              keep_rows=()):
     """Each query twice on the card (the second run timed, launch counters set to 0
     just before the timed runs and read just after), once on the CPU; rows compared.
     With `reset=False` neither the launch counters nor the peak memory are set back:
     they then count from the caller's own start.  `cpu_queries` names the queries
     compared on the CPU (default: all); `held` maps queries to rows they must equal
-    instead, rows the CPU gave for the same data earlier."""
+    instead, rows the CPU gave for the same data earlier.  The card's rows of the
+    `keep_rows` queries come back under "rows"."""
     import torch
-    first, timed, per_query, rows_n, plans = {}, {}, {}, {}, {}
+    first, timed, per_query, rows_n, plans, spilled = {}, {}, {}, {}, {}, {}
     rows = {}
     for name, sql in queries.items():
         t0 = time.perf_counter()
@@ -867,6 +1000,7 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
         _reset_launches()
     for name, sql in queries.items():
         before = _launch_counts()
+        spill0 = _spill_totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rs = s_gpu.execute(sql)
@@ -874,6 +1008,9 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
         timed[name] = (time.perf_counter() - t0) * 1000.0
         after = _launch_counts()
         per_query[name] = {k: after[k] - before[k] for k in after}
+        spill1 = _spill_totals()
+        if spill1 != spill0:  # the default thresholds spilled: says where time went
+            spilled[name] = {k: spill1[k] - spill0[k] for k in spill1}
         if rs.rows != rows[name]:
             raise AssertionError(f"{name}: second run returned other rows than the first")
         rows_n[name] = len(rs.rows)
@@ -900,23 +1037,28 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
     return {"query_ms": timed, "first_run_ms": first, "launches": launches,
             "launches_per_query": per_query, "join_order": plans,
             "peak_device_bytes": peak, "result_rows": rows_n, "cpu_ms": cpu_ms,
-            "float_cells": floats, "max_float_rel_diff": worst, "equal": True}
+            "spilled_per_query": spilled,
+            "float_cells": floats, "max_float_rel_diff": worst, "equal": True,
+            "rows": {name: rows[name] for name in keep_rows}}
 
 
 def analyzed_tpch(inst):
     """Fresh card and CPU instances over the main path's TPC-H lanes, both ANALYZEd
-    before any query (so no plan baseline predates the statistics).  The rows of the
-    ANALYZED_CPU_SKIP queries are returned for the dml phase to hold to the CPU."""
+    before any query (so no plan baseline predates the statistics; the CPU twin takes
+    the card's statistics).  The rows of the ANALYZED_CPU_SKIP queries are returned
+    for the dml phase to hold to the CPU; the card's rows of the SPILL_QUERIES stay
+    in the line's "rows" for the spill phase."""
     from galaxysql_tpu_torch.plan import logical as L
     from galaxysql_tpu_torch.storage import tpch
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
     gi, gs = _copy_instance(inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cuda")
     ci, cs = _copy_instance(inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cpu")
     analyze_ms = _analyze(gs, tpch.TABLE_ORDER)
-    _analyze(cs, tpch.TABLE_ORDER)
+    _take_statistics(gi, ci, "tpch", tpch.TABLE_ORDER)
     line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
                      cpu_queries={f"Q{q}" for q in range(1, 23)
-                                  if q not in ANALYZED_CPU_SKIP})
+                                  if q not in ANALYZED_CPU_SKIP + ANALYZED_CARD_ONLY},
+                     keep_rows=[f"Q{q}" for q in SPILL_QUERIES])
     line["analyze_ms"] = analyze_ms
     line["q5_plan_analyzed"] = L.explain(
         gi.planner.plan_select(SQL[5], "tpch", [], gs).rel).splitlines()
@@ -942,7 +1084,7 @@ def tpcds_phase(sf):
     load_ms = (time.perf_counter() - t0) * 1000.0
     ci, cs = _copy_instance(gi, "tpcds", tpcds.TABLE_ORDER, tpcds.TPCDS_DDL, "cpu")
     analyze_ms = _analyze(gs, tpcds.TABLE_ORDER)
-    _analyze(cs, tpcds.TABLE_ORDER)
+    _take_statistics(gi, ci, "tpcds", tpcds.TABLE_ORDER)
     line = run_phase(gs, cs, "tpcds", tpcds.QUERIES)
     line.update(sf=sf, generate_ms=gen_ms, load_ms=load_ms, analyze_ms=analyze_ms,
                 rows={t: gi.store("tpcds", t).row_count() for t in tpcds.TABLE_ORDER})
@@ -984,8 +1126,10 @@ def _cache_line(inst, since):
             "device_cache_hits": c.hits - since[1]}
 
 
-def dml_tpch(src_inst, sf, held):
-    """(a) refresh in a transaction, (b) rollback, (c) conflict, on fresh copies."""
+def dml_tpch(src_inst, sf, held, analyzed):
+    """(a) refresh in a transaction, (b) rollback, (c) conflict, on fresh copies that
+    take the statistics of `analyzed` (analyzed_tpch's card instance, the same
+    lanes)."""
     import numpy as np
     import torch
     from galaxysql_tpu_torch.server.session import Session
@@ -995,8 +1139,8 @@ def dml_tpch(src_inst, sf, held):
     ci, cw = _copy_instance(src_inst, "tpch", tpch.TABLE_ORDER, tpch.TPCH_DDL, "cpu")
     gr, cr = Session(gi, "tpch"), Session(ci, "tpch")
     # statistics first, as a deployment has them: the plans are analyzed_tpch's
-    line = {"analyze_ms": _analyze(gw, tpch.TABLE_ORDER)}
-    _analyze(cw, tpch.TABLE_ORDER)
+    line = {"statistics_ms": _take_statistics(analyzed, gi, "tpch", tpch.TABLE_ORDER)}
+    _take_statistics(analyzed, ci, "tpch", tpch.TABLE_ORDER)
     inside_q = (1, 3, 18)
     before = {q: _both(gr, cr, SQL[q], f"Q{q} before the refresh")[0].rows
               for q in inside_q}
@@ -1027,7 +1171,10 @@ def dml_tpch(src_inst, sf, held):
         raise AssertionError(f"refresh affected {affected}")
     inside, inside_ms, outside_ms = {}, {}, {}
     for q in inside_q:
-        rs, inside_ms[f"Q{q}"] = _both(gw, cw, SQL[q], f"Q{q} inside the refresh")
+        if q in DML_CARD_ONLY:
+            rs, inside_ms[f"Q{q}"] = _timed(gw, SQL[q])
+        else:
+            rs, inside_ms[f"Q{q}"] = _both(gw, cw, SQL[q], f"Q{q} inside the refresh")
         inside[f"Q{q}"] = rs.rows  # after COMMIT the card's rows are held to these
         if q == 1 and rs.rows == before[q]:
             raise AssertionError("Q1 inside the refresh does not see its writes")
@@ -1046,7 +1193,7 @@ def dml_tpch(src_inst, sf, held):
                       held=inside)
     line["after_commit"] = {k: after[k] for k in (
         "query_ms", "first_run_ms", "launches_per_query", "result_rows", "cpu_ms",
-        "float_cells", "max_float_rel_diff", "equal")}
+        "spilled_per_query", "float_cells", "max_float_rel_diff", "equal")}
     line["after_commit"]["query_ms_sum"] = sum(after["query_ms"].values())
     line["after_commit"]["first_run_ms_sum"] = sum(after["first_run_ms"].values())
     line.update(_cache_line(gi, since))
@@ -1063,7 +1210,7 @@ def dml_tpch(src_inst, sf, held):
     with _Timer(gi.cdc, "capture_rows") as capture:
         for sql in ("BEGIN",
                     "UPDATE lineitem SET l_discount = l_discount + 0.01 "
-                    "WHERE l_shipdate < DATE '1993-01-01'",
+                    "WHERE l_shipdate < DATE '1992-04-01'",
                     "DELETE FROM orders WHERE o_orderdate < DATE '1992-03-01'"):
             c0 = capture.line()
             rs, ms = _timed(gw, sql)
@@ -1103,7 +1250,7 @@ def dml_tpch(src_inst, sf, held):
 
 
 def dml_oltp(seed=20241017):
-    """(d) The sysbench oltp_read_write mix on one table of OLTP_ROWS rows."""
+    """(d) The sysbench oltp_read_write mix on one table of DML_OLTP_ROWS rows."""
     import numpy as np
     import torch
     from galaxysql_tpu_torch.server.instance import Instance
@@ -1115,7 +1262,7 @@ def dml_oltp(seed=20241017):
     gs.execute("USE sbtest")
     gs.execute(sysbench.ddl())
     t0 = time.perf_counter()
-    gi.store("sbtest", "sbtest1").insert_arrays(sysbench.generate(OLTP_ROWS, seed),
+    gi.store("sbtest", "sbtest1").insert_arrays(sysbench.generate(DML_OLTP_ROWS, seed),
                                                 gi.tso.next_timestamp())
     load_ms = (time.perf_counter() - t0) * 1000.0
     _ci, cs = _copy_instance(gi, "sbtest", ["sbtest1"], {"sbtest1": sysbench.ddl()},
@@ -1125,7 +1272,7 @@ def dml_oltp(seed=20241017):
     kinds, txn_ms = {}, []
     for _ in range(OLTP_TRANSACTIONS):
         total = 0.0
-        for kind, sql in sysbench.transaction(rng, OLTP_ROWS):
+        for kind, sql in sysbench.transaction(rng, DML_OLTP_ROWS):
             rs, ms = _both(gs, cs, sql, f"oltp {kind}")
             if kind in ("index_update", "non_index_update", "delete", "insert") \
                     and rs.affected != 1:
@@ -1133,7 +1280,7 @@ def dml_oltp(seed=20241017):
             kinds.setdefault(kind, []).append(ms)
             total += ms
         txn_ms.append(total)
-    line = {"rows": OLTP_ROWS, "transactions": OLTP_TRANSACTIONS, "load_ms": load_ms,
+    line = {"rows": DML_OLTP_ROWS, "transactions": OLTP_TRANSACTIONS, "load_ms": load_ms,
             "statement_ms_median": {k: statistics.median(v) for k, v in kinds.items()},
             "statement_ms_max": {k: max(v) for k, v in kinds.items()},
             "statements": {k: len(v) for k, v in kinds.items()},
@@ -1146,12 +1293,12 @@ def dml_oltp(seed=20241017):
     return line
 
 
-def dml_phase(inst, sf, held):
+def dml_phase(inst, sf, held, analyzed):
     import torch
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    line = dml_tpch(inst, sf, held)
+    line = dml_tpch(inst, sf, held, analyzed)
     line["oltp"] = dml_oltp()
     line["launches"] = _launch_counts()
     line["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
@@ -1530,7 +1677,7 @@ def _wire_queries(port, s_gpu):
 
 
 def _wire_catalog(port, s_cpu):
-    """EXPLAIN ANALYZE of Q5, SHOW TABLES, DESCRIBE lineitem and an
+    """EXPLAIN ANALYZE of WIRE_EXPLAIN_QUERY, SHOW TABLES, DESCRIBE lineitem and an
     information_schema query over the wire on the card; each must equal the same
     statement on the port's CPU instance over the same lanes (EXPLAIN ANALYZE: the
     node lines and `actual rows` per node)."""
@@ -1539,16 +1686,17 @@ def _wire_catalog(port, s_cpu):
     c = MiniClient("127.0.0.1", port, database="tpch", timeout=300)
     out = {}
     try:
+        q = WIRE_EXPLAIN_QUERY
         t0 = time.perf_counter()
-        _names, lines = c.query("EXPLAIN ANALYZE " + SQL[5])
-        out["explain_analyze_q5_ms"] = (time.perf_counter() - t0) * 1000.0
+        _names, lines = c.query("EXPLAIN ANALYZE " + SQL[q])
+        out[f"explain_analyze_q{q}_ms"] = (time.perf_counter() - t0) * 1000.0
         lines = [r[0] for r in lines]
-        want = [r[0] for r in s_cpu.execute("EXPLAIN ANALYZE " + SQL[5]).rows]
+        want = [r[0] for r in s_cpu.execute("EXPLAIN ANALYZE " + SQL[q]).rows]
         nodes = _node_rows(lines)
         if nodes != _node_rows(want):
-            raise AssertionError("EXPLAIN ANALYZE of Q5 on the card differs from the CPU:"
-                                 f"\n{lines}\n{want}")
-        out["explain_analyze_q5"] = lines
+            raise AssertionError(f"EXPLAIN ANALYZE of Q{q} on the card differs from the "
+                                 f"CPU:\n{lines}\n{want}")
+        out[f"explain_analyze_q{q}"] = lines
         out["explain_analyze_nodes"] = len(nodes)
         info = ("SELECT table_name, table_rows FROM information_schema.tables "
                 "WHERE table_schema = 'tpch' ORDER BY table_name")
@@ -2144,10 +2292,10 @@ def _crashes(fn, *args) -> bool:
 
 
 def _durable_crash_state(gs, cs, sf, rf2, out):
-    """(b) Left in place, unresolved, for the checkpoint: txn A (XA: RF1, stopped by
-    FP_BEFORE_COMMIT with PREPARED logged), txn B (RF2, prepared, COMMITTED logged at
-    a fresh TSO, its stamps not applied) and an ALTER job stopped by
-    FP_BEFORE_DDL_TASK before its first task.  The CPU twin ends them as recovery
+    """(b) Left in place, unresolved, for the checkpoint: txn A (XA: RF1 at
+    DURABLE_RF1_SF x sf, stopped by FP_BEFORE_COMMIT with PREPARED logged), txn B
+    (RF2, prepared, COMMITTED logged at a fresh TSO, its stamps not applied) and an
+    ALTER job stopped by FP_BEFORE_DDL_TASK before its first task.  The CPU twin ends them as recovery
     must: A rolled back, B committed, the ALTER done.  Returns (A's txn id, B's txn
     id, B's commit ts)."""
     import numpy as np
@@ -2165,7 +2313,8 @@ def _durable_crash_state(gs, cs, sf, rf2, out):
                       for p in gi.store("tpch", "orders").partitions if p.num_rows))
     t0 = time.perf_counter()
     _both(sa, ca, "BEGIN", "BEGIN")
-    for sql in tpch_refresh.rf1_statements(tpch_refresh.rf1_rows(sf, max_key)):
+    for sql in tpch_refresh.rf1_statements(tpch_refresh.rf1_rows(sf * DURABLE_RF1_SF,
+                                                                 max_key)):
         _both(sa, ca, sql, "RF1 in txn A")
     txn_a = sa.txn.txn_id
     FAIL_POINTS.arm(FP_BEFORE_COMMIT)
@@ -2213,7 +2362,6 @@ def _durable_crash_state(gs, cs, sf, rf2, out):
 
 def _disk_bytes(data_dir):
     """Bytes on disk under `data_dir`, by table directory, and the metadb."""
-    import os
     out = {}
     for root, _dirs, files in os.walk(data_dir):
         rel = os.path.relpath(root, data_dir)
@@ -2442,7 +2590,8 @@ class _Timer:
 
     def __enter__(self):
         fn = self.fn = getattr(self.owner, self.attr)
-        self.had = self.attr in vars(self.owner)
+        self.raw = vars(self.owner).get(self.attr)  # as stored: a staticmethod stays one
+        self.had = self.raw is not None
 
         def timed(*args, **kwargs):
             sink = kwargs.get("sink")
@@ -2457,12 +2606,13 @@ class _Timer:
                 self.calls += 1
                 if box is not None:
                     self.bytes += sum(len(ev[3]) for ev in box[n0:])
-        setattr(self.owner, self.attr, timed)
+        setattr(self.owner, self.attr,
+                staticmethod(timed) if isinstance(self.raw, staticmethod) else timed)
         return self
 
     def __exit__(self, *exc):
         if self.had:
-            setattr(self.owner, self.attr, self.fn)
+            setattr(self.owner, self.attr, self.raw)
         else:
             delattr(self.owner, self.attr)  # the instance attribute set above
 
@@ -2865,6 +3015,574 @@ def cdc_phase(b_inst, b_cpu, sb_gpu, sb_cpu):
     return out
 
 
+# -- LOAD DATA ---------------------------------------------------------------------------
+
+def _tbl_text(inst, schema, table) -> str:
+    """A table's visible rows in dbgen's `.tbl` format: the fields in column order,
+    each followed by '|'."""
+    import numpy as np
+    from galaxysql_tpu_torch.chunk.batch import Column
+    tm = inst.catalog.table(schema, table)
+    store = inst.store(schema, table)
+    vis = [p.visible_mask(None) for p in store.partitions]
+    fields = []
+    for c in tm.columns:
+        lane = np.concatenate([p.lanes[c.name][m] for p, m in zip(store.partitions, vis)])
+        valid = np.concatenate([p.valid[c.name][m] for p, m in zip(store.partitions, vis)])
+        vals = Column(lane, valid, c.dtype, tm.dictionaries.get(c.name.lower())).to_pylist()
+        fields.append(["\\N" if v is None else str(v) for v in vals])
+    return "".join("|".join(r) + "|\n" for r in zip(*fields))
+
+
+def _rows_by_key(inst, schema, table, key):
+    """A table's visible rows as {column: (values, validity)} sorted by `key`; string
+    columns decoded (two tables' dictionaries assign their own codes)."""
+    import numpy as np
+    tm = inst.catalog.table(schema, table)
+    store = inst.store(schema, table)
+    vis = [p.visible_mask(None) for p in store.partitions]
+
+    def lane(name, arrays):
+        return np.concatenate([getattr(p, arrays)[name][m]
+                               for p, m in zip(store.partitions, vis)])
+    order = np.argsort(lane(key, "lanes"), kind="stable")
+    out = {}
+    for c in tm.columns:
+        d = lane(c.name, "lanes")[order]
+        if c.dtype.is_string:
+            d = np.asarray(tm.dictionaries[c.name.lower()].values, dtype=object)[d]
+        out[c.name] = (d, lane(c.name, "valid")[order])
+    return out
+
+
+def _load_statement(s, path, table, clauses):
+    """LOAD DATA of `path` into `table`: (result, ms on the host clock ending in a
+    sync)."""
+    return _timed(s, f"LOAD DATA INFILE '{path}' INTO TABLE {table} {clauses}")
+
+
+def _load_orders(gi, gs, work_dir, out):
+    """(a) SF 1 orders as a `.tbl` file into an empty table shaped like orders."""
+    import re
+    import numpy as np
+    from galaxysql_tpu_torch.storage import tpch
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    t0 = time.perf_counter()
+    path = os.path.join(work_dir, "orders.tbl")
+    with open(path, "w") as f:
+        f.write(_tbl_text(gi, "tpch", "orders"))
+    out["write_file_ms"] = (time.perf_counter() - t0) * 1000.0
+    out["file_bytes"] = os.path.getsize(path)
+    gs.execute(tpch.TPCH_DDL["orders"].replace("orders (", "orders_l (", 1))
+    store = gi.store("tpch", "orders_l")
+    events = len(gi.cdc.events())
+    cache0 = gi.device_cache.nbytes
+    with _Timer(store, "insert_pylists") as enc:
+        rs, ms = _load_statement(gs, path, "orders_l", "FIELDS TERMINATED BY '|'")
+    n = gi.store("tpch", "orders").row_count()
+    if rs.affected != n or rs.info != f"Records: {n}":
+        raise AssertionError(f"LOAD DATA of orders affected {rs.affected} of {n} rows")
+    out.update(rows=rs.affected, ms=ms, rows_per_s=rs.affected / (ms / 1000.0),
+               encode_append_ms=enc.ms, batches=enc.calls,
+               read_parse_ms=ms - enc.ms)
+    t0 = time.perf_counter()
+    want = _rows_by_key(gi, "tpch", "orders", "o_orderkey")
+    got = _rows_by_key(gi, "tpch", "orders_l", "o_orderkey")
+    for col, (d, v) in want.items():
+        if not (np.array_equal(got[col][1], v) and np.array_equal(got[col][0][v], d[v])):
+            raise AssertionError(f"orders_l.{col} differs from orders after LOAD DATA")
+    out["compare_ms"] = (time.perf_counter() - t0) * 1000.0
+    q13 = SQL[13]
+    rs_l, out["q13_orders_l_ms"] = _timed(gs, re.sub(r"\borders\b", "orders_l", q13))
+    rs_o, out["q13_orders_ms"] = _timed(gs, q13)
+    if rs_l.rows != rs_o.rows or not rs_l.rows:
+        raise AssertionError("Q13 over orders_l differs from Q13 over orders")
+    out["q13_rows"] = len(rs_l.rows)
+    out["device_cache_bytes"] = {"before": cache0, "after": gi.device_cache.nbytes}
+    if len(gi.cdc.events()) != events:
+        raise AssertionError("LOAD DATA wrote binlog events")
+    return path
+
+
+def _load_sbtest(sb_gpu, work_dir, out, seed):
+    """(b) sysbench-shaped rows into sbtest1 while its covering GSI g_k exists."""
+    import numpy as np
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import sysbench
+    s = Session(sb_gpu, "sbtest")
+    try:
+        tm = sb_gpu.catalog.table("sbtest", "sbtest1")
+        if not any(i.name == "g_k" and i.global_index for i in tm.indexes):
+            raise AssertionError("sbtest1 lost g_k before load_data")
+        store = sb_gpu.store("sbtest", "sbtest1")
+        first = int(max(int(p.lanes["id"].max()) for p in store.partitions)) + 1
+        rows = sysbench.generate(LOAD_SB_ROWS, seed)
+        ids = rows["id"].astype(np.int64) + first - 1
+        path = os.path.join(work_dir, "sbtest1.csv")
+        with open(path, "w") as f:
+            f.write("".join(f"{i},{k},{c},{p}\n" for i, k, c, p in zip(
+                ids.tolist(), rows["k"].tolist(), rows["c"].tolist(),
+                rows["pad"].tolist())))
+        out["file_bytes"] = os.path.getsize(path)
+        events = len(sb_gpu.cdc.events())
+        cache0 = sb_gpu.device_cache.nbytes
+        rs, ms = _load_statement(s, path, "sbtest1", "FIELDS TERMINATED BY ','")
+        if rs.affected != LOAD_SB_ROWS:
+            raise AssertionError(f"LOAD DATA into sbtest1 affected {rs.affected}")
+        out.update(rows=rs.affected, ms=ms, rows_per_s=rs.affected / (ms / 1000.0),
+                   device_cache_bytes={"before": cache0,
+                                       "after": sb_gpu.device_cache.nbytes})
+        if not np.array_equal(_gsi_rows(sb_gpu, "sbtest", "sbtest1", ["k", "c", "id"]),
+                              _gsi_rows(sb_gpu, "sbtest", "sbtest1$g_k",
+                                        ["k", "c", "id"])):
+            raise AssertionError("g_k's rows differ from sbtest1's after LOAD DATA")
+        if len(sb_gpu.cdc.events()) != events:
+            raise AssertionError("LOAD DATA wrote binlog events")
+        # point selects of loaded ids on the fast path
+        pick = np.random.default_rng(seed).choice(LOAD_SB_ROWS, LOAD_POINT_SELECTS,
+                                                  replace=False)
+        fast0 = sb_gpu.counters["point_plan_queries"]
+        t0 = time.perf_counter()
+        for i in pick.tolist():
+            got = s.execute(f"SELECT c FROM sbtest1 WHERE id={int(ids[i])}").rows
+            if got != [(str(rows["c"][i]),)]:
+                raise AssertionError(f"loaded id {int(ids[i])} reads {got}")
+        out["point_select_ms_mean"] = (time.perf_counter() - t0) * 1000.0 / len(pick)
+        out["point_plan_queries"] = sb_gpu.counters["point_plan_queries"] - fast0
+        if out["point_plan_queries"] < len(pick) - 1:
+            raise AssertionError("the loaded ids' point selects missed the fast path")
+    finally:
+        s.close()
+
+
+def _load_rollback(gi, gs, orders_path, work_dir, out):
+    """(c) LOAD DATA inside BEGIN ... ROLLBACK leaves nothing behind."""
+    import numpy as np
+    path = os.path.join(work_dir, "orders_head.tbl")
+    with open(orders_path) as src, open(path, "w") as dst:
+        for _ in range(LOAD_TXN_ROWS):
+            dst.write(src.readline())
+    before = gs.execute("SELECT count(*), sum(o_totalprice) FROM orders_l").rows
+    visible = _gsi_rows(gi, "tpch", "orders_l", ["o_orderkey", "o_custkey"])
+    gs.execute("BEGIN")
+    rs, out["ms"] = _load_statement(gs, path, "orders_l", "FIELDS TERMINATED BY '|'")
+    inside = gs.execute("SELECT count(*) FROM orders_l").rows[0][0]
+    _rs, out["rollback_ms"] = _timed(gs, "ROLLBACK")
+    if rs.affected != LOAD_TXN_ROWS or inside != before[0][0] + LOAD_TXN_ROWS:
+        raise AssertionError(f"the load in a transaction affected {rs.affected}, saw "
+                             f"{inside} rows")
+    after = gs.execute("SELECT count(*), sum(o_totalprice) FROM orders_l").rows
+    if after != before or not np.array_equal(
+            visible, _gsi_rows(gi, "tpch", "orders_l", ["o_orderkey", "o_custkey"])):
+        raise AssertionError("ROLLBACK left rows of the load behind")
+    out.update(rows=rs.affected, rows_inside=inside)
+
+
+def load_data_phase(analyzed, sb_gpu, work_dir, seed=20241017):
+    """(a) SF 1 orders from a `.tbl` file, (b) sysbench rows under a covering GSI,
+    (c) a load rolled back."""
+    import torch
+    from galaxysql_tpu_torch.server.session import Session
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(work_dir, exist_ok=True)
+    gs = Session(analyzed, "tpch")
+    out = {"orders": {}, "sbtest1": {}, "rollback": {}}
+    try:
+        for name, fn in (
+                ("orders", lambda: _load_orders(analyzed, gs, work_dir, out["orders"])),
+                ("sbtest1", lambda: _load_sbtest(sb_gpu, work_dir, out["sbtest1"], seed)),
+                ("rollback", lambda: _load_rollback(
+                    analyzed, gs, os.path.join(work_dir, "orders.tbl"), work_dir,
+                    out["rollback"]))):
+            t0 = time.perf_counter()
+            fn()
+            out.setdefault("step_ms", {})[name] = (time.perf_counter() - t0) * 1000.0
+            say("load_data_step", step=name, ms=out["step_ms"][name])
+    finally:
+        gs.close()
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in load_data: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- spill and streamed scans --------------------------------------------------------
+
+def _op_counters(op, out=None):
+    """The spill counters of every operator in a tree, in pre-order."""
+    from galaxysql_tpu_torch.exec import operators as ops
+    out = [] if out is None else out
+    if isinstance(op, ops.HashJoinOp):
+        out.append({"op": f"join_{op.join_type}", "grace_partitions": op.grace_partitions})
+    elif isinstance(op, ops.SortOp):
+        out.append({"op": "sort", "spilled_runs": op.spilled_runs})
+    elif isinstance(op, ops.HashAggOp):
+        out.append({"op": "agg", "spilled_partials": op.spilled_partials})
+    for attr in ("inner", "child", "build", "probe"):
+        c = getattr(op, attr, None)
+        if isinstance(c, ops.Operator):
+            _op_counters(c, out)
+    for c in getattr(op, "children_ops", ()):
+        _op_counters(c, out)
+    return out
+
+
+def _spill_dir_files() -> list:
+    from galaxysql_tpu_torch.exec import spill
+    return os.listdir(spill.SPILL_MANAGER.directory)
+
+
+def _run_counted(s, sql):
+    """`sql` the way `Session` runs a SELECT (plan, context, operator tree, rows),
+    keeping the operator tree for its spill counters: (rows, ms, counters, the
+    execution's trace).  No spill file may be left behind."""
+    import torch
+    from galaxysql_tpu_torch.exec.operators import run_to_batch
+    from galaxysql_tpu_torch.plan.physical import build_operator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = s.instance.planner.plan_select(sql, s.schema, [], s)
+    ctx = s._exec_context(plan, [])
+    op = build_operator(plan.rel, ctx)
+    rows = run_to_batch(op).compact().to_pylist()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0
+    if _spill_dir_files():
+        raise AssertionError(f"spill files left behind: {_spill_dir_files()}")
+    return rows, ms, _op_counters(op), ctx.trace
+
+
+def _spill_sql(gi, unspilled, unspilled_ms, out):
+    """(a) TPC-H with SORT_SPILL_BYTES and JOIN_SPILL_BYTES lowered (SPILL_SQL), held
+    to the same instance's unspilled rows."""
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    s = Session(gi, "tpch")
+    try:
+        kinds = set()
+        for (sort_bytes, join_bytes), q in ((b, q) for b, qs in SPILL_SQL for q in qs):
+            s.execute(f"SET SORT_SPILL_BYTES = {sort_bytes}")
+            s.execute(f"SET JOIN_SPILL_BYTES = {join_bytes}")
+            spill0 = _spill_totals()
+            rows, ms, counters, _trace = _run_counted(s, SQL[q])
+            ok, _f, worst = _rows_match(rows, unspilled[f"Q{q}"])
+            if not ok:
+                raise AssertionError(f"Q{q} spilled differs from Q{q} unspilled")
+            spill1 = _spill_totals()
+            out[f"Q{q}"] = {"sort_spill_bytes": sort_bytes,
+                            "join_spill_bytes": join_bytes, "ms_spilled": ms,
+                            "ms_unspilled": unspilled_ms[f"Q{q}"],
+                            "counters": [c for c in counters if
+                                         any(v for k, v in c.items() if k != "op")],
+                            "max_float_rel_diff": worst,
+                            **{k: spill1[k] - spill0[k] for k in spill1}}
+            kinds |= {c["op"] for c in out[f"Q{q}"]["counters"]}
+            say("spill_query", query=f"Q{q}", **out[f"Q{q}"])
+        want = {"join_inner", "join_left", "join_semi", "join_anti", "sort"}
+        if not want <= kinds:
+            raise AssertionError(f"no spill of {sorted(want - kinds)} in {SPILL_SQL}")
+    finally:
+        s.close()
+
+
+def li23_data(rows, suppliers, parts, seed, threads=8):
+    """A lineitem-shaped table on TPC-H's domains: order keys in dbgen's sparse
+    numbering (four lines an order), part and supplier keys uniform, quantity 1-50,
+    the extended price from the part's retail price, discount 0.00-0.10, ship date
+    1992-01-02 .. 1998-12-01, and a supplier table's nation keys.  Made in `threads`
+    row ranges at once, each from its own generator seeded by (`seed`, range), which
+    also sums its share of the three queries' answers over its integer lanes (cents;
+    cents x discount for Q6), so the answers are exact.  Returns (li23's columns for
+    `insert_arrays`, the suppliers' nation keys, the answers)."""
+    import concurrent.futures
+    import numpy as np
+    from galaxysql_tpu_torch.types import temporal
+    nation = np.random.default_rng([seed, threads]).integers(0, 25, suppliers)
+    columns = {"l_orderkey": np.empty(rows, np.int64), "l_partkey": np.empty(rows, np.int32),
+               "l_suppkey": np.empty(rows, np.int32),
+               "l_quantity": np.empty(rows, np.float64),
+               "l_extendedprice": np.empty(rows, np.float64),
+               "l_discount": np.empty(rows, np.float64),
+               "l_shipdate": np.empty(rows, np.int32)}
+    first, last = temporal.parse_date("1992-01-02"), temporal.parse_date("1998-12-01")
+    q6_lo, q6_hi = temporal.parse_date("1994-01-01"), temporal.parse_date("1995-01-01")
+
+    def fill(i):
+        lo, hi = rows * i // threads, rows * (i + 1) // threads
+        n = hi - lo
+        rng = np.random.default_rng([seed, i])
+        idx = np.arange(lo, hi, dtype=np.int64) // 4
+        columns["l_orderkey"][lo:hi] = (idx // 8) * 32 + idx % 8 + 1
+        pk = rng.integers(1, parts + 1, n, dtype=np.int64)
+        columns["l_partkey"][lo:hi] = pk
+        supp = rng.integers(1, suppliers + 1, n)
+        columns["l_suppkey"][lo:hi] = supp
+        qty = rng.integers(1, 51, n, dtype=np.int64)
+        # the part's retail price in cents, as dbgen computes it
+        ext = qty * (90000 + (pk // 10) % 20001 + 100 * (pk % 1000))
+        disc = rng.integers(0, 11, n)
+        ship = rng.integers(first, last + 1, n)
+        columns["l_shipdate"][lo:hi] = ship
+        for name, cents in (("l_quantity", qty * 100), ("l_extendedprice", ext),
+                            ("l_discount", disc)):
+            np.divide(cents, 100.0, out=columns[name][lo:hi])
+        m = (ship >= q6_lo) & (ship < q6_hi) & (disc >= 5) & (disc <= 7) & (qty < 24)
+        # float64 sums of integers below 2^53 are exact
+        return (int((ext[m] * disc[m]).sum()),
+                np.bincount(supp, minlength=suppliers + 1),
+                np.bincount(supp, weights=qty * 100, minlength=suppliers + 1),
+                np.bincount(supp, weights=ext, minlength=suppliers + 1),
+                np.bincount(nation[supp - 1], weights=ext, minlength=25))
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        parts_ = list(pool.map(fill, range(threads)))
+    answers = {"q6": sum(p[0] for p in parts_),
+               "count": sum(p[1] for p in parts_),
+               "qty": sum(p[2] for p in parts_).astype(np.int64),
+               "ext": sum(p[3] for p in parts_).astype(np.int64),
+               "by_nation": sum(p[4] for p in parts_).astype(np.int64)}
+    return columns, nation, answers
+
+
+def _spill_streamed(out, seed):
+    """(b) the streamed scan past 2^27 rows: li23 and supplier23, three queries first
+    and warm, answers held to numpy."""
+    import gc
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.plan import physical
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    if LI23_ROWS <= physical.FUSE_MAX_ROWS:
+        raise AssertionError("li23 would fuse: it must pass FUSE_MAX_ROWS")
+    t0 = time.perf_counter()
+    columns, nation, answers = li23_data(LI23_ROWS, LI23_SUPPLIERS, LI23_PARTS, seed)
+    q6, count, qty, ext, by_nation = (answers[k] for k in
+                                      ("q6", "count", "qty", "ext", "by_nation"))
+    out["generate_ms"] = (time.perf_counter() - t0) * 1000.0
+    inst = Instance(device="cuda")
+    s = Session(inst)
+    s.execute("CREATE DATABASE big")
+    s.execute("USE big")
+    s.execute("CREATE TABLE li23 (l_orderkey BIGINT NOT NULL, l_partkey INT NOT NULL, "
+              "l_suppkey INT NOT NULL, l_quantity DECIMAL(15,2) NOT NULL, "
+              "l_extendedprice DECIMAL(15,2) NOT NULL, l_discount DECIMAL(15,2) NOT NULL,"
+              " l_shipdate DATE NOT NULL) PARTITION BY HASH(l_orderkey) PARTITIONS "
+              f"{LI23_PARTITIONS}")
+    s.execute("CREATE TABLE supplier23 (s_suppkey INT NOT NULL PRIMARY KEY, "
+              "s_nationkey INT NOT NULL) PARTITION BY HASH(s_suppkey) PARTITIONS 4")
+    t0 = time.perf_counter()
+    inst.store("big", "li23").insert_arrays(columns, inst.tso.next_timestamp())
+    del columns
+    gc.collect()
+    inst.store("big", "supplier23").insert_arrays(
+        {"s_suppkey": np.arange(1, LI23_SUPPLIERS + 1, dtype=np.int32),
+         "s_nationkey": nation.astype(np.int32)}, inst.tso.next_timestamp())
+    out["load_ms"] = (time.perf_counter() - t0) * 1000.0
+    li = inst.store("big", "li23")
+    out["rows"] = li.row_count()
+    out["partition_rows"] = [p.num_rows for p in li.partitions]
+    torch.cuda.reset_peak_memory_stats()
+    queries = {
+        "q6": SQL[6].replace("lineitem", "li23"),
+        "group_by_suppkey": "SELECT l_suppkey, count(*), sum(l_quantity), "
+                            "sum(l_extendedprice) FROM li23 GROUP BY l_suppkey "
+                            "ORDER BY 4 DESC LIMIT 100",
+        "join_supplier": "SELECT s_nationkey, sum(l_extendedprice) FROM li23 JOIN "
+                         "supplier23 ON l_suppkey = s_suppkey GROUP BY s_nationkey"}
+    top = np.argsort(-ext, kind="stable")[:100]
+    try:
+        for name, sql in queries.items():
+            res = {}
+            for run in ("first", "warm"):
+                spill0 = _spill_totals()
+                rows, ms, counters, trace = _run_counted(s, sql)
+                spill1 = _spill_totals()
+                res[run] = {"ms": ms, "counters": counters,
+                            **{k: spill1[k] - spill0[k] for k in spill1}}
+                # every scan of li23 (one per GROUP BY retry) streamed 16 batches
+                streamed = [t for t in trace if t.startswith("scan li23 streamed")]
+                if not streamed or set(streamed) != {
+                        f"scan li23 streamed batches={LI23_PARTITIONS}"}:
+                    raise AssertionError(f"{name}: li23 did not stream "
+                                         f"{LI23_PARTITIONS} batches: {trace}")
+                if name == "q6":
+                    ok = rows == [(q6 / 10_000,)]
+                elif name == "group_by_suppkey":
+                    # ties in sum(l_extendedprice) may come in either order
+                    ok = [r[3] for r in rows] == [int(ext[k]) / 100 for k in top] and all(
+                        r == (k, int(count[k]), int(qty[k]) / 100, int(ext[k]) / 100)
+                        for r in rows for k in (r[0],))
+                else:
+                    ok = sorted(rows) == [(n, int(v) / 100)
+                                          for n, v in enumerate(by_nation.tolist())]
+                if not ok:
+                    raise AssertionError(f"{name} on li23 differs from numpy: {rows[:3]}")
+            res["streamed_trace"] = streamed
+            say("spill_step", step=f"li23_{name}", ms=res["warm"]["ms"])
+            out[name] = res
+        out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+        out["device_cache_bytes"] = inst.device_cache.nbytes
+        if out["group_by_suppkey"]["warm"]["spill_files"] == 0:
+            raise AssertionError("the GROUP BY l_suppkey partials did not spill")
+    finally:
+        s.close()
+        inst.device_cache.clear()
+        del inst
+        gc.collect()
+
+
+def _sort_batches(inst, rows, seed):
+    """lineitem's lanes cut into SORT_BATCH_ROWS-row batches on the card: seven
+    columns, a NULL lane on l_shipdate (seeded, one row in ten) and a few dead rows
+    in every batch."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.chunk.batch import Column, ColumnBatch
+    tm = inst.catalog.table("tpch", "lineitem")
+    store = inst.store("tpch", "lineitem")
+    names = ("l_orderkey", "l_linenumber", "l_partkey", "l_suppkey",
+             "l_extendedprice", "l_discount", "l_shipdate")
+    host = {c: np.concatenate([p.lanes[c] for p in store.partitions])[:rows]
+            for c in names}
+    rng = np.random.default_rng(seed)
+    valid = rng.random(host["l_orderkey"].shape[0]) > 0.1
+    batches = []
+    for lo in range(0, host["l_orderkey"].shape[0], SORT_BATCH_ROWS):
+        hi = min(lo + SORT_BATCH_ROWS, host["l_orderkey"].shape[0])
+        cols = {}
+        for c in names:
+            v = torch.from_numpy(valid[lo:hi]).cuda() if c == "l_shipdate" else None
+            cols[c] = Column(torch.from_numpy(host[c][lo:hi]).cuda(), v,
+                             tm.column(c).dtype)
+        live = torch.from_numpy(rng.random(hi - lo) > 0.001).cuda()
+        batches.append(ColumnBatch(cols, live))
+    return batches, tm
+
+
+class _RaisingSource:
+    """Yields some batches, then raises: a query that fails mid-stream."""
+
+    def __init__(self, batches, after):
+        self._batches, self.after = batches, after
+
+    def batches(self):
+        for i, b in enumerate(self._batches):
+            if i == self.after:
+                raise RuntimeError("the input failed mid-stream")
+            yield b
+
+
+def _spill_sort(inst, out, seed):
+    """(c) `SortOp` over lineitem batches on the card at a SPILL_BYTES threshold:
+    several sorted runs, merged, equal to the in-memory `SortOp` on the same batches;
+    then a sort whose input raises mid-stream leaves no spill file."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.exec import operators as ops
+    from galaxysql_tpu_torch.expr import ir
+    batches, tm = _sort_batches(inst, inst.store("tpch", "lineitem").row_count(), seed)
+
+    def ref(c):
+        return ir.ColRef(c, tm.column(c).dtype)
+    cases = {
+        "asc_nulls_first": ([(ref("l_shipdate"), False), (ref("l_extendedprice"), True),
+                             (ref("l_orderkey"), False), (ref("l_linenumber"), False)],
+                            None, 0),
+        "desc_nulls_last_limit": ([(ref("l_shipdate"), True), (ref("l_orderkey"), False),
+                                   (ref("l_linenumber"), False)], 1000, 37),
+    }
+
+    def drain(op):
+        b = ops.run_to_batch(op)
+        return {n: (c.np_data(), c.np_valid()) for n, c in b.columns.items()}
+    for name, (keys, limit, offset) in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spilled = ops.SortOp(ops.SourceOp(batches), keys, limit, offset,
+                             spill_threshold=SPILL_BYTES)
+        with _Timer(spilled, "_key_codes") as codes, \
+                _Timer(spilled, "_spill_run") as runs:
+            got = drain(spilled)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0
+        t0 = time.perf_counter()
+        mem = ops.SortOp(ops.SourceOp(batches), keys, limit, offset,
+                         spill_threshold=1 << 62)
+        want = drain(mem)
+        torch.cuda.synchronize()
+        mem_ms = (time.perf_counter() - t0) * 1000.0
+        if spilled.spilled_runs < 4 or mem.spilled_runs:
+            raise AssertionError(f"sort {name}: {spilled.spilled_runs} runs")
+        for c, (d, v) in want.items():
+            if not (np.array_equal(got[c][1], v) and np.array_equal(got[c][0][v], d[v])):
+                raise AssertionError(f"sort {name}: the spilled sort's {c} differs from "
+                                     "the in-memory sort's")
+        if _spill_dir_files():
+            raise AssertionError(f"spill files left behind: {_spill_dir_files()}")
+        out[name] = {"ms_spilled": ms, "ms_in_memory": mem_ms,
+                     "spilled_runs": spilled.spilled_runs,
+                     "rows_out": int(want["l_orderkey"][0].shape[0]),
+                     "key_codes_ms": codes.ms, "spill_run_ms": runs.ms}
+    out["batches"] = len(batches)
+    out["batch_rows"] = SORT_BATCH_ROWS
+    failing = ops.SortOp(_RaisingSource(batches, len(batches) - 1),
+                         cases["asc_nulls_first"][0], spill_threshold=SPILL_BYTES)
+    try:
+        ops.run_to_batch(failing)
+        raise AssertionError("the failing input did not raise")
+    except RuntimeError as e:
+        if "mid-stream" not in str(e):
+            raise
+    if failing.spilled_runs == 0 or _spill_dir_files():
+        raise AssertionError("the failed sort spilled nothing or left files behind")
+    out["failed_mid_stream"] = {"spilled_runs": failing.spilled_runs,
+                                "files_left": 0}
+
+
+def spill_phase(analyzed, unspilled, unspilled_ms, seed=20241017):
+    """(a) TPC-H with lowered spill thresholds, (b) the streamed scan of li23,
+    (c) a multi-run external sort on the card."""
+    import torch
+    from galaxysql_tpu_torch.exec import operators as ops
+    from galaxysql_tpu_torch.exec import spill
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"sql": {}, "streamed": {}, "sort": {}, "spill_dir": spill.SPILL_MANAGER.directory}
+    spill0 = _spill_totals()
+    timers = [_Timer(ops.HashJoinOp, "_np_bucket"), _Timer(ops.HashJoinOp, "_spill_split"),
+              _Timer(spill.Spiller, "spill"), _Timer(spill.Spiller, "spill_mmap")]
+    with contextlib.ExitStack() as stack:
+        for t in timers:
+            stack.enter_context(t)
+        for name, fn in (
+                ("sql", lambda: _spill_sql(analyzed, unspilled, unspilled_ms,
+                                           out["sql"])),
+                ("streamed", lambda: _spill_streamed(out["streamed"], seed)),
+                ("sort", lambda: _spill_sort(analyzed, out["sort"], seed))):
+            t0 = time.perf_counter()
+            fn()
+            out.setdefault("step_ms", {})[name] = (time.perf_counter() - t0) * 1000.0
+            say("spill_step", step=name, ms=out["step_ms"][name])
+    out["host_ms"] = {"np_bucket": timers[0].ms, "spill_split": timers[1].ms,
+                      "npz_writes": timers[2].ms, "npz_files": timers[2].calls,
+                      "mmap_run_writes": timers[3].ms, "mmap_runs": timers[3].calls}
+    spill1 = _spill_totals()
+    out.update({k: spill1[k] - spill0[k] for k in spill1})
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the spill phase: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -2875,11 +3593,13 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    from galaxysql_tpu_torch.exec import spill
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         return run(args, data_dir)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(spill.SPILL_MANAGER.directory, ignore_errors=True)
 
 
 T_START = time.perf_counter()
@@ -2901,20 +3621,23 @@ def run(args, data_dir) -> int:
 
     t0 = time.perf_counter()
     inst, s, table_rows = load_tpch(args.sf, data_dir=data_dir)
+    s.execute(f"SET GLOBAL JOIN_SPILL_BYTES = {MAIN_JOIN_SPILL_BYTES}")
     say("load", sf=args.sf, seconds=round(time.perf_counter() - t0, 3), rows=table_rows)
 
     capture = kernel_capture()
     try:
         torch.cuda.reset_peak_memory_stats()
-        rows, timed, first, per_query, launches = run_main_path(s, capture)
+        rows, timed, first, per_query, launches, spilled = run_main_path(s, capture)
     finally:
         capture.restore()
     say("main_path", sf=args.sf, query_ms=timed, first_run_ms=first,
-        launches=launches, launches_per_query=per_query,
+        launches=launches, launches_per_query=per_query, spilled_per_query=spilled,
+        join_spill_bytes=MAIN_JOIN_SPILL_BYTES,
         kernel_shapes={k: sorted(set(v)) for k, v in capture.shapes.items()},
         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
         device_cache_bytes=inst.device_cache.nbytes,
         result_rows={q: len(r) for q, r in rows.items()})
+    say("main_path_default_spill", q5=default_spill_q5(inst, rows))
 
     repeat_ms, gen2 = warm_repeats(s, rows)
     say("warm_repeats", query_ms=repeat_ms,
@@ -2935,9 +3658,10 @@ def run(args, data_dir) -> int:
     phase_capture = kernel_capture()
     launches_by_phase = {}
     try:
-        line, (_gi, gs, _ci, cs), held = analyzed_tpch(inst)
+        line, (analyzed, gs, _ci, cs), held = analyzed_tpch(inst)
         line["q5_plan_no_stats"] = q5_no_stats.splitlines()
         launches_by_phase["analyzed_tpch"] = line["launches"]
+        unspilled, unspilled_ms = line.pop("rows"), line["query_ms"]
         say("analyzed_tpch", sf=args.sf, **line)
         line = run_phase(gs, cs, "tpch", WINDOW_QUERIES)
         launches_by_phase["window"] = line["launches"]
@@ -2952,11 +3676,12 @@ def run(args, data_dir) -> int:
         if missing:
             raise AssertionError(f"kernels not launched in {phase}: {missing}")
     new_inputs = check_new_phase_inputs(phase_capture, launches_by_phase)
-    del _gi, gs, _ci, cs, line
+    gs.close()
+    del gs, _ci, cs, line
 
     dml_capture = kernel_capture()
     try:
-        line = dml_phase(inst, args.sf, held)
+        line = dml_phase(inst, args.sf, held, analyzed)
     finally:
         dml_capture.restore()
     print(card, flush=True)
@@ -3022,6 +3747,26 @@ def run(args, data_dir) -> int:
     for entry in kernels:
         entry["new_phases"]["launches"]["cdc"] = line["launches"][entry["name"]]
         entry["new_phases"]["cdc_input"] = cdc_inputs[entry["name"]]
+
+    _reset_launches()
+    line = load_data_phase(analyzed, sb_gpu, os.path.join(data_dir, "load"))
+    print(card, flush=True)
+    say("load_data", nvidia_smi=card, **line)
+    for entry in kernels:
+        entry["new_phases"]["launches"]["load_data"] = line["launches"][entry["name"]]
+
+    _reset_launches()
+    spill_capture = kernel_capture()
+    try:
+        line = spill_phase(analyzed, unspilled, unspilled_ms)
+    finally:
+        spill_capture.restore()
+    print(card, flush=True)
+    say("spill", nvidia_smi=card, **line)
+    spill_inputs = check_new_phase_inputs(spill_capture, {"spill": line["launches"]})
+    for entry in kernels:
+        entry["new_phases"]["launches"]["spill"] = line["launches"][entry["name"]]
+        entry["new_phases"]["spill_input"] = spill_inputs[entry["name"]]
     say("script", seconds=time.perf_counter() - T_START)
 
     print(json.dumps({"kernels": kernels}), flush=True)

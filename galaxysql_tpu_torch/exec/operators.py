@@ -2,9 +2,14 @@
 
 Pull-model operators: streaming ones (`FilterOp`, `ProjectOp`) transform one batch at
 a time; blocking ones (`HashAggOp` and `DistinctOp`, the `HashJoinOp` and `CrossJoinOp`
-builds, `SortOp`, `WindowOp`) consume all input then produce.  Every hot loop is a torch formulation from `kernels/relational.py` on
-the batch's device, and dynamic cardinality is handled by capacity buckets plus
-overflow-doubling retries, exactly as in the reference.
+builds, `SortOp`, `WindowOp`) consume all input then produce.  Every hot loop is a
+torch formulation from `kernels/relational.py` on the batch's device, and dynamic
+cardinality is handled by capacity buckets plus overflow-doubling retries, exactly as
+in the reference.  Past their spill thresholds the reference's spill paths take over:
+aggregation partials, the grace hash join's key-hash buckets and the external sort's
+sorted runs go through host files (`exec/spill.py`, charged to an optional
+`exec/memory.py` pool); bucketing, key codes and run merging run on the host, as in
+the reference, and each in-memory piece runs on the device again.
 
 The reference's `global_jit` program cache becomes `closure_cache`: eager PyTorch
 compiles nothing, so the cache only spares rebuilding the expression closures of a
@@ -16,19 +21,23 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import threading
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
                                              concat_batches, dictionary_translation,
-                                             torch_dtype)
+                                             to_numpy, torch_dtype)
+from galaxysql_tpu_torch.exec.memory import PoolCharge
+from galaxysql_tpu_torch.exec.spill import Spiller
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import (ExprCompiler, TorchXP, _find_dictionary,
                                                _pow10, _signed_div_round, batch_env)
 from galaxysql_tpu_torch.kernels import relational as K
+from galaxysql_tpu_torch.meta.statistics import _mix64
 from galaxysql_tpu_torch.storage.table_store import visible_rows
 from galaxysql_tpu_torch.types import collation as _coll
 from galaxysql_tpu_torch.types import datatype as dt
@@ -148,6 +157,17 @@ class Operator:
         raise NotImplementedError
 
 
+class SourceOp(Operator):
+    def __init__(self, batches: Iterable[ColumnBatch]):
+        # materialize one-shot iterators: blocking operators (agg overflow retry)
+        # re-iterate their children
+        self._batches = batches if isinstance(batches, (list, tuple)) \
+            else list(batches)
+
+    def batches(self) -> Iterator[ColumnBatch]:
+        yield from self._batches
+
+
 class FilterOp(Operator):
     """WHERE: ANDs the predicate into the live mask (selection-vector style)."""
 
@@ -202,18 +222,27 @@ class HashAggOp(Operator):
     """Grouped/global aggregation: one partial per input batch, then a merge.
 
     Partials stay on the device; a single partial is the result as is, several are
-    concatenated and merged by the same kernels.  The reference's spill path is not
-    part of the port."""
+    concatenated and merged by the same kernels.  Once the resident partials pass
+    `spill_threshold` bytes (or the per-query pool cannot cover them), they are
+    copied to host spill files in the reference's format, and the merge reads them
+    back in threshold-bounded waves (`_merge_waves`)."""
 
     DENSE_AGG_MAX_DOMAIN = 64
     MAX_GROUPS_CEILING = 1 << 24
 
     def __init__(self, child: Operator, group_exprs: Sequence[Tuple[str, ir.Expr]],
-                 aggs: Sequence[AggCall], max_groups: int = 1 << 16):
+                 aggs: Sequence[AggCall], max_groups: int = 1 << 16,
+                 spill_threshold: int = 256 << 20, mem_pool=None):
         self.child = child
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
         self.max_groups = max_groups
+        # partial-state bytes above this spill to disk (MemoryRevoker analog)
+        self.spill_threshold = spill_threshold
+        self.spilled_partials = 0
+        # per-query memory pool: partial bytes charge it; exhaustion (or a
+        # cross-query squeeze revoke) forces the spill path early
+        self.mem_pool = mem_pool
 
     def _partial_specs(self) -> Tuple[List[ir.Expr], List[Tuple[str, K.AggSpec]]]:
         """Decompose SQL aggs into kernel specs (avg -> sum + count)."""
@@ -304,30 +333,81 @@ class HashAggOp(Operator):
         return closure_cache(key, build)
 
     def batches(self) -> Iterator[ColumnBatch]:
-        inputs, lanes = self._partial_specs()
+        _inputs, lanes = self._partial_specs()
         lane_names = tuple(name for name, _ in lanes)
         mg = self.max_groups
+        device = None
         # capacity under-estimates retry the whole aggregation with doubled output
         # capacity (children re-iterate; scans re-read from the device cache)
-        while True:
-            partials: List[K.GroupByResult] = []
-            overflowed = False
-            for b in self.child.batches():
-                r = self._partial_fn(mg, b.device)(b)
-                if bool(r.overflow):
-                    overflowed = True
+        spiller = Spiller()
+        charge = PoolCharge(self.mem_pool)
+        try:
+            while True:
+                partials: List[K.GroupByResult] = []
+                spiller.close()
+                partial_bytes = 0
+                charge.to(0)
+                overflowed = False
+                for b in self.child.batches():
+                    device = b.device
+                    r = self._partial_fn(mg, b.device)(b)
+                    if bool(r.overflow):
+                        overflowed = True
+                        break
+                    partials.append(r)
+                    partial_bytes += _groupby_result_bytes(r)
+                    # spill when over the threshold, when the per-query pool cannot
+                    # cover the resident partials, or when a revoker asked this
+                    # operator to give memory back
+                    if partial_bytes > self.spill_threshold or \
+                            not charge.to(partial_bytes) or charge.squeeze:
+                        for p in partials:
+                            spiller.spill(_groupby_result_to_arrays(p))
+                        self.spilled_partials += len(partials)
+                        partials = []
+                        partial_bytes = 0
+                        charge.to(0)
+                        charge.squeeze = False
+                if not overflowed:
                     break
-                partials.append(r)
-            if not overflowed:
-                break
-            mg *= 2
+                mg *= 2
+                if mg > self.MAX_GROUPS_CEILING:
+                    raise RuntimeError("group cardinality exceeds engine ceiling")
+            # hierarchical merge: spilled partials come back in threshold-bounded
+            # waves, so resident state stays ~spill_threshold + the merged groups
+            out = self._merge_waves(partials, spiller, mg, lanes, lane_names, device)
+            if out is not None:
+                yield out
+        finally:
+            spiller.close()
+            charge.close()
+
+    def _merge_partials(self, parts, mg: int, merge_specs, device):
+        """Merge partials (device tensors, or host arrays read back from a spill
+        file) into one on `device`; returns (result, possibly-grown mg)."""
+
+        def cat(lanes_of):
+            datas = [as_tensor(d, device) for d, _ in lanes_of]
+            if all(v is None for _, v in lanes_of):
+                return torch.cat(datas), None
+            return torch.cat(datas), torch.cat(
+                [torch.ones(d.shape[0], dtype=torch.bool, device=device) if v is None
+                 else as_tensor(v, device) for d, (_, v) in zip(datas, lanes_of)])
+
+        key_lanes = [cat([p.keys[i] for p in parts])
+                     for i in range(len(self.group_exprs))]
+        agg_lanes = [cat([p.aggs[j] for p in parts]) for j in range(len(merge_specs))]
+        live = torch.cat([as_tensor(p.live, device).to(torch.bool) for p in parts])
+        while True:
+            r = K.groupby(key_lanes, agg_lanes, merge_specs, live, mg)
+            if not bool(r.overflow):
+                return r, mg
+            mg *= 2  # distinct groups across partials can exceed one partial's cap
             if mg > self.MAX_GROUPS_CEILING:
                 raise RuntimeError("group cardinality exceeds engine ceiling")
-        out = self._merge(partials, mg, lanes, lane_names)
-        if out is not None:
-            yield out
 
-    def _merge(self, partials, mg, lanes, lane_names) -> Optional[ColumnBatch]:
+    def _merge_waves(self, partials, spiller, mg, lanes, lane_names,
+                     device) -> Optional[ColumnBatch]:
         merge_specs = []
         for (_name, spec) in lanes:
             if spec.kind in ("count", "count_star", "sum"):
@@ -336,7 +416,7 @@ class HashAggOp(Operator):
                 merge_specs.append(K.AggSpec(spec.kind, len(merge_specs)))
         merge_specs = tuple(merge_specs)
 
-        if not partials:
+        if not partials and not spiller.spilled_files:
             if self.group_exprs:
                 return None  # grouped agg over empty input: no rows at all
             dev = torch.device("cpu")
@@ -345,29 +425,36 @@ class HashAggOp(Operator):
             r = K.GroupByResult(tuple(), tuple(empty),
                                 torch.zeros(1, dtype=torch.bool, device=dev), 0, False)
             return self._finalize(r, lane_names)
-        if len(partials) == 1:
+        if len(partials) == 1 and not spiller.spilled_files:
             # single partial (the common full-table-scan case): it IS the result
             return self._finalize(partials[0], lane_names)
 
-        def cat(lanes_of):
-            datas = [d for d, _ in lanes_of]
-            if all(v is None for _, v in lanes_of):
-                return torch.cat(datas), None
-            return torch.cat(datas), torch.cat(
-                [torch.ones(d.shape[0], dtype=torch.bool, device=d.device) if v is None
-                 else v for d, v in lanes_of])
+        acc: Optional[K.GroupByResult] = None
+        wave: List[K.GroupByResult] = []
+        wave_bytes = 0
 
-        key_lanes = [cat([p.keys[i] for p in partials])
-                     for i in range(len(self.group_exprs))]
-        agg_lanes = [cat([p.aggs[j] for p in partials]) for j in range(len(lane_names))]
-        live = torch.cat([p.live for p in partials])
-        while True:
-            r = K.groupby(key_lanes, agg_lanes, merge_specs, live, mg)
-            if not bool(r.overflow):
-                return self._finalize(r, lane_names)
-            mg *= 2  # distinct groups across partials can exceed one partial's cap
-            if mg > self.MAX_GROUPS_CEILING:
-                raise RuntimeError("group cardinality exceeds engine ceiling")
+        def flush():
+            nonlocal acc, wave, wave_bytes, mg
+            if not wave:
+                return
+            parts = ([acc] if acc is not None else []) + wave
+            acc, mg = self._merge_partials(parts, mg, merge_specs, device)
+            wave = []
+            wave_bytes = 0
+
+        for d in spiller.read_all():
+            p = _groupby_result_from_arrays(d)
+            wave.append(p)
+            wave_bytes += _groupby_result_bytes(p)
+            if wave_bytes > self.spill_threshold:
+                flush()
+        for p in partials:
+            wave.append(p)
+            wave_bytes += _groupby_result_bytes(p)
+            if wave_bytes > self.spill_threshold:
+                flush()
+        flush()
+        return self._finalize(acc, lane_names)
 
     def _finalize(self, r: K.GroupByResult, lane_names: Tuple[str, ...]) -> ColumnBatch:
         """Output batch on the partials' device; avg = sum/count with MySQL decimal
@@ -416,16 +503,67 @@ class HashAggOp(Operator):
         return ColumnBatch(cols, groups_live)
 
 
+def _host_env(batch: ColumnBatch) -> Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]:
+    """Every column of a batch copied to the host once, as an `ExprCompiler(np)`
+    environment (the spill paths' host work reads it)."""
+    return {n: (c.np_data(), None if c.valid is None else c.np_valid())
+            for n, c in batch.columns.items()}
+
+
+def _groupby_result_bytes(r: K.GroupByResult) -> int:
+    total = 0
+    for d, v in tuple(r.keys) + tuple(r.aggs):
+        total += d.nbytes + (v.nbytes if v is not None else 0)
+    return total + r.live.nbytes
+
+
+def _groupby_result_to_arrays(r: K.GroupByResult) -> Dict[str, np.ndarray]:
+    """A partial as host arrays under the reference's spill-file names."""
+    out: Dict[str, np.ndarray] = {"live": to_numpy(r.live),
+                                  "num_groups": to_numpy(r.num_groups),
+                                  "overflow": np.asarray(bool(r.overflow))}
+    for i, (d, v) in enumerate(r.keys):
+        out[f"k{i}_d"] = to_numpy(d)
+        if v is not None:
+            out[f"k{i}_v"] = to_numpy(v)
+    for j, (d, v) in enumerate(r.aggs):
+        out[f"a{j}_d"] = to_numpy(d)
+        if v is not None:
+            out[f"a{j}_v"] = to_numpy(v)
+    return out
+
+
+def _groupby_result_from_arrays(d: Dict[str, np.ndarray]) -> K.GroupByResult:
+    keys = []
+    i = 0
+    while f"k{i}_d" in d:
+        keys.append((d[f"k{i}_d"], d.get(f"k{i}_v")))
+        i += 1
+    aggs = []
+    j = 0
+    while f"a{j}_d" in d:
+        aggs.append((d[f"a{j}_d"], d.get(f"a{j}_v")))
+        j += 1
+    return K.GroupByResult(tuple(keys), tuple(aggs), d["live"], d["num_groups"],
+                           d["overflow"])
+
+
 class HashJoinOp(Operator):
-    """Equi hash join: build side fully materialized, probe side streamed.
+    """Equi hash join: build side materialized, probe side streamed.
 
     join_type: inner | left | semi | anti (probe side is the outer/left side).  The
     build side is compacted and padded to a capacity bucket, a slot CSR is built over
     it on its device (`relational._device_csr`), and every probe batch enumerates its
-    verified pairs through `relational.hash_join_probe_csr`."""
+    verified pairs through `relational.hash_join_probe_csr`.  A build side past
+    `spill_threshold` bytes takes the grace path instead: both sides are split by key
+    hash into GRACE_PARTITIONS host spill buckets and each bucket pair joins in
+    memory (`_grace_batches`)."""
 
     BLOOM_MAX_BUILD = 1 << 20
     BLOOM_DEVICE_MAX_BITS = 1 << 24
+    # the total build size is unknown mid-stream; bucket pairs that still exceed
+    # memory join in memory (no recursion), as in the reference
+    GRACE_PARTITIONS = 16
 
     def __init__(self, build: Operator, probe: Operator,
                  build_keys: Sequence[ir.Expr], probe_keys: Sequence[ir.Expr],
@@ -433,7 +571,8 @@ class HashJoinOp(Operator):
                  residual: Optional[ir.Expr] = None,
                  build_schema: Optional[Dict[str, Tuple[dt.DataType,
                                                         Optional[Dictionary]]]] = None,
-                 enable_bloom: bool = True):
+                 enable_bloom: bool = True, spill_threshold: int = 256 << 20,
+                 mem_pool=None):
         assert join_type in ("inner", "left", "semi", "anti")
         self.build, self.probe = build, probe
         self.build_keys, self.probe_keys = list(build_keys), list(probe_keys)
@@ -442,6 +581,13 @@ class HashJoinOp(Operator):
         # build-side output schema, needed to null-extend when the build side is EMPTY
         self.build_schema = build_schema
         self.enable_bloom = enable_bloom  # NO_BLOOM hint disables the probe bloom
+        # grace spill: a build side above this partitions BOTH sides by key hash
+        # to disk and joins bucket pairs (HybridHashJoinExec analog)
+        self.spill_threshold = spill_threshold
+        self.grace_partitions = 0  # observable spill counter
+        # per-query memory pool: accumulated build bytes charge it; exhaustion or a
+        # squeeze revoke engages the grace path early
+        self.mem_pool = mem_pool
 
     def _key_compilers(self, device):
         """Compile key pairs into a common lane domain.  String keys from different
@@ -470,6 +616,113 @@ class HashJoinOp(Operator):
                 pk.append(pf)
             return bk, pk
         return closure_cache(key, build)
+
+    def _key_compilers_np(self):
+        """Host twins of `_key_compilers`: key lanes in a common numpy domain."""
+        comp = ExprCompiler(np)
+        bk, pk = [], []
+        for be, pe in zip(self.build_keys, self.probe_keys):
+            bf, pf = comp.compile(be), comp.compile(pe)
+            if be.dtype.is_string and pe.dtype.is_string:
+                db = _find_dictionary(be)
+                dp = _find_dictionary(pe)
+                if db is not None and dp is not None and db is not dp:
+                    trans = np.asarray(dictionary_translation(db, dp))
+
+                    def translated(env, _pf=pf, _t=trans):
+                        d, v = _pf(env)
+                        return _t[np.clip(d, 0, _t.shape[0] - 1)], v
+                    pf = translated
+            bk.append(bf)
+            pk.append(pf)
+        return bk, pk
+
+    @staticmethod
+    def _np_bucket(env, capacity: int, kfns, P: int) -> np.ndarray:
+        """Per-row bucket id from the join-key hash (host)."""
+        h = None
+        for f in kfns:
+            d, v = f(env)
+            d = np.broadcast_to(np.asarray(d), (capacity,))
+            lane = _mix64(d.astype(np.int64).astype(np.uint64))
+            if v is not None:
+                vv = np.broadcast_to(np.asarray(v), (capacity,))
+                lane = np.where(vv, lane, np.uint64(0xDEADBEEFCAFEBABE))
+            h = lane if h is None else _mix64(
+                h * np.uint64(31) + lane + np.uint64(0x9E3779B97F4A7C15))
+        return (h & np.uint64(P - 1)).astype(np.int64)
+
+    @staticmethod
+    def _spill_split(batch: ColumnBatch, env, buckets: np.ndarray, P: int,
+                     spillers, schema_out: dict):
+        live = batch.np_live()
+        for name, c in batch.columns.items():
+            schema_out.setdefault(name, (c.dtype, c.dictionary))
+        for p in range(P):
+            sel = np.nonzero(live & (buckets == p))[0]
+            if sel.size == 0:
+                continue
+            arrays = {}
+            for name, c in batch.columns.items():
+                d, v = env[name]
+                arrays[f"d::{name}"] = d[sel]
+                if v is not None:
+                    arrays[f"v::{name}"] = v[sel]
+            arrays["::n"] = np.asarray([sel.size])
+            spillers[p].spill(arrays)
+
+    @staticmethod
+    def _rebuild(run: dict, schema: dict, device) -> ColumnBatch:
+        n = int(run["::n"][0])
+        cols = {}
+        for name, (typ, d_) in schema.items():
+            d = run[f"d::{name}"]
+            v = run.get(f"v::{name}")
+            cols[name] = Column(as_tensor(d, device),
+                                None if v is None else as_tensor(v, device), typ, d_)
+        return ColumnBatch(cols, torch.ones(n, dtype=torch.bool, device=device))
+
+    def _grace_batches(self, build_parts: List[ColumnBatch],
+                       build_iter) -> Iterator[ColumnBatch]:
+        """Partition BOTH sides by key hash into P disk buckets; join each bucket pair
+        in memory on the batches' device.  Rows of one key land in one bucket on both
+        sides, so per-bucket joins compose exactly, left/anti unmatched semantics
+        included (a probe row can only match inside its own bucket).  Build batches
+        stream straight into buckets: the collected prefix first, then the rest one
+        batch at a time."""
+        P = self.GRACE_PARTITIONS
+        self.grace_partitions = P
+        bk, pk = self._key_compilers_np()
+        b_spill = [Spiller() for _ in range(P)]
+        p_spill = [Spiller() for _ in range(P)]
+        b_schema: dict = {}
+        p_schema: dict = {}
+        device = build_parts[0].device
+        try:
+            for bb in itertools.chain(build_parts, build_iter):
+                env = _host_env(bb)
+                self._spill_split(bb, env, self._np_bucket(env, bb.capacity, bk, P), P,
+                                  b_spill, b_schema)
+            for pb in self.probe.batches():
+                env = _host_env(pb)
+                self._spill_split(pb, env, self._np_bucket(env, pb.capacity, pk, P), P,
+                                  p_spill, p_schema)
+            for p in range(P):
+                p_runs = [self._rebuild(r, p_schema, device)
+                          for r in p_spill[p].read_all()]
+                if not p_runs and self.join_type in ("inner", "semi"):
+                    continue
+                b_runs = [self._rebuild(r, b_schema, device)
+                          for r in b_spill[p].read_all()]
+                inner = HashJoinOp(
+                    SourceOp(b_runs), SourceOp(p_runs),
+                    self.build_keys, self.probe_keys, self.join_type,
+                    self.residual, self.build_schema,
+                    spill_threshold=1 << 62)  # bucket pairs join in memory
+                yield from inner.batches()
+        finally:
+            for s in b_spill + p_spill:
+                s.close()
 
     @staticmethod
     def _lanes(fns, batch: ColumnBatch, xp):
@@ -530,14 +783,34 @@ class HashJoinOp(Operator):
             yield ColumnBatch(ncols, pb.live)
 
     def batches(self) -> Iterator[ColumnBatch]:
-        build_batch = concat_batches(list(self.build.batches()))
-        if build_batch.capacity == 0:
-            yield from self._empty_build_batches()
-            return
-        # every build-side cost (CSR slot count, verify gathers) scales with
-        # capacity, and a build gathered out of an upstream join is mostly dead rows
-        build_batch = build_batch.pad_to(bucket_capacity(build_batch.capacity))
-        yield from self._device_probe(build_batch)
+        # accumulate the build side batch by batch; crossing the spill threshold, or
+        # exhausting the per-query memory pool, or a squeeze revoke, hands the
+        # ALREADY-collected prefix plus the still-unread remainder to the grace path
+        # (the full build is never concatenated first)
+        build_parts: List[ColumnBatch] = []
+        build_bytes = 0
+        charge = PoolCharge(self.mem_pool)
+        try:
+            build_iter = iter(self.build.batches())
+            for b in build_iter:
+                build_parts.append(b)
+                build_bytes += _batch_bytes(b)
+                if build_bytes > self.spill_threshold or \
+                        not charge.to(build_bytes) or charge.squeeze:
+                    charge.to(0)
+                    yield from self._grace_batches(build_parts, build_iter)
+                    return
+            build_batch = concat_batches(build_parts)
+            if build_batch.capacity == 0:
+                yield from self._empty_build_batches()
+                return
+            # every build-side cost (CSR slot count, verify gathers) scales with
+            # capacity, and a build gathered out of an upstream join is mostly dead
+            # rows
+            build_batch = build_batch.pad_to(bucket_capacity(build_batch.capacity))
+            yield from self._device_probe(build_batch)
+        finally:
+            charge.close()
 
     @staticmethod
     def _gather(batch: ColumnBatch, idx) -> Dict[str, Column]:
@@ -676,16 +949,31 @@ class CrossJoinOp(Operator):
 
 
 class SortOp(Operator):
-    """ORDER BY [LIMIT]: in-memory sort on the batch's device.  The reference's
-    external sorted-run merge is not part of the port."""
+    """ORDER BY [LIMIT]: in-memory sort on the batch's device, or an external
+    sorted-run merge when the input passes the spill threshold.
+
+    External path (the reference's, SpilledTopNExec analog): each threshold-sized slab
+    is sorted on the host by comparison-coded key lanes (`_key_codes`, one
+    `np.lexsort`), compacted and spilled as a run of raw .npy files; the runs then
+    stream through a bounded-memory chunked k-way merge (per-run chunk heads, a
+    safe-prefix cut at the smallest chunk-tail key, one `np.lexsort` per wave), and
+    every merged wave goes back to the input's device."""
+
+    MERGE_CHUNK = 65536  # rows a run contributes to one merge wave
 
     def __init__(self, child: Operator,
                  keys: Sequence[Tuple[ir.Expr, bool]],  # (expr, descending)
-                 limit: Optional[int] = None, offset: int = 0):
+                 limit: Optional[int] = None, offset: int = 0,
+                 spill_threshold: int = 256 << 20, mem_pool=None):
         self.child = child
         self.keys = list(keys)
         self.limit = limit
         self.offset = offset
+        self.spill_threshold = spill_threshold
+        self.spilled_runs = 0  # observable spill counter
+        # per-query memory pool: slab bytes charge it; exhaustion or a squeeze
+        # revoke flushes the slab into a sorted run early
+        self.mem_pool = mem_pool
 
     def _compiled(self, device):
         key = ("sort", str(device),
@@ -731,12 +1019,185 @@ class SortOp(Operator):
         return closure_cache(key, build)
 
     def batches(self) -> Iterator[ColumnBatch]:
-        merged = concat_batches(list(self.child.batches()))
+        slab: List[ColumnBatch] = []
+        slab_bytes = 0
+        spiller = Spiller()
+        charge = PoolCharge(self.mem_pool)
+        run_meta: List[int] = []  # row count per spilled run
+        device = None
+        try:
+            for b in self.child.batches():
+                device = b.device
+                slab.append(b)
+                slab_bytes += _batch_bytes(b)
+                if slab_bytes > self.spill_threshold or \
+                        not charge.to(slab_bytes) or charge.squeeze:
+                    self._spill_run(slab, spiller, run_meta)
+                    slab = []
+                    slab_bytes = 0
+                    charge.to(0)
+                    charge.squeeze = False
+            if not run_meta:
+                merged = concat_batches(slab)
+                if merged.capacity == 0:
+                    yield merged
+                    return
+                padded = merged.pad_to(bucket_capacity(merged.capacity))
+                yield self._compiled(padded.device)(padded)
+                return
+            if slab:
+                self._spill_run(slab, spiller, run_meta)
+            yield from self._merge_runs(spiller, run_meta, device)
+        finally:
+            spiller.close()
+            charge.close()
+
+    # -- external sort -------------------------------------------------------
+
+    def _key_codes(self, env, capacity: int) -> List[np.ndarray]:
+        """Comparison-coded host key lanes: lexsort over them (major key first)
+        reproduces `sort_indices` order; NULL placement as a leading lane, DESC by
+        exact integer complement (~x) or float negation."""
+        comp = ExprCompiler(np)
+        out: List[np.ndarray] = []
+        for e, desc in self.keys:
+            d, v = comp.compile(e)(env)
+            d = np.broadcast_to(np.asarray(d), (capacity,))
+            d_ = _needs_rank(e)
+            if d_ is not None:
+                d = _coll.sort_rank_array(e, d_)[np.clip(d, 0, len(d_) - 1)]
+            nulls_first = not desc  # MySQL: NULLs first asc, last desc
+            if v is None:
+                nk = np.ones(capacity, np.int8)
+            else:
+                vv = np.broadcast_to(np.asarray(v), (capacity,))
+                nk = np.where(vv, np.int8(1), np.int8(0))
+            if not nulls_first:
+                nk = np.int8(1) - nk
+            if np.issubdtype(d.dtype, np.floating):
+                dk = -d.astype(np.float64) if desc else d.astype(np.float64)
+            else:
+                di = d.astype(np.int64)
+                dk = ~di if desc else di
+            if v is not None:
+                dk = np.where(np.broadcast_to(np.asarray(v), dk.shape), dk, 0)
+            out.append(nk)
+            out.append(dk)
+        return out
+
+    def _spill_run(self, slab: List[ColumnBatch], spiller, run_meta: List[int]):
+        merged = concat_batches(slab)
         if merged.capacity == 0:
-            yield merged
             return
-        padded = merged.pad_to(bucket_capacity(merged.capacity))
-        yield self._compiled(padded.device)(padded)
+        env = _host_env(merged)
+        codes = self._key_codes(env, merged.capacity)
+        live = merged.np_live()
+        order = np.lexsort(tuple(reversed(codes)))
+        order = order[live[order]]  # compact: spilled runs hold live rows only
+        arrays: Dict[str, np.ndarray] = {}
+        for i, k in enumerate(codes):
+            arrays[f"k{i}"] = k[order]
+        for name, c in merged.columns.items():
+            d, v = env[name]
+            arrays[f"d::{name}"] = d[order]
+            if v is not None:
+                arrays[f"v::{name}"] = v[order]
+        # column dtypes/dictionaries survive OUTSIDE the files (metadata, not lanes)
+        self._run_schema = [(name, c.dtype, c.dictionary)
+                            for name, c in merged.columns.items()]
+        spiller.spill_mmap(arrays)
+        run_meta.append(int(order.shape[0]))
+        self.spilled_runs += 1
+
+    @staticmethod
+    def _tuple_le(ks: List[np.ndarray], bound: Tuple) -> np.ndarray:
+        """Vectorized lexicographic (k0,k1,...) <= bound."""
+        lt = np.zeros(ks[0].shape[0], dtype=bool)
+        eq = np.ones(ks[0].shape[0], dtype=bool)
+        for a, b in zip(ks, bound):
+            lt = lt | (eq & (a < b))
+            eq = eq & (a == b)
+        return lt | eq
+
+    def _merge_runs(self, spiller, run_meta: List[int],
+                    device) -> Iterator[ColumnBatch]:
+        # mmap-backed: only the pages each merge wave slices become resident, so
+        # peak host memory is ~MERGE_CHUNK x runs, not the whole input
+        runs = [spiller.open_mmap(i) for i in range(len(run_meta))]
+        nk = 2 * len(self.keys)
+        heads = [0] * len(runs)
+        sizes = run_meta
+        emitted = 0  # rows streamed out so far (before the offset/limit window)
+        stop_at = None if self.limit is None else self.offset + self.limit
+        chunk = self.MERGE_CHUNK
+
+        while stop_at is None or emitted < stop_at:
+            # a chunk window per live run; the merge-safe bound is the SMALLEST of
+            # the unfinished runs' chunk-tail keys (rows <= bound cannot be
+            # preceded by any unread row)
+            windows = []
+            bound = None
+            for ri, r in enumerate(runs):
+                if heads[ri] >= sizes[ri]:
+                    continue
+                end = min(heads[ri] + chunk, sizes[ri])
+                windows.append((ri, end))
+                if end < sizes[ri]:
+                    tail = tuple(r[f"k{i}"][end - 1] for i in range(nk))
+                    if bound is None or tail < bound:
+                        bound = tail
+            if not windows:
+                break
+            take: List[Tuple[int, int, int]] = []  # (run, lo, hi)
+            for ri, end in windows:
+                lo = heads[ri]
+                if bound is None:
+                    hi = end
+                else:
+                    ks = [runs[ri][f"k{i}"][lo:end] for i in range(nk)]
+                    hi = lo + int(np.count_nonzero(self._tuple_le(ks, bound)))
+                if hi > lo:
+                    take.append((ri, lo, hi))
+                    heads[ri] = hi
+            if not take:
+                # every candidate sits above the bound (tie pathologies): the
+                # bound-owning run's whole chunk is safe by construction
+                ri, end = min(windows, key=lambda w: tuple(
+                    runs[w[0]][f"k{i}"][w[1] - 1] for i in range(nk)))
+                take = [(ri, heads[ri], end)]
+                heads[ri] = end
+            kparts = [np.concatenate([runs[ri][f"k{i}"][lo:hi]
+                                      for ri, lo, hi in take])
+                      for i in range(nk)]
+            order = np.lexsort(tuple(reversed(kparts)))
+            n = order.shape[0]
+            out_cols: Dict[str, Column] = {}
+            for name, typ, dict_ in self._run_schema:
+                d = np.concatenate([runs[ri][f"d::{name}"][lo:hi]
+                                    for ri, lo, hi in take])[order]
+                vcat = None
+                if any(f"v::{name}" in runs[ri] for ri, _, _ in take):
+                    vcat = np.concatenate(
+                        [runs[ri][f"v::{name}"][lo:hi]
+                         if f"v::{name}" in runs[ri]
+                         else np.ones(hi - lo, dtype=bool)
+                         for ri, lo, hi in take])[order]
+                out_cols[name] = Column(
+                    as_tensor(d, device),
+                    None if vcat is None else as_tensor(vcat, device), typ, dict_)
+            pos = emitted + np.arange(n)
+            live = pos >= self.offset
+            if stop_at is not None:
+                live = live & (pos < stop_at)
+            emitted += n
+            yield ColumnBatch(out_cols, as_tensor(live, device))
+
+
+def _batch_bytes(b: ColumnBatch) -> int:
+    total = 0
+    for c in b.columns.values():
+        total += c.data.nbytes + (c.valid.nbytes if c.valid is not None else 0)
+    return total
 
 
 class LimitOp(Operator):

@@ -2,12 +2,17 @@
 `galaxysql_tpu/plan/physical.py`).
 
 - scans read whole tables as one device-resident batch (lanes cached per table
-  version), with MVCC visibility computed on the device; a scan the rules marked
-  `point_eq` reads its candidate rows through the partitions' sorted key indexes on
-  the host and ships them as one small batch;
+  version), with MVCC visibility computed on the device; a full-table scan of more
+  than FUSE_MAX_ROWS rows streams one cached batch a partition instead; a scan the
+  rules marked `point_eq` reads its candidate rows through the partitions' sorted
+  key indexes on the host and ships them as one small batch;
 - hash join sides: build = smaller estimated input (the probe side streams);
   left/semi/anti joins fix the probe side to the preserved/output side;
 - aggregates use estimated group counts to size the fixed-shape kernel output;
+- aggregates, hash joins and sorts get the context's spill thresholds
+  (`SORT_SPILL_BYTES`, `JOIN_SPILL_BYTES` per session, the agg threshold fixed): past
+  them they spill partials, grace-partition both join sides, or merge sorted runs
+  through host files (`exec/spill.py`);
 - cross joins (the scalar-subquery shape) keep their build side whole; a filter over
   a cross join is run as an equi join where it can be (`_through_cross`);
 - UNION children are renamed to the first child's ids, and string codes translated
@@ -65,7 +70,18 @@ class ExecContext:
         # EXPLAIN ANALYZE instrumentation: per-operator rows/batches/wall time
         self.collect_stats = False
         self.op_stats: List[dict] = []
+        self.sort_spill_bytes = 256 << 20   # SORT_SPILL_BYTES (session override)
+        self.join_spill_bytes = 256 << 20   # JOIN_SPILL_BYTES
+        self.agg_spill_bytes = 256 << 20    # partial-agg spill threshold
+        # per-query memory pool (exec/memory.py) that join builds, agg partials and
+        # sort slabs charge; the reference makes one only under admission control
+        # (ROADMAP Queue 1 item 16), so it stays None and every charge is a no-op
+        self.mem_pool = None
 
+
+# a full-table scan of more rows than this streams one device batch a partition
+# instead of fusing every partition into one (the reference's limit, inline there)
+FUSE_MAX_ROWS = 1 << 27
 
 # per-(store, version, partitions) scan metadata: O(table) host reductions run once
 # per version, not per query
@@ -112,7 +128,8 @@ def _device_visibility(begin, end, ts, txn_id):
 
 class ScanSource(ops.Operator):
     """Storage scan renamed into plan field-id space: the scanned partitions fused
-    into ONE batch whose lanes come from the device cache."""
+    into ONE batch whose lanes come from the device cache, or, for a full-table scan
+    past FUSE_MAX_ROWS rows, one such batch a partition."""
 
     def __init__(self, node: L.Scan, ctx: ExecContext):
         self.node = node
@@ -135,7 +152,20 @@ class ScanSource(ops.Operator):
             return
         self.ctx.trace.append(
             f"scan {t.name} partitions={self.node.partitions or 'all'}")
-        b = self._fused_table_batch(t, store, pids)
+        if self.node.partitions is None and \
+                sum(p.num_rows for p in store.partitions) > FUSE_MAX_ROWS:
+            # the reference's per-partition loop: one batch a partition, its lanes
+            # cached under the partition's id
+            n = 0
+            for pid in pids:
+                b = self._fused_table_batch(t, store, (pid,), pid)
+                if b is not None:
+                    n += 1
+                    yield b.rename(rename)
+            self.ctx.trace.append(f"scan {t.name} streamed batches={n}")
+            return
+        b = self._fused_table_batch(t, store, pids,
+                                    -1 if self.node.partitions is None else pids)
         if b is not None:
             yield b.rename(rename)  # fused cols are storage-name keyed
 
@@ -176,7 +206,9 @@ class ScanSource(ops.Operator):
                                  t.column(cname).dtype, t.dictionaries.get(cname.lower()))
         return ColumnBatch(cols, None)
 
-    def _fused_table_batch(self, t, store, pids) -> Optional[ColumnBatch]:
+    def _fused_table_batch(self, t, store, pids, sig) -> Optional[ColumnBatch]:
+        """The partitions `pids` as one padded device batch, its lanes cached under
+        `sig` (-1 for the whole table); None when they hold no row."""
         cache = self.ctx.device_cache
         ts = self.ctx.snapshot_ts
         parts = [store.partitions[p] for p in pids]
@@ -184,7 +216,6 @@ class ScanSource(ops.Operator):
         if total == 0:
             return None
         cap = ops.bucket_capacity(total)
-        sig = -1 if self.node.partitions is None else pids
 
         def fused(name, arrays, fill=0):
             def build():
@@ -337,7 +368,8 @@ def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
         max_groups = min(max_groups, 1 << 22)
         calls = [ops.AggCall(a.kind, a.arg, a.out_id) for a in node.aggs]
         return ops.HashAggOp(build_operator(node.child, ctx), node.groups, calls,
-                             max_groups=max_groups)
+                             max_groups=max_groups,
+                             spill_threshold=ctx.agg_spill_bytes, mem_pool=ctx.mem_pool)
     if isinstance(node, L.Window):
         return ops.WindowOp(build_operator(node.child, ctx), node.partitions,
                             node.orders, node.calls, out_schema=node.fields())
@@ -345,7 +377,8 @@ def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
         return _build_join(node, ctx)
     if isinstance(node, L.Sort):
         return ops.SortOp(build_operator(node.child, ctx), node.keys, node.limit,
-                          node.offset)
+                          node.offset, spill_threshold=ctx.sort_spill_bytes,
+                          mem_pool=ctx.mem_pool)
     if isinstance(node, L.Limit):
         return ops.LimitOp(build_operator(node.child, ctx), node.limit, node.offset)
     if isinstance(node, L.Union):
@@ -439,7 +472,9 @@ def _build_join(node: L.Join, ctx: ExecContext) -> ops.Operator:
         return ops.HashJoinOp(build_operator(node.right, ctx),
                               build_operator(node.left, ctx),
                               rkeys, lkeys, node.kind, residual=node.residual,
-                              build_schema=right_schema, enable_bloom=bloom)
+                              build_schema=right_schema, enable_bloom=bloom,
+                              spill_threshold=ctx.join_spill_bytes,
+                              mem_pool=ctx.mem_pool)
     # inner: build the smaller estimated side
     if estimate_rows(node.right) <= estimate_rows(node.left):
         build_node, probe_node = node.right, node.left
@@ -450,4 +485,5 @@ def _build_join(node: L.Join, ctx: ExecContext) -> ops.Operator:
     build_schema = {fid: (typ, d) for fid, typ, d in build_node.fields()}
     return ops.HashJoinOp(build_operator(build_node, ctx), build_operator(probe_node, ctx),
                           build_keys, probe_keys, "inner", residual=node.residual,
-                          build_schema=build_schema, enable_bloom=bloom)
+                          build_schema=build_schema, enable_bloom=bloom,
+                          spill_threshold=ctx.join_spill_bytes, mem_pool=ctx.mem_pool)

@@ -7,7 +7,9 @@ session, user and global scope, SHOW (`server/show_handlers.py`), DESCRIBE, EXPL
 recycle bin while ENABLE_RECYCLEBIN is on), FLASHBACK TABLE ... TO BEFORE DROP [RENAME
 TO], PURGE RECYCLEBIN / PURGE TABLE, DROP DATABASE, CREATE [OR REPLACE] VIEW, DROP
 VIEW, ALTER TABLE (ADD/DROP COLUMN, ADD/DROP INDEX, RENAME), CREATE/DROP [UNIQUE|GLOBAL]
-INDEX and ADVISE INDEX.  ALTER TABLE and the index statements run as jobs of the
+INDEX, ADVISE INDEX and LOAD DATA [LOCAL] INFILE (a server-side file, appended in
+DML_BATCH_SIZE batches, GSIs maintained, nothing logged to the binlog: the
+reference's).  ALTER TABLE and the index statements run as jobs of the
 instance's `ddl_engine` (`ddl/jobs.py`); the recycle bin and the advisor are
 `server/maintain.py`.  A statement the port does not take yet raises
 `NotSupportedError` naming the ROADMAP item it waits for.  Every statement is
@@ -16,9 +18,10 @@ authorized as in the reference (`_authorize` against the instance's
 first (`server/information_schema.py`).  A SELECT goes parse -> bind ->
 optimise -> plan on the host (the planner and its plan cache), then through the
 operator tree on the instance's device; the compacted result batch comes back as
-rows.  ANALYZE builds the statistics on the host (`meta/statistics.py`).  Every
-planned query runs on the instance's device: the reference's pinning of TP plans to
-the host CPU is not carried over.
+rows; the session's SORT_SPILL_BYTES and JOIN_SPILL_BYTES become the execution's
+spill thresholds.  ANALYZE builds the statistics on the host (`meta/statistics.py`).
+Every planned query runs on the instance's device: the reference's pinning of TP
+plans to the host CPU is not carried over.
 
 The point path is the reference's.  A planned TP statement of the shape `SELECT cols
 FROM t WHERE key = ?` registers a PointPlan after its first run; re-executions of it
@@ -226,7 +229,6 @@ def gsi_delete(instance, tm, base_store, pid: int, row_ids: np.ndarray,
 
 # statements of the reference the port does not take yet -> the ROADMAP item
 _WAITING_STMTS = {
-    ast.LoadData: "LOAD DATA (ROADMAP Queue 1 item 7)",
     ast.CheckTable: "utils/fastchecker.py (ROADMAP Queue 1 item 16)",
     ast.Rebalance: "ddl/rebalance.py and server/balancer.py (ROADMAP Queue 1 item 16)",
     ast.CreateCclRule: "utils/ccl.py (ROADMAP Queue 1 item 16)",
@@ -509,6 +511,8 @@ class Session:
             self.instance.privileges.revoke(stmt.user, stmt.privileges, schema,
                                             stmt.table)
             return self._sync_privileges()
+        if isinstance(stmt, ast.LoadData):
+            return self._run_load_data(stmt)
         waits = _WAITING_STMTS.get(type(stmt))
         if waits is not None:
             raise errors.NotSupportedError(
@@ -566,12 +570,17 @@ class Session:
 
     def _exec_context(self, plan, params: Optional[list]) -> ExecContext:
         """A query's context: the instance's device and device cache, the session's
-        snapshot and transaction."""
-        return ExecContext(self.instance.stores, self._snapshot_ts(),
-                           self.instance.device, self.instance.device_cache,
-                           params=params or [],
-                           txn_id=self.txn.txn_id if self.txn is not None else 0,
-                           hints=getattr(plan, "hints", None))
+        snapshot and transaction, and its spill thresholds.  The reference scales the
+        thresholds down under memory pressure through admission control, which the
+        port does not have yet (ROADMAP Queue 1 item 16)."""
+        ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
+                          self.instance.device, self.instance.device_cache,
+                          params=params or [],
+                          txn_id=self.txn.txn_id if self.txn is not None else 0,
+                          hints=getattr(plan, "hints", None))
+        ctx.sort_spill_bytes = self.instance.config.get("SORT_SPILL_BYTES", self.vars)
+        ctx.join_spill_bytes = self.instance.config.get("JOIN_SPILL_BYTES", self.vars)
+        return ctx
 
     # -- point-plan fast path: archetypal `SELECT cols FROM t WHERE key = ?`
     # statements skip binder and planner on re-execution; the registered PointPlan
@@ -846,6 +855,61 @@ class Session:
         if self.txn is None:
             dml_batch.try_register(self, stmt, sql, params)
         return rs
+
+    def _run_load_data(self, stmt: ast.LoadData) -> ResultSet:
+        """Server-side CSV ingestion (LOAD DATA INFILE), the reference's: the file is
+        read with `csv.reader` (`""` and `\\N` read as NULL, short rows padded with
+        NULL) and appended in DML_BATCH_SIZE batches under the statement-scope shared
+        MDL, GSIs included.  LOCAL reads the same server-side path, and the rows
+        are not logged to the binlog, as in the reference."""
+        import csv
+        schema = stmt.table.schema or self._require_schema()
+        tm = self.instance.catalog.table(schema, stmt.table.table)
+        store = self.instance.store(tm.schema, tm.name)
+        columns = stmt.columns or tm.column_names()
+        ts, txn = self._dml_ts()
+        total = 0
+        batch_size = self.instance.config.get("DML_BATCH_SIZE", self.vars) or 10_000
+        delim = stmt.field_terminator.replace("\\t", "\t") or ","
+        quote = stmt.enclosed_by or '"'
+        try:
+            fh = open(stmt.path, newline="")
+        except OSError as e:
+            raise errors.TddlError(f"Can't read file '{stmt.path}' ({e.strerror})")
+        # a concurrent ADD/DROP COLUMN swapping partition lanes mid-load would be a
+        # torn write
+        with fh as f, self._mdl_shared({self.instance.store_key(tm.schema, tm.name)}):
+            reader = csv.reader(f, delimiter=delim, quotechar=quote)
+            rows: List[List[Any]] = []
+            for i, row in enumerate(reader):
+                if i < stmt.ignore_lines:
+                    continue
+                rows.append([None if v in ("", "\\N") else v for v in row])
+                if len(rows) >= batch_size:
+                    total += self._load_rows(tm, store, columns, rows, ts, txn)
+                    rows = []
+            if rows:
+                total += self._load_rows(tm, store, columns, rows, ts, txn)
+        tm.bump_version()
+        self._note_write(tm)
+        self.instance.catalog.version += 1
+        return ok(affected=total, info=f"Records: {total}")
+
+    def _load_rows(self, tm, store, columns, rows, ts, txn) -> int:
+        data = {c: [r[i] if i < len(r) else None for r in rows]
+                for i, c in enumerate(columns)}
+        data = {tm.column(c).name: vals for c, vals in data.items()}
+        with store.append_lock:
+            before = [p.num_rows for p in store.partitions]
+            n = store.insert_pylists(data, ts)
+            ranges = [(pid, before[pid], p.num_rows - before[pid])
+                      for pid, p in enumerate(store.partitions)
+                      if p.num_rows - before[pid]]
+        for pid, start, added in ranges:
+            if txn is not None:
+                txn.inserted.append((store, pid, start, added))
+            gsi_write_rows(self.instance, tm, store, pid, start, added, ts, txn)
+        return n
 
     def _note_write(self, tm: TableMeta):
         """After a write: the GSI tables took the same write, so their versions

@@ -450,7 +450,6 @@ WAITING = [
     ("ALTER TABLE t SPLIT PARTITION p1 INTO 2", "item 16"),
     ("ALTER TABLE t MERGE PARTITIONS p0, p1", "item 16"),
     ("ALTER TABLE t MOVE PARTITION p0 TO 'cold'", "item 16"),
-    ("LOAD DATA INFILE '/nonexistent.csv' INTO TABLE t", "item 7"),
     ("CREATE CCL_RULE r WITH MAX_CONCURRENCY = 1", "item 16"),
     ("DROP CCL_RULE r", "item 16"),
     ("CREATE SLO g WITH TARGET_P99_MS = 100", "item 16"),
