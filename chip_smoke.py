@@ -37,7 +37,7 @@ own, its launch counters set to 0 just before its timed runs and read just after
    the card's, `_take_statistics`; ANALYZED_CPU_SKIP's rows are held to the CPU's in
    the dml phase, before its refresh, on copies of the same lanes, and
    ANALYZED_CARD_ONLY's are not compared at SF 1);
-8. tpcds: `tpcds.generate(--sf)` loaded with `insert_pylists`, ANALYZEd (the CPU twin
+8. tpcds: `tpcds.generate(--sf * TPCDS_SF_SCALE)` loaded with `insert_pylists`, ANALYZEd (the CPU twin
    takes the card's statistics), the 10 queries twice each; rows must equal the port
    on the CPU;
 9. window: window queries over `orders` and `lineitem` (every `WindowSpec` kind and
@@ -197,11 +197,12 @@ Then bulk load, disk spill and streamed scans, last, on analyzed_tpch's card ins
 (kept for these two phases), the point phase's card `sbtest1` and an instance of
 their own:
 
-16. load_data: (a) SF 1 orders written as a dbgen `.tbl` file ('|' after every
-    field) and `LOAD DATA INFILE ... INTO TABLE orders_l FIELDS TERMINATED BY '|'` into
-    an empty table shaped like orders: orders_l must equal orders row for row (visible
-    rows sorted by key, strings decoded), and TPC-H Q13 over customer and orders_l must
-    equal Q13 over orders; (b) LOAD_SB_ROWS sysbench rows loaded into `sbtest1` while
+16. load_data: (a) the LOAD_ORDERS_ROWS orders of the lowest keys written as a
+    dbgen `.tbl` file ('|' after every field) and `LOAD DATA INFILE ... INTO TABLE
+    orders_l FIELDS TERMINATED BY '|'` into an empty table shaped like orders:
+    orders_l must equal those orders row for row (visible rows sorted by key, strings
+    decoded), and TPC-H Q13 over customer and orders_l must equal Q13 over a view of
+    the same orders; (b) LOAD_SB_ROWS sysbench rows loaded into `sbtest1` while
     its covering GSI `g_k` exists: `g_k` must equal sbtest1's projection after the
     load, and LOAD_POINT_SELECTS point selects of loaded ids must read their rows on
     the fast path; (c) LOAD_TXN_ROWS rows loaded inside BEGIN ... ROLLBACK leave
@@ -224,13 +225,37 @@ their own:
     counters are set to 0 at each phase's start and read at its end; all four kernels
     must have launched in each.
 
-Floats in 7-10, 13, 14, 15 and 17 compare as `tests/test_tpcds.py` compares them
+Then the columnar replica, last, on instances of its own: a card instance and a CPU
+twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
+
+18. columnar: ENABLE_COLUMNAR_REPLICA = 1, COLUMNAR_POLL_MS = 0 (the phase drives
+    `tail_once`), COLUMNAR_CLUSTER_BY = 'lineitem:l_shipdate'.  (a) Both replicas
+    seeded on both instances, each seed timed.  (b) TPC-H Q1, Q6, Q4 and Q12 with
+    `/*+TDDL:COLUMNAR(ON)*/`, first and warm, and with COLUMNAR(OFF), first and warm,
+    on the card: the routed rows must equal the row store read AS OF TSO W (W the
+    replicas' watermark) on the card and the CPU twin's routed rows; Q6 must prune at
+    least one lineitem stripe by its zone map.  (c) RF1 and RF2
+    (`storage/tpch_refresh.py`, at COLUMNAR_RF_SF of the scale factor) on both
+    instances, drained from the binlog by `tail_once` on the card (delta rows,
+    compactions, the apply's ms; the first delete builds the match-key map over every
+    live row) and seeded again on the CPU twin, then (b) again.  (d) Q6 AS OF TSO the
+    watermark from before the refresh equals Q6's rows from before it.  (e) `lu`,
+    LU_ROWS of lineitem's order keys with BIGINT UNSIGNED values above 2**63 derived
+    from their suppliers, and `su`, one row a supplier: a routed GROUP BY, MIN/MAX and
+    a join on the unsigned column, held to numpy and to the CPU twin.  (f) The archive: where
+    `pyarrow` imports, orders older than 1993-01-01 archived on the card and the union
+    scan held to the rows from before; where it does not, `archive_older_than` must
+    raise the reference's NotSupportedError (a `columnar_archive` line says which).
+    Peak device bytes.  Launch counters are set to 0 at the phase's start and read at
+    its end; all four kernels must have launched.
+
+Floats in 7-10, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares them
 (relative and absolute 1e-6); every other value must be equal.  The largest input the
 phases 7-9 gave each kernel, and apart from it the largest input each of the dml,
 ddl, durable, cdc and spill phases gave it, are then held against the kernel's plain
 version CHECK_REPEATS times and timed, beside the main path's, in the kernel's
 `new_phases` entry (`dml_input`, `ddl_input`, `durable_input`, `cdc_input`,
-`spill_input`).
+`spill_input`, `columnar_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -254,7 +279,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12       # non-tensor 32-bit rate of an H100 SXM, used for int ops
 SPIN_CYCLES = 50_000_000    # ~25 ms of the card's clock: longer than enqueueing 10 calls
-CHECK_REPEATS = 20          # kernel runs held against one plain result, per input
+CHECK_REPEATS = 10          # kernel runs held against one plain result, per input
 WARM_REPEATS = 7            # extra warm runs of each query after the main path
 QUERIES = (1, 3, 5, 6)
 # JOIN_SPILL_BYTES of the main path's instances (SET GLOBAL, so the booted instance of
@@ -291,20 +316,22 @@ DML_CARD_ONLY = (18,)
 # analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
 # twin takes 29-38 s); tests/test_torch_tpch.py holds them to the reference at SF 0.01
 ANALYZED_CARD_ONLY = (20,)
+TPCDS_SF_SCALE = 0.5        # the tpcds phase's scale, a fraction of --sf (a cut for time)
 # analyzed_tpch queries held to the CPU by the dml phase instead, before its refresh,
 # on the same ANALYZEd lanes (Q18 alone is 30-50 s of CPU)
 ANALYZED_CPU_SKIP = (18,)
 DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phase
-DURABLE_TXNS = 4            # transactions each of them commits, per policy
+DURABLE_TXNS = 2            # transactions each of them commits, per policy
 DURABLE_SEQUENTIAL = 32     # transactions one session commits one after another
 DURABLE_RF1_SF = 0.1        # the scale of txn A's RF1, a fraction of sf (a cut for time)
 DURABLE_QUERIES = (1, 3, 5, 6)
 CDC_SESSIONS = 64           # concurrent writing sessions in the cdc phase
-CDC_PER_SESSION = 8         # sbtest1 writes each of them runs, per pass
+CDC_PER_SESSION = 4         # sbtest1 writes each of them runs, per pass (a cut for time)
 CDC_ORDERS_PER_SESSION = 8  # orders writes each of them runs
 CDC_TXN_UPDATES = 16        # UPDATEs of the one explicit transaction on orders
 CDC_REPLICA_TABLES = ("lineitem", "orders", "customer")  # what Q1, Q3 and Q13 read
 CDC_QUERIES = (1, 3, 13)
+LOAD_ORDERS_ROWS = 500_000  # orders rows of the .tbl file (a third of SF 1, for time)
 LOAD_SB_ROWS = 100_000      # sysbench-shaped rows LOAD DATA appends to sbtest1
 LOAD_POINT_SELECTS = 200    # point selects of loaded sbtest1 ids on the fast path
 LOAD_TXN_ROWS = 10_000      # orders rows of the load rolled back
@@ -318,7 +345,10 @@ SPILL_SQL = (((SPILL_BYTES, SPILL_BYTES), (4, 18, 21)),
              ((SPILL_BYTES, 8 << 20), (13,)),
              ((1 << 20, SPILL_BYTES), (10,)))
 SPILL_QUERIES = tuple(q for _b, qs in SPILL_SQL for q in qs)
-LI23_ROWS = 23 * 6_000_000  # TPC-H SF 23's lineitem: the first whole SF past 2^27 rows
+# a quarter of TPC-H SF 23's lineitem (a cut for time: SF 23 is the first whole SF past
+# the default FUSE_MAX_ROWS, 2^27 rows); li23 is scanned under LI23_FUSE_MAX_ROWS
+LI23_ROWS = 23 * 6_000_000 // 4
+LI23_FUSE_MAX_ROWS = 1 << 25
 LI23_SUPPLIERS = 23 * 10_000
 LI23_PARTS = 23 * 200_000
 LI23_PARTITIONS = 16
@@ -336,7 +366,8 @@ KERNELS = {
 
 
 def say(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T_START, 3),
+                      **fields}), flush=True)
 
 
 def card_line() -> str:
@@ -1141,9 +1172,11 @@ def dml_tpch(src_inst, sf, held, analyzed):
     # statistics first, as a deployment has them: the plans are analyzed_tpch's
     line = {"statistics_ms": _take_statistics(analyzed, gi, "tpch", tpch.TABLE_ORDER)}
     _take_statistics(analyzed, ci, "tpch", tpch.TABLE_ORDER)
+    say("dml_step", step="copies")
     inside_q = (1, 3, 18)
     before = {q: _both(gr, cr, SQL[q], f"Q{q} before the refresh")[0].rows
               for q in inside_q}
+    say("dml_step", step="before_refresh")
     for q, rows in held.items():  # analyzed_tpch's card rows, on the same lanes
         if not _rows_match(rows, before[q])[0]:
             raise AssertionError(f"Q{q}: analyzed_tpch's rows differ from the dml "
@@ -1188,6 +1221,7 @@ def dml_tpch(src_inst, sf, held, analyzed):
                                                    "lineitem": n_lines},
                 rf1_ms=rf1_ms, rf2_ms=rf2_ms, rf2_rows_deleted=affected[len(rf1):],
                 inside_ms=inside_ms, other_session_ms=outside_ms, commit_ms=commit_ms)
+    say("dml_step", step="refresh")
     after = run_phase(gw, cw, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
                       reset=False, cpu_queries={f"Q{q}" for q in DML_CPU_QUERIES},
                       held=inside)
@@ -1197,6 +1231,7 @@ def dml_tpch(src_inst, sf, held, analyzed):
     line["after_commit"]["query_ms_sum"] = sum(after["query_ms"].values())
     line["after_commit"]["first_run_ms_sum"] = sum(after["first_run_ms"].values())
     line.update(_cache_line(gi, since))
+    say("dml_step", step="after_commit")
 
     # (b) rollback, on the card alone: its rows after ROLLBACK are held to its rows
     # from before, which the CPU gave; the twin, which never ran it, holds the same
@@ -1231,6 +1266,7 @@ def dml_tpch(src_inst, sf, held, analyzed):
     if gi.metadb.query("SELECT count(*) FROM binlog_events")[0][0] != logged:
         raise AssertionError("the rolled-back transaction reached the binlog")
     line["rollback"] = rb
+    say("dml_step", step="rollback")
 
     # (c) conflict: first writer wins
     key = int(keys[len(keys) // 2])
@@ -1299,6 +1335,7 @@ def dml_phase(inst, sf, held, analyzed):
     _reset_launches()
     t0 = time.perf_counter()
     line = dml_tpch(inst, sf, held, analyzed)
+    say("dml_step", step="conflict")
     line["oltp"] = dml_oltp()
     line["launches"] = _launch_counts()
     line["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
@@ -3017,14 +3054,18 @@ def cdc_phase(b_inst, b_cpu, sb_gpu, sb_cpu):
 
 # -- LOAD DATA ---------------------------------------------------------------------------
 
-def _tbl_text(inst, schema, table) -> str:
+def _tbl_text(inst, schema, table, at_most=None) -> str:
     """A table's visible rows in dbgen's `.tbl` format: the fields in column order,
-    each followed by '|'."""
+    each followed by '|'; with `at_most` = (column, value) only the rows whose column
+    is at most the value."""
     import numpy as np
     from galaxysql_tpu_torch.chunk.batch import Column
     tm = inst.catalog.table(schema, table)
     store = inst.store(schema, table)
     vis = [p.visible_mask(None) for p in store.partitions]
+    if at_most is not None:
+        vis = [m & (p.lanes[at_most[0]] <= at_most[1])
+               for p, m in zip(store.partitions, vis)]
     fields = []
     for c in tm.columns:
         lane = np.concatenate([p.lanes[c.name][m] for p, m in zip(store.partitions, vis)])
@@ -3062,15 +3103,20 @@ def _load_statement(s, path, table, clauses):
 
 
 def _load_orders(gi, gs, work_dir, out):
-    """(a) SF 1 orders as a `.tbl` file into an empty table shaped like orders."""
+    """(a) The LOAD_ORDERS_ROWS orders of the lowest keys as a `.tbl` file into an
+    empty table shaped like orders."""
     import re
     import numpy as np
     from galaxysql_tpu_torch.storage import tpch
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    keys = np.sort(np.concatenate([p.lanes["o_orderkey"][p.visible_mask(None)]
+                                   for p in gi.store("tpch", "orders").partitions]))
+    kmax = int(keys[min(LOAD_ORDERS_ROWS, keys.size) - 1])
+    out["key_max"] = kmax
     t0 = time.perf_counter()
     path = os.path.join(work_dir, "orders.tbl")
     with open(path, "w") as f:
-        f.write(_tbl_text(gi, "tpch", "orders"))
+        f.write(_tbl_text(gi, "tpch", "orders", ("o_orderkey", kmax)))
     out["write_file_ms"] = (time.perf_counter() - t0) * 1000.0
     out["file_bytes"] = os.path.getsize(path)
     gs.execute(tpch.TPCH_DDL["orders"].replace("orders (", "orders_l (", 1))
@@ -3079,7 +3125,7 @@ def _load_orders(gi, gs, work_dir, out):
     cache0 = gi.device_cache.nbytes
     with _Timer(store, "insert_pylists") as enc:
         rs, ms = _load_statement(gs, path, "orders_l", "FIELDS TERMINATED BY '|'")
-    n = gi.store("tpch", "orders").row_count()
+    n = int((keys <= kmax).sum())
     if rs.affected != n or rs.info != f"Records: {n}":
         raise AssertionError(f"LOAD DATA of orders affected {rs.affected} of {n} rows")
     out.update(rows=rs.affected, ms=ms, rows_per_s=rs.affected / (ms / 1000.0),
@@ -3087,16 +3133,20 @@ def _load_orders(gi, gs, work_dir, out):
                read_parse_ms=ms - enc.ms)
     t0 = time.perf_counter()
     want = _rows_by_key(gi, "tpch", "orders", "o_orderkey")
+    head = want["o_orderkey"][0] <= kmax
+    want = {col: (d[head], v[head]) for col, (d, v) in want.items()}
     got = _rows_by_key(gi, "tpch", "orders_l", "o_orderkey")
     for col, (d, v) in want.items():
         if not (np.array_equal(got[col][1], v) and np.array_equal(got[col][0][v], d[v])):
             raise AssertionError(f"orders_l.{col} differs from orders after LOAD DATA")
     out["compare_ms"] = (time.perf_counter() - t0) * 1000.0
     q13 = SQL[13]
+    gs.execute(f"CREATE VIEW orders_k AS SELECT * FROM orders WHERE o_orderkey <= {kmax}")
     rs_l, out["q13_orders_l_ms"] = _timed(gs, re.sub(r"\borders\b", "orders_l", q13))
-    rs_o, out["q13_orders_ms"] = _timed(gs, q13)
+    rs_o, out["q13_orders_ms"] = _timed(gs, re.sub(r"\borders\b", "orders_k", q13))
+    gs.execute("DROP VIEW orders_k")
     if rs_l.rows != rs_o.rows or not rs_l.rows:
-        raise AssertionError("Q13 over orders_l differs from Q13 over orders")
+        raise AssertionError("Q13 over orders_l differs from Q13 over the same orders")
     out["q13_rows"] = len(rs_l.rows)
     out["device_cache_bytes"] = {"before": cache0, "after": gi.device_cache.nbytes}
     if len(gi.cdc.events()) != events:
@@ -3179,8 +3229,8 @@ def _load_rollback(gi, gs, orders_path, work_dir, out):
 
 
 def load_data_phase(analyzed, sb_gpu, work_dir, seed=20241017):
-    """(a) SF 1 orders from a `.tbl` file, (b) sysbench rows under a covering GSI,
-    (c) a load rolled back."""
+    """(a) orders from a `.tbl` file, (b) sysbench rows under a covering GSI, (c) a
+    load rolled back."""
     import torch
     from galaxysql_tpu_torch.server.session import Session
     t_phase = time.perf_counter()
@@ -3349,8 +3399,18 @@ def li23_data(rows, suppliers, parts, seed, threads=8):
 
 
 def _spill_streamed(out, seed):
-    """(b) the streamed scan past 2^27 rows: li23 and supplier23, three queries first
-    and warm, answers held to numpy."""
+    """(b) the streamed scan past FUSE_MAX_ROWS (lowered to LI23_FUSE_MAX_ROWS for the
+    step): li23 and supplier23, three queries first and warm, answers held to numpy."""
+    from galaxysql_tpu_torch.plan import physical
+    fuse_max = physical.FUSE_MAX_ROWS
+    physical.FUSE_MAX_ROWS = LI23_FUSE_MAX_ROWS
+    try:
+        _li23_queries(out, seed)
+    finally:
+        physical.FUSE_MAX_ROWS = fuse_max
+
+
+def _li23_queries(out, seed):
     import gc
     import numpy as np
     import torch
@@ -3583,6 +3643,287 @@ def spill_phase(analyzed, unspilled, unspilled_ms, seed=20241017):
     return out
 
 
+# -- the columnar replica, AS OF and the archive ------------------------------------
+
+COLUMNAR_TABLES = ("lineitem", "orders")
+COLUMNAR_QUERIES = (1, 6, 4, 12)
+COLUMNAR_HINT = "/*+TDDL:COLUMNAR(ON)*/ "
+COLUMNAR_OFF = "/*+TDDL:COLUMNAR(OFF)*/ "
+COLUMNAR_CONFIG = {"ENABLE_COLUMNAR_REPLICA": 1, "COLUMNAR_POLL_MS": 0,
+                   "COLUMNAR_CLUSTER_BY": "lineitem:l_shipdate"}
+U64_BASE = 1 << 63          # every BIGINT UNSIGNED value of `lu` lies above it
+U64_STEP = 1_000_003        # ub = U64_BASE + l_suppkey * U64_STEP
+LU_ROWS = 1 << 20           # lineitem rows `lu` takes (a cut for time)
+COLUMNAR_RF_SF = 0.25       # the scale of the phase's RF1/RF2 (a cut for time)
+
+
+def _as_of(sql: str, ts: int) -> str:
+    """A TPC-H query over lineitem and orders read AS OF TSO `ts`."""
+    import re
+    return re.sub(r"\b(lineitem|orders)\b", rf"\1 AS OF TSO {ts}", sql)
+
+
+def _advance(*insts):
+    """One tail cycle on each instance once the watermark margin has passed."""
+    margin = max(int(i.config.get("COLUMNAR_WATERMARK_LAG_MS") or 100) for i in insts)
+    time.sleep(margin / 1000.0 + 0.01)
+    return [i.columnar.tail_once() for i in insts]
+
+
+def _replica_line(inst):
+    out = {}
+    for key, rep in inst.columnar.replicas.items():
+        stripes, delta = rep.tier
+        out[key] = {"state": rep.state, "stripes": len(stripes),
+                    "stripe_rows": sum(st.num_rows for st in stripes),
+                    "delta_chunks": len(delta), "delta_rows": rep.delta_rows,
+                    "compactions": rep.compactions, "reseeds": rep.reseeds,
+                    "applied_events": rep.applied_events,
+                    "applied_rows": rep.applied_rows,
+                    "pruned_stripes": rep.pruned_stripes, "watermark": rep.watermark}
+    return out
+
+
+def _routed_round(gs, cs, label, out):
+    """COLUMNAR_QUERIES routed (first and warm) and on the row store (first and warm)
+    on the card; the routed rows must equal the row store read AS OF TSO W, W the
+    replicas' watermark, and the CPU twin's routed rows.  Returns the rows."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    w = min(gi.columnar.replica("tpch", t).watermark for t in COLUMNAR_TABLES)
+    rows, line = {}, {"watermark": w}
+    for q in COLUMNAR_QUERIES:
+        lineitem = gi.columnar.replica("tpch", "lineitem")
+        r0, p0 = gi.columnar.routed.value, lineitem.pruned_stripes
+        first, first_ms = _timed(gs, COLUMNAR_HINT + SQL[q])
+        warm, warm_ms = _timed(gs, COLUMNAR_HINT + SQL[q])
+        pruned = (lineitem.pruned_stripes - p0) // 2
+        if gi.columnar.routed.value - r0 != 2:
+            raise AssertionError(f"Q{q} ({label}): COLUMNAR(ON) did not route")
+        trace = [t for t in gs.last_trace if "columnar" in t]
+        _off_first, off_first_ms = _timed(gs, COLUMNAR_OFF + SQL[q])
+        off, off_ms = _timed(gs, COLUMNAR_OFF + SQL[q])
+        as_of, as_of_ms = _timed(gs, _as_of(SQL[q], w))
+        cpu = cs.execute(COLUMNAR_HINT + SQL[q]).rows
+        for what, want in (("the second routed run", first.rows),
+                           (f"the row store AS OF TSO {w}", as_of.rows),
+                           ("the CPU twin's routed rows", cpu)):
+            if not _rows_match(warm.rows, want)[0]:
+                raise AssertionError(f"Q{q} ({label}): routed rows differ from {what}:"
+                                     f"\n  routed {warm.rows[:3]}\n  want   {want[:3]}")
+        if not _rows_match(off.rows, warm.rows)[0]:
+            raise AssertionError(f"Q{q} ({label}): COLUMNAR(OFF) differs from ON")
+        rows[q] = warm.rows
+        line[f"Q{q}"] = {"routed_first_ms": first_ms, "routed_ms": warm_ms,
+                         "row_store_first_ms": off_first_ms, "row_store_ms": off_ms,
+                         "as_of_ms": as_of_ms, "pruned_stripes": pruned,
+                         "rows": len(warm.rows), "trace": trace}
+    out[label] = line
+    return rows
+
+
+def _unsigned_query(gi, ci, out):
+    """Fault 8 on the card: `lu`, LU_ROWS of lineitem's order keys with BIGINT
+    UNSIGNED values above 2**63 derived from their suppliers, and `su`, one row a
+    supplier; a routed GROUP BY, MIN/MAX and
+    comparisons on `ub` and a join on it, held to numpy and to the CPU twin."""
+    import numpy as np
+    from galaxysql_tpu_torch.server.session import Session
+    li = gi.store("tpch", "lineitem")
+    supp = np.concatenate([p.lanes["l_suppkey"] for p in li.partitions])[:LU_ROWS]
+    supp = supp.astype(np.uint64)
+    okey = np.concatenate([p.lanes["l_orderkey"] for p in li.partitions])[:LU_ROWS]
+    ub = np.uint64(U64_BASE) + supp * np.uint64(U64_STEP)
+    ukeys = np.unique(ub)
+    flag = (np.arange(ukeys.size) % 3 == 0).astype(np.int64)
+    lo = ukeys[ukeys.size // 2]  # half the suppliers lie above it
+    results = []
+    for inst in (gi, ci):
+        s = Session(inst, "tpch")
+        s.execute("CREATE TABLE lu (l_orderkey BIGINT NOT NULL, ub BIGINT UNSIGNED "
+                  "NOT NULL) PARTITION BY HASH(l_orderkey) PARTITIONS 8")
+        s.execute("CREATE TABLE su (ub BIGINT UNSIGNED NOT NULL PRIMARY KEY, "
+                  "flag BIGINT NOT NULL)")
+        inst.store("tpch", "lu").insert_arrays({"l_orderkey": okey, "ub": ub},
+                                               inst.tso.next_timestamp())
+        inst.store("tpch", "su").insert_arrays({"ub": ukeys, "flag": flag},
+                                               inst.tso.next_timestamp())
+        s.execute("ANALYZE TABLE lu, su")
+        results.append(s)
+    gs, cs = results
+    sqls = {
+        "group_by": COLUMNAR_HINT + f"SELECT ub, count(*), min(l_orderkey) FROM lu "
+                    f"WHERE ub > {int(lo)} GROUP BY ub ORDER BY ub",
+        "min_max": COLUMNAR_HINT + "SELECT min(ub), max(ub), count(*) FROM lu "
+                   f"WHERE ub >= {U64_BASE} AND ub < 18446744073709551615",
+        "join": COLUMNAR_HINT + "SELECT count(*), sum(lu.l_orderkey) FROM lu JOIN su "
+                "ON lu.ub = su.ub WHERE su.flag = 1",
+    }
+    sel = ub > lo
+    keys_sel, counts = np.unique(ub[sel], return_counts=True)
+    mins = [int(okey[sel][ub[sel] == k].min()) for k in keys_sel[:3]]
+    want = {
+        "min_max": [(int(ub.min()), int(ub.max()), int(ub.size))],
+        "join": [(int(np.isin(ub, ukeys[flag == 1]).sum()),
+                  int(okey[np.isin(ub, ukeys[flag == 1])].sum()))],
+    }
+    for name, sql in sqls.items():
+        for inst in (gi, ci):
+            inst.columnar.ensure_ready("tpch", "lu")
+            inst.columnar.ensure_ready("tpch", "su")
+        got, ms = _both(gs, cs, sql, f"BIGINT UNSIGNED {name}")
+        if name == "group_by":
+            head = [(int(k), int(c), m) for k, c, m in
+                    zip(keys_sel[:3], counts[:3], mins)]
+            if len(got.rows) != keys_sel.size or got.rows[:3] != head:
+                raise AssertionError(f"BIGINT UNSIGNED group_by: {got.rows[:3]} != {head}")
+        elif got.rows != want[name]:
+            raise AssertionError(f"BIGINT UNSIGNED {name}: {got.rows} != {want[name]}")
+        out[name] = {"ms": ms, "rows": len(got.rows), "first": list(got.rows[0])}
+    for s in (gs, cs):
+        s.close()
+
+
+def _archive_check(gi, gs, out):
+    """Where `pyarrow` imports: archive orders older than 1993-01-01 on the card and
+    hold the union of the archived and the hot rows to the rows from before.  Where it
+    does not: the reference's NotSupportedError from `archive_older_than`."""
+    from galaxysql_tpu_torch.storage import archive
+    from galaxysql_tpu_torch.types import temporal
+    from galaxysql_tpu_torch.utils import errors
+    cutoff = temporal.parse_date("1993-01-01")
+    sql = (COLUMNAR_OFF + "SELECT o_orderpriority, count(*), sum(o_totalprice), "
+           "min(o_orderdate) FROM orders GROUP BY o_orderpriority ORDER BY o_orderpriority")
+    out["pyarrow"] = archive.PARQUET_AVAILABLE
+    if not archive.PARQUET_AVAILABLE:
+        say("columnar_archive", pyarrow=False,
+            note="pyarrow does not import on this host: archive_older_than must raise "
+                 "NotSupportedError, as in the reference")
+        try:
+            gi.archive.archive_older_than(gi, "tpch", "orders", "o_orderdate", cutoff)
+        except errors.NotSupportedError as e:
+            out["not_supported"] = str(e)
+            return
+        raise AssertionError("archive_older_than ran without pyarrow")
+    gi.archive.directory = tempfile.mkdtemp(prefix="chip_smoke_archive_")
+    try:
+        before = gs.execute(sql).rows
+        t0 = time.perf_counter()
+        n = gi.archive.archive_older_than(gi, "tpch", "orders", "o_orderdate", cutoff)
+        out["archive_ms"] = (time.perf_counter() - t0) * 1000.0
+        after, ms = _timed(gs, sql)
+        if n == 0 or not _rows_match(after.rows, before)[0]:
+            raise AssertionError(f"archive: {n} rows archived; union rows differ")
+        if not any("scan-archive" in t for t in gs.last_trace):
+            raise AssertionError("archive: the union scan read no archived batch")
+        out.update({"archived_rows": n, "union_ms": ms,
+                    "files": len(gi.archive.files_for("tpch.orders"))})
+    finally:
+        shutil.rmtree(gi.archive.directory, ignore_errors=True)
+
+
+def columnar_phase(analyzed, sf, seed=20241017):
+    """The columnar replica of lineitem and orders on instances of its own (a card
+    instance and a CPU twin over analyzed_tpch's lanes and statistics): the seed, the
+    routed queries before and after the refresh functions, AS OF TSO, the BIGINT
+    UNSIGNED query and the archive."""
+    import numpy as np
+    import torch
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage import tpch, tpch_refresh
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    t_phase = time.perf_counter()
+    gi, gs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cuda")
+    ci, cs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cpu")
+    _take_statistics(analyzed, gi, "tpch", COLUMNAR_TABLES)
+    _take_statistics(analyzed, ci, "tpch", COLUMNAR_TABLES)
+    for inst in (gi, ci):
+        for k, v in COLUMNAR_CONFIG.items():
+            inst.config.set_instance(k, v)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"config": COLUMNAR_CONFIG, "seed_ms": {}, "cpu_seed_ms": {}}
+    _advance(gi, ci)  # the margin passes the loaded rows' stamps
+    for t in COLUMNAR_TABLES:
+        for inst, key in ((gi, "seed_ms"), (ci, "cpu_seed_ms")):
+            t0 = time.perf_counter()
+            inst.columnar.ensure_ready("tpch", t)
+            out[key][t] = (time.perf_counter() - t0) * 1000.0
+    out["replicas_seeded"] = _replica_line(gi)
+    say("columnar_step", step="seed", ms=out["seed_ms"], cpu_ms=out["cpu_seed_ms"])
+
+    cache0 = gi.device_cache.nbytes
+    before = _routed_round(gs, cs, "seeded", out)
+    out["stripe_cache_bytes"] = gi.device_cache.nbytes - cache0
+    if out["seeded"]["Q6"]["pruned_stripes"] <= 0:
+        raise AssertionError("Q6 pruned no lineitem stripe by zone map")
+    say("columnar_step", step="routed", q6_pruned=out["seeded"]["Q6"]["pruned_stripes"])
+    w0 = out["seeded"]["watermark"]
+
+    # the refresh functions through the binlog, drained by tail_once
+    keys = np.concatenate([p.lanes["o_orderkey"] for p in gi.store("tpch", "orders").partitions])
+    rf = tpch_refresh.rf1_rows(sf * COLUMNAR_RF_SF, int(keys.max()))
+    stmts = tpch_refresh.rf1_statements(rf) + tpch_refresh.rf2_statements(
+        tpch_refresh.rf2_keys(sf * COLUMNAR_RF_SF, keys))
+    t0 = time.perf_counter()
+    for sql in stmts:
+        _both(gs, cs, sql, "refresh")
+    out["refresh_ms"] = (time.perf_counter() - t0) * 1000.0
+    t0 = time.perf_counter()
+    time.sleep(int(gi.config.get("COLUMNAR_WATERMARK_LAG_MS") or 100) / 1000.0 + 0.01)
+    out["events_applied"] = gi.columnar.tail_once()
+    out["delta_apply_ms"] = (time.perf_counter() - t0) * 1000.0
+    # the CPU twin's replicas are seeded again over its refreshed row store, not
+    # tailed: the tail is host numpy, which the card's instance runs, and the card's
+    # tailed replicas are held to the twin's fresh seeds
+    t0 = time.perf_counter()
+    for t in COLUMNAR_TABLES:
+        ci.columnar.drop("tpch", t)
+    _advance(ci)
+    for t in COLUMNAR_TABLES:
+        ci.columnar.ensure_ready("tpch", t)
+    out["cpu_reseed_ms"] = (time.perf_counter() - t0) * 1000.0
+    out["replicas_refreshed"] = _replica_line(gi)
+    li = out["replicas_refreshed"]["tpch.lineitem"]
+    say("columnar_step", step="refresh", events=out["events_applied"],
+        delta_apply_ms=out["delta_apply_ms"],
+        cpu_reseed_ms=out["cpu_reseed_ms"], delta_rows=li["delta_rows"],
+        compactions=li["compactions"])
+    if any(r["state"] != "READY" or r["reseeds"]
+           for r in out["replicas_refreshed"].values()):
+        raise AssertionError(f"a replica left READY: {out['replicas_refreshed']}")
+    after = _routed_round(gs, cs, "refreshed", out)
+    if after == before:
+        raise AssertionError("the refresh moved no routed answer")
+
+    # a flashback read from before the refresh
+    as_of, ms = _timed(gs, _as_of(SQL[6], w0))
+    if not _rows_match(as_of.rows, before[6])[0]:
+        raise AssertionError(f"Q6 AS OF TSO {w0}: {as_of.rows} != {before[6]}")
+    out["as_of_before_refresh"] = {"ts": w0, "ms": ms, "rows": as_of.rows}
+
+    out["unsigned"] = {}
+    _unsigned_query(gi, ci, out["unsigned"])
+    say("columnar_step", step="unsigned", **{k: v["ms"] for k, v in out["unsigned"].items()})
+    out["archive"] = {}
+    _archive_check(gi, gs, out["archive"])
+    out["metrics"] = {"routed": gi.columnar.routed.value,
+                      "pruned": gi.columnar.pruned.value,
+                      "events_applied": gi.columnar.events_applied.value,
+                      "rows_applied": gi.columnar.rows_applied.value}
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the columnar phase: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["device_cache_bytes"] = gi.device_cache.nbytes
+    for inst in (gi, ci):
+        inst.shutdown()
+    gs.close()
+    cs.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -3666,7 +4007,7 @@ def run(args, data_dir) -> int:
         line = run_phase(gs, cs, "tpch", WINDOW_QUERIES)
         launches_by_phase["window"] = line["launches"]
         say("window", sf=args.sf, **line)
-        line = tpcds_phase(args.sf)
+        line = tpcds_phase(args.sf * TPCDS_SF_SCALE)
         launches_by_phase["tpcds"] = line["launches"]
         say("tpcds", **line)
     finally:
@@ -3767,6 +4108,20 @@ def run(args, data_dir) -> int:
     for entry in kernels:
         entry["new_phases"]["launches"]["spill"] = line["launches"][entry["name"]]
         entry["new_phases"]["spill_input"] = spill_inputs[entry["name"]]
+
+    _reset_launches()
+    columnar_capture = kernel_capture()
+    try:
+        line = columnar_phase(analyzed, args.sf)
+    finally:
+        columnar_capture.restore()
+    print(card, flush=True)
+    say("columnar", nvidia_smi=card, **line)
+    columnar_inputs = check_new_phase_inputs(columnar_capture,
+                                             {"columnar": line["launches"]})
+    for entry in kernels:
+        entry["new_phases"]["launches"]["columnar"] = line["launches"][entry["name"]]
+        entry["new_phases"]["columnar_input"] = columnar_inputs[entry["name"]]
     say("script", seconds=time.perf_counter() - T_START)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,10 @@ Lanes are torch tensors on whatever device the producer chose (the scan puts the
 the instance's device); every batch utility runs with torch ops on that device, so a
 query on the card never round-trips its lanes through the host until the final rows.
 Strings are dictionary-encoded (int32 code lanes); the Dictionary is host-side metadata.
+A BIGINT UNSIGNED lane (numpy uint64 on the host) lives in a tensor as the same bits in
+int64, since torch computes little on uint64: equality, hashing, `+ - *` and the casts
+are the same on those bits, and every ordering op goes through `u64_ordered` (the sign
+bit flipped, which maps unsigned order onto signed order).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ _TORCH_DTYPES = {
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint64): torch.int64,  # the bits (module docstring)
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
@@ -43,11 +48,33 @@ def torch_dtype(d) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(d)]
 
 
+_SIGN = -(1 << 63)
+
+
+def u64_ordered(t):
+    """int64 bits of uint64 values -> int64 in the same order (the sign bit flipped;
+    its own inverse)."""
+    return t ^ _SIGN
+
+
+def u64_to_float(t, dtype=torch.float64):
+    """int64 bits of uint64 values -> floats, rounded once as numpy's uint64 cast
+    rounds: the high and low 32 bits convert exactly and only their sum rounds."""
+    hi = torch.bitwise_right_shift(t, 32) & 0xFFFFFFFF
+    lo = t & 0xFFFFFFFF
+    return (hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64)).to(dtype)
+
+
 def as_tensor(a, device=None) -> torch.Tensor:
-    """Host array / tensor -> tensor on `device` (no copy when already there)."""
+    """Host array / tensor -> tensor on `device` (no copy when already there).  A
+    uint64 array or tensor becomes its int64 bits."""
     if isinstance(a, torch.Tensor):
+        if a.dtype == torch.uint64:
+            a = a.view(torch.int64)
         return a if device is None else a.to(device)
     a = np.asarray(a)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
     # np.ascontiguousarray would turn a 0-d array (a constant) into shape (1,)
     t = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
     return t if device is None else t.to(device)
@@ -166,7 +193,12 @@ class Column:
         return self.valid
 
     def np_data(self) -> np.ndarray:
-        return to_numpy(self.data)
+        """The lane on the host in the reference's dtype (BIGINT UNSIGNED bits back
+        to uint64)."""
+        out = to_numpy(self.data)
+        if self.dtype.clazz == dt.TypeClass.UINT and out.dtype == np.int64:
+            return out.view(np.uint64)
+        return out
 
     def np_valid(self) -> np.ndarray:
         if self.valid is None:

@@ -30,7 +30,7 @@ import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
                                              concat_batches, dictionary_translation,
-                                             to_numpy, torch_dtype)
+                                             to_numpy, torch_dtype, u64_ordered)
 from galaxysql_tpu_torch.exec.memory import PoolCharge
 from galaxysql_tpu_torch.exec.spill import Spiller
 from galaxysql_tpu_torch.expr import ir
@@ -114,6 +114,24 @@ def _ranked(f, rank, device):
     def run(env):
         d, v = f(env)
         return r[d.to(torch.int64)], v
+    return run
+
+
+@dataclasses.dataclass(frozen=True)
+class _U64Order:
+    """A HashAggOp input lane read in unsigned order (MIN/MAX of BIGINT UNSIGNED)."""
+    expr: ir.Expr
+
+    def key(self):
+        return ("u64", self.expr.key())
+
+
+def _u64_input(f):
+    """BIGINT UNSIGNED bits -> the same order as signed int64 (float lanes, from
+    arithmetic with a signed operand, keep theirs)."""
+    def run(env):
+        d, v = f(env)
+        return (u64_ordered(d) if d.dtype == torch.int64 else d), v
     return run
 
 
@@ -245,15 +263,17 @@ class HashAggOp(Operator):
         self.mem_pool = mem_pool
 
     def _partial_specs(self) -> Tuple[List[ir.Expr], List[Tuple[str, K.AggSpec]]]:
-        """Decompose SQL aggs into kernel specs (avg -> sum + count)."""
+        """Decompose SQL aggs into kernel specs (avg -> sum + count).  MIN/MAX of a
+        BIGINT UNSIGNED argument read their own input lane, in unsigned order
+        (`_u64_input`)."""
         inputs: List[ir.Expr] = []
         index: Dict[Tuple, int] = {}
 
-        def arg_ix(e: ir.Expr) -> int:
-            k = e.key()
+        def arg_ix(e: ir.Expr, ordered: bool = False) -> int:
+            k = (e.key(), "u64") if ordered else e.key()
             if k not in index:
                 index[k] = len(inputs)
-                inputs.append(e)
+                inputs.append(_U64Order(e) if ordered else e)
             return index[k]
 
         lanes: List[Tuple[str, K.AggSpec]] = []
@@ -268,7 +288,8 @@ class HashAggOp(Operator):
                 lanes.append((a.name + "$sum", K.AggSpec("sum", arg_ix(a.arg))))
                 lanes.append((a.name + "$cnt", K.AggSpec("count", arg_ix(a.arg))))
             elif a.kind in ("min", "max"):
-                lanes.append((a.name, K.AggSpec(a.kind, arg_ix(a.arg))))
+                lanes.append((a.name, K.AggSpec(
+                    a.kind, arg_ix(a.arg, a.arg.dtype.clazz == dt.TypeClass.UINT))))
             else:
                 raise ValueError(a.kind)
         return inputs, lanes
@@ -313,6 +334,9 @@ class HashAggOp(Operator):
             inputs, lanes = self._partial_specs()
             ifns = []
             for e in inputs:
+                if isinstance(e, _U64Order):
+                    ifns.append(_u64_input(comp.compile(e.expr)))
+                    continue
                 f = comp.compile(e)
                 # MIN/MAX on dictionary strings compare collation ranks, not codes;
                 # _finalize maps ranks back to codes
@@ -495,6 +519,9 @@ class HashAggOp(Operator):
                 dict_ = _find_dictionary(a.arg) if (a.kind in ("min", "max") and
                                                     a.arg is not None and
                                                     a.arg.dtype.is_string) else None
+                if a.kind in ("min", "max") and d.dtype == torch.int64 and \
+                        a.arg.dtype.clazz == dt.TypeClass.UINT:
+                    d = u64_ordered(d)  # back from unsigned order to the bits
                 if dict_ is not None and _needs_rank(a.arg) is not None:
                     # min/max ran on collation ranks; map winners back to codes
                     order = as_tensor(_coll.sort_order_array(a.arg, dict_), device)
@@ -1249,11 +1276,12 @@ class WindowOp(Operator):
         inputs: List[ir.Expr] = []
         index: Dict[Tuple, int] = {}
 
-        def arg_ix(e):
-            k = expr_cache_key(e)
+        def arg_ix(e, ordered=False):
+            # MIN/MAX of BIGINT UNSIGNED read their own lane in unsigned order
+            k = ("u64", expr_cache_key(e)) if ordered else expr_cache_key(e)
             if k not in index:
                 index[k] = len(inputs)
-                inputs.append(e)
+                inputs.append(_U64Order(e) if ordered else e)
             return index[k]
 
         lanes = []  # (lane_name, WindowSpec)
@@ -1266,8 +1294,10 @@ class WindowOp(Operator):
                 lanes.append((c.out_id + "$sum", K.WindowSpec("sum", ix, 0, frame)))
                 lanes.append((c.out_id + "$cnt", K.WindowSpec("count", ix, 0, frame)))
             else:
-                lanes.append((c.out_id,
-                              K.WindowSpec(c.kind, arg_ix(c.arg), c.offset, frame)))
+                ordered = c.kind in ("min", "max") and \
+                    c.arg.dtype.clazz == dt.TypeClass.UINT
+                lanes.append((c.out_id, K.WindowSpec(c.kind, arg_ix(c.arg, ordered),
+                                                     c.offset, frame)))
         return inputs, lanes
 
     def batches(self) -> Iterator[ColumnBatch]:
@@ -1287,14 +1317,16 @@ class WindowOp(Operator):
         key = ("window", str(device),
                tuple(expr_cache_key(p) for p in self.partitions),
                tuple((expr_cache_key(e), d) for e, d in self.orders),
-               tuple(expr_cache_key(e) for e in inputs), specs)
+               tuple(e.key() if isinstance(e, _U64Order) else expr_cache_key(e)
+                     for e in inputs), specs)
 
         def build():
             xp = TorchXP(device)
             comp = ExprCompiler(xp)
             pfns = [comp.compile(p) for p in self.partitions]
             ofns = [(comp.compile(e), d) for e, d in self.orders]
-            ifns = [comp.compile(e) for e in inputs]
+            ifns = [_u64_input(comp.compile(e.expr)) if isinstance(e, _U64Order)
+                    else comp.compile(e) for e in inputs]
 
             def run(batch: ColumnBatch):
                 env = batch_env(batch)
@@ -1342,6 +1374,9 @@ class WindowOp(Operator):
                 d, v = lane_map[c.out_id]
                 if c.kind == "sum" and rt.clazz == dt.TypeClass.FLOAT:
                     d = d.to(torch.float32)
+                if c.kind in ("min", "max") and d.dtype == torch.int64 and \
+                        c.arg.dtype.clazz == dt.TypeClass.UINT:
+                    d = u64_ordered(d)  # back from unsigned order to the bits
                 dic = _find_dictionary(c.arg) if (c.arg is not None and
                                                   c.arg.dtype.is_string) else None
                 cols[c.out_id] = Column(d, v, rt, dic)
@@ -1375,6 +1410,14 @@ def _lane_pad_value(dtype: np.dtype):
     if np.issubdtype(dtype, np.floating):
         return np.inf
     return np.iinfo(dtype).max
+
+
+def _signed_order(arr: np.ndarray) -> np.ndarray:
+    """A sorted uint64 key lane's bits in signed order (its tensor is int64), any
+    other lane as it is."""
+    if arr.dtype == np.uint64:
+        return arr.view(np.int64) ^ np.int64(-(1 << 63))
+    return arr
 
 
 def _batched_point_program(skeys: torch.Tensor, sbegin: torch.Tensor,
@@ -1502,7 +1545,7 @@ def batched_point_lookup(store, pid: int, part, col: str, version: int,
             return out
 
         def build_keys():
-            return _pad(skeys, pad)
+            return _signed_order(_pad(skeys, pad))
 
         def build_begin():
             # NULL key slots fold into the begin stamp (-1 = never visible):
@@ -1530,7 +1573,8 @@ def batched_point_lookup(store, pid: int, part, col: str, version: int,
             dk, db, de = (as_tensor(build_keys(), device),
                           as_tensor(build_begin(), device),
                           as_tensor(build_end(), device))
-        pos, overflow = _batched_point_program(dk, db, de, as_tensor(keys, device),
+        pos, overflow = _batched_point_program(dk, db, de,
+                                               as_tensor(_signed_order(keys), device),
                                                int(snap), int(txn_id))
         # one device-to-host copy for both outputs
         out = torch.cat([pos, overflow[:, None].to(pos.dtype)], dim=1).cpu().numpy()[:k]

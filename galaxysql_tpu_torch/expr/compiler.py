@@ -27,7 +27,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from galaxysql_tpu_torch.chunk.batch import Dictionary, as_tensor, torch_dtype
+from galaxysql_tpu_torch.chunk.batch import (Dictionary, as_tensor, torch_dtype,
+                                             u64_ordered, u64_to_float)
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.types import temporal
@@ -132,7 +133,51 @@ def _to_float(xp, data, typ: dt.DataType):
     f = xp.float64 if xp is np else xp.float32
     if typ.clazz == dt.TypeClass.DECIMAL:
         return _astype(xp, data, f) / (10.0 ** typ.scale)
+    if xp is not np and typ.clazz == dt.TypeClass.UINT and \
+            isinstance(data, torch.Tensor) and data.dtype == torch.int64:
+        return u64_to_float(data, torch.float32)
     return _astype(xp, data, f)
+
+
+# -- integer operands on the torch backend -------------------------------------
+#
+# numpy and JAX treat a 0-dim array as strongly typed: an int8 column against an int64
+# literal computes in int64.  Torch ranks a 0-dim tensor below a dimensioned one of
+# the same kind, so the column's lane would win and wrap.  A signed integer constant
+# therefore brings the operands it meets to the common type's lane at compile time
+# (`ExprCompiler._int_lane`); dimensioned operands already promote in torch as in
+# numpy.  A BIGINT UNSIGNED operand (int64 bits, `chunk/batch.py`) follows numpy's
+# uint64 rules at run time: two unsigned operands compute on the bits (ordering
+# through `u64_ordered`), an unsigned against a signed one compares exactly but
+# computes in float64.
+
+
+def _uint_pair(ad, bd, ua: bool, ub: bool):
+    """(a, b, kind, a_unsigned, b_unsigned) for an integer pair whose common type is
+    BIGINT UNSIGNED; kind is "float" (float64 both), "u64" (both unsigned bits) or
+    "mixed" (one unsigned, one signed, both int64)."""
+    if ad.dtype.is_floating_point or bd.dtype.is_floating_point:
+        ad = u64_to_float(ad) if ua and not ad.dtype.is_floating_point \
+            else ad.to(torch.float64)
+        bd = u64_to_float(bd) if ub and not bd.dtype.is_floating_point \
+            else bd.to(torch.float64)
+        return ad, bd, "float", False, False
+    ua = ua or ad.dtype == torch.bool
+    ub = ub or bd.dtype == torch.bool
+    return ad.to(torch.int64), bd.to(torch.int64), \
+        ("u64" if ua and ub else "mixed"), ua, ub
+
+
+def _u64_mod(a, b):
+    """Unsigned a % b on int64 bits (b != 0)."""
+    big = b < 0  # b >= 2**63: one subtraction at most
+    r_big = torch.where(u64_ordered(a) >= u64_ordered(b), a - b, a)
+    bs = torch.where(big, torch.ones_like(b), b)
+    q = torch.div(torch.bitwise_right_shift(a, 1) & 0x7FFFFFFFFFFFFFFF, bs,
+                  rounding_mode="floor") * 2
+    r = a - q * bs
+    r = torch.where(u64_ordered(r) >= u64_ordered(bs), r - bs, r)
+    return torch.where(big, r_big, r)
 
 
 def _pow10(d: int) -> int:
@@ -325,10 +370,21 @@ class ExprCompiler:
             table = np.array(sorted(self._encode_scalar(v, at) for v in values),
                              dtype=at.lane)
         neg = e.negated
+        u64 = xp is not np and at.clazz == dt.TypeClass.UINT
+        if u64:
+            # sorted in unsigned order = the flipped bits in signed order
+            flipped = np.sort(table.view(np.int64) ^ np.int64(-(1 << 63)))
 
         def run(env: Env) -> Value:
             data, valid = arg(env)
-            if table.size == 0:
+            if u64 and table.size:
+                if data.dtype.is_floating_point:
+                    t = u64_to_float(xp.asarray(table)).to(data.dtype)
+                else:
+                    t, data = xp.asarray(flipped), u64_ordered(data.to(torch.int64))
+                pos = xp.clip(xp.searchsorted(t, data), 0, t.shape[0] - 1)
+                hit = t[pos] == data
+            elif table.size == 0:
                 hit = xp.zeros(data.shape, dtype=xp.bool_)
             else:
                 t = xp.asarray(table)
@@ -345,8 +401,11 @@ class ExprCompiler:
     def _case(self, e: ir.Case) -> Compiled:
         xp = self.xp
         conds = [self.compile_predicate(c) for c, _ in e.whens]
-        vals = [self._compile_coerced(v, e.dtype) for _, v in e.whens]
-        default = (self._compile_coerced(e.default, e.dtype)
+        branches = [v for _, v in e.whens] + \
+            ([e.default] if e.default is not None else [])
+        lane = self._int_lane(branches, e.dtype)
+        vals = [self._compile_coerced(v, e.dtype, lane) for _, v in e.whens]
+        default = (self._compile_coerced(e.default, e.dtype, lane)
                    if e.default is not None else None)
 
         def run(env: Env) -> Value:
@@ -373,11 +432,31 @@ class ExprCompiler:
             return out_d, out_v
         return run
 
-    def _compile_coerced(self, e: ir.Expr, target: dt.DataType) -> Compiled:
+    def _compile_coerced(self, e: ir.Expr, target: dt.DataType,
+                         lane=None) -> Compiled:
         if (e.dtype.clazz == target.clazz and e.dtype.scale == target.scale) or \
            e.dtype.clazz == dt.TypeClass.NULL:
-            return self._compile(e)
-        return self._cast(ir.Cast(e, target))
+            return self._to_lane(self._compile(e), lane)
+        return self._to_lane(self._cast(ir.Cast(e, target)), lane)
+
+    def _int_lane(self, args, target: dt.DataType):
+        """The torch lane that signed integer operands meet in, or None: the target's
+        lane where one of them is a signed integer constant (a 0-dim int64 at run
+        time, which torch would rank below a narrower column), else torch's own
+        promotion, which is numpy's for dimensioned operands (so column-against-column
+        arithmetic keeps wrapping at the lane width, as in the reference)."""
+        if self.xp is np or target.clazz != dt.TypeClass.INT:
+            return None
+        if any(a.dtype.clazz == dt.TypeClass.INT and not ir.referenced_columns(a)
+               for a in args):
+            return torch_dtype(target.lane)
+        return None
+
+    def _to_lane(self, f: Compiled, lane) -> Compiled:
+        if lane is None:
+            return f
+        xp = self.xp
+        return lambda env: (lambda dv: (xp.asarray(dv[0]).to(lane), dv[1]))(f(env))
 
     # -- calls ---------------------------------------------------------------
 
@@ -401,6 +480,8 @@ class ExprCompiler:
         if op == "abs":
             f = self._compile(e.args[0])
             xp = self.xp
+            if e.args[0].dtype.clazz == dt.TypeClass.UINT:
+                return f  # unsigned: the value itself
             return lambda env: (lambda dv: (xp.abs(dv[0]), dv[1]))(f(env))
         if op in ("like", "not_like"):
             return self._like(e)
@@ -470,8 +551,9 @@ class ExprCompiler:
             return (~v if want_null else v), None
         return run
 
-    def _binary_operands(self, e: ir.Call):
-        """Compile two operands coerced to a common comparable/arith domain."""
+    def _binary_operands(self, e: ir.Call, widen: bool = True):
+        """Compile two operands coerced to a common comparable/arith domain (integer
+        operands in `_int_lane`'s lane unless `widen` is False)."""
         a, b = e.args[0], e.args[1]
         at, bt = a.dtype, b.dtype
         # string domain: dictionary codes
@@ -501,7 +583,19 @@ class ExprCompiler:
                         dv[1]))(f(env))
                 return f
             return wrapt(ca, at), wrapt(cb, bt), target
-        return self._compile(a), self._compile(b), target
+        lane = self._int_lane((a, b), target) if widen else None
+        return (self._to_lane(self._compile(a), lane),
+                self._to_lane(self._compile(b), lane), target)
+
+    def _u64_operands(self, e: ir.Call, target: dt.DataType):
+        """(ad, bd) -> (ad, bd, kind, a_unsigned, b_unsigned) through `_uint_pair` for
+        a pair whose common type is BIGINT UNSIGNED on the torch backend, else None."""
+        if self.xp is np or target.clazz != dt.TypeClass.UINT:
+            return None
+        ua = e.args[0].dtype.clazz == dt.TypeClass.UINT
+        ub = e.args[1].dtype.clazz == dt.TypeClass.UINT
+        xp = self.xp
+        return lambda ad, bd: _uint_pair(xp.asarray(ad), xp.asarray(bd), ua, ub)
 
     def _decimal_operand(self, e: ir.Expr, scale: int) -> Compiled:
         xp = self.xp
@@ -609,11 +703,21 @@ class ExprCompiler:
 
     def _compare(self, e: ir.Call) -> Compiled:
         xp = self.xp
-        fa, fb, _ = self._binary_operands(e)
+        fa, fb, target = self._binary_operands(e)
         op = e.op
+        pair = self._u64_operands(e, target)
+        # an unsigned value >= 2**63 against a signed one: the unsigned side is larger
+        big_wins = {"a": op in ("ne", "gt", "ge"), "b": op in ("ne", "lt", "le")}
 
         def run(env: Env) -> Value:
             (ad, av), (bd, bv) = fa(env), fb(env)
+            big = None
+            if pair is not None:
+                ad, bd, kind, ua, ub = pair(ad, bd)
+                if kind == "u64" and op not in ("eq", "ne"):
+                    ad, bd = u64_ordered(ad), u64_ordered(bd)
+                elif kind == "mixed":
+                    big, side = (ad < 0, "a") if ua else (bd < 0, "b")
             if op == "eq":
                 data = ad == bd
             elif op == "ne":
@@ -626,6 +730,8 @@ class ExprCompiler:
                 data = ad > bd
             else:
                 data = ad >= bd
+            if big is not None:
+                data = torch.where(big, torch.full_like(big, big_wins[side]), data)
             return data, _and_valid(xp, av, bv)
         return run
 
@@ -708,15 +814,28 @@ class ExprCompiler:
                     valid = nz if valid is None else (valid & nz)
                     return r, valid
                 return run_mod
-        fa, fb, common = self._binary_operands(e)
+        fa, fb, common = self._binary_operands(e, widen=op != "mod")
         # _binary_operands already lowered both sides to float lanes when the common type
         # is FLOAT; only convert here when the result is float but operands are still in
         # an integer/decimal lane (e.g. int/int division)
         as_float = rt.clazz == dt.TypeClass.FLOAT and common.clazz != dt.TypeClass.FLOAT
+        pair = self._u64_operands(e, common)
+        if op == "mod" and xp is not np and \
+                common.clazz in (dt.TypeClass.INT, dt.TypeClass.UINT):
+            return self._int_mod(e, fa, fb, common)
 
         def run(env: Env) -> Value:
             (ad, av), (bd, bv) = fa(env), fb(env)
-            if as_float:
+            if pair is not None:
+                ad, bd, kind, ua, ub = pair(ad, bd)
+                if as_float:
+                    ad = u64_to_float(ad, torch.float32) if ua else ad.to(torch.float32)
+                    bd = u64_to_float(bd, torch.float32) if ub else bd.to(torch.float32)
+                elif kind == "mixed":
+                    # numpy: uint64 with a signed integer computes in float64
+                    ad = u64_to_float(ad) if ua else ad.to(torch.float64)
+                    bd = u64_to_float(bd) if ub else bd.to(torch.float64)
+            elif as_float:
                 ad = _to_float(xp, ad, common)
                 bd = _to_float(xp, bd, common)
             valid = _and_valid(xp, av, bv)
@@ -738,6 +857,45 @@ class ExprCompiler:
                 return xp.fmod(ad, safe), valid
             am = xp.abs(ad) % xp.abs(safe)
             return _astype(xp, xp.where(ad < 0, -am, am), ad.dtype), valid
+        return run
+
+    def _int_mod(self, e: ir.Call, fa, fb, common: dt.DataType) -> Compiled:
+        """Integer MOD on the torch backend in the reference's order of operations:
+        each operand's absolute value in its own lane (so abs of an int8 -128 stays
+        -128, as numpy's does; an unsigned value is its own), the remainder in the
+        pair's common domain, the dividend's sign, then the dividend's lane."""
+        xp = self.xp
+        a_unsigned = e.args[0].dtype.clazz == dt.TypeClass.UINT
+        b_unsigned = e.args[1].dtype.clazz == dt.TypeClass.UINT
+        pair = self._u64_operands(e, common)
+        lane = self._int_lane(e.args, common)
+
+        def run(env: Env) -> Value:
+            (ad, av), (bd, bv) = fa(env), fb(env)
+            ad, bd = xp.asarray(ad), xp.asarray(bd)
+            nz = bd != 0
+            valid = _and_valid(xp, av, bv)
+            valid = nz if valid is None else (valid & nz)
+            safe = xp.where(nz, bd, torch.ones_like(bd))
+            if ad.dtype.is_floating_point:
+                return xp.fmod(ad, safe), valid
+            aa = ad if a_unsigned else xp.abs(ad)
+            ab = safe if b_unsigned else xp.abs(safe)
+            kind = None
+            if pair is not None:
+                aa, ab, kind, ua, ub = pair(aa, ab)
+            elif lane is not None:
+                aa, ab = aa.to(lane), ab.to(lane)
+            if kind == "u64":
+                am = _u64_mod(aa, ab)
+            elif kind == "mixed":
+                aa = u64_to_float(aa) if ua else aa.to(torch.float64)
+                ab = u64_to_float(ab) if ub else ab.to(torch.float64)
+                am = aa % ab
+            else:
+                am = aa % ab
+            out = am if a_unsigned else torch.where(ad < 0, -am, am)
+            return out.to(ad.dtype), valid
         return run
 
     # -- strings: LIKE ------------------------------------------------------
@@ -848,7 +1006,8 @@ class ExprCompiler:
 
     def _coalesce(self, e: ir.Call) -> Compiled:
         xp = self.xp
-        fs = [self._compile_coerced(a, e.dtype) for a in e.args]
+        lane = self._int_lane(e.args, e.dtype)
+        fs = [self._compile_coerced(a, e.dtype, lane) for a in e.args]
 
         def run(env: Env) -> Value:
             out_d, out_v = fs[-1](env)
@@ -867,14 +1026,19 @@ class ExprCompiler:
 
     def _least_greatest(self, e: ir.Call) -> Compiled:
         xp = self.xp
-        fs = [self._compile_coerced(a, e.dtype) for a in e.args]
+        lane = self._int_lane(e.args, e.dtype)
+        fs = [self._compile_coerced(a, e.dtype, lane) for a in e.args]
         pick = xp.minimum if e.op == "least" else xp.maximum
+        u64 = xp is not np and e.dtype.clazz == dt.TypeClass.UINT
 
         def run(env: Env) -> Value:
             d, v = fs[0](env)
             for f in fs[1:]:
                 d2, v2 = f(env)
-                d = pick(d, d2)
+                if u64 and d.dtype == d2.dtype == torch.int64:
+                    d = u64_ordered(pick(u64_ordered(d), u64_ordered(d2)))
+                else:
+                    d = pick(d, d2)
                 v = _and_valid(xp, v, v2)
             return d, v
         return run

@@ -6,6 +6,11 @@
   than FUSE_MAX_ROWS rows streams one cached batch a partition instead; a scan the
   rules marked `point_eq` reads its candidate rows through the partitions' sorted
   key indexes on the host and ships them as one small batch;
+- a scan reads at the context's snapshot, or, under AS OF TSO n, at n with no
+  transaction's provisional rows; the archive's batches of the table come first
+  (`storage/archive.py`), then, where the session routed the query to the columnar
+  replica (`ExecContext.columnar`, never for AS OF), the replica's stripes pruned by
+  the scan's SARGs (`storage/columnar.py`), else the row store;
 - hash join sides: build = smaller estimated input (the probe side streams);
   left/semi/anti joins fix the probe side to the preserved/output side;
 - aggregates use estimated group counts to size the fixed-shape kernel output;
@@ -21,7 +26,8 @@
 - VALUES rows and window functions have their own operators.
 
 Filter and Project run as separate operators.  The runtime filters and skew plans the
-rules plant on the logical tree are ignored here.
+rules plant on the logical tree are ignored here (so `_rf_pushdown` gives the archive
+and the replica no runtime-filter SARGs yet: ROADMAP Queue 1 item 10).
 
 With `ExecContext.collect_stats` set (EXPLAIN ANALYZE) every operator is wrapped in a
 `StatsOp` that records its batches, live rows and wall time in `ctx.op_stats`;
@@ -54,7 +60,8 @@ class ExecContext:
 
     def __init__(self, stores: Dict[str, TableStore], snapshot_ts: Optional[int],
                  device, device_cache: Optional[DeviceCache] = None,
-                 params: Optional[list] = None, txn_id: int = 0, hints=None):
+                 params: Optional[list] = None, txn_id: int = 0, hints=None,
+                 archive=None, archive_instance=None):
         self.stores = stores          # "schema.table" -> TableStore
         self.snapshot_ts = snapshot_ts
         self.device = torch.device(device)
@@ -65,6 +72,8 @@ class ExecContext:
                              f"execution on {self.device}")
         self.params = params or []
         self.txn_id = txn_id          # owning txn for MVCC visibility (0 = none)
+        self.archive = archive        # ArchiveManager (cold parquet scans)
+        self.archive_instance = archive_instance
         self.hints = hints or {}
         self.trace: List[str] = []
         # EXPLAIN ANALYZE instrumentation: per-operator rows/batches/wall time
@@ -77,6 +86,10 @@ class ExecContext:
         # sort slabs charge; the reference makes one only under admission control
         # (ROADMAP Queue 1 item 16), so it stays None and every charge is a no-op
         self.mem_pool = None
+        # columnar replica routing (storage/columnar.py): table key -> ReplicaView
+        # snapshot taken at routing; scans of those tables read the replica at the
+        # routed watermark instead of the row store
+        self.columnar: Dict[str, object] = {}
 
 
 # a full-table scan of more rows than this streams one device batch a partition
@@ -139,37 +152,108 @@ class ScanSource(ops.Operator):
         t = self.node.table
         if getattr(t, "remote", None) is not None:
             raise errors.NotSupportedError(f"remote table {t.name}")
-        if self.node.as_of is not None:
-            raise errors.NotSupportedError("AS OF TSO scans")
-        store = self.ctx.stores[f"{t.schema.lower()}.{t.name.lower()}"]
+        key = f"{t.schema.lower()}.{t.name.lower()}"
+        store = self.ctx.stores[key]
+        storage_cols = [c for _, c in self.node.columns]
         rename = {c: oid for oid, c in self.node.columns}
+        # flashback (AS OF TSO n): the scan reads at the requested snapshot, own-txn
+        # provisional rows excluded (a historical read, not a txn read)
+        as_of = self.node.as_of
+        snap = as_of if as_of is not None else self.ctx.snapshot_ts
+        txn_id = 0 if as_of is not None else self.ctx.txn_id
+        yield from self._archive_batches(t, storage_cols, rename, snap)
+        # columnar-replica route: the session snapshotted a ReplicaView at the routed
+        # watermark (== ctx.snapshot_ts).  The archive batches above still run: TTL-
+        # archived rows never reached the replica's seed scan.  Flashback reads
+        # always stay on the row store.
+        if self.ctx.columnar and as_of is None:
+            view = self.ctx.columnar.get(key)
+            if view is not None:
+                yield from self._columnar_batches(t, view, storage_cols, rename)
+                return
         pids = tuple(range(len(store.partitions)) if self.node.partitions is None
                      else self.node.partitions)
         if self.node.point_eq is not None:
-            b = self._point_batch(t, store, pids)
+            b = self._point_batch(t, store, pids, snap, txn_id)
             if b is not None:
                 yield b.rename(rename)
             return
         self.ctx.trace.append(
-            f"scan {t.name} partitions={self.node.partitions or 'all'}")
+            f"scan {t.name} partitions={self.node.partitions or 'all'}" +
+            (f" as_of={as_of}" if as_of is not None else ""))
         if self.node.partitions is None and \
                 sum(p.num_rows for p in store.partitions) > FUSE_MAX_ROWS:
             # the reference's per-partition loop: one batch a partition, its lanes
             # cached under the partition's id
             n = 0
             for pid in pids:
-                b = self._fused_table_batch(t, store, (pid,), pid)
+                b = self._fused_table_batch(t, store, (pid,), pid, snap, txn_id)
                 if b is not None:
                     n += 1
                     yield b.rename(rename)
             self.ctx.trace.append(f"scan {t.name} streamed batches={n}")
             return
         b = self._fused_table_batch(t, store, pids,
-                                    -1 if self.node.partitions is None else pids)
+                                    -1 if self.node.partitions is None else pids,
+                                    snap, txn_id)
         if b is not None:
             yield b.rename(rename)  # fused cols are storage-name keyed
 
-    def _point_batch(self, t, store, pids) -> Optional[ColumnBatch]:
+    def _rf_pushdown(self):
+        """(min/max sargs, in-lists) from published runtime filters: the lane-domain
+        pushdown the archive's and the replica's SARG pruning share.  The port has
+        no runtime-filter hub on the context yet (ROADMAP Queue 1 item 10), so this
+        gives nothing."""
+        rf = getattr(self.ctx, "rf", None)
+        if rf is None or not getattr(self.node, "rf_targets", None):
+            return [], []
+        sargs, inlists = rf.scan_pushdown(self.node)
+        return [[c, op, v] for c, op, v in sargs], inlists
+
+    def _columnar_batches(self, t, view, storage_cols, rename):
+        """Columnar-replica scan: the immutable stripes' lanes from the device cache
+        and one concatenated delta batch, zone-map-pruned by the same SARGs the
+        parquet archive refutes with, MVCC-visible at the routed watermark."""
+        from galaxysql_tpu_torch.storage import columnar as _col
+        mgr = getattr(self.ctx.archive_instance, "columnar", None)
+        sargs = [tuple(s) for s in (getattr(self.node, "sargs", None) or [])]
+        rf_sargs, _ = self._rf_pushdown()
+        sargs += [tuple(s) for s in rf_sargs]
+        pruned0 = view.replica.pruned_stripes
+        self.ctx.trace.append(
+            f"scan-columnar {t.name} watermark={view.watermark} "
+            f"stripes={len(view.stripes)} delta={len(view.delta)}")
+        for b in _col.scan_view(view, t, storage_cols, sargs, mgr,
+                                self.ctx.device_cache):
+            yield b.rename(rename)
+        pruned = view.replica.pruned_stripes - pruned0
+        if pruned:
+            self.ctx.trace.append(
+                f"scan-columnar {t.name} pruned_stripes={pruned}")
+
+    def _archive_batches(self, t, storage_cols, rename, snap=None):
+        """Cold rows from parquet archives, on the context's device."""
+        am = self.ctx.archive
+        if am is None:
+            return
+        snap = self.ctx.snapshot_ts if snap is None else snap
+        inst_key = f"{t.schema.lower()}.{t.name.lower()}"
+        if not am.files_for(inst_key, snap):
+            return
+        # runtime-filter min/max ranges feed the same parquet SARG refutation as
+        # WHERE-derived sargs, skipping whole files the build side refutes
+        rf_sargs, _ = self._rf_pushdown()
+        rf = getattr(self.ctx, "rf", None)
+        cb = rf.note_file_pruned if rf is not None else None
+        for b in am.scan_archive(self.ctx.archive_instance, t.schema, t.name,
+                                 storage_cols, snap,
+                                 sargs=getattr(self.node, "sargs", None),
+                                 rf_sargs=[tuple(s) for s in rf_sargs],
+                                 rf_pruned_cb=cb):
+            self.ctx.trace.append(f"scan-archive {t.name} rows={b.capacity}")
+            yield b.pad_to(ops.bucket_capacity(max(b.capacity, 1))).rename(rename)
+
+    def _point_batch(self, t, store, pids, ts, txn_id) -> Optional[ColumnBatch]:
         """Index access path: candidate rows from each partition's sorted key index
         instead of whole lanes (the reference's `_point_batches`).  The index and the
         row store live on the host, so the candidates are found and gathered there
@@ -178,7 +262,6 @@ class ScanSource(ops.Operator):
         superset of the matches for the indexed column; MVCC visibility is applied
         here (`Partition.key_rows`)."""
         col, val = self.node.point_eq
-        ts, txn_id = self.ctx.snapshot_ts, self.ctx.txn_id
         lanes: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
         valids: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
         total = 0
@@ -206,11 +289,12 @@ class ScanSource(ops.Operator):
                                  t.column(cname).dtype, t.dictionaries.get(cname.lower()))
         return ColumnBatch(cols, None)
 
-    def _fused_table_batch(self, t, store, pids, sig) -> Optional[ColumnBatch]:
-        """The partitions `pids` as one padded device batch, its lanes cached under
-        `sig` (-1 for the whole table); None when they hold no row."""
+    def _fused_table_batch(self, t, store, pids, sig, ts,
+                           txn_id) -> Optional[ColumnBatch]:
+        """The partitions `pids` as one padded device batch at snapshot `ts`, its
+        lanes cached under `sig` (-1 for the whole table); None when they hold no
+        row."""
         cache = self.ctx.device_cache
-        ts = self.ctx.snapshot_ts
         parts = [store.partitions[p] for p in pids]
         total = sum(p.num_rows for p in parts)
         if total == 0:
@@ -252,7 +336,7 @@ class ScanSource(ops.Operator):
         else:
             begin = fused("::begin_ts", [p.begin_ts for p in parts])
             end = fused("::end_ts", [p.end_ts for p in parts], -1)
-            live = _device_visibility(begin, end, ts, self.ctx.txn_id)
+            live = _device_visibility(begin, end, ts, txn_id)
             if pad_live is not None:
                 live = live & pad_live
         return ColumnBatch(cols, live)

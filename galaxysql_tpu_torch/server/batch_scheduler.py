@@ -39,9 +39,10 @@ Trimmed against the reference: the metrics registry becomes the plain counters
 below (the reference's names: `batched_queries`, `batch_flushes`,
 `batch_fallbacks`, `batch_singletons`, and the group sizes and collection waits
 of recent flushes); the memory-pool child (`exec/memory.py` is not ported) is
-dropped; `events.publish` becomes a line in `trace`; the MDL and archive checks
-are absent, as the port has neither; the `GALAXYSQL_BATCHING` environment switch
-is not carried over — `ENABLE_BATCH_SCHEDULER` does the same.
+dropped; `events.publish` becomes a line in `trace`; the `GALAXYSQL_BATCHING`
+environment switch is not carried over — `ENABLE_BATCH_SCHEDULER`, read in the
+session's scope, does the same.  The flush holds the shared MDL of its table, and a
+table with archived rows falls back to the sequential path, as in the reference.
 """
 
 from __future__ import annotations
@@ -146,8 +147,11 @@ class BatchScheduler:
 
     # -- gating ----------------------------------------------------------------
 
-    def enabled(self) -> bool:
-        return bool(self.instance.config.get("ENABLE_BATCH_SCHEDULER"))
+    def enabled(self, session=None) -> bool:
+        """ENABLE_BATCH_SCHEDULER in the session's scope (instance scope without
+        one)."""
+        return bool(self.instance.config.get(
+            "ENABLE_BATCH_SCHEDULER", session.vars if session is not None else None))
 
     def _max_group(self) -> int:
         cfg = self.instance.config.get("BATCH_MAX_GROUP") or BATCH_MAX_KEYS
@@ -327,6 +331,8 @@ class BatchScheduler:
             raise RuntimeError("schema changed under the group")
         tm = inst.catalog.table(pp["schema"], pp["table"])
         store = inst.store(pp["schema"], pp["table"])
+        if inst.archive.files_for(f"{tm.schema.lower()}.{tm.name.lower()}", None):
+            raise RuntimeError("archive-backed table")  # cold rows: group fallback
         snap = pinned_ts if pinned_ts is not None else inst.tso.next_timestamp()
         key_col = pp["key_col"]
         out_cols = pp["out_cols"]

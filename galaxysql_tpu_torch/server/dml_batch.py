@@ -30,8 +30,11 @@ Escape hatches: the `DML_BATCH(OFF)` hint (any hint comment keeps a statement on
 sequential path and from registering), ENABLE_DML_BATCHING and the environment's
 `GALAXYSQL_DML_BATCHING=0`.
 
+Archive-backed tables take the sequential path, as in the reference: no plan
+registers for them, and a flush finding archived rows evicts its plan and falls back.
+
 Trimmed against the reference, each waiting for its ROADMAP Queue 1 item: the
-archive check at registration and flush (item 9); the fragment-cache invalidation
+fragment-cache invalidation
 of each flush (item 11); the QueryProfile, statement summary, admission ticket and
 metrics-registry histograms of each member (item 16; the group sizes and waits are
 kept as the point batcher keeps them); replica legs of remote tables (item 15).
@@ -128,6 +131,8 @@ def try_register(session, stmt, sql: str, params) -> None:
         tm = inst.catalog.table(schema, stmt.table.table)
     except errors.TddlError:
         return
+    if inst.archive.files_for(f"{tm.schema.lower()}.{tm.name.lower()}", None):
+        return  # archived cold rows: the flush would only ever fall back
     plan = _extract_plan(stmt, tm, vals)
     if plan is None:
         return
@@ -272,6 +277,12 @@ class DmlBatchScheduler(BatchScheduler):
             raise RuntimeError("schema changed under the group")
         tm = inst.catalog.table(pp["schema"], pp["table"])
         store = inst.store(pp["schema"], pp["table"])
+        if inst.archive.files_for(f"{tm.schema.lower()}.{tm.name.lower()}", None):
+            # cold rows moved in since registration: evict the plan so later
+            # statements go sequential directly instead of paying a window and a
+            # fallback on every execution
+            inst.dml_plans.pop((gkey[0], gkey[1]), None)
+            raise RuntimeError("archive-backed table")
         # one shared flush-time TSO: every member's write stamps at the instant
         # the group linearizes at
         ts = inst.tso.next_timestamp()

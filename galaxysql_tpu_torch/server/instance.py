@@ -18,10 +18,16 @@ stamps of transactions in doubt against the transaction log
 interrupted DDL jobs.  So a boot brings back what the last `save()` wrote, plus the
 outcomes the transaction log decides for the provisional stamps in it.  Without a
 `data_dir` the metadb is in memory and `save()` does nothing.  Left out of boot and
-save: the compile cache (not queued: the CUDA build cache is keyed by source hash) and
-the archive and the columnar replica (ROADMAP Queue 1 item 9).  `save()` first
-drains the async applier and raises `TddlError` when it does not drain: a checkpoint
-must never hold a base table whose GSI rows are still queued.
+save: the compile cache (not queued: the CUDA build cache is keyed by source hash).
+`save()` first drains the async applier and raises `TddlError` when it does not drain:
+a checkpoint must never hold a base table whose GSI rows are still queued.
+
+Cold and columnar tiers, as in the reference: `archive` (the TTL Parquet archive,
+`storage/archive.py`, under `data_dir/archive`) and `columnar` (the CDC-fed columnar
+replica, `storage/columnar.py`).  `boot()` attaches the archive's manifest and then
+loads the replicas after the stores and dictionaries; `save()` checkpoints the
+replicas.  `metrics` is the reference's typed registry (`utils/metrics.py`), which
+holds the replica's counters and gauges; `shutdown()` stops the replica's tailer.
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
@@ -64,11 +70,14 @@ from galaxysql_tpu_torch.plan.planner import Planner
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
 from galaxysql_tpu_torch.server.dml_batch import DmlBatchScheduler
 from galaxysql_tpu_torch.server.maintain import RecycleBin
+from galaxysql_tpu_torch.storage.archive import ArchiveManager
+from galaxysql_tpu_torch.storage.columnar import ColumnarReplicaManager
 from galaxysql_tpu_torch.storage.table_store import TableStore
 from galaxysql_tpu_torch.txn.async_apply import AsyncApplier
 from galaxysql_tpu_torch.txn.cdc import CdcManager
 from galaxysql_tpu_torch.txn.xa import TwoPhaseCoordinator, recover_persisted
 from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils.metrics import MetricsRegistry
 
 
 class Instance:
@@ -87,6 +96,7 @@ class Instance:
         self._conn_ids = itertools.count(1)
         self._lock = threading.Lock()
         self.config = ConfigParams()
+        self.metrics = MetricsRegistry()
         self.data_dir = data_dir
         self.metadb = MetaDb(os.path.join(data_dir, "metadb.sqlite")
                              if data_dir else None)
@@ -94,6 +104,8 @@ class Instance:
         self.privileges = PrivilegeManager(self.metadb)
         # the change log lives in the metadb beside the transaction log
         self.cdc = CdcManager(self)
+        self.archive = ArchiveManager(
+            os.path.join(data_dir, "archive") if data_dir else None)
         self.node_id = f"cn-{uuid.uuid4().hex[:8]}"
         self.catalog.create_schema("information_schema", if_not_exists=True)
         # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
@@ -109,6 +121,7 @@ class Instance:
         self.dml_plans: Dict[tuple, dict] = {}
         self.dml_batch_scheduler = DmlBatchScheduler(self)
         self.applier = AsyncApplier(self)
+        self.columnar = ColumnarReplicaManager(self)
         self.xa_coordinator = TwoPhaseCoordinator(self)
         self.mdl = MdlManager()
         self.ddl_engine = DdlEngine(self)
@@ -151,6 +164,11 @@ class Instance:
                                                      int(parts[2]))
             except (ValueError, TypeError, IndexError):
                 pass  # a corrupt counter record must not poison boot
+        self.archive.attach(self.metadb)
+        # replicas restore AFTER the stores and dictionaries (persisted stripe
+        # lanes hold dictionary codes) and resume tailing from the checkpointed
+        # binlog seq
+        self.columnar.load()
         # provisional stamps a crash left resolve against the transaction log
         # BEFORE anything reads the loaded partitions
         recover_persisted(self)
@@ -176,11 +194,19 @@ class Instance:
             store.save(os.path.join(self.data_dir, key.replace(".", os.sep)))
             self.metadb.save_table(store.table)
         self.metadb.kv_put("last_checkpoint_at", repr(t0))
+        # the replica checkpoint rides the same save: stripe lanes hold dictionary
+        # codes, persisted beside the stores' own dictionaries.json
+        self.columnar.save()
         # the catalog counters ride the checkpoint so a booted instance keeps its
         # persisted plan baselines valid (see boot())
         self.metadb.kv_put("catalog.versions", json.dumps(
             [self.catalog.version, self.catalog.schema_version,
              self.catalog.stats_version]))
+
+    def shutdown(self):
+        """Stop the background threads the instance started (the replica's
+        tailer)."""
+        self.columnar.shutdown()
 
     def store_key(self, schema: str, table: str) -> str:
         return f"{schema.lower()}.{table.lower()}"

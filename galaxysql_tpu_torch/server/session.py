@@ -31,7 +31,19 @@ touched partition for the group); otherwise the sequential fast path runs, as in
 the reference: a host key-get over the row store (the partition's sorted key index,
 visibility at the session's snapshot, the output columns gathered on the host), with
 no operator and no device work.  The reference's privilege check on this path is
-kept; its archive check waits for `storage/archive.py` (ROADMAP Queue 1 item 9).
+kept, and so is its archive check: a table with archived rows takes the planned path.
+
+Columnar routing is the reference's (`_maybe_route_columnar`): an autocommit query
+whose every gate opens reads the columnar replica (`storage/columnar.py`) at the
+minimum watermark of its tables' replicas instead of the row store.  The gates, in
+order: the COLUMNAR hint, ENABLE_COLUMNAR_REPLICA, the GALAXYSQL_COLUMNAR environment
+switch, no transaction, no AS OF, no remote table, no point scan unless
+COLUMNAR(ON), the size signal, READY replicas of the tables' current columns, the
+session's own last write below the watermark (read your writes), and
+COLUMNAR_MAX_LAG_MS.  The size signal is the planner's estimate against
+COLUMNAR_MIN_SCAN_ROWS alone: the reference's first choice, the statement summary's
+observed rows of the digest, waits for `meta/statement_summary.py` (ROADMAP Queue 1
+item 16), so the port always takes the reference's cold-digest branch.
 
 Metadata locks are the reference's: every query, DML statement, sequential point
 lookup and EXPLAIN ANALYZE holds a shared MDL (`meta/mdl.py`) on each table it reads
@@ -92,6 +104,7 @@ from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
+from galaxysql_tpu_torch.meta.tso import LOGICAL_BITS
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
                                               PartitionRouter, SINGLE, TableMeta, ViewDef)
 from galaxysql_tpu_torch.meta.statistics import analyze_store
@@ -99,7 +112,7 @@ from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.binder import Binder, Scope
 from galaxysql_tpu_torch.plan.physical import (ExecContext, annotate_explain,
                                                build_operator)
-from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode
+from galaxysql_tpu_torch.plan.rules import _col_lit_cmp, _lane_encode, estimate_rows
 from galaxysql_tpu_torch.server import dml_batch, information_schema
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.maintain import advise_indexes
@@ -107,6 +120,7 @@ from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
 from galaxysql_tpu_torch.sql.parameterize import DecimalParam, parameterize
 from galaxysql_tpu_torch.sql.parser import parse
+from galaxysql_tpu_torch.storage import columnar as _col
 from galaxysql_tpu_torch.storage.table_store import INFINITY_TS, visible_rows
 from galaxysql_tpu_torch.txn.xa import participants_of
 from galaxysql_tpu_torch.types import datatype as dt
@@ -559,6 +573,9 @@ class Session:
         if info:
             information_schema.check_ported(plan.rel)
         ctx = self._exec_context(plan, params)
+        # large AP scans flip to the CDC-fed replica at a TSO watermark; TP point
+        # reads and fresh-read sessions stay on the row store
+        self._maybe_route_columnar(plan, ctx)
         with self._mdl_shared(self._scan_keys(plan.rel)):
             batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
             rows = batch.to_pylist()
@@ -577,10 +594,93 @@ class Session:
                           self.instance.device, self.instance.device_cache,
                           params=params or [],
                           txn_id=self.txn.txn_id if self.txn is not None else 0,
-                          hints=getattr(plan, "hints", None))
+                          hints=getattr(plan, "hints", None),
+                          archive=self.instance.archive, archive_instance=self.instance)
         ctx.sort_spill_bytes = self.instance.config.get("SORT_SPILL_BYTES", self.vars)
         ctx.join_spill_bytes = self.instance.config.get("JOIN_SPILL_BYTES", self.vars)
         return ctx
+
+    # -- columnar HTAP routing (storage/columnar.py) ---------------------------
+
+    def _maybe_route_columnar(self, plan, ctx):
+        """Route this query's scans onto the columnar replica when every gate
+        opens: hatch trio (COLUMNAR hint > ENABLE_COLUMNAR_REPLICA >
+        GALAXYSQL_COLUMNAR env), autocommit read (no txn), no flashback, no
+        remote tables, the estimated scan size clears COLUMNAR_MIN_SCAN_ROWS,
+        every scanned table has a READY replica whose schema matches, the
+        read-your-writes fence passes, and the routed watermark is inside the
+        COLUMNAR_MAX_LAG_MS freshness SLA.  On route: snapshot_ts pins to the
+        watermark and scans read ReplicaView snapshots."""
+        if not _col.ENABLED:
+            return
+        hint = (ctx.hints or {}).get("columnar")
+        if hint == "off":
+            return
+        mgr = self.instance.columnar
+        if hint != "on" and not mgr.enabled(self):
+            return
+        if self.txn is not None or ctx.txn_id:
+            return  # txn reads must see their own provisional rows
+        scans = [n for n in L.walk(plan.rel) if isinstance(n, L.Scan)]
+        if not scans:
+            return
+        for n in scans:
+            if n.as_of is not None or \
+                    getattr(n.table, "remote", None) is not None:
+                return  # flashback / plan-shipped scans stay where they are
+            if n.point_eq is not None and hint != "on":
+                return  # TP index path: the row store's key-Get wins
+        if hint != "on" and not self._columnar_signal(scans):
+            return
+        views = {}
+        for n in scans:
+            key = f"{n.table.schema.lower()}.{n.table.name.lower()}"
+            if key in views:
+                continue
+            rep = mgr.replica(n.table.schema, n.table.name)
+            if hint == "on" and (rep is None or rep.state != _col.READY):
+                rep = mgr.ensure_ready(n.table.schema, n.table.name)
+            elif rep is None:
+                # the size signal fired: enroll asynchronously; this query (and
+                # every one until READY) stays on the row store
+                mgr.request(n.table.schema, n.table.name)
+                return
+            if rep.sig != tuple(n.table.column_names()):
+                return  # DDL outran the tailer; reseed pending
+            view = rep.view()
+            if view is None:
+                return
+            views[key] = view
+        # one snapshot timestamp for the whole query: the minimum watermark.
+        # Every view serves any ts in [seed_ts, its watermark], so min(W) is
+        # exact everywhere, unless a fresh seed starts above it.
+        w = min(v.watermark for v in views.values())
+        if w <= 0 or w < max(v.seed_ts for v in views.values()):
+            return
+        if getattr(self, "_last_commit_ts", 0) > w:
+            return  # read-your-writes fence: this session wrote past W
+        if hint != "on":
+            max_lag = float(self.instance.config.get(
+                "COLUMNAR_MAX_LAG_MS", self.vars) or 10_000)
+            if time.time() * 1000.0 - (w >> LOGICAL_BITS) > max_lag:
+                return  # freshness SLA blown: fall back to the row store
+        ctx.snapshot_ts = w
+        ctx.columnar = views
+        mgr.routed.inc()
+
+    def _columnar_signal(self, scans) -> bool:
+        """Is this statement big enough for the replica?  The planner's estimate
+        against COLUMNAR_MIN_SCAN_ROWS: the reference's branch for a digest the
+        statement summary has not seen (the port has no summary yet)."""
+        min_rows = int(self.instance.config.get(
+            "COLUMNAR_MIN_SCAN_ROWS", self.vars) or 50_000)
+        est = 0
+        for n in scans:
+            try:
+                est += int(estimate_rows(n) or 0)
+            except Exception:  # an estimate fault defers to "too small"
+                pass
+        return est >= min_rows
 
     # -- point-plan fast path: archetypal `SELECT cols FROM t WHERE key = ?`
     # statements skip binder and planner on re-execution; the registered PointPlan
@@ -670,6 +770,9 @@ class Session:
             store = self.instance.store(pp["schema"], pp["table"])
         except (errors.TddlError, KeyError):
             return None
+        if self.instance.archive.files_for(self.instance.store_key(tm.schema, tm.name),
+                                           None):
+            return None  # cold rows live outside the index: the planned path
         key_col = pp["key_col"]
         t0 = time.perf_counter()
         if value is None:
@@ -733,7 +836,7 @@ class Session:
         only with sessions pinned to the SAME snapshot (pinned_ts rides the group
         key); autocommit sessions share one flush-time TSO."""
         sched = self.instance.batch_scheduler
-        if not sched.enabled():
+        if not sched.enabled(self):
             return None
         pinned = None
         if self.txn is not None:
@@ -817,7 +920,11 @@ class Session:
         a real TSO value for autocommit single-statement writes."""
         if self.txn is not None:
             return -self.txn.txn_id, self.txn
-        return self.instance.tso.next_timestamp(), None
+        ts = self.instance.tso.next_timestamp()
+        # read-your-writes fence for the columnar router: a later scan must not
+        # route to a replica watermark below this write (COMMIT stamps it too)
+        self._last_commit_ts = ts
+        return ts, None
 
     # -- DML ------------------------------------------------------------------------
 
@@ -1282,9 +1389,14 @@ class Session:
             return ResultSet(["plan"], [dt.VARCHAR], [("not a plannable statement",)])
         plan = self.instance.planner.bind_statement(inner, schema, params or [])
         lines = plan.explain().split("\n")
+        col_views = None
         if stmt.analyze:
             ctx = self._exec_context(plan, params)
             ctx.collect_stats = True
+            # the real path's columnar routing: ANALYZE numbers describe the tier
+            # the query actually reads
+            self._maybe_route_columnar(plan, ctx)
+            col_views = ctx.columnar
             x0 = dict(TRANSFER_STATS)
             t0 = time.time()
             with self._mdl_shared(self._scan_keys(plan.rel)):
@@ -1299,6 +1411,19 @@ class Session:
             for st in ctx.op_stats:
                 lines.append(f"-- op {st['operator']}: rows={st['rows_out']} "
                              f"batches={st['batches']} wall={st['wall_ms']}ms")
+        if col_views is None:
+            # plain EXPLAIN: dry-run the routing decision against a throwaway probe
+            # so freshness shows up without executing anything
+            probe = ExecContext({}, None, "cpu", hints=getattr(plan, "hints", None))
+            self._maybe_route_columnar(plan, probe)
+            col_views = probe.columnar
+        for key in sorted(col_views or {}):
+            v = col_views[key]
+            lag = max(time.time() * 1000.0 - (v.watermark >> LOGICAL_BITS), 0.0)
+            lines.append(f"-- columnar: {key} watermark={v.watermark} "
+                         f"freshness_lag_ms={lag:.1f} "
+                         f"stripes={len(v.stripes)} "
+                         f"delta_chunks={len(v.delta)}")
         lines.append(f"-- workload: {plan.workload}")
         return ResultSet(["plan"], [dt.VARCHAR], [(ln,) for ln in lines])
 

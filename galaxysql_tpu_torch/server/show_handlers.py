@@ -4,7 +4,7 @@ The kinds whose data the port holds, with the reference's columns and text: data
 tables, columns, create table, variables, processlist, index / indexes / keys,
 warnings, trace, status, engines, charset, collation, batch stats (the point
 batcher's rows, then the DML batcher's and the async applier's), the binlog events,
-the recycle bin and the DDL jobs.  Every other
+the recycle bin, the DDL jobs and the columnar replica.  Every other
 kind raises `NotSupportedError` naming the module it waits for.
 """
 
@@ -19,7 +19,6 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "columnar_replica": "storage/columnar.py (ROADMAP Queue 1 item 9)",
     "fragment": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
     "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
     "baseline": "the plan-baseline surface of the operations plane "
@@ -138,6 +137,17 @@ def handle(session, stmt: ast.Show):
         # the last query's trace tags (the reference adds its span tree, which
         # waits for utils/tracing.py)
         return ResultSet(["Trace"], [dt.VARCHAR], [(t,) for t in session.last_trace])
+    if kind == "columnar_replica":
+        # SHOW COLUMNAR REPLICA: per-table tailer state, watermark freshness and
+        # tier shape (storage/columnar.py)
+        return ResultSet(
+            ["Table", "State", "Watermark", "Lag_ms", "Delta_rows",
+             "Base_stripes", "Compactions", "Reseeds", "Pruned_stripes",
+             "Applied_events", "Applied_rows"],
+            [dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.DOUBLE, dt.BIGINT,
+             dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
+             dt.BIGINT],
+            inst.columnar.rows())
     if kind == "engines":
         return ResultSet(["Engine", "Support", "Comment"], [dt.VARCHAR] * 3,
                          [("TPU_COLUMNAR", "DEFAULT",
