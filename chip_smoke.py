@@ -34,7 +34,7 @@ own, its launch counters set to 0 just before its timed runs and read just after
    each (the second run timed), with each query's launches, join order and, where the
    default thresholds made it spill, its spill bytes and files; rows must equal the
    port on the CPU over the same lanes with the same statistics (the CPU twin takes
-   the card's, `_take_statistics`; ANALYZED_CPU_SKIP's rows are held to the CPU's in
+   the card's, `_take_statistics`; ANALYZED_CPU_SKIP's rows are held to numpy in
    the dml phase, before its refresh, on copies of the same lanes, and
    ANALYZED_CARD_ONLY's are not compared at SF 1);
 8. tpcds: `tpcds.generate(--sf * TPCDS_SF_SCALE)` loaded with `insert_pylists`, ANALYZEd (the CPU twin
@@ -44,11 +44,39 @@ own, its launch counters set to 0 just before its timed runs and read just after
    frame, NULL partition keys, one partition spanning every row), compared with the
    port on the CPU through an outer aggregate.
 
+Every phase runs fusion and runtime filters at their defaults (on) and, but for the
+next one, its instances with ENABLE_FRAGMENT_CACHE = 0, so warm runs measure
+execution and not a replay (each phase's line says `enable_fragment_cache`).  Then
+the execution hub with the fragment cache on, on analyzed_tpch's instances (their
+statistics keep the CPU side short) and the main path's card instance with phase 6's
+CPU twin; no data is loaded:
+
+9a. exec_hub: (a) EXEC_HUB_QUERIES (Q3, Q5, Q9, Q10, Q18, Q21) each at the defaults
+    with the cache cold, again at the defaults (a replay: hits, no kernel launch),
+    under RUNTIME_FILTER(OFF) FRAGMENT_CACHE(OFF) (the probe rows reaching the joins
+    without filters), under NO_FUSE NO_BLOOM FRAGMENT_CACHE(OFF), and
+    EXEC_HUB_FUSE_REPEATS times each under FRAGMENT_CACHE(OFF) (fused) and NO_FUSE
+    FRAGMENT_CACHE(OFF) (unfused), alternated; the rows of every run must equal
+    analyzed_tpch's rows of the query, which the CPU twin gave on the same lanes
+    (Q18's: the dml phase holds them to numpy); per query the first, warm and off ms,
+    the fused and unfused medians, fragment-cache hits, misses and bytes, filters
+    built, probe rows with and without filters, and each kernel's launches.  (b) Staleness on the main
+    path's pair: Q3 warm from the cache, then an autocommit INSERT into orders, the
+    same INSERT shape from HUB_MEMBERS sessions batched into one `server/dml_batch.py`
+    flush (sequential on the CPU twin), and `ALTER TABLE customer ADD COLUMN`: after
+    each the next Q3 must miss, move where the write adds a row it reads, and equal
+    the CPU twin's; every write is undone at the end.  (c) Both caches emptied, Q3,
+    Q5 and Q3 again at the defaults on both: the rows must be equal, and SHOW
+    FRAGMENT CACHE and information_schema.fragment_cache must list the same entries
+    on both.  Launch counters are set to 0 at the phase's
+    start and read at its end; all four kernels must have launched.
+
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
-order, and every result must be equal (of the 22 queries after the refresh, the
-DML_CPU_QUERIES; Q1 and Q3 are held to W's rows inside the refresh, which the CPU
-gave for the same rows, and Q18 (DML_CARD_ONLY) to W's rows on the card):
+order, and every result must be equal (the queries before the refresh run on the card
+alone; of the 22 queries after the refresh, the DML_CPU_QUERIES; Q1 and Q3 are held to
+W's rows inside the refresh, which the CPU gave for the same rows, and Q18
+(DML_CARD_ONLY) to W's rows on the card):
 
 10. dml: (a) TPC-H's refresh functions in a transaction, with analyzed_tpch's
     statistics (both copies take them instead of running ANALYZE again): session W
@@ -57,7 +85,8 @@ gave for the same rows, and Q18 (DML_CARD_ONLY) to W's rows on the card):
     and their lineitems deleted); Q1, Q3 and Q18 in W see its writes (Q18 on the
     card alone), in a second
     session R the snapshot from before (R's rows held to its rows from before the
-    refresh, which the CPU gave); COMMIT; then all 22 queries twice each (the
+    refresh, which the card alone gives: Q1 and Q3 equal analyzed_tpch's rows, which
+    the CPU gave, and Q18 equals `q18_numpy`); COMMIT; then all 22 queries twice each (the
     second run timed), DML_CPU_QUERIES of them also on the CPU and Q1, Q3 and Q18
     held to W's rows inside the refresh.  (b) A rollback, on the card alone: an
     UPDATE of lineitem and a DELETE of orders (each with the ms of its binlog
@@ -242,20 +271,29 @@ twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
     watermark from before the refresh equals Q6's rows from before it.  (e) `lu`,
     LU_ROWS of lineitem's order keys with BIGINT UNSIGNED values above 2**63 derived
     from their suppliers, and `su`, one row a supplier: a routed GROUP BY, MIN/MAX and
-    a join on the unsigned column, held to numpy and to the CPU twin.  (f) The archive: where
+    a join on the unsigned column, held to numpy and to the CPU twin.  (g) `dates`, one
+    row a day from 1992-01-01 to 1998-12-31 (2,557 rows, ANALYZEd), a month of it
+    joined with the lineitem replica on l_shipdate = d_date (RF_STAR_SQL), routed
+    with runtime filters on and under RUNTIME_FILTER(OFF): the stripes each pruned,
+    rows equal to the row store's and the CPU twin's (the line says where the rules
+    planted no filter).  (f) The archive: where
     `pyarrow` imports, orders older than 1993-01-01 archived on the card and the union
-    scan held to the rows from before; where it does not, `archive_older_than` must
-    raise the reference's NotSupportedError (a `columnar_archive` line says which).
+    scan held to the rows from before, then RF_ARCHIVE_SQL (a month of `dates` after
+    every archived order joined with orders) with filters on, which must skip
+    archived files, and off, rows equal to the CPU twin's; where it does not,
+    `archive_older_than` must raise the reference's NotSupportedError (a
+    `columnar_archive` line says which).
     Peak device bytes.  Launch counters are set to 0 at the phase's start and read at
     its end; all four kernels must have launched.
 
-Floats in 7-10, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares them
-(relative and absolute 1e-6); every other value must be equal.  The largest input the
-phases 7-9 gave each kernel, and apart from it the largest input each of the dml,
-ddl, durable, cdc and spill phases gave it, are then held against the kernel's plain
-version CHECK_REPEATS times and timed, beside the main path's, in the kernel's
-`new_phases` entry (`dml_input`, `ddl_input`, `durable_input`, `cdc_input`,
-`spill_input`, `columnar_input`).
+Floats in 7-10, 9a, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares
+them (relative and absolute 1e-6); every other value must be equal.  The largest input
+the phases 7-9 gave each kernel, and apart from it the largest input each of the
+exec_hub, dml, ddl, durable, cdc and spill phases gave it, are then held against the
+kernel's plain version CHECK_REPEATS times and timed, beside the main path's, in the
+kernel's
+`new_phases` entry (`exec_hub_input`, `dml_input`, `ddl_input`, `durable_input`,
+`cdc_input`, `spill_input`, `columnar_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -317,9 +355,12 @@ DML_CARD_ONLY = (18,)
 # twin takes 29-38 s); tests/test_torch_tpch.py holds them to the reference at SF 0.01
 ANALYZED_CARD_ONLY = (20,)
 TPCDS_SF_SCALE = 0.5        # the tpcds phase's scale, a fraction of --sf (a cut for time)
-# analyzed_tpch queries held to the CPU by the dml phase instead, before its refresh,
-# on the same ANALYZEd lanes (Q18 alone is 30-50 s of CPU)
+# analyzed_tpch queries held to numpy by the dml phase instead (`q18_numpy`), before
+# its refresh, on copies of the same lanes (Q18's CPU twin alone is 30-50 s)
 ANALYZED_CPU_SKIP = (18,)
+# analyzed_tpch's card rows the dml phase holds its own to before its refresh: Q1 and Q3
+# (which analyzed_tpch held to the CPU) and ANALYZED_CPU_SKIP's
+DML_HELD = (1, 3) + ANALYZED_CPU_SKIP
 DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phase
 DURABLE_TXNS = 2            # transactions each of them commits, per policy
 DURABLE_SEQUENTIAL = 32     # transactions one session commits one after another
@@ -345,6 +386,10 @@ SPILL_SQL = (((SPILL_BYTES, SPILL_BYTES), (4, 18, 21)),
              ((SPILL_BYTES, 8 << 20), (13,)),
              ((1 << 20, SPILL_BYTES), (10,)))
 SPILL_QUERIES = tuple(q for _b, qs in SPILL_SQL for q in qs)
+# statement heads of the spill phase's queries: Q18's inner build (customer joined with
+# orders) passes 32 MiB only without the runtime filters, which prune orders to the
+# few hundred orders of its IN subquery
+SPILL_HEADS = {18: "/*+TDDL:RUNTIME_FILTER(OFF)*/ "}
 # a quarter of TPC-H SF 23's lineitem (a cut for time: SF 23 is the first whole SF past
 # the default FUSE_MAX_ROWS, 2^27 rows); li23 is scanned under LI23_FUSE_MAX_ROWS
 LI23_ROWS = 23 * 6_000_000 // 4
@@ -386,7 +431,7 @@ def load_tpch(sf: float, device="cuda", data_dir=None):
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import tpch
     data = tpch.generate(sf)
-    inst = Instance(data_dir=data_dir, device=device)
+    inst = _frag_off(Instance(data_dir=data_dir, device=device))
     s = Session(inst)
     s.execute("CREATE DATABASE tpch")
     s.execute("USE tpch")
@@ -893,7 +938,7 @@ def cpu_reference(gpu_inst, rows_gpu):
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import tpch, transfer
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
-    inst = Instance(device="cpu")
+    inst = _frag_off(Instance(device="cpu"))
     s = Session(inst)
     s.execute("CREATE DATABASE tpch")
     s.execute("USE tpch")
@@ -964,7 +1009,7 @@ def _copy_instance(src_inst, schema, tables, ddl, device):
     from galaxysql_tpu_torch.server.instance import Instance
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import transfer
-    inst = Instance(device=device)
+    inst = _frag_off(Instance(device=device))
     s = Session(inst)
     s.execute(f"CREATE DATABASE {schema}")
     s.execute(f"USE {schema}")
@@ -1089,12 +1134,51 @@ def analyzed_tpch(inst):
     line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
                      cpu_queries={f"Q{q}" for q in range(1, 23)
                                   if q not in ANALYZED_CPU_SKIP + ANALYZED_CARD_ONLY},
-                     keep_rows=[f"Q{q}" for q in SPILL_QUERIES])
+                     keep_rows=[f"Q{q}" for q in SPILL_QUERIES + EXEC_HUB_QUERIES])
     line["analyze_ms"] = analyze_ms
     line["q5_plan_analyzed"] = L.explain(
         gi.planner.plan_select(SQL[5], "tpch", [], gs).rel).splitlines()
-    held = {q: gs.execute(SQL[q]).rows for q in ANALYZED_CPU_SKIP}
+    held = {q: gs.execute(SQL[q]).rows for q in DML_HELD}
     return line, (gi, gs, ci, cs), held
+
+
+def _lanes_of(inst, table, columns):
+    """The visible rows' host lanes of `columns` over every partition of `table`."""
+    import numpy as np
+    from galaxysql_tpu_torch.storage.table_store import INFINITY_TS
+    parts = inst.store("tpch", table).partitions
+    masks = [p.end_ts[:p.num_rows] == INFINITY_TS for p in parts]
+    return {c: np.concatenate([p.lanes[c][:p.num_rows][m] for p, m in zip(parts, masks)])
+            for c in columns}
+
+
+def q18_numpy(inst):
+    """TPC-H Q18's rows from `inst`'s host lanes in numpy (DECIMAL lanes are cents, so
+    the sums are exact): the orders whose lines sum past 300 in quantity, with their
+    customer, by o_totalprice descending and o_orderdate, the first 100."""
+    import numpy as np
+    from galaxysql_tpu_torch.types import temporal
+    li = _lanes_of(inst, "lineitem", ("l_orderkey", "l_quantity"))
+    od = _lanes_of(inst, "orders", ("o_orderkey", "o_custkey", "o_orderdate",
+                                    "o_totalprice"))
+    cu = _lanes_of(inst, "customer", ("c_custkey", "c_name"))
+    keys, inv = np.unique(li["l_orderkey"], return_inverse=True)
+    qty = np.bincount(inv, weights=li["l_quantity"]).astype(np.int64)
+    big = qty > 300 * 100
+    at = np.searchsorted(keys, od["o_orderkey"]).clip(0, keys.shape[0] - 1)
+    sel = np.nonzero((keys[at] == od["o_orderkey"]) & big[at])[0]
+    cpos = {int(k): i for i, k in enumerate(cu["c_custkey"].tolist())}
+    names = inst.catalog.table("tpch", "customer").dictionaries["c_name"].values
+    rows = []
+    for i in sel.tolist():
+        ck = int(od["o_custkey"][i])
+        if ck not in cpos:
+            continue
+        rows.append((names[int(cu["c_name"][cpos[ck]])], ck, int(od["o_orderkey"][i]),
+                     temporal.format_date(int(od["o_orderdate"][i])),
+                     int(od["o_totalprice"][i]) / 100, int(qty[at[i]]) / 100))
+    rows.sort(key=lambda r: (-r[4], r[3]))
+    return rows[:100]
 
 
 def tpcds_phase(sf):
@@ -1104,7 +1188,7 @@ def tpcds_phase(sf):
     t0 = time.perf_counter()
     data = tpcds.generate(sf)
     gen_ms = (time.perf_counter() - t0) * 1000.0
-    gi = Instance(device="cuda")
+    gi = _frag_off(Instance(device="cuda"))
     gs = Session(gi)
     gs.execute("CREATE DATABASE tpcds")
     gs.execute("USE tpcds")
@@ -1120,6 +1204,237 @@ def tpcds_phase(sf):
     line.update(sf=sf, generate_ms=gen_ms, load_ms=load_ms, analyze_ms=analyze_ms,
                 rows={t: gi.store("tpcds", t).row_count() for t in tpcds.TABLE_ORDER})
     return line
+
+
+# -- the execution hub: fusion, runtime filters, the fragment cache -------------------
+
+EXEC_HUB_QUERIES = (3, 5, 9, 10, 18, 21)
+EXEC_HUB_OFF = "/*+TDDL:NO_FUSE NO_BLOOM FRAGMENT_CACHE(OFF)*/ "
+# the probe rows reaching the joins without runtime filters, fusion as at the defaults
+EXEC_HUB_NO_RF = "/*+TDDL:RUNTIME_FILTER(OFF) FRAGMENT_CACHE(OFF)*/ "
+# fused against unfused executions (runtime filters on, no replay), alternated
+EXEC_HUB_FUSED = "/*+TDDL:FRAGMENT_CACHE(OFF)*/ "
+EXEC_HUB_UNFUSED = "/*+TDDL:NO_FUSE FRAGMENT_CACHE(OFF)*/ "
+EXEC_HUB_FUSE_REPEATS = 3
+HUB_MEMBERS = 4             # sessions of the batched point-write flush of exec_hub (b)
+
+
+def _frag_off(inst):
+    """ENABLE_FRAGMENT_CACHE = 0 on an instance of the phases before and beside
+    exec_hub: their warm runs measure execution, not a replay of the first run."""
+    inst.config.set_instance("ENABLE_FRAGMENT_CACHE", 0)
+    return inst
+
+
+def _frag_state(inst):
+    c = inst.frag_cache
+    return c.hits, c.misses, c.bytes
+
+
+def _frag_delta(inst, since):
+    h, m, b = _frag_state(inst)
+    return {"hits": h - since[0], "misses": m - since[1], "bytes": b}
+
+
+def _hub_query(gs, q, want):
+    """One query at the defaults (fragment cache cold), again at the defaults, without
+    runtime filters, with every hub feature off, and EXEC_HUB_FUSE_REPEATS times each
+    fused and unfused (NO_FUSE) without the cache, alternated, on the card; every run's rows
+    must equal `want`: analyzed_tpch's rows of the query, which the CPU twin gave on
+    the same lanes (Q18's: the dml phase holds them to the CPU).  A cut for time:
+    the CPU twin runs the hub's queries at the defaults in (c) alone."""
+    from galaxysql_tpu_torch.exec import runtime_filter as rf
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    sql = SQL[q]
+    before, c0 = _launch_counts(), _frag_state(gi)
+    rf.reset_rf_stats(enabled=True)
+    first, first_ms = _timed(gs, sql)
+    rf_on = dict(rf.RF_STATS)
+    after = _launch_counts()
+    cache_first = _frag_delta(gi, c0)
+    c1 = _frag_state(gi)
+    warm, warm_ms = _timed(gs, sql)
+    warm_launches = sum(_launch_counts().values()) - sum(after.values())
+    cache_warm = _frag_delta(gi, c1)
+    rf.reset_rf_stats(enabled=True)
+    no_rf, _ms = _timed(gs, EXEC_HUB_NO_RF + sql)
+    rf_off = dict(rf.RF_STATS)
+    rf.reset_rf_stats()
+    off, off_ms = _timed(gs, EXEC_HUB_OFF + sql)
+    fused_ms, unfused_ms = [], []
+    for _ in range(EXEC_HUB_FUSE_REPEATS):
+        fused, ms = _timed(gs, EXEC_HUB_FUSED + sql)
+        fused_ms.append(ms)
+        unfused, ms = _timed(gs, EXEC_HUB_UNFUSED + sql)
+        unfused_ms.append(ms)
+    for what, rows in (("the repeat", warm.rows), ("RUNTIME_FILTER(OFF)", no_rf.rows),
+                       ("every feature off", off.rows), ("analyzed_tpch", want),
+                       ("FRAGMENT_CACHE(OFF)", fused.rows), ("NO_FUSE", unfused.rows)):
+        if not _rows_match(first.rows, rows)[0]:
+            raise AssertionError(f"exec_hub Q{q}: rows at the defaults differ from "
+                                 f"{what}:\n  defaults {first.rows[:3]}\n  other "
+                                 f"{rows[:3]}")
+    if cache_first["misses"] == 0 or cache_warm["hits"] == 0:
+        raise AssertionError(f"exec_hub Q{q}: no miss on the cold run or no hit on the "
+                             f"repeat: {cache_first} {cache_warm}")
+    return {"first_ms": first_ms, "warm_ms": warm_ms, "off_ms": off_ms,
+            "fused_ms": statistics.median(fused_ms),
+            "unfused_ms": statistics.median(unfused_ms),
+            "fused_runs_ms": fused_ms, "unfused_runs_ms": unfused_ms,
+            "rows": len(first.rows), "frag_first": cache_first, "frag_warm": cache_warm,
+            "filters_built": rf_on["filters_built"],
+            "probe_rows": rf_on["probe_rows"], "probe_rows_off": rf_off["probe_rows"],
+            "probe_rows_pruned": rf_off["probe_rows"] - rf_on["probe_rows"],
+            "launches": {k: after[k] - before[k] for k in after},
+            "warm_launches": warm_launches,
+            "trace": [t for t in gs.last_trace if t.startswith(("frag", "rf-", "fuse"))]}
+
+
+def _hub_staleness(s_gpu, s_cpu, out):
+    """Q3 warm from the fragment cache, then a write or DDL on one of its tables on
+    both instances: the next Q3 must miss and return the CPU twin's rows, moved by the
+    write where it adds a row Q3 reads.  (1) an autocommit INSERT into orders, (2) the
+    same shape through batched point writes (one `server/dml_batch.py` flush of
+    HUB_MEMBERS sessions on the card, sequential on the CPU), (3) `ALTER TABLE
+    customer ADD COLUMN` (customer is a build side of Q3).  Every write is undone at
+    the end on both, and Q3 is back to its rows from before."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = s_gpu.instance
+    q3 = SQL[3]
+    cust = s_gpu.execute("SELECT min(c_custkey) FROM customer "
+                         "WHERE c_mktsegment = 'BUILDING'").rows[0][0]
+    base = s_gpu.execute("SELECT max(o_orderkey) FROM orders").rows[0][0] + 1000
+    keys = [base + i for i in range(1 + HUB_MEMBERS)]
+
+    def order(k, i):
+        return (f"INSERT INTO orders VALUES ({k}, {cust}, 'O', {1000 + i}.25, "
+                f"'1995-03-0{1 + i % 9}', '1-URGENT', 'Clerk#000000001', 0, 'hub')")
+    # lineitems of the new orders first: Q3 reads none of them until their order lands
+    items = ", ".join(f"({k}, 1, 1, 1, 1.00, {900000 + 1000 * i}.00, 0.00, 0.00, 'N', "
+                      f"'O', '1995-03-20', '1995-03-20', '1995-03-21', 'NONE', 'MAIL', "
+                      f"'hub')" for i, k in enumerate(keys))
+    _both(s_gpu, s_cpu, f"INSERT INTO lineitem VALUES {items}", "exec_hub lineitems")
+    original = _both(s_gpu, s_cpu, q3, "exec_hub Q3 before")[0].rows
+    s_gpu.execute(q3)  # warm
+
+    def step(name, write):
+        c0 = _frag_state(gi)
+        s_gpu.execute(q3)
+        warm = _frag_delta(gi, c0)
+        t0 = time.perf_counter()
+        write()
+        write_ms = (time.perf_counter() - t0) * 1000.0
+        c1 = _frag_state(gi)
+        got, ms = _both(s_gpu, s_cpu, q3, f"exec_hub Q3 after {name}")
+        cache = _frag_delta(gi, c1)
+        if warm["hits"] == 0 or cache["misses"] == 0 or \
+                any("frag-subplan hit" in t for t in s_gpu.last_trace):
+            raise AssertionError(f"exec_hub {name}: Q3 not warm before ({warm}) or "
+                                 f"replayed after ({cache})")
+        out[name] = {"write_ms": write_ms, "q3_ms": ms, "frag_before": warm,
+                     "frag_after": cache, "moved": got.rows != original}
+        say("exec_hub_step", step=name, **out[name])
+        return got.rows
+
+    step("insert", lambda: _both(s_gpu, s_cpu, order(keys[0], 0), "exec_hub insert"))
+    flushes = gi.dml_batch_scheduler.counts.get("dml_batch_flushes", 0)
+
+    def batched():
+        gi.config.set_instance("DML_BATCH_WINDOW_US", 10_000_000)
+        gi.config.set_instance("BATCH_MAX_GROUP", HUB_MEMBERS)
+        try:
+            _storm(gi, "tpch", [[order(k, i + 1)] for i, k in enumerate(keys[1:])])
+        finally:
+            gi.config.set_instance("DML_BATCH_WINDOW_US", 0)
+            gi.config.set_instance("BATCH_MAX_GROUP", 1024)
+        for i, k in enumerate(keys[1:]):
+            s_cpu.execute(order(k, i + 1))
+    step("batched_insert", batched)
+    out["batched_insert"]["flushes"] = \
+        gi.dml_batch_scheduler.counts.get("dml_batch_flushes", 0) - flushes
+    if out["batched_insert"]["flushes"] < 1:
+        raise AssertionError("exec_hub: the batched inserts did not flush as a group")
+    step("alter", lambda: _both(s_gpu, s_cpu, "ALTER TABLE customer ADD COLUMN "
+                                "c_hub INT DEFAULT 7", "exec_hub alter"))
+    if not (out["insert"]["moved"] and out["batched_insert"]["moved"]):
+        raise AssertionError("exec_hub: an inserted order did not reach Q3")
+    inlist = ", ".join(str(k) for k in keys)
+    for sql in (f"DELETE FROM orders WHERE o_orderkey IN ({inlist})",
+                f"DELETE FROM lineitem WHERE l_orderkey IN ({inlist})",
+                "ALTER TABLE customer DROP COLUMN c_hub"):
+        _both(s_gpu, s_cpu, sql, "exec_hub undo")
+    if _both(s_gpu, s_cpu, q3, "exec_hub Q3 undone")[0].rows != original:
+        raise AssertionError("exec_hub: Q3 after the undo differs from before")
+
+
+def _hub_cache_surfaces(gs, cs):
+    """Both caches emptied, Q3, Q5 and Q3 again at the defaults on both instances: the
+    rows must be equal, and SHOW FRAGMENT CACHE and information_schema.fragment_cache
+    must list the same entry kinds over the same tables, with the same hits."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    out = {"cpu_ms": {}}
+    for s in (gs, cs):
+        s.instance.frag_cache.clear()
+    for i, q in enumerate((3, 5, 3)):
+        got = gs.execute(SQL[q]).rows
+        t0 = time.perf_counter()
+        want = cs.execute(SQL[q]).rows
+        out["cpu_ms"][f"Q{q}" + ("_repeat" if i == 2 else "")] = \
+            (time.perf_counter() - t0) * 1000.0
+        if not _rows_match(got, want)[0]:
+            raise AssertionError(f"exec_hub Q{q}: the card and the CPU twin differ at "
+                                 f"the defaults:\n  cuda {got[:3]}\n  cpu  {want[:3]}")
+    show = [[(k, t, h) for k, t, _r, _b, h in s.execute("SHOW FRAGMENT CACHE").rows]
+            for s in (gs, cs)]
+    info = [sorted(s.execute("SELECT entry_kind, tables, hits FROM "
+                             "information_schema.fragment_cache").rows)
+            for s in (gs, cs)]
+    if show[0] != show[1] or info[0] != info[1] or not show[0]:
+        raise AssertionError(f"exec_hub: fragment cache entries differ:\n  cuda "
+                             f"{show[0][:4]}\n  cpu  {show[1][:4]}")
+    out["entries"] = len(show[0])
+    out["kinds"] = sorted({k for k, _t, _h in show[0]})
+    out["card_bytes"] = gs.instance.frag_cache.bytes
+    out["cpu_bytes"] = cs.instance.frag_cache.bytes
+    return out
+
+
+def exec_hub_phase(gs, cs, analyzed_rows, s_main, s_main_cpu):
+    """The reference's default single-device execution on the card: fusion, runtime
+    filters and the fragment cache at their defaults, on analyzed_tpch's instances
+    (the fragment cache turned on for the phase) and, for the staleness steps, the
+    main path's card instance and phase 6's CPU twin."""
+    import torch
+    t_phase = time.perf_counter()
+    pairs = ((gs, cs), (s_main, s_main_cpu))
+    for a, b in pairs:
+        for s in (a, b):
+            s.instance.config.set_instance("ENABLE_FRAGMENT_CACHE", 1)
+            s.instance.frag_cache.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = {"queries": {}}
+    try:
+        for q in EXEC_HUB_QUERIES:
+            out["queries"][f"Q{q}"] = line = _hub_query(gs, q, analyzed_rows[q])
+            say("exec_hub_query", query=f"Q{q}",
+                **{k: v for k, v in line.items() if k != "trace"})
+        out["staleness"] = {}
+        _hub_staleness(s_main, s_main_cpu, out["staleness"])
+        out["surfaces"] = _hub_cache_surfaces(gs, cs)
+    finally:
+        for a, b in pairs:
+            for s in (a, b):
+                _frag_off(s.instance)
+                s.instance.frag_cache.clear()
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in exec_hub: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # -- writes and transactions -----------------------------------------------------------
@@ -1174,8 +1489,15 @@ def dml_tpch(src_inst, sf, held, analyzed):
     _take_statistics(analyzed, ci, "tpch", tpch.TABLE_ORDER)
     say("dml_step", step="copies")
     inside_q = (1, 3, 18)
-    before = {q: _both(gr, cr, SQL[q], f"Q{q} before the refresh")[0].rows
-              for q in inside_q}
+    # a cut for time: before the refresh the card alone runs them, held to
+    # analyzed_tpch's rows on the same lanes (Q1 and Q3 held to the CPU there) and
+    # Q18 to numpy
+    before = {q: gr.execute(SQL[q]).rows for q in inside_q}
+    want18 = q18_numpy(gi)
+    if not _rows_match(before[18], want18)[0] or len(want18) == 0:
+        raise AssertionError(f"Q18 differs from numpy before the refresh:\n  cuda "
+                             f"{before[18][:3]}\n  numpy {want18[:3]}")
+    line["q18_numpy_rows"] = len(want18)
     say("dml_step", step="before_refresh")
     for q, rows in held.items():  # analyzed_tpch's card rows, on the same lanes
         if not _rows_match(rows, before[q])[0]:
@@ -1292,7 +1614,7 @@ def dml_oltp(seed=20241017):
     from galaxysql_tpu_torch.server.instance import Instance
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import sysbench
-    gi = Instance(device="cuda")
+    gi = _frag_off(Instance(device="cuda"))
     gs = Session(gi)
     gs.execute("CREATE DATABASE sbtest")
     gs.execute("USE sbtest")
@@ -1482,7 +1804,7 @@ def point_phase(tpch_inst, seed=20241017, device="cuda"):
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import sysbench, tpch
     t0 = time.perf_counter()
-    gi = Instance(device=device)
+    gi = _frag_off(Instance(device=device))
     gs = Session(gi)
     gs.execute("CREATE DATABASE sbtest")
     gs.execute("USE sbtest")
@@ -1657,11 +1979,15 @@ def _from_wire(value, typ):
 
 def _node_rows(lines):
     """(plan line without its `(actual ...)` suffix, actual rows) per plan node of an
-    EXPLAIN ANALYZE."""
+    EXPLAIN ANALYZE, and each `RuntimeFilter(column, kinds, pruned=n)` line as it
+    is (None for its rows)."""
     import re
     out = []
     for line in lines:
         if line.startswith("--"):
+            continue
+        if line.strip().startswith("RuntimeFilter("):
+            out.append((line.strip(), None))
             continue
         m = re.match(r"^(.*?)  \(actual rows=(\d+) ", line)
         if m is None:
@@ -2437,7 +2763,7 @@ def _timed_boot(data_dir, device):
         setattr(owner, attr, timed(name, getattr(owner, attr)))
     try:
         t0 = time.perf_counter()
-        inst = instance_mod.Instance(data_dir=data_dir, device=device)
+        inst = _frag_off(instance_mod.Instance(data_dir=data_dir, device=device))
         whole = (time.perf_counter() - t0) * 1000.0
     finally:
         for owner, attr, fn in saved:
@@ -2915,7 +3241,7 @@ def _cdc_replica(b_inst, b_cpu, out):
         # R: a replica of B's lineitem, orders and customer at `head`, as SHOW CREATE
         # TABLE describes them on B (the ddl phase added o_band to orders)
         t0 = time.perf_counter()
-        r_inst = Instance(device=b_inst.device)
+        r_inst = _frag_off(Instance(device=b_inst.device))
         rs_ = Session(r_inst)
         rs_.execute("CREATE DATABASE tpch")
         rs_.execute("USE tpch")
@@ -3318,7 +3644,7 @@ def _spill_sql(gi, unspilled, unspilled_ms, out):
             s.execute(f"SET SORT_SPILL_BYTES = {sort_bytes}")
             s.execute(f"SET JOIN_SPILL_BYTES = {join_bytes}")
             spill0 = _spill_totals()
-            rows, ms, counters, _trace = _run_counted(s, SQL[q])
+            rows, ms, counters, _trace = _run_counted(s, SPILL_HEADS.get(q, "") + SQL[q])
             ok, _f, worst = _rows_match(rows, unspilled[f"Q{q}"])
             if not ok:
                 raise AssertionError(f"Q{q} spilled differs from Q{q} unspilled")
@@ -3425,7 +3751,7 @@ def _li23_queries(out, seed):
     q6, count, qty, ext, by_nation = (answers[k] for k in
                                       ("q6", "count", "qty", "ext", "by_nation"))
     out["generate_ms"] = (time.perf_counter() - t0) * 1000.0
-    inst = Instance(device="cuda")
+    inst = _frag_off(Instance(device="cuda"))
     s = Session(inst)
     s.execute("CREATE DATABASE big")
     s.execute("USE big")
@@ -3784,7 +4110,74 @@ def _unsigned_query(gi, ci, out):
         s.close()
 
 
-def _archive_check(gi, gs, out):
+DATES_FIRST, DATES_DAYS = "1992-01-01", 2557  # the date dimension: 1992-01-01 .. 1998-12-31
+RF_STAR_SQL = ("SELECT count(*), sum(l_extendedprice), min(l_shipdate), max(l_shipdate) "
+               "FROM lineitem JOIN dates ON l_shipdate = d_date "
+               "WHERE d_year = 1995 AND d_month = 6")
+# a month after every archived order (the archive holds orders before 1993): the
+# build's min/max range refutes every archived file
+RF_ARCHIVE_SQL = ("SELECT count(*), sum(o_totalprice) FROM orders JOIN dates "
+                  "ON o_orderdate = d_date WHERE d_year = 1995 AND d_month = 6")
+RF_OFF = "RUNTIME_FILTER(OFF)"
+
+
+def _dates_table(gi, ci, gs, cs):
+    """`dates` on both instances: one row a day, DATES_DAYS days from DATES_FIRST,
+    with its year and month; ANALYZEd on the card, the CPU twin taking its
+    statistics."""
+    import numpy as np
+    from galaxysql_tpu_torch.types import temporal
+    days = temporal.parse_date(DATES_FIRST) + np.arange(DATES_DAYS, dtype=np.int32)
+    text = [temporal.format_date(int(d)) for d in days]
+    cols = {"d_date": days, "d_year": np.array([int(t[:4]) for t in text]),
+            "d_month": np.array([int(t[5:7]) for t in text])}
+    for inst, s in ((gi, gs), (ci, cs)):
+        s.execute("CREATE TABLE dates (d_date DATE NOT NULL, d_year INT NOT NULL, "
+                  "d_month INT NOT NULL)")
+        inst.store("tpch", "dates").insert_arrays(cols, inst.tso.next_timestamp())
+    _analyze(gs, ["dates"])
+    _take_statistics(gi, ci, "tpch", ["dates"])
+
+
+def _rf_star(gs, cs, out):
+    """exec_hub (d): a month of `dates` joined with the lineitem replica, clustered on
+    l_shipdate, on l_shipdate = d_date (the star-schema shape runtime filters exist
+    for): the stripes the join's runtime filter prunes, with filters on and under
+    RUNTIME_FILTER(OFF); rows equal to the row store's and the CPU twin's."""
+    gi, ci = gs.instance, cs.instance
+    _advance(gi, ci)
+    for inst in (gi, ci):
+        inst.columnar.ensure_ready("tpch", "dates")
+    lineitem = gi.columnar.replica("tpch", "lineitem")
+    runs = {}
+    for label, hint in (("filters_on", "COLUMNAR(ON)"),
+                        ("filters_off", f"COLUMNAR(ON) {RF_OFF}")):
+        p0 = lineitem.pruned_stripes
+        rs, ms = _timed(gs, f"/*+TDDL:{hint}*/ " + RF_STAR_SQL)
+        runs[label] = {"ms": ms, "pruned_stripes": lineitem.pruned_stripes - p0,
+                       "rf_publish": [t for t in gs.last_trace if t.startswith("rf-")],
+                       "rows": rs.rows}
+    row_store, row_ms = _timed(gs, COLUMNAR_OFF + RF_STAR_SQL)
+    cpu = cs.execute(COLUMNAR_HINT + RF_STAR_SQL).rows
+    for label, r in runs.items():
+        for what, want in (("the row store", row_store.rows), ("the CPU twin", cpu)):
+            if not _rows_match(r["rows"], want)[0]:
+                raise AssertionError(f"rf star ({label}): rows differ from {what}:"
+                                     f"\n  got  {r['rows']}\n  want {want}")
+    planted = bool(runs["filters_on"]["rf_publish"])
+    out.update({label: {k: v for k, v in r.items() if k != "rows"}
+                for label, r in runs.items()})
+    out.update(row_store_ms=row_ms, rows=[list(r) for r in cpu], rf_planted=planted,
+               stripes=len(lineitem.tier[0]))
+    if planted and runs["filters_off"]["pruned_stripes"] >= \
+            runs["filters_on"]["pruned_stripes"]:
+        raise AssertionError(f"rf star: the runtime filter pruned no stripe: {out}")
+    say("columnar_step", step="rf_star", **{k: v for k, v in out.items() if k != "rows"},
+        note=None if planted else "the copied rules planted no runtime filter on this "
+                                  "join")
+
+
+def _archive_check(gi, gs, out, cs=None):
     """Where `pyarrow` imports: archive orders older than 1993-01-01 on the card and
     hold the union of the archived and the hot rows to the rows from before.  Where it
     does not: the reference's NotSupportedError from `archive_older_than`."""
@@ -3818,8 +4211,34 @@ def _archive_check(gi, gs, out):
             raise AssertionError("archive: the union scan read no archived batch")
         out.update({"archived_rows": n, "union_ms": ms,
                     "files": len(gi.archive.files_for("tpch.orders"))})
+        out["rf_join"] = _archive_rf_join(gi, gs, cs)
     finally:
         shutil.rmtree(gi.archive.directory, ignore_errors=True)
+
+
+def _archive_rf_join(gi, gs, cs):
+    """exec_hub (d) on the archive: a month of `dates` after every archived order
+    joined with orders on o_orderdate: with filters on, the build's min/max refutes
+    every archived file, which the scan then skips; under RUNTIME_FILTER(OFF) none is
+    skipped.  Rows equal the CPU twin's (which holds every order in its row store)."""
+    want = cs.execute(COLUMNAR_OFF + RF_ARCHIVE_SQL).rows
+    out = {}
+    for label, hint in (("filters_on", "COLUMNAR(OFF)"),
+                        ("filters_off", f"COLUMNAR(OFF) {RF_OFF}")):
+        f0 = gi.archive.rf_pruned_files
+        rs, ms = _timed(gs, f"/*+TDDL:{hint}*/ " + RF_ARCHIVE_SQL)
+        if not _rows_match(rs.rows, want)[0]:
+            raise AssertionError(f"archive rf join ({label}): {rs.rows} != {want}")
+        out[label] = {"ms": ms, "files_skipped": gi.archive.rf_pruned_files - f0,
+                      "rf_publish": [t for t in gs.last_trace if t.startswith("rf-")]}
+    out["rows"] = [list(r) for r in want]
+    out["rf_planted"] = bool(out["filters_on"]["rf_publish"])
+    if out["rf_planted"] and out["filters_on"]["files_skipped"] == 0:
+        raise AssertionError(f"archive rf join: no archived file skipped: {out}")
+    say("columnar_step", step="archive_rf_join", **out,
+        note=None if out["rf_planted"] else "the copied rules planted no runtime "
+                                            "filter on this join")
+    return out
 
 
 def columnar_phase(analyzed, sf, seed=20241017):
@@ -3904,8 +4323,11 @@ def columnar_phase(analyzed, sf, seed=20241017):
     out["unsigned"] = {}
     _unsigned_query(gi, ci, out["unsigned"])
     say("columnar_step", step="unsigned", **{k: v["ms"] for k, v in out["unsigned"].items()})
+    _dates_table(gi, ci, gs, cs)
+    out["rf_star"] = {}
+    _rf_star(gs, cs, out["rf_star"])
     out["archive"] = {}
-    _archive_check(gi, gs, out["archive"])
+    _archive_check(gi, gs, out["archive"], cs)
     out["metrics"] = {"routed": gi.columnar.routed.value,
                       "pruned": gi.columnar.pruned.value,
                       "events_applied": gi.columnar.events_applied.value,
@@ -3971,8 +4393,8 @@ def run(args, data_dir) -> int:
         rows, timed, first, per_query, launches, spilled = run_main_path(s, capture)
     finally:
         capture.restore()
-    say("main_path", sf=args.sf, query_ms=timed, first_run_ms=first,
-        launches=launches, launches_per_query=per_query, spilled_per_query=spilled,
+    say("main_path", enable_fragment_cache=0, sf=args.sf, query_ms=timed,
+        first_run_ms=first, launches=launches, launches_per_query=per_query, spilled_per_query=spilled,
         join_spill_bytes=MAIN_JOIN_SPILL_BYTES,
         kernel_shapes={k: sorted(set(v)) for k, v in capture.shapes.items()},
         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
@@ -4003,13 +4425,13 @@ def run(args, data_dir) -> int:
         line["q5_plan_no_stats"] = q5_no_stats.splitlines()
         launches_by_phase["analyzed_tpch"] = line["launches"]
         unspilled, unspilled_ms = line.pop("rows"), line["query_ms"]
-        say("analyzed_tpch", sf=args.sf, **line)
+        say("analyzed_tpch", enable_fragment_cache=0, sf=args.sf, **line)
         line = run_phase(gs, cs, "tpch", WINDOW_QUERIES)
         launches_by_phase["window"] = line["launches"]
-        say("window", sf=args.sf, **line)
+        say("window", enable_fragment_cache=0, sf=args.sf, **line)
         line = tpcds_phase(args.sf * TPCDS_SF_SCALE)
         launches_by_phase["tpcds"] = line["launches"]
-        say("tpcds", **line)
+        say("tpcds", enable_fragment_cache=0, **line)
     finally:
         phase_capture.restore()
     for phase in ("analyzed_tpch", "tpcds"):
@@ -4017,6 +4439,17 @@ def run(args, data_dir) -> int:
         if missing:
             raise AssertionError(f"kernels not launched in {phase}: {missing}")
     new_inputs = check_new_phase_inputs(phase_capture, launches_by_phase)
+
+    from galaxysql_tpu_torch.server.session import Session
+    hub_capture = kernel_capture()
+    try:
+        hub = exec_hub_phase(gs, cs, {q: unspilled[f"Q{q}"] for q in EXEC_HUB_QUERIES},
+                             s, Session(cpu_inst, "tpch"))
+    finally:
+        hub_capture.restore()
+    print(card, flush=True)
+    say("exec_hub", nvidia_smi=card, enable_fragment_cache=1, **hub)
+    hub_inputs = check_new_phase_inputs(hub_capture, {"exec_hub": hub["launches"]})
     gs.close()
     del gs, _ci, cs, line
 
@@ -4026,10 +4459,12 @@ def run(args, data_dir) -> int:
     finally:
         dml_capture.restore()
     print(card, flush=True)
-    say("dml", sf=args.sf, nvidia_smi=card, **line)
+    say("dml", enable_fragment_cache=0, sf=args.sf, nvidia_smi=card, **line)
     dml_inputs = check_new_phase_inputs(dml_capture, {"dml": line["launches"]})
     for entry in kernels:
         entry["new_phases"] = new_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["exec_hub"] = hub["launches"][entry["name"]]
+        entry["new_phases"]["exec_hub_input"] = hub_inputs[entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 
@@ -4037,14 +4472,14 @@ def run(args, data_dir) -> int:
     line, (sb_gpu, sb_cpu) = point_phase(inst)
     line["launches"] = _launch_counts()
     print(card, flush=True)
-    say("point", nvidia_smi=card, **line)
+    say("point", enable_fragment_cache=0, nvidia_smi=card, **line)
     for entry in kernels:
         entry["new_phases"]["launches"]["point"] = line["launches"][entry["name"]]
 
     _reset_launches()
     line = wire_phase(inst, cpu_inst, sb_gpu, sb_cpu)
     print(card, flush=True)
-    say("wire", nvidia_smi=card, **line)
+    say("wire", enable_fragment_cache=0, nvidia_smi=card, **line)
     for entry in kernels:
         entry["new_phases"]["launches"]["wire"] = line["launches"][entry["name"]]
 
@@ -4056,7 +4491,7 @@ def run(args, data_dir) -> int:
     finally:
         ddl_capture.restore()
     print(card, flush=True)
-    say("ddl", nvidia_smi=card, **line)
+    say("ddl", enable_fragment_cache=0, nvidia_smi=card, **line)
     ddl_inputs = check_new_phase_inputs(ddl_capture, {"ddl": line["launches"]})
     for entry in kernels:
         entry["new_phases"]["launches"]["ddl"] = line["launches"][entry["name"]]
@@ -4069,7 +4504,7 @@ def run(args, data_dir) -> int:
     finally:
         durable_capture.restore()
     print(card, flush=True)
-    say("durable", nvidia_smi=card, **line)
+    say("durable", enable_fragment_cache=0, nvidia_smi=card, **line)
     durable_inputs = check_new_phase_inputs(durable_capture,
                                             {"durable": line["launches"]})
     for entry in kernels:
@@ -4083,7 +4518,7 @@ def run(args, data_dir) -> int:
     finally:
         cdc_capture.restore()
     print(card, flush=True)
-    say("cdc", nvidia_smi=card, **line)
+    say("cdc", enable_fragment_cache=0, nvidia_smi=card, **line)
     cdc_inputs = check_new_phase_inputs(cdc_capture, {"cdc": line["launches"]})
     for entry in kernels:
         entry["new_phases"]["launches"]["cdc"] = line["launches"][entry["name"]]
@@ -4092,7 +4527,7 @@ def run(args, data_dir) -> int:
     _reset_launches()
     line = load_data_phase(analyzed, sb_gpu, os.path.join(data_dir, "load"))
     print(card, flush=True)
-    say("load_data", nvidia_smi=card, **line)
+    say("load_data", enable_fragment_cache=0, nvidia_smi=card, **line)
     for entry in kernels:
         entry["new_phases"]["launches"]["load_data"] = line["launches"][entry["name"]]
 
@@ -4103,7 +4538,7 @@ def run(args, data_dir) -> int:
     finally:
         spill_capture.restore()
     print(card, flush=True)
-    say("spill", nvidia_smi=card, **line)
+    say("spill", enable_fragment_cache=0, nvidia_smi=card, **line)
     spill_inputs = check_new_phase_inputs(spill_capture, {"spill": line["launches"]})
     for entry in kernels:
         entry["new_phases"]["launches"]["spill"] = line["launches"][entry["name"]]
@@ -4116,7 +4551,7 @@ def run(args, data_dir) -> int:
     finally:
         columnar_capture.restore()
     print(card, flush=True)
-    say("columnar", nvidia_smi=card, **line)
+    say("columnar", enable_fragment_cache=0, nvidia_smi=card, **line)
     columnar_inputs = check_new_phase_inputs(columnar_capture,
                                              {"columnar": line["launches"]})
     for entry in kernels:

@@ -11,6 +11,15 @@ sorted runs go through host files (`exec/spill.py`, charged to an optional
 `exec/memory.py` pool); bucketing, key codes and run merging run on the host, as in
 the reference, and each in-memory piece runs on the device again.
 
+The execution hub's operator side is the reference's: `HashAggOp(prelude=...)` runs a
+fused Filter/Project chain (`exec/fusion.py`) inside its partial pass; `HashJoinOp`
+runs a filter-only `probe_prelude`, publishes the planned runtime filters of its build
+side before the first probe pull (`exec/runtime_filter.py`), and with a fragment key
+looks its build artifact up first (`exec/fragment_cache.BuildArtifact`: the padded
+build batch, the slot CSR and the published filters), so a hit skips the build
+subtree and `build_slots`.  Cached tensors are handed to later queries as they are;
+no operator writes into a tensor it did not allocate.
+
 The reference's `global_jit` program cache becomes `closure_cache`: eager PyTorch
 compiles nothing, so the cache only spares rebuilding the expression closures of a
 repeated query.  `batched_point_lookup` is the cross-session point lookup the batch
@@ -250,7 +259,7 @@ class HashAggOp(Operator):
 
     def __init__(self, child: Operator, group_exprs: Sequence[Tuple[str, ir.Expr]],
                  aggs: Sequence[AggCall], max_groups: int = 1 << 16,
-                 spill_threshold: int = 256 << 20, mem_pool=None):
+                 spill_threshold: int = 256 << 20, prelude=None, mem_pool=None):
         self.child = child
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
@@ -261,6 +270,10 @@ class HashAggOp(Operator):
         # per-query memory pool: partial bytes charge it; exhaustion (or a
         # cross-query squeeze revoke) forces the spill path early
         self.mem_pool = mem_pool
+        # fused streaming chain (exec/fusion.FusedSegment) applied inside the
+        # partial pass: its environment feeds the group keys and the agg inputs,
+        # with no intermediate batch per operator
+        self.prelude = prelude
 
     def _partial_specs(self) -> Tuple[List[ir.Expr], List[Tuple[str, K.AggSpec]]]:
         """Decompose SQL aggs into kernel specs (avg -> sum + count).  MIN/MAX of a
@@ -346,10 +359,7 @@ class HashAggOp(Operator):
                 ifns.append(f)
             specs = tuple(s for _, s in lanes)
 
-            def run(batch: ColumnBatch):
-                env = batch_env(batch)
-                live = batch.live_mask()
-                n = batch.capacity
+            def run(env, live, n: int):
                 keys = [broadcast_value(n, *f(env), xp) for f in gfns]
                 ins = [broadcast_value(n, *f(env), xp) for f in ifns]
                 return K.groupby(keys, ins, specs, live, max_groups, domains)
@@ -374,7 +384,13 @@ class HashAggOp(Operator):
                 overflowed = False
                 for b in self.child.batches():
                     device = b.device
-                    r = self._partial_fn(mg, b.device)(b)
+                    if self.prelude is not None:
+                        env, live = self.prelude.apply_batch(b)
+                        live = b.live_mask() if live is None else \
+                            torch.broadcast_to(live, (b.capacity,))
+                    else:
+                        env, live = batch_env(b), b.live_mask()
+                    r = self._partial_fn(mg, b.device)(env, live, b.capacity)
                     if bool(r.overflow):
                         overflowed = True
                         break
@@ -599,8 +615,15 @@ class HashJoinOp(Operator):
                  build_schema: Optional[Dict[str, Tuple[dt.DataType,
                                                         Optional[Dictionary]]]] = None,
                  enable_bloom: bool = True, spill_threshold: int = 256 << 20,
-                 mem_pool=None):
+                 probe_prelude=None, rf_publish=None, rf_manager=None,
+                 frag_cache=None, frag_key=None, frag_note=None,
+                 skew_watch=None, mem_pool=None):
         assert join_type in ("inner", "left", "semi", "anti")
+        # filter-only fused segment (exec/fusion.FusedSegment) ANDed into the probe
+        # live mask before pair enumeration: the WHERE above the probe scan builds no
+        # batch of its own.  Inner joins only, as in the reference.
+        assert probe_prelude is None or join_type == "inner"
+        self.probe_prelude = probe_prelude
         self.build, self.probe = build, probe
         self.build_keys, self.probe_keys = list(build_keys), list(probe_keys)
         self.join_type = join_type
@@ -615,6 +638,21 @@ class HashJoinOp(Operator):
         # per-query memory pool: accumulated build bytes charge it; exhaustion or a
         # squeeze revoke engages the grace path early
         self.mem_pool = mem_pool
+        # planned runtime filters (exec/runtime_filter): once the build side
+        # materializes, publish bloom/min-max filters for probe-side scans
+        self.rf_publish = list(rf_publish or [])
+        self.rf_manager = rf_manager
+        # cross-query fragment cache (exec/fragment_cache): frag_key is the build
+        # subtree's versioned fingerprint; a warm execution adopts the cached build
+        # batch, slot CSR and published filters and never pulls the build operator.
+        # The cache is the instance's own, so its artifacts live on that instance's
+        # device: a CPU twin and a card instance never share one
+        self.frag_cache = frag_cache
+        self.frag_key = frag_key
+        self.frag_note = frag_note
+        # heavy-hitter runtime refresh (meta/statistics.observe_build_keys):
+        # (TableMeta, column, field id) per build key that is a bare scan column
+        self.skew_watch = list(skew_watch or [])
 
     def _key_compilers(self, device):
         """Compile key pairs into a common lane domain.  String keys from different
@@ -681,8 +719,8 @@ class HashJoinOp(Operator):
 
     @staticmethod
     def _spill_split(batch: ColumnBatch, env, buckets: np.ndarray, P: int,
-                     spillers, schema_out: dict):
-        live = batch.np_live()
+                     spillers, schema_out: dict, live=None):
+        live = batch.np_live() if live is None else live
         for name, c in batch.columns.items():
             schema_out.setdefault(name, (c.dtype, c.dictionary))
         for p in range(P):
@@ -732,8 +770,10 @@ class HashJoinOp(Operator):
                                   b_spill, b_schema)
             for pb in self.probe.batches():
                 env = _host_env(pb)
+                plive = self.probe_prelude.run_live_np(pb) \
+                    if self.probe_prelude is not None else None
                 self._spill_split(pb, env, self._np_bucket(env, pb.capacity, pk, P), P,
-                                  p_spill, p_schema)
+                                  p_spill, p_schema, plive)
             for p in range(P):
                 p_runs = [self._rebuild(r, p_schema, device)
                           for r in p_spill[p].read_all()]
@@ -809,7 +849,66 @@ class HashJoinOp(Operator):
             ncols.update(pb.columns)
             yield ColumnBatch(ncols, pb.live)
 
+    # -- fragment cache (exec/fragment_cache) ---------------------------------------
+
+    def _frag_entry_key(self):
+        """Artifact identity: the build subtree's versioned fingerprint plus what
+        shapes the stored state: the build key exprs and the ACTIVE filter-publish
+        spec set (a RUNTIME_FILTER(OFF) run must not hand a filterless artifact to
+        a filters-on execution).  The reference's key also holds its backend; here
+        the cache is per instance, and an instance has one device."""
+        rf_sig = tuple(sorted((s.filter_id, tuple(sorted(s.kinds)))
+                              for s in self.rf_publish))
+        return ("join_build", self.frag_key.key,
+                tuple(expr_cache_key(e) for e in self.build_keys), rf_sig)
+
+    def _frag_lookup(self):
+        if self.frag_cache is None or self.frag_key is None:
+            return None
+        return self.frag_cache.get(self._frag_entry_key())
+
+    def _frag_admit(self, build_batch: ColumnBatch):
+        """Fresh artifact for a cold build (None when caching is off), capturing
+        the runtime filters just published from this build."""
+        if self.frag_cache is None or self.frag_key is None:
+            return None
+        from galaxysql_tpu_torch.exec import fragment_cache as fc
+        from galaxysql_tpu_torch.exec import runtime_filter as _rf
+        art = fc.BuildArtifact(batch=build_batch)
+        art.rows = build_batch.capacity
+        art.filters = _rf.capture_published(self.rf_manager, self.rf_publish)
+        return art
+
+    def _frag_store(self, art):
+        from galaxysql_tpu_torch.exec import fragment_cache as fc
+        self.frag_cache.put(self._frag_entry_key(), art, fc.artifact_nbytes(art),
+                            self.frag_key.tables, kind="join_build", rows=art.rows)
+
+    def _observe_skew(self, build_batch: ColumnBatch):
+        from galaxysql_tpu_torch.meta import statistics as _stats
+        live = build_batch.np_live()
+        for tm, colname, fid in self.skew_watch:
+            c = build_batch.columns.get(fid)
+            if c is None:
+                continue
+            mask = live if c.valid is None else (live & c.np_valid())
+            _stats.observe_build_keys(tm, colname, c.np_data()[mask])
+
     def batches(self) -> Iterator[ColumnBatch]:
+        from galaxysql_tpu_torch.exec import runtime_filter as _rf
+        art = self._frag_lookup()
+        if art is not None:
+            # warm path: build batch, slot CSR and published filters straight from
+            # the fragment cache; the build subplan never runs
+            if self.frag_note is not None:
+                self.frag_note(art)
+            if self.rf_publish:
+                _rf.publish_captured(self.rf_manager, self.rf_publish, art.filters)
+            if art.batch.capacity == 0:
+                yield from self._empty_build_batches()
+                return
+            yield from self._device_probe(art.batch, art, stored=True)
+            return
         # accumulate the build side batch by batch; crossing the spill threshold, or
         # exhausting the per-query memory pool, or a squeeze revoke, hands the
         # ALREADY-collected prefix plus the still-unread remainder to the grace path
@@ -824,18 +923,36 @@ class HashJoinOp(Operator):
                 build_bytes += _batch_bytes(b)
                 if build_bytes > self.spill_threshold or \
                         not charge.to(build_bytes) or charge.squeeze:
+                    # grace spill: the build never materializes in one piece, so
+                    # no filter is published (absent filters pass everything) and
+                    # nothing is cached
                     charge.to(0)
                     yield from self._grace_batches(build_parts, build_iter)
                     return
+            # compacted: a build gathered out of an upstream join is mostly dead rows
             build_batch = concat_batches(build_parts)
+            # planned runtime filters publish HERE, before any probe pull, so the
+            # probe-side scans (lazy generators) see them on their first batch; an
+            # empty build publishes pass-NOTHING filters, never pass-all
+            if self.rf_publish:
+                from galaxysql_tpu_torch.exec.fusion import publish_on_device
+                publish_on_device(self.rf_manager, self.rf_publish, build_batch)
+            if self.skew_watch and build_batch.capacity and \
+                    build_batch.device.type == "cpu":
+                # heavy-hitter refresh from host lanes; on the card the lanes are
+                # device-resident and the refresh must not add a copy (the
+                # reference skips it on the TPU for the same reason)
+                self._observe_skew(build_batch)
+            art = self._frag_admit(build_batch)
             if build_batch.capacity == 0:
+                if art is not None:
+                    self._frag_store(art)
                 yield from self._empty_build_batches()
                 return
-            # every build-side cost (CSR slot count, verify gathers) scales with
-            # capacity, and a build gathered out of an upstream join is mostly dead
-            # rows
             build_batch = build_batch.pad_to(bucket_capacity(build_batch.capacity))
-            yield from self._device_probe(build_batch)
+            if art is not None:
+                art.batch = build_batch  # cache the padded device form
+            yield from self._device_probe(build_batch, art, stored=False)
         finally:
             charge.close()
 
@@ -847,7 +964,13 @@ class HashJoinOp(Operator):
                                 c.dtype, c.dictionary)
         return cols
 
-    def _device_probe(self, build_batch: ColumnBatch) -> Iterator[ColumnBatch]:
+    def _device_probe(self, build_batch: ColumnBatch, art=None,
+                      stored: bool = False) -> Iterator[ColumnBatch]:
+        """Probe every batch against `build_batch`.  The slot CSR comes from the
+        artifact on a fragment-cache hit; a cold build's CSR is stored into its
+        artifact.  Cached tensors are only read: nothing here writes into the
+        build batch or the CSR."""
+        from galaxysql_tpu_torch.exec.runtime_filter import RF_STATS
         device = build_batch.device
         xp = TorchXP(device)
         bk, pk = self._key_compilers(device)
@@ -860,12 +983,24 @@ class HashJoinOp(Operator):
 
         bkeys = self._lanes(bk, build_batch, xp)
         b_live = build_batch.live_mask()
-        perm, starts, counts, M = K._device_csr(bkeys, b_live, build_batch.capacity)
+        csr = art.csr if art is not None and art.csr is not None else \
+            K._device_csr(bkeys, b_live, build_batch.capacity)
+        if art is not None and not stored:
+            art.csr = csr
+            self._frag_store(art)
+        perm, starts, counts, M = csr
         for pb in self.probe.batches():
+            if RF_STATS["enabled"]:
+                # probe rows REACHING the join: after the scan-side runtime filters,
+                # before the join's own bloom and the probe prelude
+                RF_STATS["probe_rows"] += pb.num_live()
             if pb.capacity == 0:
                 continue  # no probe rows: nothing matches, nothing to preserve
             if bloom_filter is not None:
                 pb = bloom_filter(pb)
+            if self.probe_prelude is not None:
+                _env, plive = self.probe_prelude.apply_batch(pb)
+                pb = ColumnBatch(pb.columns, torch.broadcast_to(plive, (pb.capacity,)))
             n_live = pb.num_live()
             cap = bucket_capacity(max(n_live * 2, MIN_BUCKET))
             pkeys = self._lanes(pk, pb, xp)

@@ -25,13 +25,29 @@
   ROLLUP's grouping sets run `DistinctOp` / `HashAggOp` over that;
 - VALUES rows and window functions have their own operators.
 
-Filter and Project run as separate operators.  The runtime filters and skew plans the
-rules plant on the logical tree are ignored here (so `_rf_pushdown` gives the archive
-and the replica no runtime-filter SARGs yet: ROADMAP Queue 1 item 10).
+The reference's single-device execution hub, on by default with its switches:
+
+- pipeline fusion (`exec/fusion.py`; `GALAXYSQL_FUSION=0`, the NO_FUSE hint): a
+  Filter/Project chain of two or more stages runs as one `FusedPipelineOp`; the chain
+  feeding an aggregate runs inside its partial pass (`HashAggOp(prelude=...)`) and an
+  all-filter chain above an inner join's probe scan inside the probe
+  (`HashJoinOp(probe_prelude=...)`);
+- runtime filters (`exec/runtime_filter.py`; NO_BLOOM, RUNTIME_FILTER(OFF)): join
+  builds publish bloom/min-max filters into `ExecContext.rf`; the probe-side scans
+  apply them as `("rf", ...)` stages of a segment (`_wrap_scan_rf` where no segment
+  took them), and their min/max ranges refute archive files and replica stripes
+  (`_rf_pushdown`);
+- the cross-query fragment cache (`exec/fragment_cache.py`; FRAGMENT_CACHE(OFF),
+  `ENABLE_FRAGMENT_CACHE`, `GALAXYSQL_FRAGMENT_CACHE=0`): join builds reuse cached
+  build artifacts, and aggregates and build subtrees replay their output
+  (`CachedSubplanOp`).  The skew plans the rules plant stay inert: the reference
+  activates them only under MPP.
 
 With `ExecContext.collect_stats` set (EXPLAIN ANALYZE) every operator is wrapped in a
-`StatsOp` that records its batches, live rows and wall time in `ctx.op_stats`;
-`annotate_explain` draws them onto the plan's explain lines.
+`StatsOp` that records its batches, live rows and wall time in `ctx.op_stats`; fused
+chains report per-stage rows through `SegmentStatsOp`, runtime filters their pruned
+rows; `annotate_explain` draws them onto the plan's explain lines.  Profiling runs
+no preludes and replays no aggregate, as in the reference.
 """
 
 from __future__ import annotations
@@ -45,8 +61,12 @@ import torch
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
                                              batch_from_pydict,
                                              dictionary_union_translation)
+from galaxysql_tpu_torch.exec import fragment_cache as fc
+from galaxysql_tpu_torch.exec import fusion
 from galaxysql_tpu_torch.exec import operators as ops
+from galaxysql_tpu_torch.exec import skew as _skew
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
+from galaxysql_tpu_torch.exec.runtime_filter import RuntimeFilterManager, specs_for
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.rules import conjuncts, estimate_rows
@@ -90,6 +110,23 @@ class ExecContext:
         # snapshot taken at routing; scans of those tables read the replica at the
         # routed watermark instead of the row store
         self.columnar: Dict[str, object] = {}
+        # pipeline segment fusion (exec/fusion.py): module switch + NO_FUSE hint
+        self.enable_fusion = fusion.default_enabled(self.hints)
+        # per-execution runtime-filter hub: joins publish build-side filters here,
+        # probe-side scans consume them; NO_BLOOM / RUNTIME_FILTER(OFF) turn it off
+        self.rf = RuntimeFilterManager(
+            hints=self.hints, metrics=getattr(archive_instance, "metrics", None))
+        # cross-query fragment cache, or None when disabled (env, config, hint) or
+        # outside an Instance
+        self.frag = fc.for_context(archive_instance, self.hints)
+        # store uids this execution's txn has written (the session fills it in);
+        # None with a live txn means "unknown write set": the cache bypasses
+        self.txn_write_uids = frozenset() if txn_id == 0 else None
+        # skew plans this execution may activate (fingerprints absorb them)
+        self.skew_modes = _skew.exec_modes(self.hints, archive_instance)
+        self.skew_stats: Dict[int, dict] = {}
+        # self-heal pin (plan/spm.py heal_pin): salts fragment-cache fingerprints
+        self.plan_pin = ""
 
 
 # a full-table scan of more rows than this streams one device batch a partition
@@ -201,11 +238,10 @@ class ScanSource(ops.Operator):
 
     def _rf_pushdown(self):
         """(min/max sargs, in-lists) from published runtime filters: the lane-domain
-        pushdown the archive's and the replica's SARG pruning share.  The port has
-        no runtime-filter hub on the context yet (ROADMAP Queue 1 item 10), so this
-        gives nothing."""
-        rf = getattr(self.ctx, "rf", None)
-        if rf is None or not getattr(self.node, "rf_targets", None):
+        pushdown the archive's and the replica's SARG pruning share.  Read at the
+        scan's first pull, after the producing build published."""
+        rf = self.ctx.rf
+        if not getattr(self.node, "rf_targets", None):
             return [], []
         sargs, inlists = rf.scan_pushdown(self.node)
         return [[c, op, v] for c, op, v in sargs], inlists
@@ -243,13 +279,11 @@ class ScanSource(ops.Operator):
         # runtime-filter min/max ranges feed the same parquet SARG refutation as
         # WHERE-derived sargs, skipping whole files the build side refutes
         rf_sargs, _ = self._rf_pushdown()
-        rf = getattr(self.ctx, "rf", None)
-        cb = rf.note_file_pruned if rf is not None else None
         for b in am.scan_archive(self.ctx.archive_instance, t.schema, t.name,
                                  storage_cols, snap,
                                  sargs=getattr(self.node, "sargs", None),
                                  rf_sargs=[tuple(s) for s in rf_sargs],
-                                 rf_pruned_cb=cb):
+                                 rf_pruned_cb=self.ctx.rf.note_file_pruned):
             self.ctx.trace.append(f"scan-archive {t.name} rows={b.capacity}")
             yield b.pad_to(ops.bucket_capacity(max(b.capacity, 1))).rename(rename)
 
@@ -425,35 +459,140 @@ class StatsOp(ops.Operator):
              "wall_ms": round((time.perf_counter() - t0) * 1000, 3)})
 
 
+class SegmentStatsOp(ops.Operator):
+    """Per-operator stats INSIDE a fused segment: drains the segment's stats sink
+    (per-stage live counts per batch) and attributes stage i's rows back to chain
+    node i.  Wall time is the whole segment's; each chain row carries it, flagged
+    `fused`.  The sink's leading count is the segment INPUT; runtime-filter prelude
+    stages (`rf_node` = the scan they mask) report rows pruned per filter to the
+    execution's RuntimeFilterManager (the EXPLAIN ANALYZE `RuntimeFilter(...)`
+    lines)."""
+
+    def __init__(self, inner: ops.Operator, segment, nodes: List[L.RelNode],
+                 ctx: ExecContext, rf_node: Optional[L.RelNode] = None):
+        self.inner = inner
+        self.segment = segment
+        self.nodes = nodes
+        self.ctx = ctx
+        self.rf_node = rf_node
+        segment.stats_sink = []
+
+    def covers(self, node: L.RelNode) -> bool:
+        return node is self.rf_node or any(n is node for n in self.nodes)
+
+    def batches(self):
+        yield from self.inner.batches()
+        sink = self.segment.stats_sink
+        if not sink:
+            return
+        totals = np.sum([c for c, _ in sink], axis=0)
+        wall = round(sum(w for _, w in sink), 3)
+        record_rf_stats(self.ctx, self.segment, self.rf_node, totals)
+        off = 1 + self.segment.rf_stage_count  # input count + rf preludes
+        for i, n in enumerate(self.nodes):
+            self.ctx.op_stats.append(
+                {"node_id": id(n), "operator": type(n).__name__,
+                 "batches": len(sink), "rows_out": int(totals[off + i]),
+                 "wall_ms": wall, "fused": True, "segment": self.segment.chain})
+
+
+def record_rf_stats(ctx, segment, rf_node, totals):
+    """Attribute per-rf-stage pruned rows (stats-sink deltas) to the manager.
+    totals[0] is the segment input count; rf stages are a prefix."""
+    for j, ref in enumerate(segment.rf_refs):
+        pruned = int(totals[j]) - int(totals[j + 1])
+        ctx.rf.note_pruned(ref.target, pruned,
+                           node_id=id(rf_node) if rf_node is not None else None)
+
+
 def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     op = _build_operator(node, ctx)
-    if ctx.collect_stats:
+    if ctx.collect_stats and not (isinstance(op, SegmentStatsOp) and op.covers(node)):
         return StatsOp(op, node, ctx)
     return op
 
 
+def _fusing(ctx: ExecContext) -> bool:
+    # prelude fusion (chains folded INTO the HashAgg partial pass / join probe) has
+    # no per-stage observation point, so profiling keeps those chains as segments of
+    # their own; standalone segment fusion stays on under collect_stats
+    return ctx.enable_fusion and not ctx.collect_stats
+
+
+def _cross_stop(n: L.RelNode) -> bool:
+    """A filter the port runs rewritten over a cross join (`_through_cross`) is a
+    segment boundary: it is built on its own."""
+    return isinstance(n, L.Filter) and _through_cross(n) is not None
+
+
+def _wrap_scan_rf(src: ops.Operator, node: L.Scan, ctx: ExecContext) -> ops.Operator:
+    """Scan-level runtime-filter fallback: when no downstream fused segment consumed
+    the scan's planned filters (bare join-probe scans, fusion off, profiling), apply
+    them here as an rf-only FusedSegment."""
+    seg = ctx.rf.segment_for_scan(node)
+    if seg is None:
+        return src
+    ctx.trace.append(f"rf-scan {node.table.name} filters={len(seg.stages)}")
+    if ctx.collect_stats:
+        # the inner StatsOp keeps the scan's own (pre-filter) actual rows; the
+        # SegmentStatsOp reports the per-filter pruned counts
+        return SegmentStatsOp(fusion.FusedPipelineOp(StatsOp(src, node, ctx), seg),
+                              seg, [], ctx, rf_node=node)
+    return fusion.FusedPipelineOp(src, seg)
+
+
 def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     if isinstance(node, L.Scan):
-        return ScanSource(node, ctx)
+        return _wrap_scan_rf(ScanSource(node, ctx), node, ctx)
     if isinstance(node, L.Values):
         return ValuesSource(node, ctx)
-    if isinstance(node, L.Filter):
-        rewritten = _through_cross(node)
-        if rewritten is not None:
-            # the rewritten nodes are not in the logical plan: their stats stand
-            # under this filter's line (the StatsOp around this call)
-            return _build_operator(rewritten, ctx)
-        return ops.FilterOp(build_operator(node.child, ctx), node.cond)
-    if isinstance(node, L.Project):
+    if isinstance(node, (L.Filter, L.Project)):
+        if isinstance(node, L.Filter):
+            rewritten = _through_cross(node)
+            if rewritten is not None:
+                # the rewritten nodes are not in the logical plan: their stats stand
+                # under this filter's line (the StatsOp around this call)
+                return _build_operator(rewritten, ctx)
+        if ctx.enable_fusion:
+            # profiling fuses single-stage chains too: in production those fold into
+            # the downstream prelude, which profiling holds off
+            collecting = ctx.collect_stats
+            base, seg = fusion.segment_for(node, min_stages=1 if collecting else 2,
+                                           rf=ctx.rf, stop=_cross_stop)
+            if seg is not None:
+                ctx.trace.append(f"fuse-segment {seg.chain}")
+                inner = fusion.FusedPipelineOp(build_operator(base, ctx), seg)
+                if collecting:
+                    return SegmentStatsOp(
+                        inner, seg, fusion.chain_nodes(node, _cross_stop), ctx,
+                        rf_node=base if isinstance(base, L.Scan) else None)
+                return inner
+        if isinstance(node, L.Filter):
+            return ops.FilterOp(build_operator(node.child, ctx), node.cond)
         return ops.ProjectOp(build_operator(node.child, ctx), node.exprs)
     if isinstance(node, L.Aggregate):
         est = estimate_rows(node)
         max_groups = 1 << max(int(est * 2).bit_length(), 10)
         max_groups = min(max_groups, 1 << 22)
         calls = [ops.AggCall(a.kind, a.arg, a.out_id) for a in node.aggs]
-        return ops.HashAggOp(build_operator(node.child, ctx), node.groups, calls,
-                             max_groups=max_groups,
-                             spill_threshold=ctx.agg_spill_bytes, mem_pool=ctx.mem_pool)
+        child_node, prelude = node.child, None
+        if _fusing(ctx):
+            # the aggregate is a pipeline breaker: its feeding chain (and the base
+            # scan's runtime filters) runs inside the partial pass
+            base, prelude = fusion.segment_for(node.child, rf=ctx.rf, stop=_cross_stop)
+            if prelude is not None:
+                child_node = base
+                ctx.trace.append(f"fuse-agg-prelude {prelude.chain}")
+        agg = ops.HashAggOp(build_operator(child_node, ctx), node.groups, calls,
+                            max_groups=max_groups, spill_threshold=ctx.agg_spill_bytes,
+                            prelude=prelude, mem_pool=ctx.mem_pool)
+        # a deterministic, usually tiny output: replayed from the fragment cache
+        # while its tables' versions hold.  Profiling measures the real pipeline.
+        if not ctx.collect_stats:
+            fkey = fc.fingerprint(node, ctx)
+            if fkey is not None:
+                return fc.CachedSubplanOp(agg, ctx.frag, fkey, trace=ctx.trace)
+        return agg
     if isinstance(node, L.Window):
         return ops.WindowOp(build_operator(node.child, ctx), node.partitions,
                             node.orders, node.calls, out_schema=node.fields())
@@ -476,23 +615,40 @@ def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     raise errors.NotSupportedError(f"no physical operator for {type(node).__name__}")
 
 
-def annotate_explain(rel: L.RelNode, op_stats: List[dict]) -> List[str]:
+def annotate_explain(rel: L.RelNode, op_stats: List[dict], rf=None) -> List[str]:
     """EXPLAIN ANALYZE tree: the logical plan's explain lines, each node annotated
     with its measured rows, batches and wall time (matched by node identity).
-    `explain_lines` emits one line per node in pre-order, which is `L.walk`'s
-    order, so lines and nodes zip.  The reference's `RuntimeFilter(...)`,
-    `HotKeys(...)` and `Salted(...)` lines wait for the runtime-filter hub and
-    skew-aware execution."""
+    Operators that ran inside a fused segment carry a `fused(<chain>)` tag, a join
+    build served from the fragment cache `[cached build]`.  `rf` (the execution's
+    RuntimeFilterManager) adds one `RuntimeFilter(column, kinds, pruned=...)` line
+    under each scan a planned runtime filter masked.  `explain_lines` emits one line
+    per node in pre-order, which is `L.walk`'s order, so lines and nodes zip.  The
+    reference's `HotKeys(...)` and `Salted(...)` lines come from MPP execution."""
     by_id: Dict[int, dict] = {}
     for st in op_stats:
-        by_id.setdefault(st["node_id"], st)
+        nid = st["node_id"]
+        # fused/cached entries win: they mark chain membership (or a cache hit)
+        # the plain StatsOp covering the same node cannot see
+        if nid not in by_id or st.get("fused") or st.get("cached"):
+            by_id[nid] = st
+    rf_by_node: Dict[int, List[dict]] = {}
+    if rf is not None:
+        for st in rf.stats.values():
+            rf_by_node.setdefault(st.get("node_id"), []).append(st)
     lines: List[str] = []
     for line, n in zip(rel.explain_lines(), L.walk(rel)):
         st = by_id.get(id(n))
         if st is not None:
+            tag = f" fused({st['segment']})" if st.get("fused") else ""
+            if st.get("cached"):
+                tag += " [cached build]"
             line += (f"  (actual rows={st['rows_out']} "
-                     f"batches={st['batches']} wall={st['wall_ms']}ms)")
+                     f"batches={st['batches']} wall={st['wall_ms']}ms{tag})")
         lines.append(line)
+        indent = " " * (len(line) - len(line.lstrip()) + 2)
+        for rst in rf_by_node.get(id(n), []):
+            lines.append(f"{indent}RuntimeFilter({rst['column']}, "
+                         f"{rst['kinds']}, pruned={rst['pruned']})")
     return lines
 
 
@@ -540,6 +696,79 @@ def _through_cross(node: L.Filter) -> Optional[L.RelNode]:
     return L.Filter(j, ir.and_(*rest)) if rest else j
 
 
+def _probe_prelude(ctx: ExecContext, probe_node: L.RelNode):
+    """(base node, filter-only FusedSegment | None) for an inner join's probe side:
+    the WHERE chain above the probe scan runs inside the probe.  Project stages
+    change the column namespace the join gathers from, so only all-filter chains
+    collapse here."""
+    if not _fusing(ctx):
+        return probe_node, None
+    base, seg = fusion.segment_for(probe_node, filters_only=True, stop=_cross_stop)
+    if seg is not None:
+        ctx.trace.append(f"fuse-join-probe {seg.chain}")
+    return base, seg
+
+
+def _rf_publish_specs(node: L.Join, ctx: ExecContext, probe_side: str):
+    """Planned runtime-filter producer specs ACTIVE for this execution
+    (`runtime_filter.specs_for` holds the side-flip / deactivation rule)."""
+    specs = specs_for(node, probe_side, ctx.rf)
+    if not specs:
+        return None, []
+    ctx.trace.append(f"rf-publish join filters={len(specs)}")
+    return ctx.rf, specs
+
+
+def _frag_build_wiring(build_node: L.RelNode, ctx: ExecContext):
+    """Fragment-cache wiring for a join build side: (fingerprint, cache, hit-note
+    callback).  The note lands the hit in the trace and, under EXPLAIN ANALYZE, as a
+    `[cached build]` op stat on the build node, whose subtree never ran."""
+    fkey = fc.fingerprint(build_node, ctx)
+    if fkey is None:
+        return None, None, None
+
+    def note(art, _node=build_node):
+        ctx.trace.append(f"frag-cache build hit [{','.join(sorted(fkey.tables))}] "
+                         f"rows={art.rows}")
+        if ctx.collect_stats:
+            ctx.op_stats.append(
+                {"node_id": id(_node), "operator": type(_node).__name__,
+                 "batches": 0, "rows_out": art.rows, "wall_ms": 0.0, "cached": True})
+    return fkey, ctx.frag, note
+
+
+def _build_side_op(build_node: L.RelNode, ctx: ExecContext, fkey, cache):
+    op = build_operator(build_node, ctx)
+    # the subplan lane is keyed by the subtree ALONE, so other joins over the same
+    # subtree, and executions after an artifact eviction, still skip it.
+    # Profiling bypasses, as for the aggregate replay.
+    if fkey is not None and not ctx.collect_stats:
+        op = fc.CachedSubplanOp(op, cache, fkey, trace=ctx.trace)
+    return op
+
+
+def _skew_watch(build_node: L.RelNode, build_keys, ctx: ExecContext):
+    """Heavy-hitter runtime-refresh targets for a join build side: one (TableMeta,
+    column, field id) per build key that is a bare scan column."""
+    if not ctx.skew_modes:
+        return []
+    from galaxysql_tpu_torch.plan.rules import _rf_resolve_scan
+    out = []
+    for e in build_keys:
+        if not isinstance(e, ir.ColRef):
+            continue
+        got = _rf_resolve_scan(build_node, e.name)
+        if got is None:
+            continue
+        scan, out_id = got
+        if getattr(scan.table, "remote", None) is not None:
+            continue
+        colname = dict(scan.columns).get(out_id)
+        if colname is not None:
+            out.append((scan.table, scan.table.column(colname).name, e.name))
+    return out
+
+
 def _build_join(node: L.Join, ctx: ExecContext) -> ops.Operator:
     if node.kind == "cross":
         bschema = {fid: (typ, d) for fid, typ, d in node.right.fields()}
@@ -552,22 +781,39 @@ def _build_join(node: L.Join, ctx: ExecContext) -> ops.Operator:
     bloom = not ctx.hints.get("no_bloom", False)
     if node.kind in ("left", "semi", "anti"):
         # probe side MUST be the preserved/output (left) side
+        rf_mgr, rf_specs = _rf_publish_specs(node, ctx, "left") \
+            if node.kind == "semi" else (None, [])
         right_schema = {fid: (typ, d) for fid, typ, d in node.right.fields()}
-        return ops.HashJoinOp(build_operator(node.right, ctx),
+        fkey, cache, note = _frag_build_wiring(node.right, ctx)
+        return ops.HashJoinOp(_build_side_op(node.right, ctx, fkey, cache),
                               build_operator(node.left, ctx),
                               rkeys, lkeys, node.kind, residual=node.residual,
                               build_schema=right_schema, enable_bloom=bloom,
                               spill_threshold=ctx.join_spill_bytes,
+                              rf_publish=rf_specs, rf_manager=rf_mgr,
+                              frag_cache=cache, frag_key=fkey, frag_note=note,
+                              skew_watch=_skew_watch(node.right, rkeys, ctx),
                               mem_pool=ctx.mem_pool)
     # inner: build the smaller estimated side
     if estimate_rows(node.right) <= estimate_rows(node.left):
         build_node, probe_node = node.right, node.left
         build_keys, probe_keys = rkeys, lkeys
+        probe_side = "left"
     else:
         build_node, probe_node = node.left, node.right
         build_keys, probe_keys = lkeys, rkeys
+        probe_side = "right"
+    rf_mgr, rf_specs = _rf_publish_specs(node, ctx, probe_side)
     build_schema = {fid: (typ, d) for fid, typ, d in build_node.fields()}
-    return ops.HashJoinOp(build_operator(build_node, ctx), build_operator(probe_node, ctx),
+    probe_node, prelude = _probe_prelude(ctx, probe_node)
+    fkey, cache, note = _frag_build_wiring(build_node, ctx)
+    return ops.HashJoinOp(_build_side_op(build_node, ctx, fkey, cache),
+                          build_operator(probe_node, ctx),
                           build_keys, probe_keys, "inner", residual=node.residual,
                           build_schema=build_schema, enable_bloom=bloom,
-                          spill_threshold=ctx.join_spill_bytes, mem_pool=ctx.mem_pool)
+                          spill_threshold=ctx.join_spill_bytes,
+                          probe_prelude=prelude,
+                          rf_publish=rf_specs, rf_manager=rf_mgr,
+                          frag_cache=cache, frag_key=fkey, frag_note=note,
+                          skew_watch=_skew_watch(build_node, build_keys, ctx),
+                          mem_pool=ctx.mem_pool)

@@ -33,9 +33,11 @@ sequential path and from registering), ENABLE_DML_BATCHING and the environment's
 Archive-backed tables take the sequential path, as in the reference: no plan
 registers for them, and a flush finding archived rows evicts its plan and falls back.
 
+Each flush invalidates the fragment cache's entries of its table (and, in the
+synchronous apply, of its GSI tables) once, as in the reference.
+
 Trimmed against the reference, each waiting for its ROADMAP Queue 1 item: the
-fragment-cache invalidation
-of each flush (item 11); the QueryProfile, statement summary, admission ticket and
+QueryProfile, statement summary, admission ticket and
 metrics-registry histograms of each member (item 16; the group sizes and waits are
 kept as the point batcher keeps them); replica legs of remote tables (item 15).
 """
@@ -295,9 +297,11 @@ class DmlBatchScheduler(BatchScheduler):
             else:
                 self._flush_point_write(pp, tm, store, reqs, ts, poison,
                                         cdc_sink, tasks)
-        # once per flush, not per statement: one binlog transaction, one bump
+        # once per flush, not per statement: one binlog transaction, one bump, one
+        # fragment-cache invalidation
         inst.cdc.write_events(ts, cdc_sink)
         tm.bump_version()
+        inst.frag_cache.invalidate_table(inst.store_key(tm.schema, tm.name))
         if not tasks:
             # the synchronous apply wrote the GSI stores inline: their versions
             # move here, as after a sequential write (`Session._note_write`); the
@@ -305,6 +309,7 @@ class DmlBatchScheduler(BatchScheduler):
             from galaxysql_tpu_torch.server.session import gsi_targets
             for _i, gtm, _g in gsi_targets(inst, tm):
                 gtm.bump_version()
+                inst.frag_cache.invalidate_table(inst.store_key(gtm.schema, gtm.name))
         inst.catalog.version += 1
         mark = inst.applier.enqueue(tasks) if tasks else 0
         for r in reqs:

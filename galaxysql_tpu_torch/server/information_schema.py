@@ -4,8 +4,8 @@ Every view of the reference is a table of the `information_schema` schema, so th
 binder knows its columns.  The views whose data the port holds are filled from live
 state before any query that reads the schema (`refresh`): schemata, tables, columns,
 statistics, partitions, processlist, engines, global_variables, session_variables,
-plan_cache, batch_stats, node_info (the metadb's node registry), ddl_jobs and
-columnar_replica.  They
+plan_cache, batch_stats, node_info (the metadb's node registry), ddl_jobs,
+columnar_replica and fragment_cache.  They
 are ordinary stores, read by the planner and the operators on the instance's device.
 A query that reads any other view raises `NotSupportedError` naming the module it
 waits for (`check_ported`), and never returns an empty table.
@@ -162,7 +162,6 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "fragment_cache": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
     "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
     "engine_counters": "utils/metrics.py (ROADMAP Queue 1 item 16)",
     "metrics": "utils/metrics.py (ROADMAP Queue 1 item 16)",
@@ -283,6 +282,8 @@ def refresh(instance, session=None):
     fill("ddl_jobs", instance.metadb.query(
         "SELECT job_id, schema_name, ddl_sql, state FROM ddl_engine"))
     fill("columnar_replica", (list(r) for r in instance.columnar.rows()))
+    fill("fragment_cache", ([k, t, r, b, h] for k, t, r, b, h in
+                            instance.frag_cache.rows()))
     fill("batch_stats", ([n, float(v)] for n, v in
                          instance.batch_scheduler.stats_rows() +
                          instance.dml_batch_scheduler.stats_rows()))

@@ -27,7 +27,15 @@ Cold and columnar tiers, as in the reference: `archive` (the TTL Parquet archive
 replica, `storage/columnar.py`).  `boot()` attaches the archive's manifest and then
 loads the replicas after the stores and dictionaries; `save()` checkpoints the
 replicas.  `metrics` is the reference's typed registry (`utils/metrics.py`), which
-holds the replica's counters and gauges; `shutdown()` stops the replica's tailer.
+holds the replica's counters and gauges and the fragment cache's `frag_cache_*`;
+`shutdown()` stops the replica's tailer.
+
+`frag_cache` is the reference's cross-query fragment cache
+(`exec/fragment_cache.py`): cached join builds with their runtime filters and
+replayed aggregate and build-subtree outputs, keyed by table versions, on while
+`ENABLE_FRAGMENT_CACHE` is.  `invalidate_fragment_cache` is the local half of the
+reference's sync action of that name (its broadcast to peer coordinators waits for
+ROADMAP Queue 1 item 15).
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
@@ -61,6 +69,7 @@ import torch
 from galaxysql_tpu_torch.config.params import ConfigParams
 from galaxysql_tpu_torch.ddl.jobs import DdlEngine
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
+from galaxysql_tpu_torch.exec.fragment_cache import FragmentCache
 from galaxysql_tpu_torch.meta.catalog import Catalog, TableMeta
 from galaxysql_tpu_torch.meta.gms import ConfigListener, MetaDb
 from galaxysql_tpu_torch.meta.mdl import MdlManager
@@ -97,6 +106,8 @@ class Instance:
         self._lock = threading.Lock()
         self.config = ConfigParams()
         self.metrics = MetricsRegistry()
+        # cross-query fragment cache; frag_cache_* metrics ride this registry
+        self.frag_cache = FragmentCache(metrics=self.metrics)
         self.data_dir = data_dir
         self.metadb = MetaDb(os.path.join(data_dir, "metadb.sqlite")
                              if data_dir else None)
@@ -223,6 +234,7 @@ class Instance:
         device cache holds for it."""
         store = self.stores.pop(self.store_key(schema, table), None)
         self.metadb.drop_table(schema, table)
+        self.frag_cache.invalidate_table(self.store_key(schema, table))
         if store is not None:
             self.device_cache.evict_store(store.uid)
 
@@ -232,6 +244,11 @@ class Instance:
         if self.catalog.table(tm.schema, tm.name) is not tm:
             raise ValueError(f"store of {tm.schema}.{tm.name} is not for this catalog")
         self.stores[self.store_key(tm.schema, tm.name)] = store
+        self.frag_cache.invalidate_table(self.store_key(tm.schema, tm.name))
+
+    def invalidate_fragment_cache(self, schema: str, table: str):
+        """Drop every cached fragment that read the table and bump its epoch."""
+        self.frag_cache.bump_epoch(self.store_key(schema, table))
 
     def store(self, schema: str, table: str) -> TableStore:
         return self.stores[self.store_key(schema, table)]

@@ -100,6 +100,7 @@ import numpy as np
 
 from galaxysql_tpu_torch.chunk.batch import Column
 from galaxysql_tpu_torch.ddl.jobs import alter_table_job, create_index_job, drop_index_job
+from galaxysql_tpu_torch.exec import skew as _skew
 from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
@@ -160,6 +161,13 @@ class Transaction:
         self.deleted: List[Tuple[Any, int, np.ndarray, np.ndarray]] = []
         # binlog events buffered until COMMIT (`txn/cdc.py`); ROLLBACK drops them
         self.cdc_events: List[tuple] = []
+
+    def touched_tables(self):
+        """The stores this transaction wrote (provisional rows visible to it only)."""
+        seen = {}
+        for store, *_ in self.inserted + self.deleted:
+            seen[id(store)] = store
+        return seen.values()
 
 
 def gsi_targets(instance, tm):
@@ -598,6 +606,16 @@ class Session:
                           archive=self.instance.archive, archive_instance=self.instance)
         ctx.sort_spill_bytes = self.instance.config.get("SORT_SPILL_BYTES", self.vars)
         ctx.join_spill_bytes = self.instance.config.get("JOIN_SPILL_BYTES", self.vars)
+        # session-scoped SET ENABLE_SKEW_EXECUTION (the context's default only sees
+        # instance scope)
+        ctx.skew_modes = _skew.exec_modes(ctx.hints, self.instance, self.vars)
+        # self-heal pin: plans bound under a live quarantine episode salt the
+        # fragment-cache fingerprints ('' steady state)
+        ctx.plan_pin = getattr(plan, "heal_pin", "")
+        if self.txn is not None:
+            # the fragment cache bypasses any table this txn has uncommitted writes
+            # on (provisional rows are visible to this session only)
+            ctx.txn_write_uids = frozenset(st.uid for st in self.txn.touched_tables())
         return ctx
 
     # -- columnar HTAP routing (storage/columnar.py) ---------------------------
@@ -1020,9 +1038,16 @@ class Session:
 
     def _note_write(self, tm: TableMeta):
         """After a write: the GSI tables took the same write, so their versions
-        move with the base table's and no cached lane of theirs is served."""
+        move with the base table's and no cached lane of theirs is served.  The
+        version bump already makes stale fragment fingerprints unreachable; the
+        fragment cache drops their entries here to free the bytes at once."""
+        metas = [tm]
         for _i, gtm, _gstore in gsi_targets(self.instance, tm):
             gtm.bump_version()
+            metas.append(gtm)
+        for t in metas:
+            self.instance.frag_cache.invalidate_table(
+                self.instance.store_key(t.schema, t.name))
 
     def _run_insert(self, stmt: ast.Insert, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
@@ -1214,6 +1239,7 @@ class Session:
         tm = self.instance.catalog.table(stmt.name.schema or schema, stmt.name.table)
         self.instance.store(tm.schema, tm.name).truncate()
         tm.bump_version()
+        self._note_write(tm)
         self.instance.catalog.version += 1
         return ok()
 
@@ -1269,6 +1295,7 @@ class Session:
         schema = self._require_schema()
         for name in stmt.names:
             s = name.schema or schema
+            self.instance.invalidate_fragment_cache(s, name.table)
             if self.instance.config.get("ENABLE_RECYCLEBIN", self.vars):
                 try:
                     tm = self.instance.catalog.table(s, name.table)
@@ -1331,7 +1358,10 @@ class Session:
                 "SPLIT/MERGE/MOVE PARTITION waits for ddl/rebalance.py "
                 "(ROADMAP Queue 1 item 16)")
         job = alter_table_job(schema, sql, stmt.table.table, stmt.actions)
-        self.instance.ddl_engine.submit_and_run(job)
+        try:
+            self.instance.ddl_engine.submit_and_run(job)
+        finally:
+            self.instance.invalidate_fragment_cache(schema, stmt.table.table)
         return ok()
 
     def _run_index_ddl(self, stmt, sql: str) -> ResultSet:
@@ -1343,7 +1373,10 @@ class Session:
                                    idx.unique, idx.global_index, idx.covering)
         else:
             job = drop_index_job(schema, sql, stmt.table.table, stmt.name)
-        self.instance.ddl_engine.submit_and_run(job)
+        try:
+            self.instance.ddl_engine.submit_and_run(job)
+        finally:
+            self.instance.invalidate_fragment_cache(schema, stmt.table.table)
         return ok()
 
     def _run_advise_index(self, stmt: ast.AdviseIndex,
@@ -1403,14 +1436,15 @@ class Session:
                 batch = run_to_batch(build_operator(plan.rel, ctx))
             elapsed = time.time() - t0
             rows = batch.num_live()
-            lines = annotate_explain(plan.rel, ctx.op_stats)
+            lines = annotate_explain(plan.rel, ctx.op_stats, rf=ctx.rf)
             lines += [f"-- rows: {rows}", f"-- elapsed: {elapsed:.3f}s",
                       f"-- transfer: h2d_bytes={TRANSFER_STATS['bytes'] - x0['bytes']} "
                       f"transfers={TRANSFER_STATS['transfers'] - x0['transfers']}"] + \
                 [f"-- {t}" for t in ctx.trace]
             for st in ctx.op_stats:
+                tag = f" fused({st['segment']})" if st.get("fused") else ""
                 lines.append(f"-- op {st['operator']}: rows={st['rows_out']} "
-                             f"batches={st['batches']} wall={st['wall_ms']}ms")
+                             f"batches={st['batches']} wall={st['wall_ms']}ms{tag}")
         if col_views is None:
             # plain EXPLAIN: dry-run the routing decision against a throwaway probe
             # so freshness shows up without executing anything

@@ -4,8 +4,8 @@ The kinds whose data the port holds, with the reference's columns and text: data
 tables, columns, create table, variables, processlist, index / indexes / keys,
 warnings, trace, status, engines, charset, collation, batch stats (the point
 batcher's rows, then the DML batcher's and the async applier's), the binlog events,
-the recycle bin, the DDL jobs and the columnar replica.  Every other
-kind raises `NotSupportedError` naming the module it waits for.
+the recycle bin, the DDL jobs, the columnar replica and the fragment cache.  Every
+other kind raises `NotSupportedError` naming the module it waits for.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "fragment": "exec/fragment_cache.py (ROADMAP Queue 1 item 11)",
     "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
     "baseline": "the plan-baseline surface of the operations plane "
                 "(ROADMAP Queue 1 item 16)",
@@ -154,6 +153,11 @@ def handle(session, stmt: ast.Show):
                            "Device-resident columnar engine")])
     if kind == "collation":
         return _collations(stmt.like)
+    if kind == "fragment" and (stmt.target or "").lower() == "cache":
+        # SHOW FRAGMENT CACHE: one row per resident entry, MRU first
+        return ResultSet(["Kind", "Tables", "Rows", "Bytes", "Hits"],
+                         [dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.BIGINT, dt.BIGINT],
+                         inst.frag_cache.rows())
     if kind in ("status", "charset"):
         return ResultSet(["Variable_name", "Value"], [dt.VARCHAR, dt.VARCHAR], [])
     waits = _WAITING.get(kind)

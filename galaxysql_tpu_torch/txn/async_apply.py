@@ -164,12 +164,12 @@ class AsyncApplier:
             touched[f"{gtm.schema.lower()}.{gtm.name.lower()}"] = gtm
 
     def _finish_batch(self, touched: Dict[str, Any]):
-        """Version hygiene once per drained batch: bump every touched GSI's
-        version, so version-keyed caches (device lanes) re-key now that the apply
-        has landed.  (The reference also invalidates its fragment cache here,
-        which waits for ROADMAP Queue 1 item 11.)"""
+        """Version and cache hygiene once per drained batch: bump every touched
+        GSI's version and drop its cached fragments, so version-keyed caches
+        (fragment cache, device lanes) re-key now that the apply has landed."""
         if not touched:
             return
-        for gtm in touched.values():
+        for key, gtm in touched.items():
             gtm.bump_version()
+            self.instance.frag_cache.invalidate_table(key)
         self.instance.catalog.version += 1

@@ -10,9 +10,9 @@ returns what it saw, rows and routing decisions, which must be equal between the
 packages.  The tailer runs synchronously (COLUMNAR_POLL_MS = 0, `tail_once()` driven
 here) with a 1 ms watermark margin.
 
-Left out: the reference's `test_steady_state_retraces_zero` (XLA retraces), its
-fragment-cache generation test (the fragment cache is ROADMAP Queue 1 item 11) and its
-`information_schema.metrics` check (item 16).  The port has no statement summary
+Left out: the reference's `test_steady_state_retraces_zero` (XLA retraces) and its
+`information_schema.metrics` check (ROADMAP Queue 1 item 16); its fragment-cache
+generation test runs in `tests/test_torch_fragment_cache.py`.  The port has no statement summary
 (item 16), so its size signal is the planner's estimate alone; the routing cases here
 use a hint or cold digests, where the reference takes the same branch."""
 
@@ -503,7 +503,9 @@ def test_zone_maps_prune_stripes():
         assert rep.pruned_stripes > p0  # the 100000+ stripe was never scanned
         out = (on, len(rep.tier[0]), rep.pruned_stripes - p0)
         if pkg is PORT:
-            s.execute(HINT + "SELECT count(*), sum(v) FROM zp WHERE id < 50")
+            # the same statement again, not replayed from the fragment cache
+            s.execute("/*+TDDL:COLUMNAR(ON) FRAGMENT_CACHE(OFF)*/ "
+                      "SELECT count(*), sum(v) FROM zp WHERE id < 50")
             assert any("pruned_stripes=" in ln for ln in s.last_trace)
         return out
     _same(scenario)
@@ -627,14 +629,16 @@ def test_view_snapshot_is_consistent_tuple():
 
 def test_stripe_lanes_stay_in_the_device_cache():
     """A stripe's lanes go to the device once: a second routed query ships only the
-    visibility masks (none here) and hits the cache for every lane."""
+    visibility masks (none here) and hits the cache for every lane.  The queries run
+    without the fragment cache, which would replay the second one whole."""
     s = fresh(PORT)
     inst = s.instance
     time.sleep(MARGIN_S)
     inst.columnar.ensure_ready("c", "t")
-    s.execute(HINT + Q_AGG)
+    hint = "/*+TDDL:COLUMNAR(ON) FRAGMENT_CACHE(OFF)*/ "
+    s.execute(hint + Q_AGG)
     m0, h0 = inst.device_cache.misses, inst.device_cache.hits
-    s.execute(HINT + Q_AGG)
+    s.execute(hint + Q_AGG)
     assert inst.device_cache.misses == m0 and inst.device_cache.hits > h0
 
 

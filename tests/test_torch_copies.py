@@ -22,7 +22,8 @@ COPIES = [
     "config/params.py", "utils/failpoint.py",
     "utils/lockdep.py", "meta/gms.py", "meta/privileges.py", "net/packets.py",
     "net/client.py", "meta/mdl.py", "exec/spill.py", "exec/memory.py",
-    "utils/metrics.py", "storage/zonemap.py",
+    "utils/metrics.py", "storage/zonemap.py", "utils/tracing.py",
+    "exec/fragment_cache.py",
 ]
 
 

@@ -197,13 +197,37 @@ def test_show_trace_of_a_point_select(twin):
 @pytest.mark.parametrize("kind", sorted(show_handlers._WAITING))
 def test_unported_show_kinds_raise(twin, kind):
     _js, ps = twin.session()
-    sql = {"fragment": "SHOW FRAGMENT CACHE", "statement_summary":
+    sql = {"statement_summary":
            "SHOW STATEMENT SUMMARY", "metric_history": "SHOW METRIC HISTORY",
            "columnar_replica": "SHOW COLUMNAR REPLICA",
            "cluster_health": "SHOW CLUSTER HEALTH", "binlog": "SHOW BINLOG EVENTS",
            "ccl_rules": "SHOW CCL_RULES"}.get(kind, f"SHOW {kind.upper()}")
     with pytest.raises(errors.NotSupportedError, match="ROADMAP Queue 1 item"):
         ps.execute(sql)
+
+
+def test_show_fragment_cache(twin):
+    """SHOW FRAGMENT CACHE and information_schema.fragment_cache after the same
+    queries: the same columns and types, the same entry kinds over the same tables
+    with the same hits, MRU first (row counts and bytes follow each engine's own
+    batch capacities and lane widths)."""
+    js, ps = twin.session()
+    for sql in ("SELECT h.name, b.label FROM h JOIN b ON h.name = b.code",
+                "SELECT name, count(*) FROM h GROUP BY name ORDER BY name",
+                "SELECT name, count(*) FROM h GROUP BY name ORDER BY name"):
+        twin.run(sql, ordered=False)
+    want, got = js.execute("SHOW FRAGMENT CACHE"), ps.execute("SHOW FRAGMENT CACHE")
+    assert got.names == want.names == ["Kind", "Tables", "Rows", "Bytes", "Hits"]
+    assert _types(got) == _types(want)
+
+    def entries(rows):
+        return [(k, t, h) for k, t, _r, _b, h in rows]
+    assert entries(got.rows) == entries(want.rows)
+    assert any(h for _k, _t, h in entries(got.rows))
+    sql = ("SELECT entry_kind, tables, hits FROM information_schema.fragment_cache "
+           "ORDER BY entry_kind, tables, hits")
+    want, got = js.execute(sql), ps.execute(sql)
+    assert got.rows == want.rows and got.rows
 
 
 @pytest.mark.parametrize("table", ["h", "one", "b"])
@@ -313,9 +337,10 @@ def test_explain_tpch_plans_line_for_line(tpch_pair, q):
     assert got.rows == want.rows
 
 
-# lines only the reference prints: its runtime filters and skew-aware splits wait for
-# the runtime-filter hub and skew-aware execution (ROADMAP Queue 1 items 10 and 12)
-_REFERENCE_ONLY = ("RuntimeFilter(", "HotKeys(", "Salted(")
+# lines only the reference prints: its skew-aware splits come from MPP execution
+# (ROADMAP Queue 1 item 15)
+_REFERENCE_ONLY = ("HotKeys(", "Salted(")
+_RF_LINE = "RuntimeFilter("
 _ACTUAL = re.compile(r"^(.*?)  \(actual rows=(\d+) ")
 
 
@@ -323,7 +348,7 @@ def _nodes(rs):
     """(node line without its `(actual ...)` suffix, actual rows) per plan node."""
     out = []
     for (line,) in rs.rows:
-        if line.startswith("--") or line.strip().startswith(_REFERENCE_ONLY):
+        if line.startswith("--") or line.strip().startswith(_REFERENCE_ONLY + (_RF_LINE,)):
             continue
         m = _ACTUAL.match(line)
         assert m, line
@@ -331,22 +356,30 @@ def _nodes(rs):
     return out
 
 
-# Every run with FRAGMENT_CACHE(OFF): a cached build in the reference skips its
-# subtree, whose nodes then carry no counts (the fragment cache waits for ROADMAP
-# Queue 1 item 11).  Q5 as written otherwise; Q3 and Q5 also with NO_BLOOM, which
-# turns off the reference's runtime filters: without it the reference's lineitem
-# filter in Q3 counts the probe rows its bloom filter left (459 at SF 0.01), the
-# port's all the rows the filter passes.
-@pytest.mark.parametrize("q,hint", [(5, "FRAGMENT_CACHE(OFF)"),
+def _rf_lines(rs):
+    """The `RuntimeFilter(column, kinds, pruned=n)` lines, in plan order."""
+    return [line for (line,) in rs.rows if line.strip().startswith(_RF_LINE)]
+
+
+# Q5 without the fragment cache; Q3 and Q5 also with NO_BLOOM, which turns off the
+# runtime filters, and at the defaults, where the runtime filters prune probe rows
+# (the filter above them counts the rows the filter left) and each engine prints one
+# `RuntimeFilter(...)` line per masked scan.  EXPLAIN ANALYZE replays no aggregate and
+# no build subtree; the defaults run first in the module, so no join build is cached.
+@pytest.mark.parametrize("q,hint", [(3, ""), (5, ""),
+                                    (5, "FRAGMENT_CACHE(OFF)"),
                                     (3, "NO_BLOOM FRAGMENT_CACHE(OFF)"),
                                     (5, "NO_BLOOM FRAGMENT_CACHE(OFF)")])
 def test_explain_analyze_rows_per_node(tpch_pair, q, hint):
     js, ps = tpch_pair
-    sql = f"EXPLAIN ANALYZE /*+TDDL:{hint}*/ {QUERIES[q]}"
+    head = f"/*+TDDL:{hint}*/ " if hint else ""
+    sql = f"EXPLAIN ANALYZE {head}{QUERIES[q]}"
     want, got = js.execute(sql), ps.execute(sql)
     nodes = _nodes(got)
     assert nodes == _nodes(want)
     assert len(nodes) > 5
+    assert _rf_lines(got) == _rf_lines(want)
+    assert bool(_rf_lines(got)) == ("NO_BLOOM" not in hint)
     lines = [r[0] for r in got.rows]
     rows = next(ln for ln in lines if ln.startswith("-- rows: "))
     assert rows == next(r[0] for r in want.rows if r[0].startswith("-- rows: "))

@@ -378,7 +378,8 @@ def test_tpch_with_lowered_spill_thresholds_matches_reference(q, engines):
 def test_streamed_scan_matches_the_reference_fused_scan(q, engines, monkeypatch):
     js, ps, want = engines
     monkeypatch.setattr(physical, "FUSE_MAX_ROWS", 1000)
-    got = ps.execute(QUERIES[q]).rows
+    # without the fragment cache, which would replay what earlier tests ran
+    got = ps.execute("/*+TDDL:FRAGMENT_CACHE(OFF)*/ " + QUERIES[q]).rows
     _same_rows(got, want[q], QUERIES[q])
     streamed = [t for t in ps.last_trace if "streamed batches=" in t]
     assert streamed  # every table past 1,000 rows streamed a batch a partition
