@@ -71,6 +71,28 @@ CPU twin; no data is loaded:
     on both.  Launch counters are set to 0 at the phase's
     start and read at its end; all four kernels must have launched.
 
+9b. mpp: the MPP engine (`parallel/`) on analyzed_tpch's card instance, a mesh of
+    MPP_SHARDS shards on cuda:0 installed on it (one card has no mesh of its own;
+    ENABLE_MPP is 0 during the phase, so the ENGINE(MPP) hint alone runs on the
+    mesh), the fragment cache off but in (b), no TPC-H data loaded: (a) the 22
+    queries twice each under ENGINE(MPP), rows equal to analyzed_tpch's (floats
+    within max(|y|*1e-6, 1e-6), `tests/test_mpp.py`'s), `mpp_queries` grown by the
+    distributed runs, the fallback set equal to MPP_FALLBACK_QUERIES with its
+    reasons; per query first and warm ms beside the local warm ms, launches, the
+    `MeshDataCache` bytes and the bytes the exchanges moved.  (b) Q3 and Q5 twice
+    with the fragment cache on: the repeat replays the MPP aggregate.  (c) Q3, Q5,
+    Q9 and Q18 at BROADCAST_BUILD_LIMIT = 0 (every join hash-shuffled).  (d) on an
+    instance of its own, `fact_hot` (SKEW_FACT_ROWS rows, one key SKEW_HOT_SHARE of
+    them), `dim` and `mid` in 8 HASH partitions, ANALYZEd, every join shuffled: a
+    hybrid join with the skew on its probe side, one with it on its build side and a
+    salted GROUP BY, each with its trace tag, rows bit-identical to SKEW(OFF) and to
+    numpy; the probe-skewed join's rows per shard (EXPLAIN ANALYZE's stats) and ms
+    with skew plans on and off, and its `HotKeys(...)` line.  (e) EXPLAIN ANALYZE of
+    Q5 under MPP: node for node the local run's rows (a scan masked by a runtime
+    filter counts its rows after the filter under MPP, as in the reference: its rows
+    plus the filter's pruned rows), with rows per shard.  Launch counters are set to 0 at the phase's start and read at
+    its end; all four kernels must have launched.
+
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
 order, and every result must be equal (the queries before the refresh run on the card
@@ -158,7 +180,9 @@ card's and the CPU's instance in the same order and every result must be equal:
     group-by, a query on it with ORDER BY and LIMIT, `DROP VIEW`; (e) Q18 on the card
     in one thread while a second runs `ALTER TABLE lineitem ADD COLUMN l_x INT`: the
     ALTER must wait for the query's shared metadata lock, both succeed and Q18's rows
-    equal its rows from before; (d) `DROP TABLE customer` into the recycle bin (SHOW
+    equal its rows from before (an attempt whose ALTER did not overlap the query is
+    undone with DROP COLUMN and retried, at most three in all, and the CPU twin runs
+    that ADD and DROP too); (d) `DROP TABLE customer` into the recycle bin (SHOW
     RECYCLEBIN, Q3 raising the same error on both), `FLASHBACK TABLE` (Q3 equal to its
     rows from before, the store's cached lanes kept), `DROP TABLE` and `PURGE
     RECYCLEBIN` (the device-cache bytes fall by exactly the store's), a scratch
@@ -289,11 +313,11 @@ twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
 Floats in 7-10, 9a, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares
 them (relative and absolute 1e-6); every other value must be equal.  The largest input
 the phases 7-9 gave each kernel, and apart from it the largest input each of the
-exec_hub, dml, ddl, durable, cdc and spill phases gave it, are then held against the
-kernel's plain version CHECK_REPEATS times and timed, beside the main path's, in the
-kernel's
-`new_phases` entry (`exec_hub_input`, `dml_input`, `ddl_input`, `durable_input`,
-`cdc_input`, `spill_input`, `columnar_input`).
+exec_hub, mpp, dml, ddl, durable, cdc and spill phases gave it, are then held
+against the kernel's plain version CHECK_REPEATS times and timed, beside the main
+path's, in the kernel's `new_phases` entry (`exec_hub_input`, `mpp_input`,
+`dml_input`, `ddl_input`, `durable_input`, `cdc_input`, `spill_input`,
+`columnar_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.  Any failure
@@ -1134,7 +1158,7 @@ def analyzed_tpch(inst):
     line = run_phase(gs, cs, "tpch", {f"Q{q}": SQL[q] for q in range(1, 23)},
                      cpu_queries={f"Q{q}" for q in range(1, 23)
                                   if q not in ANALYZED_CPU_SKIP + ANALYZED_CARD_ONLY},
-                     keep_rows=[f"Q{q}" for q in SPILL_QUERIES + EXEC_HUB_QUERIES])
+                     keep_rows=[f"Q{q}" for q in range(1, 23)])
     line["analyze_ms"] = analyze_ms
     line["q5_plan_analyzed"] = L.explain(
         gi.planner.plan_select(SQL[5], "tpch", [], gs).rel).splitlines()
@@ -1215,7 +1239,7 @@ EXEC_HUB_NO_RF = "/*+TDDL:RUNTIME_FILTER(OFF) FRAGMENT_CACHE(OFF)*/ "
 # fused against unfused executions (runtime filters on, no replay), alternated
 EXEC_HUB_FUSED = "/*+TDDL:FRAGMENT_CACHE(OFF)*/ "
 EXEC_HUB_UNFUSED = "/*+TDDL:NO_FUSE FRAGMENT_CACHE(OFF)*/ "
-EXEC_HUB_FUSE_REPEATS = 3
+EXEC_HUB_FUSE_REPEATS = 1
 HUB_MEMBERS = 4             # sessions of the batched point-write flush of exec_hub (b)
 
 
@@ -1432,6 +1456,367 @@ def exec_hub_phase(gs, cs, analyzed_rows, s_main, s_main_cpu):
     missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched in exec_hub: {missing}")
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- MPP: the mesh, the exchange plane, skew-aware execution -------------------------
+
+MPP_SHARDS = 8              # shards of the phase's mesh, all on cuda:0
+MPP_HINT = "/*+TDDL: ENGINE(MPP)*/ "
+# TPC-H queries the MPP engine refuses at SF 1, each with the start of its
+# `mpp-fallback` reason (the reference's NotSupportedError message): supplier x
+# revenue0 is a plain cross product of 2,048 x 10,000 cells a shard, past the
+# reference's 2^22 guard (tests/test_torch_mpp.py holds the guard's fallback to the
+# reference's; at SF 0.01 no query falls back)
+MPP_FALLBACK_QUERIES = {15: "MPP cross product too large"}
+MPP_CACHE_QUERIES = (3, 5)                # (b) the fragment cache replays MPP artifacts
+MPP_SHUFFLE_QUERIES = (3, 5, 9, 18)       # (c) at BROADCAST_BUILD_LIMIT = 0
+# `tests/test_mpp.py`'s: True = the result is ordered (compared in order)
+MPP_ORDERED = {6: False, 14: False, 17: False, 19: False}
+SKEW_FACT_ROWS = 1 << 24    # (d) fact_hot
+SKEW_KEYS = 100_000         # fact_hot's key domain; dim holds one row a key
+SKEW_HOT_SHARE = 0.35       # the one hot key's share of fact_hot
+# mid: one row a key over [0, SKEW_MID_ROWS); at a quarter of fact_hot's rows the
+# engine keeps fact_hot as the join's build side, the reference's skewed-build shape
+# (test_skew.py's mid is 16,384 rows beside 57,344: above a quarter too)
+SKEW_MID_ROWS = 1 << 22
+SKEW_SQL = {
+    "hybrid_probe": ("SELECT d.attr, COUNT(*), SUM(f.v) FROM fact_hot f, dim d "
+                     "WHERE f.k = d.k GROUP BY d.attr"),
+    "hybrid_build": "SELECT COUNT(*), SUM(m.w) FROM mid m, fact_hot f WHERE m.k = f.k",
+    "salted_agg": "SELECT k, COUNT(*), SUM(v), MIN(v), MAX(v) FROM fact_hot GROUP BY k",
+}
+
+
+def _mpp_rows_equal(got, want, ordered=True) -> bool:
+    """`tests/test_mpp.py:assert_same`: floats within max(|y|*1e-6, 1e-6), every other
+    value equal; unordered results compared sorted."""
+    if not ordered:
+        got = sorted(got, key=lambda r: tuple(str(x) for x in r))
+        want = sorted(want, key=lambda r: tuple(str(x) for x in r))
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        if len(a) != len(b):
+            return False
+        for x, y in zip(a, b):
+            if isinstance(x, float) and isinstance(y, float):
+                if abs(x - y) > max(abs(y) * 1e-6, 1e-6):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def _fallback_reason(s):
+    got = [t[len("mpp-fallback "):] for t in s.last_trace if t.startswith("mpp-fallback")]
+    return got[0] if got else None
+
+
+def _mpp_tpch(gs, analyzed_rows, local_ms, sf):
+    """(a) the 22 queries twice each under ENGINE(MPP), held to analyzed_tpch's rows;
+    the fallback set held to MPP_FALLBACK_QUERIES at SF 1."""
+    from galaxysql_tpu_torch.parallel import exchange
+    from galaxysql_tpu_torch.parallel.mesh import GLOBAL_MESH_CACHE
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    gi = gs.instance
+    out, rows, fallbacks = {}, {}, {}
+    mpp0 = gi.counters["mpp_queries"]
+    for q in range(1, 23):
+        sql = MPP_HINT + SQL[q]
+        first, first_ms = _timed(gs, sql)
+        reason = _fallback_reason(gs)
+        before, x0 = _launch_counts(), exchange.EXCHANGE_STATS["bytes"]
+        warm, warm_ms = _timed(gs, sql)
+        after = _launch_counts()
+        if reason is not None:
+            fallbacks[q] = reason
+        for what, got in (("first", first.rows), ("warm", warm.rows)):
+            if not _mpp_rows_equal(got, analyzed_rows[q], MPP_ORDERED.get(q, True)):
+                raise AssertionError(f"mpp Q{q} ({what} run): rows differ from "
+                                     f"analyzed_tpch's:\n  mpp   {got[:3]}\n  local "
+                                     f"{analyzed_rows[q][:3]}")
+        rows[q] = warm.rows
+        out[f"Q{q}"] = line = {
+            "first_ms": first_ms, "warm_ms": warm_ms,
+            "local_warm_ms": local_ms.get(f"Q{q}"), "fallback": reason,
+            "launches": {k: after[k] - before[k] for k in after},
+            "mesh_cache_bytes": GLOBAL_MESH_CACHE.nbytes,
+            "exchange_bytes": exchange.EXCHANGE_STATS["bytes"] - x0,
+            "rows": len(warm.rows)}
+        say("mpp_query", query=f"Q{q}", **line)
+    ran = 2 * (22 - len(fallbacks))
+    if gi.counters["mpp_queries"] - mpp0 != ran:
+        raise AssertionError(f"mpp: mpp_queries grew by "
+                             f"{gi.counters['mpp_queries'] - mpp0}, {ran} expected")
+    if sf == 1.0:
+        want = MPP_FALLBACK_QUERIES
+        if sorted(fallbacks) != sorted(want) or any(
+                not fallbacks[q].startswith(want[q]) for q in want):
+            raise AssertionError(f"mpp: fallbacks {fallbacks}, expected {want}")
+    return out, rows, fallbacks
+
+
+def _mpp_cache(gs, rows):
+    """(b) the fragment cache on: the repeat replays the MPP aggregate."""
+    gi = gs.instance
+    gi.config.set_instance("ENABLE_FRAGMENT_CACHE", 1)
+    gi.frag_cache.clear()
+    out = {}
+    try:
+        from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+        for q in MPP_CACHE_QUERIES:
+            c0 = _frag_state(gi)
+            first, first_ms = _timed(gs, MPP_HINT + SQL[q])
+            replay, replay_ms = _timed(gs, MPP_HINT + SQL[q])
+            hits = [t for t in gs.last_trace if t.startswith("frag-cache mpp")]
+            if not hits:
+                raise AssertionError(f"mpp Q{q}: the repeat replayed no MPP artifact: "
+                                     f"{gs.last_trace}")
+            for got in (first.rows, replay.rows):
+                if not _mpp_rows_equal(got, rows[q]):
+                    raise AssertionError(f"mpp Q{q}: rows with the fragment cache on "
+                                         f"differ from (a)'s")
+            out[f"Q{q}"] = {"first_ms": first_ms, "replay_ms": replay_ms,
+                            "frag": _frag_delta(gi, c0), "trace": hits}
+    finally:
+        _frag_off(gi)
+        gi.frag_cache.clear()
+    return out
+
+
+def _mpp_shuffle(gs, rows):
+    """(c) every join hash-shuffled (BROADCAST_BUILD_LIMIT = 0)."""
+    from galaxysql_tpu_torch.parallel import exchange
+    from galaxysql_tpu_torch.parallel import mpp as M
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    old, M.BROADCAST_BUILD_LIMIT = M.BROADCAST_BUILD_LIMIT, 0
+    out = {}
+    try:
+        for q in MPP_SHUFFLE_QUERIES:
+            x0 = exchange.EXCHANGE_STATS["repartitions"]
+            rs, ms = _timed(gs, MPP_HINT + SQL[q])
+            if _fallback_reason(gs) is not None or \
+                    not _mpp_rows_equal(rs.rows, rows[q], MPP_ORDERED.get(q, True)):
+                raise AssertionError(f"mpp Q{q} shuffled: fell back or rows differ "
+                                     f"from (a)'s: {gs.last_trace}")
+            out[f"Q{q}"] = {"ms": ms,
+                            "repartitions": exchange.EXCHANGE_STATS["repartitions"] - x0}
+    finally:
+        M.BROADCAST_BUILD_LIMIT = old
+    return out
+
+
+def skew_data(seed=20241017):
+    """(d)'s tables as numpy arrays: fact_hot (one key SKEW_HOT_SHARE of the rows, the
+    rest uniform over SKEW_KEYS keys), dim and mid."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = SKEW_FACT_ROWS
+    k = rng.integers(0, SKEW_KEYS - 1, size=n, dtype=np.int64)
+    k = np.where(k >= 5, k + 1, k)          # uniform over every key but 5
+    k[rng.random(n) < SKEW_HOT_SHARE] = 5    # the hot key
+    keys = np.arange(SKEW_KEYS, dtype=np.int64)
+    return {
+        "fact_hot": {"id": np.arange(n, dtype=np.int64), "k": k,
+                     "v": rng.integers(0, 1000, size=n, dtype=np.int64)},
+        "dim": {"did": (keys * 7919) % (1 << 30), "k": keys, "attr": keys % 7},
+        "mid": {"mid": np.arange(SKEW_MID_ROWS, dtype=np.int64),
+                "k": np.arange(SKEW_MID_ROWS, dtype=np.int64),
+                "w": np.arange(SKEW_MID_ROWS, dtype=np.int64) % 13}}
+
+
+def _skew_numpy(data):
+    """numpy's answers to SKEW_SQL on the same lanes, as sorted rows."""
+    import numpy as np
+    k, v = data["fact_hot"]["k"], data["fact_hot"]["v"]
+    attr = k % 7
+    cnt = np.bincount(attr, minlength=7)
+    tot = np.bincount(attr, weights=v.astype(np.float64), minlength=7)
+    probe = sorted((a, int(cnt[a]), int(tot[a])) for a in range(7) if cnt[a])
+    build = [(int(k.shape[0]), int((k % 13).sum()))]   # every fact key is a mid key
+    order = np.argsort(k, kind="stable")
+    ks, vs = k[order], v[order]
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(ks)) + 1])
+    ends = np.concatenate([starts[1:], [ks.shape[0]]])
+    salted = list(zip(ks[starts].tolist(), (ends - starts).tolist(),
+                      np.add.reduceat(vs, starts).tolist(),
+                      np.minimum.reduceat(vs, starts).tolist(),
+                      np.maximum.reduceat(vs, starts).tolist()))
+    return {"hybrid_probe": probe, "hybrid_build": build, "salted_agg": salted}
+
+
+def _shard_balance(op_stats, operator):
+    """(max/mean live rows per shard, rows per shard) of the first MPP stage of
+    `operator` in EXPLAIN ANALYZE's stats."""
+    for st in op_stats:
+        if st.get("operator") == operator and st.get("rows_per_shard"):
+            per = st["rows_per_shard"]
+            mean = sum(per) / len(per)
+            return (max(per) / mean if mean else None), per
+    return None, None
+
+
+def _mpp_skew(mesh):
+    """(d) hybrid joins and the salted aggregation at SKEW_FACT_ROWS rows, on an
+    instance of their own."""
+    import torch
+    from galaxysql_tpu_torch.parallel import mpp as M
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    t0 = time.perf_counter()
+    data = skew_data()
+    si = _frag_off(Instance(device="cuda"))
+    si._mesh = mesh
+    ss = Session(si)
+    ss.execute("CREATE DATABASE sk")
+    ss.execute("USE sk")
+    ddl = {"fact_hot": "(id BIGINT PRIMARY KEY, k BIGINT, v BIGINT) "
+                       "PARTITION BY HASH(id) PARTITIONS 8",
+           "dim": "(did BIGINT PRIMARY KEY, k BIGINT, attr BIGINT) "
+                  "PARTITION BY HASH(did) PARTITIONS 8",
+           "mid": "(mid BIGINT PRIMARY KEY, k BIGINT, w BIGINT) "
+                  "PARTITION BY HASH(mid) PARTITIONS 8"}
+    for t, cols in ddl.items():
+        ss.execute(f"CREATE TABLE {t} {cols}")
+        si.store("sk", t).insert_arrays(data[t], si.tso.next_timestamp())
+    load_ms = (time.perf_counter() - t0) * 1000.0
+    analyze_ms = _analyze(ss, list(ddl))
+    want = _skew_numpy(data)
+    del data
+    old, M.BROADCAST_BUILD_LIMIT = M.BROADCAST_BUILD_LIMIT, 0  # the shuffle shape
+    out = {"load_ms": load_ms, "analyze_ms": analyze_ms, "queries": {}}
+    try:
+        for name, sql in SKEW_SQL.items():
+            first, first_ms = _timed(ss, MPP_HINT + sql)
+            on, on_ms = _timed(ss, MPP_HINT + sql)
+            trace = [t for t in ss.last_trace if t.startswith(("mpp-hybrid", "mpp-salted"))]
+            off, off_ms = _timed(ss, "/*+TDDL: ENGINE(MPP) SKEW(OFF)*/ " + sql)
+            off_trace = [t for t in ss.last_trace
+                         if t.startswith(("mpp-hybrid", "mpp-salted"))]
+            tag = "mpp-salted-agg factor=" if name == "salted_agg" else "mpp-hybrid-join"
+            if not any(t.startswith(tag) for t in trace) or off_trace:
+                raise AssertionError(f"mpp skew {name}: trace {trace}, SKEW(OFF) trace "
+                                     f"{off_trace}")
+            if name == "hybrid_build" and not any("skew=build" in t for t in trace):
+                raise AssertionError(f"mpp skew {name}: not the build orientation: {trace}")
+            got, got_off = sorted(on.rows), sorted(off.rows)
+            if got != got_off or sorted(first.rows) != got or got != want[name]:
+                raise AssertionError(f"mpp skew {name}: rows differ: on {got[:3]} off "
+                                     f"{got_off[:3]} numpy {want[name][:3]}")
+            line = {"first_ms": first_ms, "on_ms": on_ms, "off_ms": off_ms,
+                    "rows": len(got), "trace": trace}
+            if name == "hybrid_probe":
+                for mode, hint in (("on", "ENGINE(MPP)"), ("off", "ENGINE(MPP) SKEW(OFF)")):
+                    rs = ss.execute(f"EXPLAIN ANALYZE /*+TDDL: {hint}*/ {sql}")
+                    lines = [r[0] for r in rs.rows]
+                    ratio, per = _shard_balance(ss.last_op_stats, "Join")
+                    line[f"join_rows_per_shard_{mode}"] = per
+                    line[f"join_max_over_mean_{mode}"] = ratio
+                    if mode == "on":
+                        line["hotkeys_line"] = [x.strip() for x in lines
+                                                if x.strip().startswith("HotKeys(")]
+                        if not line["hotkeys_line"]:
+                            raise AssertionError("mpp skew: EXPLAIN ANALYZE of the hybrid "
+                                                 "join has no HotKeys(...) line")
+            out["queries"][name] = line
+            say("mpp_skew_query", query=name, **line)
+    finally:
+        M.BROADCAST_BUILD_LIMIT = old
+        si._mesh = None
+        ss.close()
+    del si, ss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mpp_explain(gs):
+    """(e) EXPLAIN ANALYZE of Q5 under MPP against the local run on the card."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    mpp = gs.execute("EXPLAIN ANALYZE " + MPP_HINT + SQL[5])
+    stats = gs.last_op_stats
+    local = gs.execute("EXPLAIN ANALYZE " + SQL[5])
+
+    def nodes(rs):
+        """(node line, actual rows, rows its runtime filters pruned) per node."""
+        import re
+        out = []
+        for (line,) in rs.rows:
+            text = line.strip()
+            if line.startswith("--") or text.startswith(("HotKeys(", "Salted(")):
+                continue
+            if text.startswith("RuntimeFilter("):
+                node, rows, pruned = out[-1]
+                out[-1] = (node, rows, pruned + int(text.split("pruned=")[1][:-1]))
+                continue
+            m = re.match(r"^(.*?)  \(actual rows=(\d+) ", line)
+            out.append((m.group(1), int(m.group(2)), 0) if m else (line, None, 0))
+        return out
+    got, want = nodes(mpp), nodes(local)
+    # an MPP scan counts its rows after the runtime filters that mask it (the
+    # reference's MPP scan applies them inside the scan), the local scan before them;
+    # the engines may also build a join from different sides (the local engine's
+    # build is the smaller input, MPP's the right one unless the left is 4x smaller),
+    # so another scan can carry the filter: a scan's rows plus what its filters
+    # pruned under MPP are the local scan's rows
+    same = len(got) == len(want) and all(
+        g[0] == w[0] and g[1] is not None and w[1] is not None and g[1] + g[2] == w[1]
+        for g, w in zip(got, want))
+    if not same:
+        raise AssertionError(f"mpp EXPLAIN ANALYZE Q5: node rows differ from the local "
+                             f"run:\n  mpp   {got}\n  local {want}")
+    if not any(r[0].startswith("-- mpp-scan") for r in mpp.rows):
+        raise AssertionError("mpp EXPLAIN ANALYZE Q5 did not run on the mesh")
+    per_shard = {st["operator"] + f"#{i}": st["rows_per_shard"]
+                 for i, st in enumerate(stats) if st.get("rows_per_shard")}
+    if not per_shard:
+        raise AssertionError("mpp EXPLAIN ANALYZE Q5 carries no rows_per_shard")
+    return {"nodes": len(got), "pruned_mpp": [g[2] for g in got if g[2]],
+            "pruned_local": [w[2] for w in want if w[2]], "rows_per_shard": per_shard,
+            "shard_skew": [st.get("shard_skew") for st in stats if st.get("shard_skew")]}
+
+
+def mpp_phase(gs, analyzed_rows, local_ms, sf):
+    """The MPP engine on analyzed_tpch's card instance, a mesh of MPP_SHARDS shards on
+    cuda:0 installed on it (one card has no mesh of its own): (a)-(c) and (e) on its
+    TPC-H lanes, (d) on an instance of its own.  ENABLE_MPP is 0 during the phase,
+    so only the ENGINE(MPP) hint runs on the mesh and an un-hinted query is the local
+    run (e) compares with."""
+    import torch
+    from galaxysql_tpu_torch.parallel import exchange
+    from galaxysql_tpu_torch.parallel.mesh import GLOBAL_MESH_CACHE, make_mesh
+    t_phase = time.perf_counter()
+    gi = gs.instance
+    mesh = make_mesh(devices=[torch.device(gi.device.type, gi.device.index or 0)] *
+                     MPP_SHARDS)
+    enable_mpp = gi.config.get("ENABLE_MPP")
+    gi._mesh = mesh
+    gi.config.set_instance("ENABLE_MPP", 0)
+    GLOBAL_MESH_CACHE.clear()
+    exchange.reset_exchange_stats()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = {"mesh": {"shards": mesh.size, "devices": mesh.key(), "cards": mesh.cards()}}
+    say("mpp_mesh", **out["mesh"])
+    try:
+        out["tpch"], rows, out["fallbacks"] = _mpp_tpch(gs, analyzed_rows, local_ms, sf)
+        out["mesh_cache_bytes"] = GLOBAL_MESH_CACHE.nbytes
+        out["cache"] = _mpp_cache(gs, rows)
+        out["shuffle"] = _mpp_shuffle(gs, rows)
+        out["explain_q5"] = _mpp_explain(gs)
+        GLOBAL_MESH_CACHE.clear()
+        out["skew"] = _mpp_skew(mesh)
+    finally:
+        gi._mesh = None
+        gi.config.set_instance("ENABLE_MPP", enable_mpp)
+        GLOBAL_MESH_CACHE.clear()
+    out["exchange"] = dict(exchange.EXCHANGE_STATS)
+    out["launches"] = _launch_counts()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in mpp: {missing}")
     out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -2427,6 +2812,9 @@ def _ddl_mdl(gs, cs, out):
         if waited:
             break
         gs.execute("ALTER TABLE lineitem DROP COLUMN l_x")
+        # the twin runs the attempt's ALTERs too, so the job records stay equal
+        cs.execute("ALTER TABLE lineitem ADD COLUMN l_x INT")
+        cs.execute("ALTER TABLE lineitem DROP COLUMN l_x")
     else:
         raise AssertionError("the ALTER never overlapped the running Q18")
     if box["query"][0] != want.rows:
@@ -4450,6 +4838,18 @@ def run(args, data_dir) -> int:
     print(card, flush=True)
     say("exec_hub", nvidia_smi=card, enable_fragment_cache=1, **hub)
     hub_inputs = check_new_phase_inputs(hub_capture, {"exec_hub": hub["launches"]})
+
+    mpp_capture = kernel_capture()
+    try:
+        mpp = mpp_phase(gs, {q: unspilled[f"Q{q}"] for q in range(1, 23)},
+                        unspilled_ms, args.sf)
+    finally:
+        mpp_capture.restore()
+    print(card, flush=True)
+    say("mpp", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf, **mpp)
+    mpp_inputs = check_new_phase_inputs(mpp_capture, {"mpp": mpp["launches"]})
+    unspilled = {k: v for k, v in unspilled.items()
+                 if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
     del gs, _ci, cs, line
 
@@ -4465,6 +4865,8 @@ def run(args, data_dir) -> int:
         entry["new_phases"] = new_inputs[entry["name"]]
         entry["new_phases"]["launches"]["exec_hub"] = hub["launches"][entry["name"]]
         entry["new_phases"]["exec_hub_input"] = hub_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["mpp"] = mpp["launches"][entry["name"]]
+        entry["new_phases"]["mpp_input"] = mpp_inputs[entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

@@ -12,6 +12,9 @@ so the port takes the scatter branch on every device:
 - window functions: a stable sort by (partition, order) keys, then cumulative scans
   and boundary gathers over the partition and peer runs (`window_eval`).
 
+The skew-aware hybrid join of `parallel/mpp.py` classifies rows with `hot_key_mask`
+and probes its unioned lanes with `hash_join_probe_hybrid`, the same CSR pipeline.
+
 The four kernel call sites — build-row slots, probe-row slots, pair expansion and group
 placement — go through `cuda_join` / `cuda_agg`, whose wrappers launch the hand-written
 CUDA kernel for a CUDA tensor and run the plain version for a CPU tensor.  Output
@@ -346,6 +349,38 @@ def hash_join_probe_csr(build_keys, probe_keys, build_live, probe_live,
 
     probe_matched = probe_matched_from(verified, starts, offsets)
     return JoinPairs(b_of, p_of, verified, probe_matched, starts, offsets, overflow)
+
+
+def hot_key_mask(keys: Sequence[Tuple[Any, Optional[Any]]],
+                 hot_hashes: Any, hot_valid: Any) -> Any:
+    """Heavy-hitter classification lane of the skew-aware hybrid join: True where
+    the row's combined key hash (the `hash_columns` lane the repartition
+    destinations come from) is one of the valid `hot_hashes` (int64 bits; the
+    padding slots are masked by `hot_valid`, so the hot set's size is a runtime
+    value).  Purely hash-based, as in the reference: a cold key colliding with a
+    hot hash is hot on both sides of the join, so correctness never depends on the
+    hot set's contents."""
+    h = hash_columns(keys)
+    # the padding slots take a valid slot's value: membership is then exactly the
+    # valid set's (no valid slot at all: nothing is hot)
+    hot = torch.where(hot_valid, hot_hashes, hot_hashes[torch.argmax(
+        hot_valid.to(torch.int8))])
+    return torch.isin(h, hot) & hot_valid.any()
+
+
+def hash_join_probe_hybrid(build_keys: Sequence[Tuple[Any, Optional[Any]]],
+                           probe_keys: Sequence[Tuple[Any, Optional[Any]]],
+                           build_live: Any, probe_live: Any,
+                           cap: int) -> JoinPairs:
+    """Union-lane probe of the skew-aware hybrid join: each shard's build lanes are
+    the broadcast hot rows and the shuffled cold rows concatenated (likewise the
+    probe lanes), and one pass enumerates the verified pairs over the union through
+    the same `_device_csr` + `hash_join_probe_csr` pipeline every join shares, so
+    `build_slots`, `hash_slots` and `expand_offsets` launch on it."""
+    nb = build_keys[0][0].shape[0]
+    perm, slot_starts, slot_counts, M = _device_csr(build_keys, build_live, nb)
+    return hash_join_probe_csr(build_keys, probe_keys, build_live, probe_live,
+                               perm, slot_starts, slot_counts, M, cap)
 
 
 def probe_matched_from(pair_live: Any, starts: Any, offsets: Any) -> Any:

@@ -40,8 +40,8 @@ The reference's single-device execution hub, on by default with its switches:
 - the cross-query fragment cache (`exec/fragment_cache.py`; FRAGMENT_CACHE(OFF),
   `ENABLE_FRAGMENT_CACHE`, `GALAXYSQL_FRAGMENT_CACHE=0`): join builds reuse cached
   build artifacts, and aggregates and build subtrees replay their output
-  (`CachedSubplanOp`).  The skew plans the rules plant stay inert: the reference
-  activates them only under MPP.
+  (`CachedSubplanOp`).  The skew plans the rules plant stay inert here: as in the
+  reference, only MPP execution (`parallel/mpp.py`) activates them.
 
 With `ExecContext.collect_stats` set (EXPLAIN ANALYZE) every operator is wrapped in a
 `StatsOp` that records its batches, live rows and wall time in `ctx.op_stats`; fused
@@ -127,6 +127,15 @@ class ExecContext:
         self.skew_stats: Dict[int, dict] = {}
         # self-heal pin (plan/spm.py heal_pin): salts fragment-cache fingerprints
         self.plan_pin = ""
+        # MAX_EXECUTION_TIME deadline (absolute time.time() seconds, or None),
+        # checked at MPP stage boundaries (`parallel/mpp.py`)
+        self.deadline: Optional[float] = None
+
+    def check_deadline(self):
+        """Raise a typed QueryTimeoutError once the deadline passes (a None deadline
+        costs one attribute read)."""
+        if self.deadline is not None and time.time() > self.deadline:
+            raise errors.QueryTimeoutError("query exceeded MAX_EXECUTION_TIME deadline")
 
 
 # a full-table scan of more rows than this streams one device batch a partition
@@ -615,15 +624,18 @@ def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     raise errors.NotSupportedError(f"no physical operator for {type(node).__name__}")
 
 
-def annotate_explain(rel: L.RelNode, op_stats: List[dict], rf=None) -> List[str]:
+def annotate_explain(rel: L.RelNode, op_stats: List[dict], rf=None,
+                     skew_stats=None) -> List[str]:
     """EXPLAIN ANALYZE tree: the logical plan's explain lines, each node annotated
     with its measured rows, batches and wall time (matched by node identity).
     Operators that ran inside a fused segment carry a `fused(<chain>)` tag, a join
     build served from the fragment cache `[cached build]`.  `rf` (the execution's
     RuntimeFilterManager) adds one `RuntimeFilter(column, kinds, pruned=...)` line
-    under each scan a planned runtime filter masked.  `explain_lines` emits one line
-    per node in pre-order, which is `L.walk`'s order, so lines and nodes zip.  The
-    reference's `HotKeys(...)` and `Salted(...)` lines come from MPP execution."""
+    under each scan a planned runtime filter masked, and `skew_stats`
+    (`ExecContext.skew_stats`, filled by MPP execution) one `HotKeys(n, broadcast)` /
+    `Salted(f)` line under each join or aggregate the skew-aware executor split.
+    `explain_lines` emits one line per node in pre-order, which is `L.walk`'s order,
+    so lines and nodes zip."""
     by_id: Dict[int, dict] = {}
     for st in op_stats:
         nid = st["node_id"]
@@ -649,6 +661,9 @@ def annotate_explain(rel: L.RelNode, op_stats: List[dict], rf=None) -> List[str]
         for rst in rf_by_node.get(id(n), []):
             lines.append(f"{indent}RuntimeFilter({rst['column']}, "
                          f"{rst['kinds']}, pruned={rst['pruned']})")
+        info = (skew_stats or {}).get(id(n))
+        if info is not None:
+            lines.append(f"{indent}{_skew.explain_line(info)}")
     return lines
 
 

@@ -39,7 +39,7 @@ synchronous apply, of its GSI tables) once, as in the reference.
 Trimmed against the reference, each waiting for its ROADMAP Queue 1 item: the
 QueryProfile, statement summary, admission ticket and
 metrics-registry histograms of each member (item 16; the group sizes and waits are
-kept as the point batcher keeps them); replica legs of remote tables (item 15).
+kept as the point batcher keeps them); replica legs of remote tables (item 15b).
 """
 
 from __future__ import annotations

@@ -162,8 +162,7 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
-    "engine_counters": "utils/metrics.py (ROADMAP Queue 1 item 16)",
+    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15b)",
     "metrics": "utils/metrics.py (ROADMAP Queue 1 item 16)",
     "query_stats": "utils/tracing.py (ROADMAP Queue 1 item 16)",
     "query_spans": "utils/tracing.py (ROADMAP Queue 1 item 16)",
@@ -279,6 +278,8 @@ def refresh(instance, session=None):
         entries = [[k[0], k[1][:120], p.workload, 0] for k, p in pc._map.items()]
     fill("plan_cache", entries)
     fill("node_info", instance.metadb.alive_nodes())
+    fill("engine_counters", ([k, int(v)] for k, v in
+                             sorted(getattr(instance, "counters", {}).items())))
     fill("ddl_jobs", instance.metadb.query(
         "SELECT job_id, schema_name, ddl_sql, state FROM ddl_engine"))
     fill("columnar_replica", (list(r) for r in instance.columnar.rows()))

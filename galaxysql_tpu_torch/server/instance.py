@@ -35,7 +35,7 @@ holds the replica's counters and gauges and the fragment cache's `frag_cache_*`;
 replayed aggregate and build-subtree outputs, keyed by table versions, on while
 `ENABLE_FRAGMENT_CACHE` is.  `invalidate_fragment_cache` is the local half of the
 reference's sync action of that name (its broadcast to peer coordinators waits for
-ROADMAP Queue 1 item 15).
+ROADMAP Queue 1 item 15b).
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
@@ -43,8 +43,10 @@ the sequential fast path (`point_plans`, cleared past 512 entries as in the
 reference), the cross-session `batch_scheduler`, the commit coordinator
 (`xa_coordinator`, `txn/xa.py`, with the group-commit gate) and `counters`
 (`point_plan_queries`, `batched_point_queries`, `group_commit_batches`,
-`group_committed_txns`, `gsi_async_applies`, `async_apply_failures`; `count` adds to
-them).  The write side: `cdc` (the binlog, `txn/cdc.py`), the registered DML batch
+`group_committed_txns`, `gsi_async_applies`, `async_apply_failures`, `mpp_queries`,
+`mpp_fallback_local`; `count` adds to them; `information_schema.engine_counters`
+lists them).  `mesh()` is the MPP device mesh (`parallel/mesh.py`): one shard a CUDA
+device when there are several, else None, as in the reference.  The write side: `cdc` (the binlog, `txn/cdc.py`), the registered DML batch
 plans (`dml_plans`) and their `dml_batch_scheduler` (`server/dml_batch.py`), and the
 `applier` of async GSI maintenance (`txn/async_apply.py`).
 
@@ -126,7 +128,9 @@ class Instance:
                                          "group_commit_batches": 0,
                                          "group_committed_txns": 0,
                                          "gsi_async_applies": 0,
-                                         "async_apply_failures": 0}
+                                         "async_apply_failures": 0,
+                                         "mpp_queries": 0,
+                                         "mpp_fallback_local": 0}
         self.batch_scheduler = BatchScheduler(self)
         # (schema, parameterized SQL) -> DML batch plan (`dml_batch.try_register`)
         self.dml_plans: Dict[tuple, dict] = {}
@@ -260,3 +264,16 @@ class Instance:
     def count(self, name: str, n: int = 1):
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    def mesh(self):
+        """The instance's device mesh for MPP execution: one shard on each CUDA
+        device when the instance runs on CUDA and more than one device exists, else
+        None (the reference's rule: no MPP on a single device).  Cached in `_mesh`;
+        a caller may install a mesh there (the tests' 8 shards on the CPU, the chip
+        smoke's 8 shards on one card)."""
+        if not hasattr(self, "_mesh"):
+            self._mesh = None
+            if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+                from galaxysql_tpu_torch.parallel.mesh import make_mesh
+                self._mesh = make_mesh()
+        return self._mesh

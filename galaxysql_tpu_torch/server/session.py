@@ -23,6 +23,13 @@ spill thresholds.  ANALYZE builds the statistics on the host (`meta/statistics.p
 Every planned query runs on the instance's device: the reference's pinning of TP
 plans to the host CPU is not carried over.
 
+The engine dispatch is the reference's (`_try_mpp`): a query under the ENGINE(MPP)
+hint, or an AP plan past MPP_MIN_AP_ROWS scanned rows while ENABLE_MPP holds, runs on
+the instance's mesh through `parallel/mpp.MppExecutor`, and EXPLAIN ANALYZE reports
+that engine; a plan shape MPP does not distribute (`NotSupportedError`) falls back to
+the local engine, counted in `mpp_fallback_local` and traced as `mpp-fallback`.  An
+instance on one device has no mesh, so it runs everything locally.
+
 The point path is the reference's.  A planned TP statement of the shape `SELECT cols
 FROM t WHERE key = ?` registers a PointPlan after its first run; re-executions of it
 skip binder and planner.  With several point queries in flight they go to the
@@ -102,6 +109,7 @@ from galaxysql_tpu_torch.chunk.batch import Column
 from galaxysql_tpu_torch.ddl.jobs import alter_table_job, create_index_job, drop_index_job
 from galaxysql_tpu_torch.exec import skew as _skew
 from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
+from galaxysql_tpu_torch.exec.runtime_filter import RuntimeFilterManager
 from galaxysql_tpu_torch.exec.operators import run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
@@ -278,6 +286,7 @@ class Session:
         self.user_vars: Dict[str, Any] = {}
         self.user = "root"
         self.last_trace: List[str] = []
+        self.last_op_stats: List[dict] = []
         # tables this session's running statement holds a shared MDL on
         self._mdl_held: set = set()
         # commit timestamp of this session's last COMMIT
@@ -585,13 +594,52 @@ class Session:
         # reads and fresh-read sessions stay on the row store
         self._maybe_route_columnar(plan, ctx)
         with self._mdl_shared(self._scan_keys(plan.rel)):
-            batch = run_to_batch(build_operator(plan.rel, ctx)).compact()
+            batch = self._try_mpp(plan, ctx, count=True)
+            if batch is None:
+                batch = run_to_batch(build_operator(plan.rel, ctx))
+            batch = batch.compact()
             rows = batch.to_pylist()
         self.last_trace = ctx.trace
         if plan.workload == "TP":
             self._register_point_plan(plan)
         return ResultSet(plan.display_names, [t for _, t, _ in plan.fields()], rows,
                          batch=batch)
+
+    def _try_mpp(self, plan, ctx, count: bool):
+        """Engine dispatch shared by real execution and EXPLAIN ANALYZE (which must
+        report the engine users actually run): the MPP result batch, or None for the
+        local engine.  MPP runs under the ENGINE(MPP) hint, or for an AP plan past
+        MPP_MIN_AP_ROWS scanned rows while ENABLE_MPP holds, over the instance's
+        mesh (None on one device).  `count` bumps `mpp_queries` /
+        `mpp_fallback_local` (real executions only)."""
+        engine_hint = getattr(plan, "hints", {}).get("engine")
+        want_mpp = engine_hint == "MPP" or (
+            engine_hint is None and plan.workload == "AP" and
+            self.instance.config.get("ENABLE_MPP", self.vars) and
+            plan.scanned_rows >= self.instance.config.get("MPP_MIN_AP_ROWS",
+                                                          self.vars))
+        if not want_mpp:
+            return None
+        mesh = self.instance.mesh()
+        if mesh is None:
+            return None
+        from galaxysql_tpu_torch.parallel.mpp import MppExecutor
+        try:
+            batch = MppExecutor(ctx, mesh).execute(plan.rel)
+            if count:
+                self.instance.count("mpp_queries")
+            return batch
+        except errors.NotSupportedError as e:
+            # a plan shape not distributed: the local engine, never silently (the
+            # trace tag and information_schema.engine_counters)
+            if count:
+                self.instance.count("mpp_fallback_local")
+            ctx.trace.append(f"mpp-fallback {e}")
+            # a fresh runtime-filter hub: the aborted MPP walk may have consumed
+            # scan edges the local run must wire again
+            ctx.rf = RuntimeFilterManager(hints=ctx.hints,
+                                          metrics=self.instance.metrics)
+            return None
 
     def _exec_context(self, plan, params: Optional[list]) -> ExecContext:
         """A query's context: the instance's device and device cache, the session's
@@ -1433,10 +1481,20 @@ class Session:
             x0 = dict(TRANSFER_STATS)
             t0 = time.time()
             with self._mdl_shared(self._scan_keys(plan.rel)):
-                batch = run_to_batch(build_operator(plan.rel, ctx))
+                # the real path's engine dispatch: an AP query past the MPP
+                # threshold reports its per-shard stages (rows per shard, skew,
+                # HotKeys/Salted decisions), not a local stand-in
+                batch = self._try_mpp(plan, ctx, count=False)
+                if batch is None:
+                    batch = run_to_batch(build_operator(plan.rel, ctx))
             elapsed = time.time() - t0
             rows = batch.num_live()
-            lines = annotate_explain(plan.rel, ctx.op_stats, rf=ctx.rf)
+            lines = annotate_explain(plan.rel, ctx.op_stats, rf=ctx.rf,
+                                     skew_stats=ctx.skew_stats)
+            # the per-operator stats behind the lines (under MPP: engine, rows per
+            # shard, shard skew), where the reference keeps them in its query
+            # profile (ROADMAP Queue 1 item 16)
+            self.last_op_stats = ctx.op_stats
             lines += [f"-- rows: {rows}", f"-- elapsed: {elapsed:.3f}s",
                       f"-- transfer: h2d_bytes={TRANSFER_STATS['bytes'] - x0['bytes']} "
                       f"transfers={TRANSFER_STATS['transfers'] - x0['transfers']}"] + \

@@ -19,7 +19,7 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15)",
+    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15b)",
     "baseline": "the plan-baseline surface of the operations plane "
                 "(ROADMAP Queue 1 item 16)",
     "slow": "utils/tracing.py (ROADMAP Queue 1 item 16)",

@@ -23,7 +23,7 @@ Trimmed against the reference: the counters `gsi_async_applies` and
 `async_apply_failures` go through `Instance.count`, and the two gauges are plain
 values (the metrics registry, and `events.publish` of a failed apply, wait for
 ROADMAP Queue 1 item 16); replica DML legs (`_apply_replica`, `_mark_stale`) wait for
-the workers of item 15, so a `replica` task raises `NotSupportedError`.
+the workers of item 15b, so a `replica` task raises `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ class AsyncApplier:
             if t.get("kind") == "replica":
                 raise errors.NotSupportedError(
                     "async replica DML legs wait for net/worker.py "
-                    "(ROADMAP Queue 1 item 15)")
+                    "(ROADMAP Queue 1 item 15b)")
         now = time.time()
         with self._cond:
             for t in tasks:

@@ -20,7 +20,7 @@ booted instance loaded from disk.
 
 Not ported: the worker branches (`RemoteBranchParticipant`,
 `remote_participants_of`, `TwoPhaseCoordinator.recover_remote`) wait for the
-workers of ROADMAP Queue 1 item 15, so `commit` takes local participants only.
+workers of ROADMAP Queue 1 item 15b, so `commit` takes local participants only.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ COPIES = [
     "utils/lockdep.py", "meta/gms.py", "meta/privileges.py", "net/packets.py",
     "net/client.py", "meta/mdl.py", "exec/spill.py", "exec/memory.py",
     "utils/metrics.py", "storage/zonemap.py", "utils/tracing.py",
-    "exec/fragment_cache.py",
+    "exec/fragment_cache.py", "utils/events.py", "storage/ssb.py",
 ]
 
 
