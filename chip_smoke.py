@@ -12,9 +12,9 @@ Phases, one line each on standard output:
    launch counter is set to 0 just before the timed runs and read just after, and
    each kernel must have launched; then each query again WARM_REPEATS times, for the
    spread of warm times within the call.  The instance runs with `SET GLOBAL
-   JOIN_SPILL_BYTES = MAIN_JOIN_SPILL_BYTES`; Q5 runs once more in a session at the
-   default 256 MiB, where it grace-joins (`main_path_default_spill`: its ms, spill
-   bytes and files; rows equal to the main path's);
+   JOIN_SPILL_BYTES = MAIN_JOIN_SPILL_BYTES`, and so do the workers phase's
+   coordinators: no phase runs a join at the default 256 MiB (the spill phase's
+   grace joins run at lowered thresholds, SPILL_SQL);
 4. kernels: each kernel's wrapper against its plain PyTorch version on the same CUDA
    tensors — the inputs the main path gave it, plus seeded edge cases (NULL lanes,
    duplicates, negative keys, dead rows, empty input, an overflowing round limit, a
@@ -24,8 +24,10 @@ Phases, one line each on standard output:
    bit, and timed with CUDA events;
 5. kernel scaling: the two kernels redesigned for the card (`expand_offsets`,
    `hash_place`) at a large shape, bit-checked against their plain versions and timed;
-6. reference: the same four queries through the port on the CPU (where every kernel
-   call site takes its plain version) over the same lanes; rows must be equal.
+6. reference: Q1, Q3 and Q6 through the port on the CPU (where every kernel call
+   site takes its plain version) over the same lanes; rows must be equal.  The main
+   path's Q5 (14.7 s on the CPU without statistics) is held instead to analyzed_tpch's
+   Q5 on the same lanes, which the CPU twin gives there.
 
 Then ANALYZE, all of TPC-H, TPC-DS and window functions, each phase on instances of its
 own, its launch counters set to 0 just before its timed runs and read just after:
@@ -92,6 +94,32 @@ CPU twin; no data is loaded:
     filter counts its rows after the filter under MPP, as in the reference: its rows
     plus the filter's pruned rows), with rows per shard.  Launch counters are set to 0 at the phase's start and read at
     its end; all four kernels must have launched.
+
+9c. workers: a second process.  (a) A card instance holding analyzed_tpch's
+    WORKER_TABLES (orders, customer, supplier; the same host lanes) is saved into a
+    worker data dir and freed, and a port worker (`python -m
+    galaxysql_tpu_torch.net.worker --device cuda --data-dir ...`, started by exec)
+    boots from it on cuda:0.  (b) A card coordinator holding the other five tables
+    (the same lanes and statistics) attaches the three as remote tables: Q3, Q5, Q10
+    and Q18 twice each (the second run timed), rows equal to analyzed_tpch's (floats
+    within 1e-6), first and warm ms beside analyzed_tpch's local warm ms, the rows
+    each remote scan shipped and the trace's remote-plan / remote-scan lines; a CPU
+    coordinator attached to the same worker gives the same rows on
+    WORKER_CPU_QUERIES.  (c) On the card coordinator: a transaction inserts a new
+    order on the remote orders and its lineitems locally, reads its own remote row
+    through the branch xid, COMMITs (two phases with one remote branch; its ms beside
+    a local-only COMMIT's); a second one ROLLs BACK and leaves neither row; an
+    autocommit UPDATE of a remote row.  (d) A branch brought to PREPARED, the worker
+    SIGKILLed, the commit point logged, the worker restarted from its data dir and the
+    tables attached again: `recover_remote` commits the branch and the row reads back
+    (restart and re-attach seconds).  (e) A second worker on cuda:0 attached as
+    supplier's replica and backfilled; an autocommit write reaches both endpoints;
+    the replica killed, reads keep serving (a failover), a write marks it stale; it is
+    restarted and attached again with backfill=True, its rows then equal to the
+    primary's; SHOW WORKERS.  Launch counters are set to 0 before (b) and read at the
+    phase's end, on the coordinator: all four kernels must have launched there (the
+    workers' own launches are not visible to it).  Every worker is killed at the
+    phase's end.
 
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
@@ -271,9 +299,10 @@ their own:
     l_suppkey whose partials spill at the default threshold, and a join with
     supplier23, each first and warm, every scan of li23 streaming 16 batches, every
     answer equal to numpy over the generated values.  (c) `SortOp` over
-    SORT_BATCH_ROWS-row card batches of lineitem's lanes at SPILL_BYTES: at least 4
-    sorted runs, ASC and DESC, a NULL lane, LIMIT/OFFSET, equal to the in-memory
-    `SortOp` on the same batches; then a sort whose input raises mid-stream.  The spill
+    SORT_BATCH_ROWS-row card batches of the first quarter of lineitem's lanes at
+    SORT_SPILL_BYTES: at least 4 sorted runs, ASC and DESC, a NULL lane, LIMIT/OFFSET,
+    equal to the in-memory `SortOp` on the same batches; then a sort whose input
+    raises mid-stream.  The spill
     directory must be empty after every query, the failing one included.  Launch
     counters are set to 0 at each phase's start and read at its end; all four kernels
     must have launched in each.
@@ -313,10 +342,10 @@ twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
 Floats in 7-10, 9a, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares
 them (relative and absolute 1e-6); every other value must be equal.  The largest input
 the phases 7-9 gave each kernel, and apart from it the largest input each of the
-exec_hub, mpp, dml, ddl, durable, cdc and spill phases gave it, are then held
+exec_hub, mpp, workers, dml, ddl, durable, cdc and spill phases gave it, are then held
 against the kernel's plain version CHECK_REPEATS times and timed, beside the main
 path's, in the kernel's `new_phases` entry (`exec_hub_input`, `mpp_input`,
-`dml_input`, `ddl_input`, `durable_input`, `cdc_input`, `spill_input`,
+`workers_input`, `dml_input`, `ddl_input`, `durable_input`, `cdc_input`, `spill_input`,
 `columnar_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
@@ -349,7 +378,7 @@ QUERIES = (1, 3, 5, 6)
 # 1 GiB and grace-joins it at the default 256 MiB and at 1 GiB (13.5-16.6 s against
 # 85 ms in memory on an H100), which the phases that repeat Q5 would pay some 25 times;
 # 8 GiB is above the main path's peak device bytes (7.49 GB), so its joins stay in
-# memory.  The main path runs Q5 once at the default as well (`default_spill_q5`).
+# memory.
 MAIN_JOIN_SPILL_BYTES = 8 << 30
 OLTP_ROWS = 1_000_000       # rows of the sysbench table of the point phase
 DML_OLTP_ROWS = 250_000     # rows of the dml phase's sysbench table (a cut for time)
@@ -378,7 +407,7 @@ DML_CARD_ONLY = (18,)
 # analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
 # twin takes 29-38 s); tests/test_torch_tpch.py holds them to the reference at SF 0.01
 ANALYZED_CARD_ONLY = (20,)
-TPCDS_SF_SCALE = 0.5        # the tpcds phase's scale, a fraction of --sf (a cut for time)
+TPCDS_SF_SCALE = 0.25       # the tpcds phase's scale, a fraction of --sf (a cut for time)
 # analyzed_tpch queries held to numpy by the dml phase instead (`q18_numpy`), before
 # its refresh, on copies of the same lanes (Q18's CPU twin alone is 30-50 s)
 ANALYZED_CPU_SKIP = (18,)
@@ -421,7 +450,11 @@ LI23_FUSE_MAX_ROWS = 1 << 25
 LI23_SUPPLIERS = 23 * 10_000
 LI23_PARTS = 23 * 200_000
 LI23_PARTITIONS = 16
-SORT_BATCH_ROWS = 1 << 20   # rows of each batch of the operator-level external sort
+SORT_BATCH_ROWS = 1 << 18   # rows of each batch of the operator-level external sort
+# the external sort's threshold: it sorts the first quarter of lineitem (a cut for
+# time) in quarter batches, each past a quarter of the phase's threshold, so each is
+# one sorted run: six, as all of lineitem gave in 2^20-row batches at SPILL_BYTES
+SORT_SPILL_BYTES = SPILL_BYTES // 4
 KERNELS = {
     "build_slots": ("galaxysql_tpu_torch/kernels/csrc/join_slots.cu",
                     "galaxysql_tpu/kernels/pallas_join.py:123"),
@@ -553,33 +586,6 @@ def run_main_path(s, capture):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return rows, timed, first_ms, per_query, launches, spilled
-
-
-def default_spill_q5(inst, rows):
-    """Q5 without statistics once more, in a session at the default JOIN_SPILL_BYTES
-    (256 MiB): its rows must equal the main path's; its ms and spill bytes and files."""
-    import torch
-    from galaxysql_tpu_torch.config import params
-    from galaxysql_tpu_torch.server.session import Session
-    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
-    s = Session(inst, "tpch")
-    try:
-        default = params.JOIN_SPILL_BYTES.default
-        s.execute(f"SET JOIN_SPILL_BYTES = {default}")
-        spill0 = _spill_totals()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = s.execute(SQL[5]).rows
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1000.0
-        spill1 = _spill_totals()
-    finally:
-        s.close()
-    if got != rows[5]:
-        raise AssertionError("Q5 at the default JOIN_SPILL_BYTES differs from the main "
-                             "path's Q5")
-    return {"join_spill_bytes": default, "ms": ms,
-            **{k: spill1[k] - spill0[k] for k in spill1}}
 
 
 def warm_repeats(s, rows):
@@ -974,6 +980,8 @@ def cpu_reference(gpu_inst, rows_gpu):
                                                       parts, dicts))
     times = {}
     for q in QUERIES:
+        if q == 5:  # held to analyzed_tpch's Q5 instead (a cut for time)
+            continue
         t0 = time.perf_counter()
         rows = s.execute(SQL[q]).rows
         times[q] = (time.perf_counter() - t0) * 1000.0
@@ -1027,13 +1035,14 @@ def _rows_match(got, want):
     return True, floats, worst
 
 
-def _copy_instance(src_inst, schema, tables, ddl, device):
+def _copy_instance(src_inst, schema, tables, ddl, device, data_dir=None):
     """A fresh instance on `device` holding `src_inst`'s tables of `schema` (the same
-    host lanes, carried through `storage.transfer`); no plan has run on it."""
+    host lanes, carried through `storage.transfer`); no plan has run on it.  Its
+    metadb and checkpoints go to `data_dir` (in memory without one)."""
     from galaxysql_tpu_torch.server.instance import Instance
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import transfer
-    inst = _frag_off(Instance(device=device))
+    inst = _frag_off(Instance(data_dir=data_dir, device=device))
     s = Session(inst)
     s.execute(f"CREATE DATABASE {schema}")
     s.execute(f"USE {schema}")
@@ -1475,13 +1484,13 @@ MPP_CACHE_QUERIES = (3, 5)                # (b) the fragment cache replays MPP a
 MPP_SHUFFLE_QUERIES = (3, 5, 9, 18)       # (c) at BROADCAST_BUILD_LIMIT = 0
 # `tests/test_mpp.py`'s: True = the result is ordered (compared in order)
 MPP_ORDERED = {6: False, 14: False, 17: False, 19: False}
-SKEW_FACT_ROWS = 1 << 24    # (d) fact_hot
+SKEW_FACT_ROWS = 1 << 23    # (d) fact_hot (2^24 before a cut for time)
 SKEW_KEYS = 100_000         # fact_hot's key domain; dim holds one row a key
 SKEW_HOT_SHARE = 0.35       # the one hot key's share of fact_hot
 # mid: one row a key over [0, SKEW_MID_ROWS); at a quarter of fact_hot's rows the
 # engine keeps fact_hot as the join's build side, the reference's skewed-build shape
 # (test_skew.py's mid is 16,384 rows beside 57,344: above a quarter too)
-SKEW_MID_ROWS = 1 << 22
+SKEW_MID_ROWS = 1 << 21
 SKEW_SQL = {
     "hybrid_probe": ("SELECT d.attr, COUNT(*), SUM(f.v) FROM fact_hot f, dim d "
                      "WHERE f.k = d.k GROUP BY d.attr"),
@@ -1818,6 +1827,382 @@ def mpp_phase(gs, analyzed_rows, local_ms, sf):
     if missing:
         raise AssertionError(f"kernels not launched in mpp: {missing}")
     out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- workers: a second process holding tables ------------------------------------------
+
+WORKER_TABLES = ("orders", "customer", "supplier")  # held by the worker process
+WORKER_LOCAL = ("lineitem", "nation", "region", "part", "partsupp")
+WORKER_QUERIES = (3, 5, 10, 18)
+WORKER_CPU_QUERIES = (3, 10)   # also run by a CPU coordinator attached to the worker
+WORKER_BOOT_S = 300.0          # a worker printing no WORKER_READY by then failed
+WORKER_NEW_ORDER = 6_000_001   # past every SF 1 order key (the phase's own orders)
+
+
+class _Worker:
+    """A port worker process (`python -m galaxysql_tpu_torch.net.worker`) on cuda:0.
+    Started by exec, never a fork: CUDA is initialised in this process.  `start()`
+    reads its WORKER_READY line within WORKER_BOOT_S and keeps the port across
+    restarts, so attached clients reconnect; the caller kills it in `finally`."""
+
+    def __init__(self, work_dir, name, data_dir=None):
+        self.data_dir = data_dir
+        self.port = 0
+        self.proc = None
+        self.log = os.path.join(work_dir, f"{name}.log")
+        self.boot_s = None
+
+    def start(self):
+        """Launch and wait for WORKER_READY; returns the boot seconds."""
+        self.launch()
+        return self.wait_ready()
+
+    def launch(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "galaxysql_tpu_torch.net.worker",
+               "--port", str(self.port), "--device", "cuda"]
+        if self.data_dir:
+            cmd += ["--data-dir", self.data_dir]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self._t0 = time.perf_counter()
+        with open(self.log, "a") as err:
+            self.proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                         stderr=err, env=env, text=True)
+
+    def wait_ready(self):
+        import select
+        ready, _, _ = select.select([self.proc.stdout], [], [], WORKER_BOOT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line.startswith("WORKER_READY"):
+            self.kill()
+            with open(self.log) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"worker failed to start: {line!r}\n{tail}")
+        self.port = int(line.split()[1])
+        self.boot_s = time.perf_counter() - self._t0
+        return self.boot_s
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    @property
+    def addr(self):
+        return ("127.0.0.1", self.port)
+
+
+def _worker_coordinator(gi, device):
+    """A coordinator on `device` holding analyzed_tpch's WORKER_LOCAL tables (the
+    same lanes, its statistics); the worker's WORKER_TABLES are attached later."""
+    from galaxysql_tpu_torch.storage import tpch
+    inst, s = _copy_instance(gi, "tpch", WORKER_LOCAL, tpch.TPCH_DDL, device)
+    # the main path's threshold: without statistics of the remote tables Q5's join
+    # order builds past the default 256 MiB, and a grace join is not this phase's path
+    inst.config.set_instance("JOIN_SPILL_BYTES", MAIN_JOIN_SPILL_BYTES)
+    _take_statistics(gi, inst, "tpch", WORKER_LOCAL)
+    return inst, s
+
+
+def _order_row(key, comment):
+    return (f"({key}, 1, 'O', 1234.56, DATE '1996-01-02', '1-URGENT', "
+            f"'Clerk#000000001', 0, '{comment}')")
+
+
+def _lineitem_rows(key):
+    return ", ".join(
+        f"({key}, {ln}, {ln + 1}, {ln}, 1.00, 1000.00, 0.05, 0.01, 'N', 'O', "
+        f"DATE '1996-02-01', DATE '1996-02-10', DATE '1996-02-20', 'NONE', 'AIR', "
+        f"'workers phase')" for ln in (1, 2))
+
+
+def _worker_queries(gs, cs_cpu, analyzed_rows, local_ms):
+    """(b) Q3, Q5, Q10 and Q18 over the remote tables, twice each on the card
+    coordinator (the second run timed), WORKER_CPU_QUERIES once on the CPU one."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    out = {}
+    for q in WORKER_QUERIES:
+        first, first_ms = _timed(gs, SQL[q])
+        # "remote-plan <table> -> <host>:<port> rows=<rows shipped>"
+        trace = [t for t in gs.last_trace if t.startswith(("remote-plan", "remote-scan"))]
+        shipped = [(t.split()[1], int(t.rsplit("rows=", 1)[1])) for t in trace]
+        before = _launch_counts()
+        warm, warm_ms = _timed(gs, SQL[q])
+        after = _launch_counts()
+        want = analyzed_rows[f"Q{q}"]
+        for label, got in (("first", first.rows), ("warm", warm.rows)):
+            ok, floats, worst = _rows_match(got, want)
+            if not ok:
+                raise AssertionError(f"workers Q{q} ({label}): rows over the remote "
+                                     f"tables differ from analyzed_tpch's:\n  "
+                                     f"{got[:3]}\n  {want[:3]}")
+        line = {"first_ms": first_ms, "warm_ms": warm_ms,
+                "local_warm_ms": local_ms[f"Q{q}"], "rows": len(warm.rows),
+                "shipped_rows": shipped, "trace": trace,
+                "launches": {k: after[k] - before[k] for k in after},
+                "max_float_rel_diff": worst}
+        if q in WORKER_CPU_QUERIES:
+            t0 = time.perf_counter()
+            cpu = cs_cpu.execute(SQL[q]).rows
+            line["cpu_ms"] = (time.perf_counter() - t0) * 1000.0
+            ok, _f, w = _rows_match(warm.rows, cpu)
+            if not ok:
+                raise AssertionError(f"workers Q{q}: the CPU coordinator's rows differ "
+                                     f"from the card's:\n  {cpu[:3]}\n  "
+                                     f"{warm.rows[:3]}")
+            line["cpu_max_float_rel_diff"] = w
+        if not any(t.startswith("remote-plan") for t in trace):
+            raise AssertionError(f"workers Q{q}: no remote-plan in the trace: {trace}")
+        out[f"Q{q}"] = line
+        say("workers_query", query=f"Q{q}", **line)
+    return out
+
+
+def _one(s, sql):
+    rows = s.execute(sql).rows
+    return rows[0][0] if rows else None
+
+
+def _worker_writes(gi, gs):
+    """(c) 2PC with one remote branch, a rollback and an autocommit UPDATE."""
+    import torch
+    from galaxysql_tpu_torch.server.session import Session
+    k1, k2 = WORKER_NEW_ORDER, WORKER_NEW_ORDER + 1
+    other = Session(gi, "tpch")
+    out = {}
+    try:
+        gs.execute("BEGIN")
+        gs.execute(f"INSERT INTO orders VALUES {_order_row(k1, 'committed')}")
+        gs.execute(f"INSERT INTO lineitem VALUES {_lineitem_rows(k1)}")
+        own = gs.execute(f"SELECT o_totalprice, count(*) FROM orders, lineitem "
+                         f"WHERE o_orderkey = l_orderkey AND o_orderkey = {k1} "
+                         f"GROUP BY o_totalprice").rows
+        if own != [(1234.56, 2)]:
+            raise AssertionError(f"workers (c): the transaction's own rows {own}")
+        if gs.last_trace and not any(t.startswith("remote-") for t in gs.last_trace):
+            raise AssertionError("workers (c): the read did not reach the worker")
+        if _one(other, f"SELECT count(*) FROM orders WHERE o_orderkey = {k1}") != 0:
+            raise AssertionError("workers (c): another session sees the uncommitted row")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs.execute("COMMIT")
+        out["commit_remote_ms"] = (time.perf_counter() - t0) * 1000.0
+        got = other.execute(f"SELECT o_comment, count(*) FROM orders, lineitem WHERE "
+                            f"o_orderkey = l_orderkey AND o_orderkey = {k1} "
+                            f"GROUP BY o_comment").rows
+        if got != [("committed", 2)]:
+            raise AssertionError(f"workers (c): after COMMIT {got}")
+        # a local-only COMMIT beside it
+        gs.execute("BEGIN")
+        gs.execute(f"UPDATE lineitem SET l_comment = 'local only' WHERE l_orderkey = {k1}")
+        t0 = time.perf_counter()
+        gs.execute("COMMIT")
+        out["commit_local_ms"] = (time.perf_counter() - t0) * 1000.0
+        # a rollback leaves neither row
+        gs.execute("BEGIN")
+        gs.execute(f"INSERT INTO orders VALUES {_order_row(k2, 'rolled back')}")
+        gs.execute(f"INSERT INTO lineitem VALUES {_lineitem_rows(k2)}")
+        t0 = time.perf_counter()
+        gs.execute("ROLLBACK")
+        out["rollback_remote_ms"] = (time.perf_counter() - t0) * 1000.0
+        left = (_one(gs, f"SELECT count(*) FROM orders WHERE o_orderkey = {k2}"),
+                _one(gs, f"SELECT count(*) FROM lineitem WHERE l_orderkey = {k2}"))
+        if left != (0, 0):
+            raise AssertionError(f"workers (c): ROLLBACK left {left}")
+        # an autocommit UPDATE of a remote row
+        t0 = time.perf_counter()
+        rs = gs.execute("UPDATE orders SET o_comment = 'updated remotely' "
+                        "WHERE o_orderkey = 1")
+        out["autocommit_update_ms"] = (time.perf_counter() - t0) * 1000.0
+        got = _one(other, "SELECT o_comment FROM orders WHERE o_orderkey = 1")
+        if rs.affected != 1 or got != "updated remotely":
+            raise AssertionError(f"workers (c): autocommit UPDATE {rs.affected} {got}")
+    finally:
+        other.close()
+    return out
+
+
+def _worker_crash(gi, gs, w1):
+    """(d) A branch PREPARED, the worker SIGKILLed, the commit point logged, a restart
+    from its data dir and a re-attach: recover_remote commits the branch."""
+    from galaxysql_tpu_torch.txn.xa import remote_participants_of
+    k3 = WORKER_NEW_ORDER + 2
+    gs.execute("BEGIN")
+    gs.execute(f"INSERT INTO orders VALUES {_order_row(k3, 'in doubt')}")
+    txn = gs.txn
+    parts = remote_participants_of(gi, txn)
+    t0 = time.perf_counter()
+    if len(parts) != 1 or not parts[0].prepare():
+        raise AssertionError("workers (d): the branch did not prepare")
+    out = {"prepare_ms": (time.perf_counter() - t0) * 1000.0}
+    w1.kill()
+    cts = gi.tso.next_timestamp()
+    gi.metadb.tx_log_put(txn.txn_id, "COMMITTED", cts)  # the commit point
+    gs.txn = None  # recovery resolves the session's transaction
+    out["commit_point"] = cts
+    out["restart_s"] = w1.start()
+    t0 = time.perf_counter()
+    out["recover_remote"] = gi.xa_coordinator.recover_remote()
+    for t in WORKER_TABLES:
+        gi.attach_remote_table("tpch", t, *w1.addr)
+    out["reattach_s"] = time.perf_counter() - t0
+    if list(out["recover_remote"].values()) != ["committed"]:
+        raise AssertionError(f"workers (d): recover_remote {out['recover_remote']}")
+    got = gs.execute(f"SELECT o_comment FROM orders WHERE o_orderkey = {k3}").rows
+    if got != [("in doubt",)]:
+        raise AssertionError(f"workers (d): the recovered row reads {got}")
+    if gi.xa_coordinator.recover_remote() != {}:
+        raise AssertionError("workers (d): a branch is still in doubt")
+    return out
+
+
+def _supplier_of(client):
+    import numpy as np
+    cols = ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone", "s_acctbal",
+            "s_comment"]
+    names, _types, data, _valid = client.exec_plan(
+        {"schema": "tpch", "table": "supplier", "columns": cols})
+    order = np.argsort(data["s_suppkey"], kind="stable")
+    return {c: data[c][order] for c in names}
+
+
+def _worker_replica_down(gi, gs, w2):
+    """(e), first half: a second worker (launched at the phase's start) as a replica
+    of supplier: backfilled, written through, killed (reads fail over, a write marks
+    it stale); its restart is launched and boots while (d) runs."""
+    from galaxysql_tpu_torch.utils.metrics import WORKER_FAILOVERS
+    out = {"replica_boot_s": w2.boot_s}
+    t0 = time.perf_counter()
+    # a huge weight routes reads to the replica
+    gi.attach_replica("tpch", "supplier", *w2.addr, weight=10 ** 6)
+    out["backfill_ms"] = (time.perf_counter() - t0) * 1000.0
+    remote = gi.catalog.table("tpch", "supplier").remote
+    prim = gi.workers[(remote["host"], remote["port"])]
+    rep = gi.workers[w2.addr]
+    rs = gs.execute("UPDATE supplier SET s_acctbal = 1234.56 WHERE s_suppkey = 1")
+    gi.applier.drain(60.0)
+    probe = "SELECT s_acctbal FROM supplier WHERE s_suppkey = 1"
+    both = [int(next(iter(c.execute(probe, "tpch")[2].values()))[0])
+            for c in (prim, rep)]
+    if rs.affected != 1 or both != [123456, 123456]:
+        raise AssertionError(f"workers (e): the write reached {both}")
+    before = gs.execute("SELECT count(*), sum(s_acctbal) FROM supplier").rows
+    w2.kill()
+    f0 = WORKER_FAILOVERS.value
+    t0 = time.perf_counter()
+    after = gs.execute("SELECT count(*), sum(s_acctbal) FROM supplier").rows
+    out["failover_read_ms"] = (time.perf_counter() - t0) * 1000.0
+    out["failovers"] = WORKER_FAILOVERS.value - f0
+    if after != before or out["failovers"] < 1 or not gi.ha.worker_fenced(w2.addr):
+        raise AssertionError(f"workers (e): reads after the replica died {after} "
+                             f"{before}, failovers {out['failovers']}")
+    # the fenced replica is not contacted again: it may boot during the write
+    w2.launch()
+    gs.execute("UPDATE supplier SET s_acctbal = 99.99 WHERE s_suppkey = 2")
+    entry = [r for r in gi.catalog.table("tpch", "supplier").replicas
+             if (r["host"], r["port"]) == w2.addr][0]
+    if entry.get("stale") is not True:
+        raise AssertionError("workers (e): a write did not mark the dead replica stale")
+    return out
+
+
+def _worker_replica_rebuild(gi, gs, w2, out):
+    """(e), second half: the restarted replica attached again with backfill=True; its
+    rows must equal the primary's."""
+    import numpy as np
+    remote = gi.catalog.table("tpch", "supplier").remote
+    prim = gi.workers[(remote["host"], remote["port"])]
+    rep = gi.workers[w2.addr]
+    entry = [r for r in gi.catalog.table("tpch", "supplier").replicas
+             if (r["host"], r["port"]) == w2.addr][0]
+    out["replica_restart_s"] = w2.wait_ready()
+    gi.ha.fence_worker(w2.addr, False)
+    rep.ping()  # closes the breaker
+    t0 = time.perf_counter()
+    gi.attach_replica("tpch", "supplier", *w2.addr, weight=10 ** 6, backfill=True)
+    out["rebuild_ms"] = (time.perf_counter() - t0) * 1000.0
+    a, b = _supplier_of(prim), _supplier_of(rep)
+    if entry.get("stale") or set(a) != set(b) or \
+            not all(np.array_equal(a[c], b[c]) for c in a):
+        raise AssertionError("workers (e): the rebuilt replica differs from the primary")
+    out["replica_rows"] = int(a["s_suppkey"].shape[0])
+    got = gs.execute("SELECT s_acctbal FROM supplier WHERE s_suppkey = 2").rows
+    if got != [(99.99,)]:
+        raise AssertionError(f"workers (e): the rebuilt replica reads {got}")
+    out["show_workers"] = [list(r) for r in gs.execute("SHOW WORKERS").rows]
+    return out
+
+
+def workers_phase(gi, analyzed_rows, local_ms, work_dir):
+    """(a) a worker process on cuda:0 booted from a data dir holding analyzed_tpch's
+    orders, customer and supplier; (b) Q3, Q5, Q10 and Q18 on a card coordinator
+    holding the other five tables, and Q3 and Q10 on a CPU one, both attached to it;
+    (c) 2PC, a rollback and an autocommit UPDATE across the seam; (d) a worker crash
+    after PREPARE, recovered; (e) a second worker as a replica of supplier.  The
+    worker's own kernel launches are not visible here: the launches are the
+    coordinator's."""
+    import torch
+    from galaxysql_tpu_torch.storage import tpch
+    t_phase = time.perf_counter()
+    os.makedirs(work_dir, exist_ok=True)
+    wdir = os.path.join(work_dir, "w1")
+    t0 = time.perf_counter()
+    src, src_s = _copy_instance(gi, "tpch", WORKER_TABLES, tpch.TPCH_DDL, "cuda",
+                                data_dir=wdir)
+    src.save()
+    src_s.close()
+    src.shutdown()
+    del src, src_s
+    torch.cuda.empty_cache()
+    out = {"worker_dir_ms": (time.perf_counter() - t0) * 1000.0,
+           "worker_tables": list(WORKER_TABLES), "coordinator_tables": list(WORKER_LOCAL),
+           "launches_note": "the coordinator's launches; the workers' own launches "
+                            "are not visible to the coordinator"}
+    w1 = _Worker(work_dir, "w1", data_dir=wdir)
+    w2 = _Worker(work_dir, "w2")
+    try:
+        # both boot side by side (the second is (e)'s replica) while the
+        # coordinators' local tables are copied
+        w1.launch()
+        w2.launch()
+        t0 = time.perf_counter()
+        ci, cs = _worker_coordinator(gi, "cuda")
+        pi, ps = _worker_coordinator(gi, "cpu")
+        out["coordinators_ms"] = (time.perf_counter() - t0) * 1000.0
+        out["worker_boot_s"] = w1.wait_ready()
+        w2.wait_ready()
+        say("workers_boot", seconds=out["worker_boot_s"], dir_ms=out["worker_dir_ms"])
+        for inst in (ci, pi):
+            for t in WORKER_TABLES:
+                inst.attach_remote_table("tpch", t, *w1.addr)
+        _reset_launches()
+        out["queries"] = _worker_queries(cs, ps, analyzed_rows, local_ms)
+        ps.close()
+        del pi, ps
+        out["writes"] = _worker_writes(ci, cs)
+        say("workers_writes", **out["writes"])
+        # (e)'s replica dies first, so that its restart boots beside (d)'s
+        out["replica"] = _worker_replica_down(ci, cs, w2)
+        out["crash"] = _worker_crash(ci, cs, w1)
+        say("workers_crash", **out["crash"])
+        _worker_replica_rebuild(ci, cs, w2, out["replica"])
+        say("workers_replica", **{k: v for k, v in out["replica"].items()
+                                  if k != "show_workers"})
+        out["launches"] = _launch_counts()
+        cs.close()
+        ci.shutdown()
+        del ci, cs
+    finally:
+        w1.kill()
+        w2.kill()
+        shutil.rmtree(wdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in workers: {missing}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -4253,14 +4638,16 @@ class _RaisingSource:
 
 
 def _spill_sort(inst, out, seed):
-    """(c) `SortOp` over lineitem batches on the card at a SPILL_BYTES threshold:
-    several sorted runs, merged, equal to the in-memory `SortOp` on the same batches;
-    then a sort whose input raises mid-stream leaves no spill file."""
+    """(c) `SortOp` over a quarter of lineitem's rows in batches on the card at
+    SORT_SPILL_BYTES: several sorted runs, merged, equal to the in-memory `SortOp` on
+    the same batches; then a sort whose input raises mid-stream leaves no spill
+    file."""
     import numpy as np
     import torch
     from galaxysql_tpu_torch.exec import operators as ops
     from galaxysql_tpu_torch.expr import ir
-    batches, tm = _sort_batches(inst, inst.store("tpch", "lineitem").row_count(), seed)
+    batches, tm = _sort_batches(inst, inst.store("tpch", "lineitem").row_count() // 4,
+                                seed)
 
     def ref(c):
         return ir.ColRef(c, tm.column(c).dtype)
@@ -4279,7 +4666,7 @@ def _spill_sort(inst, out, seed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         spilled = ops.SortOp(ops.SourceOp(batches), keys, limit, offset,
-                             spill_threshold=SPILL_BYTES)
+                             spill_threshold=SORT_SPILL_BYTES)
         with _Timer(spilled, "_key_codes") as codes, \
                 _Timer(spilled, "_spill_run") as runs:
             got = drain(spilled)
@@ -4306,7 +4693,7 @@ def _spill_sort(inst, out, seed):
     out["batches"] = len(batches)
     out["batch_rows"] = SORT_BATCH_ROWS
     failing = ops.SortOp(_RaisingSource(batches, len(batches) - 1),
-                         cases["asc_nulls_first"][0], spill_threshold=SPILL_BYTES)
+                         cases["asc_nulls_first"][0], spill_threshold=SORT_SPILL_BYTES)
     try:
         ops.run_to_batch(failing)
         raise AssertionError("the failing input did not raise")
@@ -4788,7 +5175,6 @@ def run(args, data_dir) -> int:
         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
         device_cache_bytes=inst.device_cache.nbytes,
         result_rows={q: len(r) for q, r in rows.items()})
-    say("main_path_default_spill", q5=default_spill_q5(inst, rows))
 
     repeat_ms, gen2 = warm_repeats(s, rows)
     say("warm_repeats", query_ms=repeat_ms,
@@ -4800,7 +5186,8 @@ def run(args, data_dir) -> int:
     say("kernel_scaling", kernels=kernel_scaling(inst))
 
     cpu_ms, cpu_inst = cpu_reference(inst, rows)
-    say("reference", device="cpu", query_ms=cpu_ms, equal=True)
+    say("reference", device="cpu", query_ms=cpu_ms, equal=True,
+        held_to_analyzed_tpch=[5])
 
     from galaxysql_tpu_torch.plan import logical as L
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
@@ -4813,6 +5200,8 @@ def run(args, data_dir) -> int:
         line["q5_plan_no_stats"] = q5_no_stats.splitlines()
         launches_by_phase["analyzed_tpch"] = line["launches"]
         unspilled, unspilled_ms = line.pop("rows"), line["query_ms"]
+        if not _rows_match(rows[5], unspilled["Q5"])[0]:
+            raise AssertionError("Q5: the main path's rows differ from analyzed_tpch's")
         say("analyzed_tpch", enable_fragment_cache=0, sf=args.sf, **line)
         line = run_phase(gs, cs, "tpch", WINDOW_QUERIES)
         launches_by_phase["window"] = line["launches"]
@@ -4848,6 +5237,20 @@ def run(args, data_dir) -> int:
     print(card, flush=True)
     say("mpp", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf, **mpp)
     mpp_inputs = check_new_phase_inputs(mpp_capture, {"mpp": mpp["launches"]})
+
+    workers_capture = kernel_capture()
+    try:
+        workers = workers_phase(analyzed, {f"Q{q}": unspilled[f"Q{q}"]
+                                           for q in WORKER_QUERIES},
+                                unspilled_ms, os.path.join(data_dir, "workers"))
+    finally:
+        workers_capture.restore()
+    print(card, flush=True)
+    show = workers["replica"].pop("show_workers")
+    say("workers", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf, **workers)
+    say("workers_show", show_workers=show)
+    workers_inputs = check_new_phase_inputs(workers_capture,
+                                            {"workers": workers["launches"]})
     unspilled = {k: v for k, v in unspilled.items()
                  if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
@@ -4867,6 +5270,8 @@ def run(args, data_dir) -> int:
         entry["new_phases"]["exec_hub_input"] = hub_inputs[entry["name"]]
         entry["new_phases"]["launches"]["mpp"] = mpp["launches"][entry["name"]]
         entry["new_phases"]["mpp_input"] = mpp_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["workers"] = workers["launches"][entry["name"]]
+        entry["new_phases"]["workers_input"] = workers_inputs[entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

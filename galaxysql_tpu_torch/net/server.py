@@ -12,12 +12,14 @@ metadb's users), the TLS upgrade, the compressed protocol, COM_QUERY
 
     python -m galaxysql_tpu_torch.net.server [--host H] [--port P] [--init-sql SQL]
                                              [--data-dir DIR] [--announce]
-                                             [--device cuda|cpu]
+                                             [--sync-port S] [--device cuda|cpu]
 
 serves an instance on the card (`--device cpu` for the CPU), booted from DIR's
 metadb and last checkpoint when `--data-dir` is given (a fresh in-memory one
-otherwise); `--announce` prints `SERVER_READY <port>` once listening.  The server
-never checkpoints: a checkpoint is `Instance.save()`, as in the reference.
+otherwise); `--sync-port` (0 = any free port) opens the coordinator's sync plane
+(`CoordinatorSyncListener`), and `--announce` prints `SERVER_READY <port>
+<sync_port>` (-1 without a sync plane) once listening.  The server never
+checkpoints: a checkpoint is `Instance.save()`, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import json
 import os
 import secrets
 import struct
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
@@ -429,6 +432,87 @@ class MySQLServer:
         await self._server.serve_forever()
 
 
+class CoordinatorSyncListener:
+    """The dn-wire sync endpoint of a coordinator process: a peer dials it with the
+    same `WorkerClient` it uses for workers, so `ping` and `sync` ops (and the RPC
+    failpoints, the circuit breaker, retry budgets) work against a peer
+    coordinator unchanged.  `sync` dispatches into `Instance.apply_sync_action`.
+    Replies carry the `wl` load piggyback's queue depth and uptime (the
+    reference's admission snapshot and memory tier wait for ROADMAP Queue 1
+    item 16)."""
+
+    def __init__(self, instance: Instance):
+        self.instance = instance
+        self.port = 0
+        self._srv = None
+        self._thread = None
+
+    def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        import socket
+        import threading
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, port))
+        srv.listen(16)
+        self.port = srv.getsockname()[1]
+        self._srv = srv
+        self._thread = threading.Thread(target=self._accept_loop, args=(srv,),
+                                        daemon=True)
+        self._thread.start()
+        return self.port
+
+    def stop(self):
+        if self._srv is not None:
+            try:
+                self._srv.close()
+            except OSError:
+                pass
+            self._srv = None
+
+    def _accept_loop(self, srv):
+        import threading
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return  # listener closed
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             daemon=True).start()
+
+    def _handle(self, header: dict) -> dict:
+        inst = self.instance
+        op = header.get("op")
+        if op == "ping":
+            resp = {"ok": True, "node": inst.node_id}
+        elif op == "sync":
+            try:
+                resp = inst.apply_sync_action(header.get("action"),
+                                              header.get("payload") or {})
+            except Exception as e:
+                resp = {"error": f"{type(e).__name__}: {e}",
+                        "errno": int(getattr(e, "errno", 1105) or 1105)}
+        else:
+            resp = {"error": f"unknown op {op!r} (coordinator sync plane "
+                             f"serves ping/sync only)"}
+        if isinstance(resp, dict) and "wl" not in resp:
+            resp["wl"] = {"q": len(inst.sessions),
+                          "up": round(time.time() - inst.started_at, 1)}
+        return resp
+
+    def _serve_conn(self, conn):
+        import socket
+        from galaxysql_tpu_torch.net.dn import recv_msg, send_msg
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        try:
+            while True:
+                header, _arrays = recv_msg(conn)
+                send_msg(conn, self._handle(header), {})
+        except (ConnectionError, OSError, errors.ProtocolError):
+            pass  # the peer hung up, or a corrupt frame: drop the connection
+        finally:
+            conn.close()
+
+
 def main(argv=None):  # pragma: no cover - manual entry point
     import argparse
     ap = argparse.ArgumentParser()
@@ -441,20 +525,28 @@ def main(argv=None):  # pragma: no cover - manual entry point
     ap.add_argument("--data-dir", default=None,
                     help="the metadb and checkpoint directory to boot from "
                          "(default: an in-memory metadb)")
+    ap.add_argument("--sync-port", type=int, default=-1,
+                    help="coordinator sync-plane port (0 = auto, -1 = off)")
     ap.add_argument("--announce", action="store_true",
-                    help="print 'SERVER_READY <mysql_port>' once listening")
+                    help="print 'SERVER_READY <mysql_port> <sync_port>' once "
+                         "listening")
     args = ap.parse_args(argv)
     inst = Instance(data_dir=args.data_dir, device=args.device)
     if args.init_sql:
         sess = Session(inst)
         sess.execute_all(args.init_sql)
         sess.close()
+    sync = None
+    if args.sync_port >= 0:
+        sync = CoordinatorSyncListener(inst)
+        sync.start(args.host, args.sync_port)
     server = MySQLServer(inst, args.host, args.port)
 
     async def _serve():
         await server.start()
         if args.announce:
-            print(f"SERVER_READY {server.port}", flush=True)
+            print(f"SERVER_READY {server.port} {sync.port if sync else -1}",
+                  flush=True)
         await server._server.serve_forever()
 
     asyncio.run(_serve())

@@ -6,6 +6,12 @@
   than FUSE_MAX_ROWS rows streams one cached batch a partition instead; a scan the
   rules marked `point_eq` reads its candidate rows through the partitions' sorted
   key indexes on the host and ships them as one small batch;
+- a scan of a remote table (one a worker process holds, `net/worker.py`) ships a
+  bound fragment (pruned columns, lane-domain SARGs, runtime-filter ranges and
+  IN-lists, a point key, the session's branch xid) to an endpoint `read_endpoint`
+  picks, failing over within the statement, and degrades to SQL text when the
+  worker refuses the fragment; the rows come back as one batch on the context's
+  device, strings encoded into this instance's dictionaries (`remote_column`);
 - a scan reads at the context's snapshot, or, under AS OF TSO n, at n with no
   transaction's provisional rows; the archive's batches of the table come first
   (`storage/archive.py`), then, where the session routed the query to the columnar
@@ -58,8 +64,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
-                                             batch_from_pydict,
+from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary,
+                                             as_tensor, batch_from_pydict,
                                              dictionary_union_translation)
 from galaxysql_tpu_torch.exec import fragment_cache as fc
 from galaxysql_tpu_torch.exec import fusion
@@ -72,7 +78,9 @@ from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.rules import conjuncts, estimate_rows
 from galaxysql_tpu_torch.storage.table_store import TableStore
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.types import temporal
+from galaxysql_tpu_torch.utils import errors, events
+from galaxysql_tpu_torch.utils.metrics import WORKER_FAILOVERS
 
 
 class ExecContext:
@@ -96,6 +104,10 @@ class ExecContext:
         self.archive_instance = archive_instance
         self.hints = hints or {}
         self.trace: List[str] = []
+        # open worker branches of the session's txn: addr -> xid.  Remote scans
+        # ship the xid so the worker reads through the branch (read-your-own-
+        # writes across the process seam)
+        self.remote_xids: Dict = {}
         # EXPLAIN ANALYZE instrumentation: per-operator rows/batches/wall time
         self.collect_stats = False
         self.op_stats: List[dict] = []
@@ -185,6 +197,58 @@ def _device_visibility(begin, end, ts, txn_id):
     return ins_ok & ~dele
 
 
+def remote_column(arr: np.ndarray, valid: Optional[np.ndarray], typ: dt.DataType,
+                  dictionary, scaled: bool):
+    """A shipped wire array -> (host lane, validity or None, dictionary): the lanes,
+    validity and dictionary codes the reference's decode gives
+    (`chunk.batch.column_from_pylist` over the values, NULL where `valid` is
+    False), computed on whole arrays.  Strings are encoded in first-seen order,
+    DATE/DATETIME text is parsed once a distinct value, and a DECIMAL shipped
+    scaled is adopted as it is.  A BIGINT UNSIGNED value past 2^63 arrives as
+    negative int64 bits and raises OverflowError there, as in the reference."""
+    if scaled:
+        return (arr.astype(typ.lane),
+                None if valid is None else valid.astype(np.bool_), dictionary)
+    n = arr.shape[0]
+    ok = np.ones(n, dtype=np.bool_) if valid is None else valid.astype(np.bool_)
+    out_valid = None if bool(ok.all()) else ok
+    if typ.is_string:
+        dictionary = dictionary if dictionary is not None else Dictionary()
+        lane = np.zeros(n, dtype=np.int32)
+        present = arr[ok]
+        if present.size:
+            uniq, first, inv = np.unique(present, return_index=True,
+                                         return_inverse=True)
+            order = np.argsort(first, kind="stable")
+            codes = np.empty(uniq.shape[0], dtype=np.int32)
+            for u in order.tolist():
+                codes[u] = dictionary.encode_one(str(uniq[u]))
+            lane[ok] = codes[inv.reshape(-1)]
+        return lane, out_valid, dictionary
+    lane = np.zeros(n, dtype=typ.lane)
+    if typ.clazz in (dt.TypeClass.DATE, dt.TypeClass.DATETIME) and arr.dtype.kind == "U":
+        present = arr[ok]
+        if present.size:
+            parse = temporal.parse_date if typ.clazz == dt.TypeClass.DATE \
+                else temporal.parse_datetime
+            uniq, inv = np.unique(present, return_inverse=True)
+            vals = np.array([parse(str(x)) for x in uniq.tolist()], dtype=np.int64)
+            lane[ok] = vals[inv.reshape(-1)]
+        return lane, out_valid, dictionary
+    if typ.clazz == dt.TypeClass.DECIMAL:
+        # the reference's round(float(v) * 10**scale), half to even
+        lane[ok] = np.round(arr[ok].astype(np.float64) *
+                            float(10 ** typ.scale)).astype(typ.lane)
+        return lane, out_valid, dictionary
+    present = arr[ok]
+    if typ.lane == np.uint64 and present.size and \
+            np.issubdtype(present.dtype, np.signedinteger) and bool((present < 0).any()):
+        bad = int(present[np.argmax(present < 0)])
+        raise OverflowError(f"Python integer {bad} out of bounds for uint64")
+    lane[ok] = present.astype(typ.lane)
+    return lane, out_valid, dictionary
+
+
 class ScanSource(ops.Operator):
     """Storage scan renamed into plan field-id space: the scanned partitions fused
     into ONE batch whose lanes come from the device cache, or, for a full-table scan
@@ -196,8 +260,10 @@ class ScanSource(ops.Operator):
 
     def batches(self) -> Iterator[ColumnBatch]:
         t = self.node.table
+        self.ctx.check_deadline()  # drain boundary: scans feed every pipeline
         if getattr(t, "remote", None) is not None:
-            raise errors.NotSupportedError(f"remote table {t.name}")
+            yield from self._remote_batches(t)
+            return
         key = f"{t.schema.lower()}.{t.name.lower()}"
         store = self.ctx.stores[key]
         storage_cols = [c for _, c in self.node.columns]
@@ -244,6 +310,109 @@ class ScanSource(ops.Operator):
                                     snap, txn_id)
         if b is not None:
             yield b.rename(rename)  # fused cols are storage-name keyed
+
+    def _remote_batches(self, t) -> Iterator[ColumnBatch]:
+        """Plan shipping to the worker that holds the table, with weighted read
+        routing over the primary and its replicas: a failed request fences a
+        ping-verified dead endpoint (or re-routes off a live erroring one) and
+        tries another within the same statement."""
+        inst = self.ctx.archive_instance
+        if inst is None:
+            raise errors.TddlError(
+                f"remote table {t.name} needs an owning instance context")
+        last_err = None
+        for _attempt in range(1 + len(getattr(t, "replicas", []))):
+            addr, client = inst.read_endpoint(t)
+            try:
+                # materialized before yielding: a failover must not emit rows
+                # already handed downstream
+                got = list(self._remote_batches_from(t, addr, client))
+                yield from got
+                return
+            except errors.QueryTimeoutError:
+                raise  # the deadline kills the statement, not the endpoint
+            except (errors.TddlError, ConnectionError, OSError) as e:
+                last_err = e
+                transport = isinstance(
+                    e, (errors.WorkerUnavailableError, ConnectionError, OSError))
+                if not transport:
+                    raise
+                dead = not client.ping()
+                if dead:
+                    # ping-verified dead: fence it (a blip the next ping proves
+                    # alive must not fence an endpoint)
+                    inst.ha.fence_worker(addr, True)
+                WORKER_FAILOVERS.inc()
+                where = f"{addr[0]}:{addr[1]}"
+                events.publish("worker_failover",
+                               f"scan {t.name}: fenced dead endpoint {where}, "
+                               f"re-routing" if dead else
+                               f"scan {t.name}: rerouted off live endpoint {where}",
+                               node=inst.node_id, table=t.name, worker=where,
+                               fenced=dead)
+                self.ctx.trace.append(f"failover {t.name}: fenced {where}" if dead
+                                      else f"failover {t.name}: rerouted off "
+                                           f"{where} (alive)")
+        raise errors.WorkerUnavailableError(
+            f"remote table {t.name}: no serving endpoint ({last_err})")
+
+    def _remote_batches_from(self, t, addr, client) -> Iterator[ColumnBatch]:
+        """Ship the bound fragment (the worker runs it with no parse or plan); any
+        refusal but a dead endpoint or a blown deadline degrades to SQL text."""
+        storage_cols = [c for _, c in self.node.columns]
+
+        def lane_safe(v):
+            return int(v) if float(v).is_integer() else float(v)
+        # planned runtime filters ride the fragment: the build side's range as
+        # extra SARGs, a small build as an IN-list, pruned before rows cross the
+        # process seam
+        rf_sargs, rf_in = self._rf_pushdown()
+        frag = {"schema": t.schema, "table": t.name, "columns": storage_cols,
+                "sargs": [[c, op, lane_safe(v)] for c, op, v in
+                          list(getattr(self.node, "sargs", [])) + rf_sargs]}
+        if rf_in:
+            frag["rf_in"] = [[c, vals] for c, vals in rf_in]
+        xid = self.ctx.remote_xids.get(addr)
+        if xid is not None:
+            frag["xid"] = xid  # read through the session's open worker branch
+        pe = self.node.point_eq
+        if pe is not None and not t.column(pe[0]).dtype.is_string and \
+                isinstance(pe[1], (int, np.integer)):
+            frag["point"] = [pe[0], int(pe[1])]
+        dl = self.ctx.deadline
+        try:
+            names, rtypes, data, valid = client.exec_plan(frag, deadline=dl)
+            how = "remote-plan"
+        except (errors.QueryTimeoutError, errors.WorkerUnavailableError):
+            # a dead endpoint fails over, a blown deadline kills the statement:
+            # SQL text would help neither
+            raise
+        except errors.TddlError:
+            sql = f"SELECT {', '.join(storage_cols)} FROM {t.schema}.{t.name}"
+            how = "remote-scan"
+            # the degrade path keeps the branch xid: visibility must not depend
+            # on the wire form that served the scan
+            names, rtypes, data, valid = client.execute(sql, t.schema, xid=xid,
+                                                        deadline=dl)
+        scaled = {nm for nm, ty in zip(names, rtypes)
+                  if isinstance(ty, str) and ty.endswith("#scaled")}
+        n = len(next(iter(data.values()))) if data else 0
+        # the reference's trace line, with the rows the scan shipped
+        self.ctx.trace.append(f"{how} {t.name} -> {addr[0]}:{addr[1]} rows={n}")
+        dev = self.ctx.device
+        cols = {}
+        for oid, cname in self.node.columns:
+            cm = t.column(cname)
+            d = t.dictionaries.get(cname.lower())
+            lane, v, d = remote_column(data[cname], valid.get(cname), cm.dtype, d,
+                                       cname in scaled)
+            cols[oid] = Column(as_tensor(lane, dev),
+                               None if v is None else as_tensor(v, dev),
+                               cm.dtype, d)
+        if not cols:
+            return
+        b = ColumnBatch(cols, torch.ones(n, dtype=torch.bool, device=dev))
+        yield b.pad_to(ops.bucket_capacity(max(n, 1)))
 
     def _rf_pushdown(self):
         """(min/max sargs, in-lists) from published runtime filters: the lane-domain

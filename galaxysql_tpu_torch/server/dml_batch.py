@@ -39,7 +39,8 @@ synchronous apply, of its GSI tables) once, as in the reference.
 Trimmed against the reference, each waiting for its ROADMAP Queue 1 item: the
 QueryProfile, statement summary, admission ticket and
 metrics-registry histograms of each member (item 16; the group sizes and waits are
-kept as the point batcher keeps them); replica legs of remote tables (item 15b).
+kept as the point batcher keeps them).  Remote tables never register a plan, as in
+the reference: their writes, replica legs included, take `Session._remote_dml`.
 """
 
 from __future__ import annotations
@@ -133,6 +134,8 @@ def try_register(session, stmt, sql: str, params) -> None:
         tm = inst.catalog.table(schema, stmt.table.table)
     except errors.TddlError:
         return
+    if getattr(tm, "remote", None) is not None:
+        return  # a worker's table: its writes ship as branches, never batched here
     if inst.archive.files_for(f"{tm.schema.lower()}.{tm.name.lower()}", None):
         return  # archived cold rows: the flush would only ever fall back
     plan = _extract_plan(stmt, tm, vals)

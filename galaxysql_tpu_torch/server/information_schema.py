@@ -5,7 +5,7 @@ binder knows its columns.  The views whose data the port holds are filled from l
 state before any query that reads the schema (`refresh`): schemata, tables, columns,
 statistics, partitions, processlist, engines, global_variables, session_variables,
 plan_cache, batch_stats, node_info (the metadb's node registry), ddl_jobs,
-columnar_replica and fragment_cache.  They
+columnar_replica, fragment_cache and workers.  They
 are ordinary stores, read by the planner and the operators on the instance's device.
 A query that reads any other view raises `NotSupportedError` naming the module it
 waits for (`check_ported`), and never returns an empty table.
@@ -162,7 +162,6 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15b)",
     "metrics": "utils/metrics.py (ROADMAP Queue 1 item 16)",
     "query_stats": "utils/tracing.py (ROADMAP Queue 1 item 16)",
     "query_spans": "utils/tracing.py (ROADMAP Queue 1 item 16)",
@@ -288,3 +287,4 @@ def refresh(instance, session=None):
     fill("batch_stats", ([n, float(v)] for n, v in
                          instance.batch_scheduler.stats_rows() +
                          instance.dml_batch_scheduler.stats_rows()))
+    fill("workers", (list(r) for r in instance.worker_rows()))

@@ -32,10 +32,25 @@ holds the replica's counters and gauges and the fragment cache's `frag_cache_*`;
 
 `frag_cache` is the reference's cross-query fragment cache
 (`exec/fragment_cache.py`): cached join builds with their runtime filters and
-replayed aggregate and build-subtree outputs, keyed by table versions, on while
-`ENABLE_FRAGMENT_CACHE` is.  `invalidate_fragment_cache` is the local half of the
-reference's sync action of that name (its broadcast to peer coordinators waits for
-ROADMAP Queue 1 item 15b).
+replayed aggregate and build-subtree outputs, keyed by table versions (remote tables
+by an epoch), on while `ENABLE_FRAGMENT_CACHE` is; `invalidate_fragment_cache` drops a
+table's entries on this instance and bumps its epoch (DDL calls it; peers hear of a
+write to a remote table through the sync action of that name).
+
+The worker plane, as in the reference: `workers` (one `net/dn.WorkerClient` an
+attached worker endpoint, made by `worker_client`), the `sync_bus` that broadcasts
+cache invalidations to every attached worker and peer coordinator, and `ha`
+(`meta/ha.py`: worker fencing, probing, the leader election).  `attach_remote_table`
+registers a table a worker process holds (`net/worker.py`): its scans ship as plan
+fragments (`plan/physical.py`), its DML as branches of a distributed transaction
+(`server/session.py`, `txn/xa.py`).  `attach_replica` adds a read replica on another
+worker, backfilled from the primary when it is empty; reads pick an endpoint by
+weight (`read_endpoint`), skipping fenced, stale and breaker-blocked ones.
+`apply_sync_action` receives a peer's broadcasts (`sync_peer()`, attached to the
+peer's `sync_bus`, in process, or `net/server.CoordinatorSyncListener` over the wire).
+Its `health` action, the serving tier's peer registry (`attach_coordinator`), moving
+a remote table between workers and the cluster-health rows wait for the operations
+plane (ROADMAP Queue 1 item 16).
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
@@ -74,9 +89,11 @@ from galaxysql_tpu_torch.exec.device_cache import DeviceCache
 from galaxysql_tpu_torch.exec.fragment_cache import FragmentCache
 from galaxysql_tpu_torch.meta.catalog import Catalog, TableMeta
 from galaxysql_tpu_torch.meta.gms import ConfigListener, MetaDb
+from galaxysql_tpu_torch.meta.ha import HaManager
 from galaxysql_tpu_torch.meta.mdl import MdlManager
 from galaxysql_tpu_torch.meta.privileges import PrivilegeManager
 from galaxysql_tpu_torch.meta.tso import TimestampOracle
+from galaxysql_tpu_torch.net.dn import SyncBus, WorkerClient
 from galaxysql_tpu_torch.plan.planner import Planner
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
 from galaxysql_tpu_torch.server.dml_batch import DmlBatchScheduler
@@ -87,8 +104,14 @@ from galaxysql_tpu_torch.storage.table_store import TableStore
 from galaxysql_tpu_torch.txn.async_apply import AsyncApplier
 from galaxysql_tpu_torch.txn.cdc import CdcManager
 from galaxysql_tpu_torch.txn.xa import TwoPhaseCoordinator, recover_persisted
+from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
-from galaxysql_tpu_torch.utils.metrics import MetricsRegistry
+from galaxysql_tpu_torch.utils.metrics import (BREAKER_OPENS, QUERY_TIMEOUTS,
+                                               RETRY_BUDGET_EXHAUSTED, RPC_FAILURES,
+                                               RPC_RETRIES, RPC_RTT_MS,
+                                               SYNC_FAILURES, SYNC_HEALS,
+                                               WORKER_FAILOVERS, MetricsRegistry)
+from galaxysql_tpu_torch.utils.tracing import TraceIdAllocator
 
 
 class Instance:
@@ -120,6 +143,21 @@ class Instance:
         self.archive = ArchiveManager(
             os.path.join(data_dir, "archive") if data_dir else None)
         self.node_id = f"cn-{uuid.uuid4().hex[:8]}"
+        self.started_at = time.time()
+        # node-prefixed ids: statement uids of shipped writes must never collide
+        # across coordinators
+        self.trace_ids = TraceIdAllocator(self.node_id)
+        self.workers: Dict[tuple, object] = {}  # (host, port) -> WorkerClient
+        # the origin rides every RPC with the bus epoch: workers key their
+        # last-applied sync epoch per coordinator (`net/worker.py` healing)
+        self.sync_bus = SyncBus(origin=self.node_id)
+        self.ha = HaManager(self)
+        # the fault-tolerance plane's process-wide counters and the RPC
+        # round-trip histogram, surfaced through this instance's registry
+        for m in (RPC_RTT_MS, RPC_RETRIES, RPC_FAILURES, BREAKER_OPENS,
+                  WORKER_FAILOVERS, SYNC_FAILURES, SYNC_HEALS, QUERY_TIMEOUTS,
+                  RETRY_BUDGET_EXHAUSTED):
+            self.metrics.adopt(m)
         self.catalog.create_schema("information_schema", if_not_exists=True)
         # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
         self.point_plans: Dict[tuple, dict] = {}
@@ -130,7 +168,8 @@ class Instance:
                                          "gsi_async_applies": 0,
                                          "async_apply_failures": 0,
                                          "mpp_queries": 0,
-                                         "mpp_fallback_local": 0}
+                                         "mpp_fallback_local": 0,
+                                         "replica_async_applies": 0}
         self.batch_scheduler = BatchScheduler(self)
         # (schema, parameterized SQL) -> DML batch plan (`dml_batch.try_register`)
         self.dml_plans: Dict[tuple, dict] = {}
@@ -264,6 +303,243 @@ class Instance:
     def count(self, name: str, n: int = 1):
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    # -- the worker plane ----------------------------------------------------------
+
+    def worker_client(self, host: str, port: int):
+        """Get or create the WorkerClient of an endpoint, bound to the live config
+        (SET GLOBAL RPC_* / BREAKER_* retune attached workers too) and wired into
+        the sync bus: the one constructor of coordinator -> worker connections."""
+        key = (host, port)
+        client = self.workers.get(key)
+        if client is None:
+            client = WorkerClient(host, port, config=self.config)
+            self.workers[key] = client
+            self.sync_bus.attach(client)
+        return client
+
+    def worker_rows(self):
+        """SHOW WORKERS / information_schema.workers: one row an attached worker,
+        with its fence and circuit-breaker state and lifetime retry and failure
+        counts."""
+        rows = []
+        for (host, port), client in sorted(self.workers.items()):
+            bk = client.breaker_snapshot() if hasattr(client, "breaker_snapshot") \
+                else {"state": "closed", "consec_failures": 0, "opens": 0,
+                      "retries": 0, "failures": 0, "last_error": ""}
+            budget = getattr(client, "retry_budget", None)
+            rows.append((host, port, bk["state"],
+                         1 if self.ha.worker_fenced((host, port)) else 0,
+                         bk["consec_failures"], bk["retries"], bk["failures"],
+                         bk["opens"], bk["last_error"],
+                         int(budget.remaining()) if budget is not None else 0))
+        return rows
+
+    def attach_remote_table(self, schema: str, name: str, host: str, port: int):
+        """Register a table a worker process holds: its scans ship as plan
+        fragments, its writes as branches of a distributed transaction.  The
+        worker joins the sync bus and the HA prober; attaching again (a worker
+        restarted on another port) repoints the table."""
+        from galaxysql_tpu_torch.meta.catalog import SINGLE, ColumnMeta
+        client = self.worker_client(host, port)
+        resp = client.sync_action("table_meta", {"schema": schema, "table": name})
+        # (re)attachment is the reconnect point: resolve the XA branches this
+        # worker holds in doubt against our commit-point log
+        try:
+            self.xa_coordinator.recover_remote()
+        except Exception:  # galaxylint: disable=swallow -- recovery retries at the next attach or probe; attaching must not fail on it
+            pass
+        cols = [ColumnMeta(n, dt.from_sql_name(t, p or 0, s_ or 0), nullable)
+                for n, t, p, s_, nullable in resp["columns"]]
+        tm = TableMeta(schema, name, cols, resp.get("primary_key") or [], SINGLE)
+        tm.remote = {"host": host, "port": port}
+        self.catalog.create_schema(schema, if_not_exists=True)
+        if not self.catalog.add_table(tm, if_not_exists=True):
+            tm = self.catalog.table(schema, name)
+            tm.remote = {"host": host, "port": port}
+        return tm
+
+    def attach_replica(self, schema: str, name: str, host: str, port: int,
+                       weight: int = 1, backfill: Optional[bool] = None):
+        """Register a read replica of a remote table.  Writes go to every live
+        endpoint as branches of the same distributed transaction (an autocommit
+        write's replica legs through the async applier); reads pick a
+        weighted-random unfenced endpoint.  `backfill=None` copies from the
+        primary when the replica's table is missing or empty, True always copies
+        (rebuilding a stale replica needs it), False trusts the caller."""
+        key = (host, port)
+        client = self.worker_client(host, port)
+        tm = self.catalog.table(schema, name)
+        if getattr(tm, "remote", None) is None:
+            raise errors.NotSupportedError(f"{schema}.{name} is not a remote table")
+        entry = next((r for r in tm.replicas if (r["host"], r["port"]) == key), None)
+        if entry is not None and entry.get("stale") and backfill is not True:
+            raise errors.TddlError(
+                f"replica {key} is stale (missed writes); re-attach with "
+                f"backfill=True to rebuild it")
+        if backfill is None:
+            backfill = self._replica_needs_backfill(client, schema, name)
+        # the copy and the registration under one exclusive MDL: a write between
+        # them would reach the primary only
+        with self.mdl.exclusive(self.store_key(schema, name)):
+            if backfill:
+                self._backfill_replica(client, schema, name)
+            if entry is not None:
+                entry["weight"] = weight
+                entry["stale"] = False
+                return tm
+            tm.replicas.append({"host": host, "port": port, "weight": weight,
+                                "stale": False})
+        return tm
+
+    def _replica_needs_backfill(self, client, schema: str, name: str) -> bool:
+        try:
+            _cols, _types, data, _valid = client.execute(
+                f"SELECT count(*) FROM {name}", schema)
+            lane = next(iter(data.values())) if data else None
+            return lane is None or lane.size == 0 or int(lane[0]) == 0
+        except Exception:  # galaxylint: disable=swallow -- the table (or schema) is missing on the replica: it needs the copy
+            return True
+
+    def _backfill_replica(self, client, schema: str, name: str):
+        """Snapshot copy primary -> replica (the caller holds the exclusive MDL)."""
+        tm = self.catalog.table(schema, name)
+        src = self.workers[(tm.remote["host"], tm.remote["port"])]
+        cols_sql = ", ".join(
+            f"{c.name} {c.dtype.sql_name()}" + ("" if c.nullable else " NOT NULL")
+            for c in tm.columns)
+        pk_sql = (f", PRIMARY KEY ({', '.join(tm.primary_key)})"
+                  if tm.primary_key else "")
+        # IF NOT EXISTS makes these textually idempotent, so retry-safe
+        client.execute(f"CREATE DATABASE IF NOT EXISTS {schema}", "", idem=True)
+        client.execute(f"CREATE TABLE IF NOT EXISTS {name} ({cols_sql}{pk_sql})",
+                       schema, idem=True)
+        names, types, data, valid = src.exec_plan(
+            {"schema": schema, "table": name, "columns": tm.column_names()})
+        self._bulk_insert_remote(client, schema, name, names, types, data, valid)
+
+    @staticmethod
+    def _sql_literal(typ: str, v, valid: bool) -> str:
+        if not valid:
+            return "NULL"
+        if typ.endswith("#scaled"):
+            import re
+            m = re.search(r"DECIMAL\(\d+,\s*(\d+)\)", typ)
+            scale = int(m.group(1)) if m else 0
+            s = str(int(v))
+            neg = s.startswith("-")
+            s = s.lstrip("-").rjust(scale + 1, "0")
+            val = (s[:-scale] + "." + s[-scale:]) if scale else s
+            return ("-" if neg else "") + val
+        if isinstance(v, (int, float)):
+            return repr(v)
+        return "'" + str(v).replace("\\", "\\\\").replace("'", "''") + "'"
+
+    def _bulk_insert_remote(self, client, schema, table, names, types, data, valid,
+                            batch: int = 1000):
+        n = len(next(iter(data.values()))) if data else 0
+        for off in range(0, n, batch):
+            hi = min(off + batch, n)
+            rows = []
+            for i in range(off, hi):
+                vals = []
+                for c, ty in zip(names, types):
+                    ok_ = bool(valid[c][i]) if c in valid else True
+                    vals.append(self._sql_literal(ty, data[c][i], ok_))
+                rows.append("(" + ", ".join(vals) + ")")
+            # uid-stamped: a reconnect retry of a batch replays the recorded
+            # result (the worker's dedupe window) instead of inserting twice
+            client.execute(f"INSERT INTO {table} ({', '.join(names)}) "
+                           f"VALUES {', '.join(rows)}", schema,
+                           uid=f"{self.node_id}:{self.trace_ids.next()}")
+
+    def try_revive_worker(self, addr) -> bool:
+        """Lazy fence revival: one ping decides whether a fenced endpoint came
+        back (no background prober runs).  True when it is now unfenced."""
+        client = self.workers.get(addr)
+        if client is None or not self.ha.worker_fenced(addr):
+            return False
+        if client.ping(timeout=2.0):
+            self.ha.fence_worker(addr, False)
+            return True
+        return False
+
+    def read_endpoint(self, tm):
+        """The endpoint to serve a read of `tm`: weighted random over the primary
+        and the non-stale replicas, skipping fenced and breaker-blocked workers
+        and lowering the weight of those that reported a deep queue or memory
+        pressure in the last 5 s.  Returns (addr, client); raises
+        WorkerUnavailableError when every endpoint is down."""
+        import random
+        cands = [((tm.remote["host"], tm.remote["port"]),
+                  tm.remote.get("weight", 1))]
+        for r in tm.replicas:
+            if not r.get("stale"):
+                cands.append(((r["host"], r["port"]), r.get("weight", 1)))
+        live = [(a, w) for a, w in cands
+                if a in self.workers and not self.ha.worker_fenced(a) and
+                not getattr(self.workers[a], "breaker_blocked", lambda: False)()]
+        if not live:
+            # before refusing, ping each fenced candidate once
+            for a, w in cands:
+                if self.try_revive_worker(a):
+                    live.append((a, w))
+        if not live:
+            raise errors.WorkerUnavailableError(
+                f"remote table {tm.name}: every endpoint is fenced/unattached")
+        now = time.time()
+
+        def _load_weight(a, w):
+            c = self.workers.get(a)
+            if c is None or now - getattr(c, "load_at", 0.0) > 5.0:
+                return float(w)
+            penalty = 1.0 + getattr(c, "load_q", 0) + 4.0 * getattr(c, "load_tier", 0)
+            return float(w) / penalty
+
+        live = [(a, _load_weight(a, w)) for a, w in live]
+        pick = random.random() * sum(w for _, w in live)
+        for a, w in live:
+            pick -= w
+            if pick <= 0:
+                return a, self.workers[a]
+        return live[-1][0], self.workers[live[-1][0]]
+
+    # -- the coordinator sync plane -----------------------------------------------
+
+    def apply_sync_action(self, action: str, payload: dict) -> dict:
+        """The coordinator side of the sync bus (the twin of the worker's sync
+        op): a peer's broadcasts invalidate this instance's caches."""
+        payload = payload or {}
+        if action == "invalidate_fragment_cache":
+            key = payload.get("table_key") or \
+                f"{payload.get('schema', '').lower()}.{payload.get('table', '').lower()}"
+            self.frag_cache.bump_epoch(key)
+            return {"ok": True, "action": action, "node": self.node_id}
+        if action == "invalidate_plan_cache":
+            self.planner.cache.invalidate_all()
+            return {"ok": True, "action": action, "node": self.node_id}
+        if action == "invalidate_privilege_cache":
+            self.privileges.invalidate_cache()
+            return {"ok": True, "action": action, "node": self.node_id}
+        if action == "health":
+            raise errors.NotSupportedError(
+                "sync action health waits for utils/metric_history.py, "
+                "server/admission.py and server/slo.py (ROADMAP Queue 1 item 16)")
+        return {"ok": False, "error": f"unknown sync action {action!r}"}
+
+    def sync_peer(self):
+        """An in-process sync-bus endpoint of this instance: attached to a peer
+        coordinator's `sync_bus`, that peer's broadcasts apply here."""
+        inst = self
+
+        class _Peer:
+            def sync_action(self, action: str, payload: dict) -> dict:
+                return inst.apply_sync_action(action, payload)
+
+            def ping(self, timeout: float = 5.0) -> bool:
+                return True
+
+        return _Peer()
 
     def mesh(self):
         """The instance's device mesh for MPP execution: one shard on each CUDA

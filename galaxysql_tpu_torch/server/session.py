@@ -89,6 +89,17 @@ commit timestamp and logs DONE, or under `TRANSACTION_POLICY = 'XA'` runs the
 two-phase coordinator (`txn/xa.py`); a row another live transaction wrote, or one
 deleted after the snapshot, cannot be written again (first writer wins,
 `TransactionError`).
+
+Writes to a remote table (one a worker process holds, `Instance.attach_remote_table`)
+are the reference's (`_remote_dml`): the statement text ships to the worker, and to
+every live replica, as a branch of the session's transaction keyed by its xid; an
+autocommit statement is a one-statement transaction whose replica legs go to the
+async applier; a transaction with branches always commits through the two-phase
+coordinator, and its scans read through the branches (`ExecContext.remote_xids`).
+Each such write bumps the table's fragment-cache epoch here and broadcasts it on the
+sync bus, again once the transaction's outcome holds.  MAX_EXECUTION_TIME (the
+session value or the statement hint) sets the statement's deadline, which the scans
+and the worker RPCs honour (`QueryTimeoutError`).
 The WHERE of UPDATE and DELETE and UPDATE's SET expressions run as the reference runs
 them, `ExprCompiler(np)` over the partitions' host lanes, so the stored lanes equal
 the reference's bit for bit; every read, including INSERT ... SELECT, runs on the
@@ -127,13 +138,15 @@ from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.maintain import advise_indexes
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.sql.lexer import split_statements
+from galaxysql_tpu_torch.sql.hints import parse_hints
 from galaxysql_tpu_torch.sql.parameterize import DecimalParam, parameterize
 from galaxysql_tpu_torch.sql.parser import parse
 from galaxysql_tpu_torch.storage import columnar as _col
 from galaxysql_tpu_torch.storage.table_store import INFINITY_TS, visible_rows
-from galaxysql_tpu_torch.txn.xa import participants_of
+from galaxysql_tpu_torch.txn.xa import participants_of, remote_participants_of
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
+from galaxysql_tpu_torch.utils.metrics import QUERY_TIMEOUTS
 
 
 @dataclasses.dataclass
@@ -169,6 +182,12 @@ class Transaction:
         self.deleted: List[Tuple[Any, int, np.ndarray, np.ndarray]] = []
         # binlog events buffered until COMMIT (`txn/cdc.py`); ROLLBACK drops them
         self.cdc_events: List[tuple] = []
+        # worker branches of this txn: (host, port) -> xid, committed through the
+        # 2PC coordinator
+        self.remote: Dict[Tuple[str, int], str] = {}
+        # (schema, table) of the worker-held tables this txn wrote: their fragment
+        # epochs bump again once the outcome is applied
+        self.remote_tables: set = set()
 
     def touched_tables(self):
         """The stores this transaction wrote (provisional rows visible to it only)."""
@@ -271,6 +290,9 @@ _WAITING_STMTS = {
 
 
 class Session:
+    # the bound wait of a replica's DML leg: a hung replica costs this, then goes
+    # stale
+    REPLICA_DML_TIMEOUT_S = 30.0
     _SELECT_RE = __import__("re").compile(
         r"^\s*(?:/\*.*?\*/\s*)*select\b", __import__("re").I | __import__("re").S)
     _DML_RE = __import__("re").compile(
@@ -293,6 +315,12 @@ class Session:
         self._last_commit_ts = 0
         # the async applier's watermark of this session's own batched writes
         self._apply_mark = 0
+        # per-statement MAX_EXECUTION_TIME deadline (absolute seconds, None = none)
+        self._deadline: Optional[float] = None
+        # the running statement's text and parameters (a write to a remote table
+        # ships them to the worker, which plans the statement again)
+        self._current_sql = ""
+        self._current_params: Optional[list] = None
         instance.sessions[self.conn_id] = self
 
     def execute(self, sql: str, params: Optional[list] = None) -> ResultSet:
@@ -337,6 +365,9 @@ class Session:
         raise errors.NotSupportedError(f"{name.upper()} is not supported by this engine")
 
     def _execute_one(self, sql: str, params: Optional[list]) -> ResultSet:
+        # statement deadline: MAX_EXECUTION_TIME = 0 (the default) keeps it None
+        ms = self.instance.config.get("MAX_EXECUTION_TIME", self.vars)
+        self._deadline = time.time() + ms / 1000.0 if ms else None
         if self._SELECT_RE.match(sql):
             # the plan cache keys on the parameterized text and carries the AST
             return self._run_query(None, sql, params)
@@ -468,6 +499,8 @@ class Session:
     def execute_statement(self, stmt: ast.Statement, sql: str = "",
                           params: Optional[list] = None) -> ResultSet:
         self._authorize(stmt)
+        self._current_sql = sql
+        self._current_params = params
         if isinstance(stmt, (ast.Select, ast.SetOpSelect)):
             return self._run_query(stmt, sql, params)
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete)):
@@ -551,10 +584,18 @@ class Session:
         raise errors.NotSupportedError(f"statement {type(stmt).__name__}")
 
     def _sync_privileges(self) -> ResultSet:
-        """The reference also broadcasts the privilege-cache drop to peer
-        coordinators; the port has one coordinator (the sync bus comes with MPP
-        and workers), and the local mutation already dropped its caches."""
+        """After a user or grant change: peer coordinators share the metadb but keep
+        their own privilege decision caches, so the drop is broadcast (workers
+        ignore the action)."""
+        self.instance.sync_bus.broadcast("invalidate_privilege_cache", {})
         return ok()
+
+    def _note_remote_write(self, schema: str, table: str):
+        """A worker-held table changed: bump its fragment epoch here and on every
+        node of the sync bus (workers and peer coordinators)."""
+        self.instance.frag_cache.bump_epoch(self.instance.store_key(schema, table))
+        self.instance.sync_bus.broadcast(
+            "invalidate_fragment_cache", {"schema": schema, "table": table})
 
     def _require_schema(self) -> str:
         if not self.schema:
@@ -593,12 +634,16 @@ class Session:
         # large AP scans flip to the CDC-fed replica at a TSO watermark; TP point
         # reads and fresh-read sessions stay on the row store
         self._maybe_route_columnar(plan, ctx)
-        with self._mdl_shared(self._scan_keys(plan.rel)):
-            batch = self._try_mpp(plan, ctx, count=True)
-            if batch is None:
-                batch = run_to_batch(build_operator(plan.rel, ctx))
-            batch = batch.compact()
-            rows = batch.to_pylist()
+        try:
+            with self._mdl_shared(self._scan_keys(plan.rel)):
+                batch = self._try_mpp(plan, ctx, count=True)
+                if batch is None:
+                    batch = run_to_batch(build_operator(plan.rel, ctx))
+                batch = batch.compact()
+                rows = batch.to_pylist()
+        except errors.QueryTimeoutError:
+            QUERY_TIMEOUTS.inc()
+            raise
         self.last_trace = ctx.trace
         if plan.workload == "TP":
             self._register_point_plan(plan)
@@ -629,9 +674,10 @@ class Session:
             if count:
                 self.instance.count("mpp_queries")
             return batch
-        except errors.NotSupportedError as e:
-            # a plan shape not distributed: the local engine, never silently (the
-            # trace tag and information_schema.engine_counters)
+        except (errors.NotSupportedError, errors.WorkerUnavailableError) as e:
+            # a plan shape not distributed, or a worker died mid-MPP: the local
+            # engine, never silently (the trace tag and
+            # information_schema.engine_counters)
             if count:
                 self.instance.count("mpp_fallback_local")
             ctx.trace.append(f"mpp-fallback {e}")
@@ -660,10 +706,15 @@ class Session:
         # self-heal pin: plans bound under a live quarantine episode salt the
         # fragment-cache fingerprints ('' steady state)
         ctx.plan_pin = getattr(plan, "heal_pin", "")
+        # MAX_EXECUTION_TIME: the hint overrides the session's value for this
+        # statement
+        hint_ms = (getattr(plan, "hints", None) or {}).get("max_execution_time")
+        ctx.deadline = time.time() + hint_ms / 1000.0 if hint_ms else self._deadline
         if self.txn is not None:
             # the fragment cache bypasses any table this txn has uncommitted writes
             # on (provisional rows are visible to this session only)
             ctx.txn_write_uids = frozenset(st.uid for st in self.txn.touched_tables())
+            ctx.remote_xids = dict(self.txn.remote)
         return ctx
 
     # -- columnar HTAP routing (storage/columnar.py) ---------------------------
@@ -906,7 +957,7 @@ class Session:
             return None
         pinned = None
         if self.txn is not None:
-            if self.txn.inserted or self.txn.deleted:
+            if self.txn.inserted or self.txn.deleted or self.txn.remote:
                 return None  # own-txn writes: sequential own-visibility path
             pinned = self.txn.snapshot_ts
         gkey = (schema.lower(), psql.cache_key, pinned, pp["schema_version"])
@@ -929,7 +980,14 @@ class Session:
         self.txn = None
         if txn is None:
             return
-        self._commit_txn(txn)
+        try:
+            self._commit_txn(txn)
+        finally:
+            # the epochs of the worker-held tables this txn wrote bump again once
+            # the outcome holds: a peer may have cached the pre-commit state under
+            # the statement-time epoch
+            for sch, tbl in txn.remote_tables:
+                self._note_remote_write(sch, tbl)
 
     def _commit_txn(self, txn):
         """COMMIT under the session's TRANSACTION_POLICY.  'XA' runs the two-phase
@@ -938,9 +996,11 @@ class Session:
         stamps every touched store and logs DONE: a crash between the two is
         resolved at boot as committed on every store, never half.  Either way the
         transaction's binlog events are written at its commit timestamp
-        (`cdc.flush_txn`), also when XA raises after its commit point."""
+        (`cdc.flush_txn`), also when XA raises after its commit point.  A
+        transaction with worker branches always takes the two-phase path: its
+        branches need the protocol."""
         policy = str(self.instance.config.get("TRANSACTION_POLICY", self.vars))
-        if policy.upper() == "XA":
+        if policy.upper() == "XA" or txn.remote:
             try:
                 cts = self.instance.xa_coordinator.commit(txn)
             except errors.TransactionError as e:
@@ -976,10 +1036,14 @@ class Session:
         self.txn = None
         if txn is None:
             return
+        for sch, tbl in txn.remote_tables:
+            self._note_remote_write(sch, tbl)
         # own appended rows are stamped permanently dead and provisional delete
         # stamps restored; lanes never shrink (see StoreParticipant.rollback)
         for sp in participants_of(txn):
             sp.rollback()
+        for rp in remote_participants_of(self.instance, txn):
+            rp.rollback()
 
     def _dml_ts(self) -> Tuple[int, Optional[Transaction]]:
         """Timestamp to stamp writes with: provisional (-txn_id) inside a transaction,
@@ -1013,6 +1077,10 @@ class Session:
                 tms = []
             if any(gsi_targets(self.instance, tm) for tm in tms):
                 applier.barrier(self._apply_wait_s())
+        # the MAX_EXECUTION_TIME hint binds DML too (a remote write carries it)
+        hint_ms = parse_hints(getattr(stmt, "hints", None)).get("max_execution_time")
+        if hint_ms:
+            self._deadline = time.time() + hint_ms / 1000.0
         with self._mdl_shared(keys):
             if isinstance(stmt, ast.Insert):
                 if stmt.ignore or stmt.replace or stmt.on_dup_update:
@@ -1097,9 +1165,167 @@ class Session:
             self.instance.frag_cache.invalidate_table(
                 self.instance.store_key(t.schema, t.name))
 
+    def _remote_dml(self, tm) -> Optional[ResultSet]:
+        """DML on a worker-held table: the statement ships to the owning worker
+        inside a branch of a distributed transaction, committed by the XA
+        coordinator with the local stores as co-participants.  None for a local
+        table.
+
+        Synchronous replication: the statement goes to the primary and every live
+        replica as branches of the same transaction; a fenced replica is marked
+        stale and left out of reads until rebuilt.  An autocommit statement
+        commits once the primary applied it and hands its replica legs to the
+        async applier (uid-stamped, so a retry is exactly-once; the session's
+        next statement waits for them).  Failures keep the reference's
+        contract: a replica's failure marks it stale and the statement succeeds;
+        a primary's failure whose outcome is unknown (bytes may have reached the
+        worker) rolls the whole transaction back, while one known to have applied
+        nothing is statement-scoped."""
+        if getattr(tm, "remote", None) is None:
+            return None
+        inst = self.instance
+        primary = (tm.remote["host"], tm.remote["port"])
+        if inst.workers.get(primary) is None:
+            raise errors.TddlError(f"remote table {tm.name}: no worker attached")
+        if inst.ha.worker_fenced(primary) and not inst.try_revive_worker(primary):
+            raise errors.WorkerUnavailableError(
+                f"remote table {tm.name}: worker {primary[0]}:{primary[1]} "
+                "is fenced", sent=False)
+        endpoints = [primary]
+        for r in tm.replicas:
+            a = (r["host"], r["port"])
+            if r.get("stale") or a not in inst.workers:
+                continue
+            if inst.ha.worker_fenced(a):
+                r["stale"] = True
+                continue
+            endpoints.append(a)
+        auto = self.txn is None
+        async_rep = (auto and len(endpoints) > 1 and
+                     bool(inst.config.get("ENABLE_ASYNC_APPLY", self.vars)))
+        rep_addrs = []
+        if async_rep:
+            rep_addrs = endpoints[1:]
+            endpoints = [primary]
+        self._begin()
+        affected = 0
+        # one statement uid: each worker's dedupe window replays a reconnect
+        # retry's recorded result instead of applying the write twice
+        stmt_uid = f"{inst.node_id}:{inst.trace_ids.next()}"
+        for addr in endpoints:
+            had_branch = addr in self.txn.remote
+            xid = self.txn.remote.setdefault(addr, f"g{self.txn.txn_id}")
+            try:
+                # only the primary leg carries the statement deadline: once the
+                # primary applied, every replica must get the write or go stale;
+                # a replica leg waits a fixed bound
+                leg_deadline = self._deadline if addr == primary \
+                    else time.time() + self.REPLICA_DML_TIMEOUT_S
+                resp, _ = inst.workers[addr].request({
+                    "op": "dml", "xid": xid, "schema": tm.schema,
+                    "sql": self._current_sql, "uid": stmt_uid,
+                    "params": list(self._current_params or [])},
+                    deadline=leg_deadline)
+                err = None
+                ambiguous = False
+                reached = True
+            except errors.QueryTimeoutError as e:
+                if addr != primary:
+                    # a hung replica: mark it stale below, the statement goes on
+                    err = str(e)
+                    ambiguous = False
+                    reached = True
+                else:
+                    QUERY_TIMEOUTS.inc()
+                    if auto:
+                        self._rollback()
+                        raise
+                    if getattr(e, "sent", True):
+                        # the write may have applied before the reply was lost:
+                        # only rolling the transaction back keeps both sides equal
+                        self._rollback()
+                        raise errors.TransactionError(
+                            f"query deadline exceeded with unknown branch "
+                            f"outcome; transaction rolled back: {e}")
+                    if not had_branch:
+                        self.txn.remote.pop(addr, None)  # never opened
+                    raise
+            except errors.ProtocolError as e:
+                # a corrupt reply: the worker executed, the outcome is unknown;
+                # an outbound validation failure (never shipped) applied nothing
+                err = str(e)
+                reached = bool(getattr(e, "_gx_sent", True))
+                ambiguous = reached
+            except (errors.WorkerUnavailableError, ConnectionError, OSError) as e:
+                # transport death: ambiguous only if bytes may have reached the
+                # worker (a breaker fast-fail or a refused connect applied nothing)
+                err = str(e)
+                reached = bool(getattr(e, "sent", True))
+                ambiguous = reached
+            except errors.TddlError as e:
+                # a worker-reported error: nothing applied, the outcome is known
+                err = str(e)
+                ambiguous = False
+                reached = True
+            if err:
+                if addr != primary:
+                    for r in tm.replicas:
+                        if (r["host"], r["port"]) == addr:
+                            r["stale"] = True
+                    self.txn.remote.pop(addr, None)
+                    try:
+                        # bounded: a hung replica must not stall the statement on
+                        # its own cleanup (xa_recover resolves the branch later)
+                        inst.workers[addr].request({"op": "xa_rollback", "xid": xid},
+                                                   deadline=time.time() + 5.0)
+                    except Exception as cex:
+                        events.publish(
+                            "replica_cleanup_failed",
+                            f"replica rollback for {xid} at {addr} failed "
+                            f"({type(cex).__name__}); branch resolves via "
+                            f"xa_recover", severity="warn", node=inst.node_id,
+                            dedupe=f"dml-rb:{addr}")
+                    continue
+                if auto:
+                    self._rollback()
+                    raise errors.TddlError(f"worker DML failed: {err}")
+                if ambiguous:
+                    self._rollback()
+                    raise errors.TransactionError(
+                        f"worker DML failed with unknown outcome; "
+                        f"transaction rolled back: {err}")
+                if not reached and not had_branch:
+                    # nothing reached the worker and this statement registered the
+                    # branch: unregister it, or COMMIT would prepare a branch the
+                    # worker never opened
+                    self.txn.remote.pop(addr, None)
+                raise errors.TddlError(f"worker DML failed: {err}")
+            if addr == primary:
+                affected = int(resp.get("affected", 0))
+        # remote tables have no version here: bump the fragment epoch and tell
+        # every node on the sync bus (again after the outcome, `_commit`)
+        self.txn.remote_tables.add((tm.schema, tm.name))
+        self._note_remote_write(tm.schema, tm.name)
+        if auto:
+            self._commit()
+            if rep_addrs:
+                mark = inst.applier.enqueue([
+                    {"kind": "replica", "addr": a, "schema": tm.schema,
+                     "sql": self._current_sql,
+                     "params": list(self._current_params or []),
+                     "uid": f"{stmt_uid}:r{ai}", "commit_ts": self._last_commit_ts,
+                     "timeout_s": self.REPLICA_DML_TIMEOUT_S,
+                     "base_schema": tm.schema, "base_table": tm.name}
+                    for ai, a in enumerate(rep_addrs)])
+                self._apply_mark = max(self._apply_mark, mark)
+        return ok(affected=affected)
+
     def _run_insert(self, stmt: ast.Insert, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
         tm = self.instance.catalog.table(stmt.table.schema or schema, stmt.table.table)
+        rrs = self._remote_dml(tm)
+        if rrs is not None:
+            return rrs
         store = self.instance.store(tm.schema, tm.name)
         ts, txn = self._dml_ts()
         columns = stmt.columns or tm.column_names()
@@ -1192,6 +1418,9 @@ class Session:
     def _run_delete(self, stmt: ast.Delete, params: Optional[list]) -> ResultSet:
         schema = self._require_schema()
         tm = self.instance.catalog.table(stmt.table.schema or schema, stmt.table.table)
+        rrs = self._remote_dml(tm)
+        if rrs is not None:
+            return rrs
         ts, txn = self._dml_ts()
         alias = (stmt.table.alias or stmt.table.table).lower()
         n = 0
@@ -1220,6 +1449,9 @@ class Session:
         if not isinstance(stmt.table, ast.TableName):
             raise errors.NotSupportedError("multi-table UPDATE")
         tm = self.instance.catalog.table(stmt.table.schema or schema, stmt.table.table)
+        rrs = self._remote_dml(tm)
+        if rrs is not None:
+            return rrs
         ts, txn = self._dml_ts()
         alias = (stmt.table.alias or stmt.table.table).lower()
         binder = Binder(self.instance.catalog, schema, params or [])

@@ -4,8 +4,9 @@ The kinds whose data the port holds, with the reference's columns and text: data
 tables, columns, create table, variables, processlist, index / indexes / keys,
 warnings, trace, status, engines, charset, collation, batch stats (the point
 batcher's rows, then the DML batcher's and the async applier's), the binlog events,
-the recycle bin, the DDL jobs, the columnar replica and the fragment cache.  Every
-other kind raises `NotSupportedError` naming the module it waits for.
+the recycle bin, the DDL jobs, the columnar replica, the fragment cache and the
+attached workers.  Every other kind raises `NotSupportedError` naming the module it
+waits for.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "workers": "net/worker.py and net/dn.py (ROADMAP Queue 1 item 15b)",
     "baseline": "the plan-baseline surface of the operations plane "
                 "(ROADMAP Queue 1 item 16)",
     "slow": "utils/tracing.py (ROADMAP Queue 1 item 16)",
@@ -147,6 +147,16 @@ def handle(session, stmt: ast.Show):
              dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
              dt.BIGINT],
             inst.columnar.rows())
+    if kind == "workers":
+        # attached worker endpoints with fence and circuit-breaker state and
+        # lifetime retry/failure counts (information_schema.workers's twin)
+        return ResultSet(
+            ["Host", "Port", "Breaker", "Fenced", "Consec_failures",
+             "Retries", "Failures", "Breaker_opens", "Last_error",
+             "Retry_budget"],
+            [dt.VARCHAR, dt.BIGINT, dt.VARCHAR, dt.BIGINT, dt.BIGINT,
+             dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.VARCHAR, dt.BIGINT],
+            inst.worker_rows())
     if kind == "engines":
         return ResultSet(["Engine", "Support", "Comment"], [dt.VARCHAR] * 3,
                          [("TPU_COLUMNAR", "DEFAULT",

@@ -4,7 +4,11 @@ The batched write path (`server/dml_batch.py`) enqueues its GSI work here instea
 writing every global secondary index inside the flush: the base rows a flush group
 appended or deleted propagate into every GSI store in one apply per flush task (the
 lanes are MVCC-immutable, so deferred reads of the enqueued row ids and ranges are
-stable).
+stable).  An autocommit write to a remote table with replicas enqueues its replica
+legs here (`replica` tasks, `Session._remote_dml`): each ships as a branch DML and
+xa_commit at the statement's commit timestamp, uid-stamped so the worker's dedupe
+window makes a retry exactly-once; a leg that still fails marks its replica stale
+(excluded from reads until rebuilt), the synchronous path's contract applied late.
 
 Read-your-writes: `enqueue` returns a monotonic watermark; the writing session keeps
 it and its own next statement waits (bounded by APPLY_WAIT_MS) until `applied_seq`
@@ -22,8 +26,7 @@ append twice).
 Trimmed against the reference: the counters `gsi_async_applies` and
 `async_apply_failures` go through `Instance.count`, and the two gauges are plain
 values (the metrics registry, and `events.publish` of a failed apply, wait for
-ROADMAP Queue 1 item 16); replica DML legs (`_apply_replica`, `_mark_stale`) wait for
-the workers of item 15b, so a `replica` task raises `NotSupportedError`.
+ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -60,11 +63,6 @@ class AsyncApplier:
     def enqueue(self, tasks: List[dict]) -> int:
         """Append tasks FIFO; returns the watermark covering all of them.  A session
         fences its own reads on this value (`wait_applied`)."""
-        for t in tasks:
-            if t.get("kind") == "replica":
-                raise errors.NotSupportedError(
-                    "async replica DML legs wait for net/worker.py "
-                    "(ROADMAP Queue 1 item 15b)")
         now = time.time()
         with self._cond:
             for t in tasks:
@@ -150,6 +148,9 @@ class AsyncApplier:
     def _apply(self, task: dict, touched: Dict[str, Any]):
         from galaxysql_tpu_torch.server import session as _sess
         kind = task["kind"]
+        if kind == "replica":
+            self._apply_replica(task)
+            return
         tm = task["tm"]
         if kind == "gsi_insert":
             _sess.gsi_write_rows(self.instance, tm, task["store"], task["pid"],
@@ -173,3 +174,51 @@ class AsyncApplier:
             gtm.bump_version()
             self.instance.frag_cache.invalidate_table(key)
         self.instance.catalog.version += 1
+
+    def _apply_replica(self, task: dict):
+        """Ship one replica DML leg: dml and xa_commit under a fresh branch xid,
+        uid-stamped (a reconnect retry replays the recorded response).  A leg
+        that fails marks the replica stale and rolls its branch back."""
+        addr = task["addr"]
+        client = self.instance.workers.get(addr)
+        uid = task["uid"]
+        xid = f"a{uid.replace(':', '_')}"
+        try:
+            if client is None:
+                raise ConnectionError(f"worker {addr} not attached")
+            deadline = time.time() + task.get("timeout_s", 30.0)
+            client.request({"op": "dml", "xid": xid, "schema": task["schema"],
+                            "sql": task["sql"], "uid": uid,
+                            "params": list(task.get("params") or [])},
+                           deadline=deadline)
+            client.request({"op": "xa_commit", "xid": xid,
+                            "commit_ts": int(task["commit_ts"])},
+                           deadline=deadline)
+            self.instance.count("replica_async_applies")
+        except Exception:
+            self.instance.count("async_apply_failures")
+            self._mark_stale(task)
+            if client is not None:
+                try:
+                    client.request({"op": "xa_rollback", "xid": xid},
+                                   deadline=time.time() + 5.0)
+                except Exception as cex:
+                    # the branch stays in doubt until xa_recover resolves it
+                    from galaxysql_tpu_torch.utils import events
+                    events.publish(
+                        "replica_cleanup_failed",
+                        f"replica rollback for {xid} failed "
+                        f"({type(cex).__name__}); branch resolves via "
+                        f"xa_recover", severity="warn",
+                        node=self.instance.node_id,
+                        dedupe=f"apply-rb:{task.get('addr')}")
+            raise
+
+    def _mark_stale(self, task: dict):
+        try:
+            tm = self.instance.catalog.table(task["base_schema"], task["base_table"])
+        except errors.TddlError:
+            return
+        for r in getattr(tm, "replicas", []):
+            if (r["host"], r["port"]) == task["addr"]:
+                r["stale"] = True

@@ -18,9 +18,11 @@ PREPARED, commit point, commit, DONE) and `recover()` resolves its in-doubt
 registry within the process; `recover_persisted` resolves the provisional stamps a
 booted instance loaded from disk.
 
-Not ported: the worker branches (`RemoteBranchParticipant`,
-`remote_participants_of`, `TwoPhaseCoordinator.recover_remote`) wait for the
-workers of ROADMAP Queue 1 item 15b, so `commit` takes local participants only.
+A transaction that wrote a table a worker process holds has a branch there
+(`RemoteBranchParticipant`, driven over the RPC plane with the worker's xa_prepare /
+xa_commit / xa_rollback): `commit` prepares and commits the local participants and
+the worker branches together, and `recover_remote` decides the branches a restarted
+worker reports in doubt from this coordinator's commit-point log.
 """
 
 from __future__ import annotations
@@ -116,6 +118,54 @@ def participants_of(txn) -> List[StoreParticipant]:
     for store, pid, row_ids, old_end in txn.deleted:
         get(store).deleted.append((pid, row_ids, old_end))
     return list(by_store.values())
+
+
+class RemoteBranchParticipant:
+    """A worker process's branch of a distributed transaction, driven over the
+    RPC plane (ops dml / xa_prepare / xa_commit / xa_rollback)."""
+
+    def __init__(self, instance, addr, xid: str):
+        self.instance = instance
+        self.addr = addr
+        self.xid = xid
+
+    def _client(self):
+        return self.instance.workers.get(self.addr)
+
+    def prepare(self) -> bool:
+        c = self._client()
+        if c is None:
+            return False
+        try:
+            resp, _ = c.request({"op": "xa_prepare", "xid": self.xid})
+            return bool(resp.get("ok"))
+        except Exception:  # galaxylint: disable=swallow -- a failed prepare IS the answer: the coordinator rolls back
+            return False
+
+    def commit(self, commit_ts: int):
+        c = self._client()
+        if c is None:
+            raise errors.TransactionError(
+                f"branch {self.xid}: worker {self.addr} unreachable")
+        resp, _ = c.request({"op": "xa_commit", "xid": self.xid,
+                             "commit_ts": int(commit_ts)})
+        if resp.get("error"):
+            raise errors.TransactionError(
+                f"branch {self.xid} commit failed: {resp['error']}")
+
+    def rollback(self):
+        c = self._client()
+        if c is None:
+            return  # the branch resolves through xa_recover when the worker returns
+        try:
+            c.request({"op": "xa_rollback", "xid": self.xid})
+        except Exception:  # galaxylint: disable=swallow -- an unreachable branch resolves through xa_recover
+            pass
+
+
+def remote_participants_of(instance, txn) -> List[RemoteBranchParticipant]:
+    return [RemoteBranchParticipant(instance, addr, xid)
+            for addr, xid in getattr(txn, "remote", {}).items()]
 
 
 def recover_persisted(instance) -> Dict[int, str]:
@@ -313,11 +363,11 @@ class TwoPhaseCoordinator:
         self.group_gate = GroupCommitGate(instance)
 
     def commit(self, txn) -> int:
-        parts = participants_of(txn)
+        parts = participants_of(txn) + remote_participants_of(self.instance, txn)
         if not parts:
             return self.instance.tso.next_timestamp()
         metadb = self.instance.metadb
-        # phase 1: prepare every participant
+        # phase 1: prepare every participant (local stores and worker branches)
         for sp in parts:
             if not sp.prepare():
                 for done in parts:
@@ -377,4 +427,36 @@ class TwoPhaseCoordinator:
                 out[txn_id] = "done"
             with self._lock:
                 self._in_doubt.pop(txn_id, None)
+        return out
+
+    def recover_remote(self) -> Dict[str, str]:
+        """Resolve the in-doubt branches workers report (`xa_recover`): after a
+        worker restart its PREPARED branches wait for the coordinator, which
+        decides each from its own commit-point log (the xid encodes this
+        coordinator's txn id) and sends xa_commit or xa_rollback.  Returns
+        {xid: "committed" | "rolled_back" | "unresolved: ..."}."""
+        out: Dict[str, str] = {}
+        for addr, client in list(self.instance.workers.items()):
+            try:
+                resp, _ = client.request({"op": "xa_recover"})
+            except Exception:  # galaxylint: disable=swallow -- an unreachable worker is asked again at its next attach or probe
+                continue
+            for xid in resp.get("xids", []):
+                try:
+                    txn_id = int(str(xid).lstrip("g"))
+                except ValueError:
+                    continue
+                state = self.instance.metadb.tx_log_get(txn_id)
+                try:
+                    if state is not None and state[0] in ("COMMITTED", "DONE") \
+                            and state[1]:
+                        client.request({"op": "xa_commit", "xid": xid,
+                                        "commit_ts": int(state[1])})
+                        out[xid] = "committed"
+                        self.instance.metadb.tx_log_put(txn_id, "DONE", state[1])
+                    else:
+                        client.request({"op": "xa_rollback", "xid": xid})
+                        out[xid] = "rolled_back"
+                except Exception as e:
+                    out[xid] = f"unresolved: {e}"
         return out

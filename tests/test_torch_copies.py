@@ -21,7 +21,8 @@ COPIES = [
     "plan/logical.py", "plan/rules.py", "plan/binder.py", "plan/planner.py", "plan/spm.py",
     "config/params.py", "utils/failpoint.py",
     "utils/lockdep.py", "meta/gms.py", "meta/privileges.py", "net/packets.py",
-    "net/client.py", "meta/mdl.py", "exec/spill.py", "exec/memory.py",
+    "net/client.py", "net/dn.py", "meta/ha.py", "meta/mdl.py", "exec/spill.py",
+    "exec/memory.py",
     "utils/metrics.py", "storage/zonemap.py", "utils/tracing.py",
     "exec/fragment_cache.py", "utils/events.py", "storage/ssb.py",
 ]

@@ -18,7 +18,8 @@ slows the transaction log's batch write so concurrent committers queue behind it
 Left out, with the reason: `test_statement_summary_and_admission_attribution` (the
 statement summary and admission wait for ROADMAP Queue 1 item 16);
 `test_steady_state_retrace_and_dispatch_guard` (XLA retraces have no counterpart in
-the port); `TestReplicaAsyncApply` (replica legs wait for the workers of item 15).
+the port).  `TestReplicaAsyncApply`'s cases run over real worker processes in
+`tests/test_torch_worker_faults.py`.
 """
 
 import functools

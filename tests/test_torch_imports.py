@@ -1,14 +1,17 @@
 """The port stands alone: in a fresh interpreter (this test process has jax loaded by
 conftest), importing every module of `galaxysql_tpu_torch` and `chip_smoke` pulls in
-neither `jax` nor any module of `galaxysql_tpu`; no file of the port names them in an
-import, lazy ones included; and where CUDA is absent the CUDA entry points refuse to
-run rather than fall back to the CPU."""
+neither `jax` nor any module of `galaxysql_tpu`, and neither does a booted port worker
+process; no file of the port names them in an import, lazy ones included; and where
+CUDA is absent the CUDA entry points (the instance, the worker, `chip_smoke.py`)
+refuse to run rather than fall back to the CPU."""
 
 import ast
 import os
+import select
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import pytest
 
@@ -81,6 +84,60 @@ def test_cuda_instance_refuses_without_cuda():
         Instance()
     with pytest.raises(RuntimeError):
         Instance(device="cuda")
+
+
+_WORKER_INIT = ("CREATE DATABASE w; USE w; CREATE TABLE t (a BIGINT PRIMARY KEY, "
+                "b VARCHAR(8)); INSERT INTO t VALUES (1, 'x'), (2, NULL)")
+
+
+def test_booted_worker_loads_no_jax_and_no_reference_package():
+    """`python -m galaxysql_tpu_torch.net.worker --device cpu`, booted and serving a
+    fragment, a query and a branch write: `-X importtime` lists every module the
+    process imported, and none is jax or of the JAX package."""
+    from galaxysql_tpu_torch.net.dn import WorkerClient
+    cmd = [sys.executable, "-X", "importtime", "-m", "galaxysql_tpu_torch.net.worker",
+           "--port", "0", "--device", "cpu", "--init-sql", _WORKER_INIT]
+    env = _clean_env()
+    env["OMP_NUM_THREADS"] = "1"
+    with tempfile.TemporaryFile(mode="w+") as err:
+        p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=err, text=True)
+        try:
+            ready, _, _ = select.select([p.stdout], [], [], 120)
+            line = p.stdout.readline() if ready else ""
+            assert line.startswith("WORKER_READY"), line
+            c = WorkerClient("127.0.0.1", int(line.split()[1]), timeout=60)
+            _c, _t, data, valid = c.exec_plan({"schema": "w", "table": "t",
+                                               "columns": ["a", "b"]})
+            assert data["a"].tolist() == [1, 2] and valid["b"].tolist() == [True, False]
+            assert c.execute("SELECT count(*) FROM t", "w")[2]
+            c.request({"op": "dml", "xid": "g1", "schema": "w", "uid": "u1",
+                       "sql": "INSERT INTO t VALUES (3, 'y')"})
+            assert c.request({"op": "xa_rollback", "xid": "g1"})[0]["ok"]
+            c.close()
+        finally:
+            p.kill()
+            p.wait()
+        err.seek(0)
+        modules = [ln.rsplit("|", 1)[-1].strip() for ln in err
+                   if ln.startswith("import time:")]
+    assert any(m.endswith("galaxysql_tpu_torch.net.worker") or m == "torch"
+               for m in modules)
+    bad = sorted({m for m in modules if m.split(".")[0] in ("jax", "jaxlib")
+                  or m == "galaxysql_tpu" or m.startswith("galaxysql_tpu.")})
+    assert not bad
+
+
+def test_worker_without_cuda_exits_non_zero():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the worker runs on it")
+    out = subprocess.run([sys.executable, "-m", "galaxysql_tpu_torch.net.worker",
+                          "--port", "0"], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "WORKER_READY" not in out.stdout
+    assert "CUDA" in out.stderr
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

@@ -10,9 +10,10 @@ bloom hash (`meta/statistics._mix64`, uint64) against the device one
 rows, the filters built and cached, the probe rows reaching the joins and the
 EXPLAIN ANALYZE `RuntimeFilter(...)` lines must be equal; so must the stripes a
 columnar replica prunes by a join's filter and the archive files a filter skips.
-Left out: the MPP, remote-worker and SSB cases (ROADMAP Queue 1 item 15; the port has
-no SSB generator), SHOW METRICS (item 16) and the reference's dispatch counters (no
-program dispatch in eager PyTorch)."""
+The remote-worker cases (filters shipped in a worker's fragment) are in
+`tests/test_torch_workers.py`.  Left out: the MPP and SSB cases (the port has no SSB
+generator), SHOW METRICS (ROADMAP Queue 1 item 16) and the reference's dispatch
+counters (no program dispatch in eager PyTorch)."""
 
 import time
 import types
