@@ -19,8 +19,7 @@ cached lanes, scan metadata, sorted key indexes and the batched point lanes all
 miss; `InvalidatePlansTask` drops the planner cache and the instance's device cache.
 
 Differences from the reference: `InvalidatePlansTask` clears the instance's own
-`device_cache` (the port has no process-wide one); the reference's `events.publish`
-of each job waits for `utils/events.py` (ROADMAP Queue 1 item 16); and `AddColumnTask`
+`device_cache` (the port has no process-wide one); and `AddColumnTask`
 encodes the default once and repeats its lane value, which gives the lanes and
 dictionary the reference's per-row `column_from_pylist` gives.
 """
@@ -37,7 +36,7 @@ from galaxysql_tpu_torch.chunk.batch import Dictionary, column_from_pylist
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
                                               TableMeta)
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
 from galaxysql_tpu_torch.utils.failpoint import (FAIL_POINTS, FP_AFTER_DDL_TASK,
                                                  FP_BACKFILL_PAUSE, FP_BEFORE_DDL_TASK)
 
@@ -408,6 +407,9 @@ class DdlEngine:
             db.execute("INSERT INTO ddl_engine_task VALUES (?,?,?,?,?)",
                        (job.job_id, tid, type(t).__name__, "PENDING",
                         json.dumps(t.payload)))
+        events.publish("ddl", f"{job.schema}: {job.sql}"[:256],
+                       node=self.instance.node_id, schema=job.schema,
+                       job_id=job.job_id)
         self._execute(job)
 
     def _execute(self, job: DdlJob, start_from: int = 0):

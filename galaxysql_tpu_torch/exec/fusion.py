@@ -392,6 +392,7 @@ class FusedSegment:
             counts = np.array([int(c) for c in counts], dtype=np.int64)
         else:
             env, live = self.apply_batch(batch)
+        ops.DISPATCH_STATS["dispatches"] += 1
         if live is not None:
             live = torch.broadcast_to(live, (n,))
         xp = TorchXP(batch.device)

@@ -71,6 +71,33 @@ def bucket_capacity(n: int) -> int:
     return c
 
 
+# Per-batch dispatch accounting, the reference's: every streaming-program
+# invocation on one batch bumps `dispatches` (FilterOp, ProjectOp, a fused segment,
+# the HashAgg partial, the batched point lookup and the per-stage MPP filter,
+# project, segment and aggregation rounds each count 1 a batch), at the same
+# program boundaries as the reference, so a script counts the same on the CPU in
+# both packages.  Plain int adds: no device sync, no lock.
+DISPATCH_STATS = {"dispatches": 0}
+
+# Compile accounting under the reference's keys.  The port has no XLA programs:
+# its counterpart of a trace and compile is a build of a CUDA source by nvcc
+# (`kernels/cuda_build.py`), which counts one `retraces` and adds its wall ms to
+# `compile_ms`; a kernel library loaded from the build directory without a build
+# counts one `cache_hits`.  The statement summary, the metric history and EXPLAIN
+# ANALYZE read these as they read the reference's.
+COMPILE_STATS = {"retraces": 0, "compile_ms": 0.0, "cache_hits": 0}
+
+
+def reset_dispatch_stats():
+    DISPATCH_STATS["dispatches"] = 0
+
+
+def reset_compile_stats():
+    COMPILE_STATS["retraces"] = 0
+    COMPILE_STATS["compile_ms"] = 0.0
+    COMPILE_STATS["cache_hits"] = 0
+
+
 _CLOSURES: "collections.OrderedDict[Tuple, Any]" = collections.OrderedDict()
 _CLOSURES_LOCK = threading.Lock()
 _CLOSURES_LIMIT = 4096
@@ -209,6 +236,7 @@ class FilterOp(Operator):
 
     def batches(self) -> Iterator[ColumnBatch]:
         for b in self.child.batches():
+            DISPATCH_STATS["dispatches"] += 1
             pred = self._compiled(b.device)
             yield ColumnBatch(b.columns, b.live_mask() & pred(batch_env(b)))
 
@@ -242,6 +270,7 @@ class ProjectOp(Operator):
 
     def batches(self) -> Iterator[ColumnBatch]:
         for b in self.child.batches():
+            DISPATCH_STATS["dispatches"] += 1
             yield self._compiled(b.device)(b)
 
 
@@ -390,6 +419,7 @@ class HashAggOp(Operator):
                             torch.broadcast_to(live, (b.capacity,))
                     else:
                         env, live = batch_env(b), b.live_mask()
+                    DISPATCH_STATS["dispatches"] += 1
                     r = self._partial_fn(mg, b.device)(env, live, b.capacity)
                     if bool(r.overflow):
                         overflowed = True
@@ -1708,6 +1738,7 @@ def batched_point_lookup(store, pid: int, part, col: str, version: int,
             dk, db, de = (as_tensor(build_keys(), device),
                           as_tensor(build_begin(), device),
                           as_tensor(build_end(), device))
+        DISPATCH_STATS["dispatches"] += 1
         pos, overflow = _batched_point_program(dk, db, de,
                                                as_tensor(_signed_order(keys), device),
                                                int(snap), int(txn_id))

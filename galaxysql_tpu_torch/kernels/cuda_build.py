@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -48,15 +49,25 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest[:16]}.so")
 
 
+def _compile_stats() -> dict:
+    from galaxysql_tpu_torch.exec.operators import COMPILE_STATS
+    return COMPILE_STATS
+
+
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every library in `sources` that is not built yet; returns
-    source -> library path.  Raises with nvcc's output when a build fails."""
+    source -> library path.  Raises with nvcc's output when a build fails.
+    Each source built counts one `retraces` in `exec/operators.COMPILE_STATS` and
+    adds the wall ms from the start of the builds to its nvcc's exit to
+    `compile_ms`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {s: library_path(s) for s in sources}
     todo = [s for s in sources if not os.path.exists(paths[s])]
     if not todo:
         return paths
     compiler = nvcc()
+    t0 = time.perf_counter()
+    stats = _compile_stats()
     procs = []
     for s in todo:
         tmp = f"{paths[s]}.{os.getpid()}.tmp"
@@ -66,6 +77,8 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     failures = []
     for s, tmp, p in procs:
         out, _ = p.communicate()
+        stats["retraces"] += 1
+        stats["compile_ms"] += (time.perf_counter() - t0) * 1000.0
         if p.returncode != 0:
             failures.append(f"{s}: nvcc exited {p.returncode}\n{out.decode(errors='replace')}")
             continue
@@ -76,16 +89,20 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, building all missing ones first."""
+    """The loaded library of one source, building all missing ones first.  A
+    library that was on disk before the build counts one `cache_hits`."""
     lib = _LIBS.get(source)
     if lib is not None:
         return lib
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
+            cached = os.path.exists(library_path(source))
             paths = build()
             lib = ctypes.CDLL(paths[source])
             _LIBS[source] = lib
+            if cached:
+                _compile_stats()["cache_hits"] += 1
     return lib
 
 

@@ -437,9 +437,8 @@ class CoordinatorSyncListener:
     same `WorkerClient` it uses for workers, so `ping` and `sync` ops (and the RPC
     failpoints, the circuit breaker, retry budgets) work against a peer
     coordinator unchanged.  `sync` dispatches into `Instance.apply_sync_action`.
-    Replies carry the `wl` load piggyback's queue depth and uptime (the
-    reference's admission snapshot and memory tier wait for ROADMAP Queue 1
-    item 16)."""
+    Replies carry the reference's `wl` load piggyback: the admitted in-flight
+    count, the memory tier, the uptime and the metric-history sample count."""
 
     def __init__(self, instance: Instance):
         self.instance = instance
@@ -495,8 +494,15 @@ class CoordinatorSyncListener:
             resp = {"error": f"unknown op {op!r} (coordinator sync plane "
                              f"serves ping/sync only)"}
         if isinstance(resp, dict) and "wl" not in resp:
-            resp["wl"] = {"q": len(inst.sessions),
-                          "up": round(time.time() - inst.started_at, 1)}
+            try:
+                adm = inst.admission
+                snap = adm.cluster_snapshot()
+                q = int(snap["tp"]["inflight"] + snap["ap"]["inflight"])
+                resp["wl"] = {"q": q, "mt": adm.governor.tier(),
+                              "up": round(time.time() - inst.started_at, 1),
+                              "ns": inst.metric_history.samples_count}
+            except Exception:  # galaxylint: disable=swallow -- load telemetry must never fail a gossip reply; workers do the same
+                pass
         return resp
 
     def _serve_conn(self, conn):

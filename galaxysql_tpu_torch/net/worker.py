@@ -18,17 +18,16 @@ torch device and serves the reference's ops over the reference's wire
   events (`cdc.flush_txn`), and held in doubt across a restart until the coordinator
   decides it (`TwoPhaseCoordinator.recover_remote`);
 - sync: the sync-action bus (plan/fragment/baseline invalidation, SET config,
-  table_meta, query_log, failpoint, worker_stats).  `health` reads the SLO plane
-  (`metric_history`, `admission`, `slo`), which waits for ROADMAP Queue 1 item 16:
-  the worker answers it with a typed `NotSupportedError`;
+  table_meta, query_log, failpoint, worker_stats, and `health`: a sample of the
+  worker's own metric history with its query rate, error rate, memory tier and
+  burning SLOs, the reference's);
 - ping.
 
 Every request may carry the sender's sync epoch (a missed broadcast heals the
 worker's caches at the next contact), a deadline budget, and a trace context whose
 spans ship back; uid-stamped writes run exactly once inside a bounded dedupe window.
-Every reply carries the load piggyback `wl`: the queue depth and uptime (the
-reference also sends the memory-pressure tier and the metric-history samples, which
-wait for item 16; the client reads them as 0).
+Every reply carries the reference's load piggyback `wl`: the queue depth, the
+memory-pressure tier, the uptime and the metric-history sample count.
 
     python -m galaxysql_tpu_torch.net.worker [--port P] [--data-dir DIR]
                                              [--init-sql SQL] [--device cuda|cpu]
@@ -54,7 +53,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from galaxysql_tpu_torch.net.dn import recv_msg, send_msg
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
 from galaxysql_tpu_torch.utils.failpoint import (FAIL_POINTS, FP_WORKER_CRASH,
                                                  FP_WORKER_SLOW_DRAIN)
 
@@ -116,8 +115,20 @@ class Worker:
             except IndexError:  # pragma: no cover - bracket imbalance guard
                 pass
         if isinstance(resp, dict):
-            resp["wl"] = {"q": len(self._active),
-                          "up": round(_time.time() - self.instance.started_at, 1)}
+            # backpressure piggyback: queue depth, memory-pressure tier, uptime
+            # and history samples ride every reply (no device syncs)
+            try:
+                resp["wl"] = {"q": len(self._active),
+                              "mt": self.instance.admission.governor.tier(),
+                              "up": round(_time.time() - self.instance.started_at, 1),
+                              "ns": self.instance.metric_history.samples_count}
+            except Exception as tex:
+                # load telemetry must never fail a data request, but a broken
+                # piggyback is journaled once instead of swallowed
+                events.publish(
+                    "worker_telemetry_failed",
+                    f"load piggyback failed: {type(tex).__name__}: {tex}",
+                    severity="warn", dedupe="worker-wl")
         return resp, out
 
     def _handle_epochs(self, header: dict, arrays: Dict[str, np.ndarray]):
@@ -806,9 +817,19 @@ class Worker:
                         "heals": self.heals,
                         "sync_epochs": dict(self._sync_epochs)}, {}
         if action == "health":
-            raise errors.NotSupportedError(
-                "sync action health waits for utils/metric_history.py, "
-                "server/admission.py and server/slo.py (ROADMAP Queue 1 item 16)")
+            # the SLO plane's cluster view: the worker runs the same sampler over
+            # its own registries; a pull takes an interval-gated sample, then
+            # reports a snapshot summary
+            mh = inst.metric_history
+            mh.maybe_sample()
+            return {"ok": True, "action": action, "node": inst.node_id,
+                    "uptime_s": round(_time.time() - inst.started_at, 3),
+                    "active": float(len(self._active)),
+                    "qps": round(mh.rate("queries_total"), 3),
+                    "error_rate": round(mh.rate("query_errors"), 6),
+                    "mem_tier": int(inst.admission.governor.tier()),
+                    "samples": int(mh.summary()["samples"]),
+                    "burning": inst.slo.burning_names()}, {}
         return {"error": f"unknown sync action {action!r}"}, {}
 
     # -- server loop ---------------------------------------------------------

@@ -46,8 +46,8 @@ from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
                                              dictionary_union_translation)
 from galaxysql_tpu_torch.exec import operators as ops
 from galaxysql_tpu_torch.exec import skew
-from galaxysql_tpu_torch.exec.operators import (AggCall, HashAggOp, SortOp, SourceOp,
-                                                broadcast_value, bucket_capacity,
+from galaxysql_tpu_torch.exec.operators import (DISPATCH_STATS, AggCall, HashAggOp,
+                                                SortOp, SourceOp, broadcast_value, bucket_capacity,
                                                 closure_cache, expr_cache_key)
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler, TorchXP, _find_dictionary
@@ -398,6 +398,7 @@ class MppExecutor:
         shards, and the wall ms."""
         sink = seg.stats_sink
         t0 = time.perf_counter()
+        DISPATCH_STATS["dispatches"] += 1
         shards = [None] if b.replicated else list(range(self.S))
         outs, lives, counts = [], [], []
         for s in shards:
@@ -544,6 +545,7 @@ class MppExecutor:
 
     def _filter(self, node: L.Filter) -> DistBatch:
         child = self.run(node.child)
+        DISPATCH_STATS["dispatches"] += 1
         lives = []
         for s, dev in self._shards_of(child):
             pred = closure_cache(
@@ -556,6 +558,7 @@ class MppExecutor:
 
     def _project(self, node: L.Project) -> DistBatch:
         child = self.run(node.child)
+        DISPATCH_STATS["dispatches"] += 1
         outs = []
         for s, dev in self._shards_of(child):
             fns = closure_cache(
@@ -678,6 +681,7 @@ class MppExecutor:
         """One round of the partial + merge aggregation at G slots: (result,
         overflow).  A shard whose partial overflows ends the round at once: any
         overflow retries the whole round with 2G, as in the reference."""
+        DISPATCH_STATS["dispatches"] += 1
         partials = []
         for s, dev in self._shards_of(child):
             gfns, ifns = _agg_expr_fns(groups, inputs, dev)
@@ -723,6 +727,7 @@ class MppExecutor:
 
     def _salted_agg_round(self, groups, child, inputs, specs, merge_specs, G, factor,
                           quota, prelude=None):
+        DISPATCH_STATS["dispatches"] += 1
         payload, lives, hashes, templates = [], [], [], []
         for s, dev in self._shards_of(child):
             gfns, ifns = _agg_expr_fns(groups, inputs, dev)

@@ -115,8 +115,8 @@ class ExecContext:
         self.join_spill_bytes = 256 << 20   # JOIN_SPILL_BYTES
         self.agg_spill_bytes = 256 << 20    # partial-agg spill threshold
         # per-query memory pool (exec/memory.py) that join builds, agg partials and
-        # sort slabs charge; the reference makes one only under admission control
-        # (ROADMAP Queue 1 item 16), so it stays None and every charge is a no-op
+        # sort slabs charge: the session makes one for a query admission control
+        # governs (`Session._run_query_admitted`); None makes every charge a no-op
         self.mem_pool = None
         # columnar replica routing (storage/columnar.py): table key -> ReplicaView
         # snapshot taken at routing; scans of those tables read the replica at the

@@ -35,11 +35,13 @@ Correctness envelope:
 - Plan validity: the group key carries the catalog schema_version; a change
   between submit and flush fails the version re-check and falls back.
 
-Trimmed against the reference: the metrics registry becomes the plain counters
-below (the reference's names: `batched_queries`, `batch_flushes`,
-`batch_fallbacks`, `batch_singletons`, and the group sizes and collection waits
-of recent flushes); the memory-pool child (`exec/memory.py` is not ported) is
-dropped; `events.publish` becomes a line in `trace`; the `GALAXYSQL_BATCHING`
+The counters (`batched_queries`, `batch_flushes`, `batch_fallbacks`,
+`batch_singletons`) and the group-size and wait histograms (`batch_group_size`,
+`batch_wait_ms`) are the reference's, in the instance's metrics registry; the leader
+fills each served member's QueryProfile and records the group's profiles and query
+metrics once a flush, as the reference does.  Trimmed against the reference: the
+SHOW BATCH STATS quantiles come from the recent flushes kept here; the memory-pool
+child is dropped; `events.publish` becomes a line in `trace`; the `GALAXYSQL_BATCHING`
 environment switch is not carried over — `ENABLE_BATCH_SCHEDULER`, read in the
 session's scope, does the same.  The flush holds the shared MDL of its table, and a
 table with archived rows falls back to the sequential path, as in the reference.
@@ -80,6 +82,8 @@ class BatchRequest:
     # watermark the session fences its own reads on (0 = nothing async)
     affected: int = 0
     apply_seq: int = 0
+    # the session's QueryProfile: the leader bulk-finishes it
+    prof: Any = None
 
 
 class _Group:
@@ -107,6 +111,12 @@ class BatchScheduler:
     # counters' names (the DML batcher rebinds both: `server/dml_batch.py`)
     WINDOW_PARAM = "BATCH_WINDOW_US"
     PREFIX = ""
+    # the registry counters' names (after PREFIX) and help texts, the reference's
+    COUNTER_HELP = (
+        ("batched_queries", "point queries served by a batch group"),
+        ("batch_flushes", "batch group executions (vectorized flushes)"),
+        ("batch_fallbacks", "batch members returned to the sequential path"),
+        ("batch_singletons", "groups flushed with a single member"))
 
     MIN_WINDOW_S = 100e-6
     MAX_WINDOW_S = 500e-6
@@ -135,15 +145,39 @@ class BatchScheduler:
         self._window_open_s = 0.0
         self._born = time.perf_counter()
         self._stats_lock = threading.Lock()
-        self.counts = {self.PREFIX + n: 0 for n in (
-            "batched_queries", "batch_flushes", "batch_fallbacks", "batch_singletons")}
+        m = instance.metrics
+        self._counters = {self.PREFIX + n: m.counter(self.PREFIX + n, h)
+                          for n, h in self.COUNTER_HELP}
         self.group_sizes: collections.deque = collections.deque(maxlen=_HISTORY)
         self.wait_ms: collections.deque = collections.deque(maxlen=_HISTORY)
         self.trace: collections.deque = collections.deque(maxlen=256)
 
+    @property
+    def counts(self) -> Dict[str, int]:
+        """The counters' values by name (the metrics registry holds them)."""
+        return {k: c.value for k, c in self._counters.items()}
+
     def _count(self, name: str, n: int = 1):
-        with self._stats_lock:
-            self.counts[self.PREFIX + name] += n
+        if n:
+            self._counters[self.PREFIX + name].inc(n)
+
+    def _histograms(self):
+        """The process-shared group-size and collection-wait histograms."""
+        from galaxysql_tpu_torch.utils.metrics import BATCH_GROUP_SIZE, BATCH_WAIT_MS
+        return BATCH_GROUP_SIZE, BATCH_WAIT_MS
+
+    def _finish_served(self, served: list, serve_ms: list, engine: str):
+        """Record the served members' profiles and bump the query metrics once
+        for the flush (the reference's bulk finish)."""
+        from galaxysql_tpu_torch.utils.tracing import GLOBAL_STATS
+        inst = self.instance
+        inst.profiles.record_many(served)
+        lat_h, q_total, q_wl, q_eng = inst.finish_handles("TP", engine)
+        lat_h.observe_many(serve_ms)
+        q_total.inc(len(served))
+        q_wl.inc(len(served))
+        q_eng.inc(len(served))
+        GLOBAL_STATS.bump("queries", len(served))
 
     # -- gating ----------------------------------------------------------------
 
@@ -190,7 +224,7 @@ class BatchScheduler:
     # -- submit/wait -----------------------------------------------------------
 
     def submit(self, gkey: Tuple, pp: dict, lane_val,
-               pinned_ts: Optional[int]) -> Optional[BatchRequest]:
+               pinned_ts: Optional[int], prof=None) -> Optional[BatchRequest]:
         """Join or open the statement's batch group; block until the group
         flushes.  Returns the caller's filled BatchRequest, or None when the
         caller must run the sequential path itself (window closed, singleton
@@ -204,7 +238,7 @@ class BatchScheduler:
         with self._lock:
             g = self._groups.get(gkey)
             if g is not None and not g.sealed:
-                req = BatchRequest(lane_val, now)
+                req = BatchRequest(lane_val, now, prof=prof)
                 g.requests.append(req)
                 if len(g.requests) >= cap or (
                         g.target is not None and len(g.requests) >= g.target):
@@ -218,7 +252,7 @@ class BatchScheduler:
                 fixed = bool(self.instance.config.get(self.WINDOW_PARAM))
                 target = None if fixed else min(max(self._inflight, 2), cap)
                 g = _Group(gkey, pp, pinned_ts, now, target)
-                req = BatchRequest(lane_val, now)
+                req = BatchRequest(lane_val, now, prof=prof)
                 g.requests.append(req)
                 self._groups[gkey] = g
                 prev_done = self._flush_done.get(gkey)
@@ -296,6 +330,7 @@ class BatchScheduler:
         n = len(reqs)
         nfall = served = 0
         waits = []
+        profs, serve_ms = [], []
         for r in reqs:
             r.wait_us = (flush_t - r.t0) * 1e6
             waits.append(r.wait_us / 1000.0)
@@ -310,12 +345,24 @@ class BatchScheduler:
                        f"exec={exec_us:.0f}us]",
                        f"elapsed={total_us / 1e6:.3f}s workload=TP"]
             served += 1
+            if r.prof is not None:
+                p = r.prof
+                p.workload, p.engine, p.rows = "TP", "batch", len(r.rows or ())
+                p.elapsed_ms = round(total_us / 1000.0, 3)
+                p.trace = [f"trace-id {p.trace_id}"] + r.trace
+                profs.append(p)
+                serve_ms.append(total_us / 1000.0)
+        group_h, wait_h = self._histograms()
+        group_h.observe(n)
+        wait_h.observe_many(waits)
+        self._count("batch_flushes")
+        self._count("batch_fallbacks", nfall)
+        self._count("batched_queries", served)
         with self._stats_lock:
-            self.counts["batch_flushes"] += 1
-            self.counts["batch_fallbacks"] += nfall
-            self.counts["batched_queries"] += served
             self.group_sizes.append(n)
             self.wait_ms.extend(waits)
+        if profs:
+            self._finish_served(profs, serve_ms, "batch")
         if served:
             self.instance.count("batched_point_queries", served)
 

@@ -36,11 +36,12 @@ registers for them, and a flush finding archived rows evicts its plan and falls 
 Each flush invalidates the fragment cache's entries of its table (and, in the
 synchronous apply, of its GSI tables) once, as in the reference.
 
-Trimmed against the reference, each waiting for its ROADMAP Queue 1 item: the
-QueryProfile, statement summary, admission ticket and
-metrics-registry histograms of each member (item 16; the group sizes and waits are
-kept as the point batcher keeps them).  Remote tables never register a plan, as in
-the reference: their writes, replica legs included, take `Session._remote_dml`.
+Each member carries its session's QueryProfile and admission ticket, as in the
+reference: the leader fills the served members' profiles and records them with the
+query metrics once a flush, and the counters (`dml_batched_queries`, ...) and the
+`dml_group_size` / `dml_wait_ms` histograms are the reference's, in the instance's
+metrics registry.  Remote tables never register a plan, as in the reference: their
+writes, replica legs included, take `Session._remote_dml`.
 """
 
 from __future__ import annotations
@@ -265,10 +266,19 @@ class DmlBatchScheduler(BatchScheduler):
 
     WINDOW_PARAM = "DML_BATCH_WINDOW_US"
     PREFIX = "dml_"
+    COUNTER_HELP = (
+        ("batched_queries", "DML statements served by a batch group"),
+        ("batch_flushes", "DML batch group executions"),
+        ("batch_fallbacks", "DML batch members returned to the sequential path"),
+        ("batch_singletons", "DML groups flushed with a single member"))
 
     def enabled(self, session=None) -> bool:
         return ENABLED and bool(self.instance.config.get(
             "ENABLE_DML_BATCHING", session.vars if session is not None else None))
+
+    def _histograms(self):
+        from galaxysql_tpu_torch.utils.metrics import DML_GROUP_SIZE, DML_WAIT_MS
+        return DML_GROUP_SIZE, DML_WAIT_MS
 
     def _async_apply_on(self) -> bool:
         return bool(self.instance.config.get("ENABLE_ASYNC_APPLY"))
@@ -550,6 +560,7 @@ class DmlBatchScheduler(BatchScheduler):
         n = len(reqs)
         nfall = served = 0
         waits = []
+        profs, serve_ms = [], []
         for r in reqs:
             r.wait_us = (flush_t - r.t0) * 1e6
             waits.append(r.wait_us / 1000.0)
@@ -563,9 +574,21 @@ class DmlBatchScheduler(BatchScheduler):
                        f"[group={n} wait={r.wait_us:.0f}us exec={exec_us:.0f}us]",
                        f"elapsed={total_us / 1e6:.3f}s workload=TP"]
             served += 1
+            if r.prof is not None:
+                p = r.prof
+                p.workload, p.engine, p.rows = "TP", "dml_batch", r.affected
+                p.elapsed_ms = round(total_us / 1000.0, 3)
+                p.trace = [f"trace-id {p.trace_id}"] + r.trace
+                profs.append(p)
+                serve_ms.append(total_us / 1000.0)
+        group_h, wait_h = self._histograms()
+        group_h.observe(n)
+        wait_h.observe_many(waits)
         self._count("batch_flushes")
         self._count("batch_fallbacks", nfall)
         self._count("batched_queries", served)
+        if profs:
+            self._finish_served(profs, serve_ms, "dml_batch")
         with self._stats_lock:
             self.group_sizes.append(n)
             self.wait_ms.extend(waits)

@@ -1,14 +1,18 @@
 """information_schema views (port of `galaxysql_tpu/server/information_schema.py`).
 
 Every view of the reference is a table of the `information_schema` schema, so the
-binder knows its columns.  The views whose data the port holds are filled from live
-state before any query that reads the schema (`refresh`): schemata, tables, columns,
-statistics, partitions, processlist, engines, global_variables, session_variables,
-plan_cache, batch_stats, node_info (the metadb's node registry), ddl_jobs,
-columnar_replica, fragment_cache and workers.  They
-are ordinary stores, read by the planner and the operators on the instance's device.
-A query that reads any other view raises `NotSupportedError` naming the module it
-waits for (`check_ported`), and never returns an empty table.
+binder knows its columns.  The views are filled from live state before any query
+that reads the schema (`refresh`): schemata, tables, columns, statistics,
+partitions, processlist, engines, global_variables, session_variables, plan_cache,
+engine_counters, batch_stats, node_info (the metadb's node registry), ddl_jobs,
+columnar_replica, fragment_cache, workers, and the operations plane's views:
+query_stats, query_spans, metrics, admission_stats, ccl_rules, statement_summary,
+statement_summary_history, events, incidents, plan_baselines, slo_status,
+metric_history and cluster_health (from the workers' piggybacked telemetry, no
+pull).  They are ordinary stores, read by the planner and the operators on the
+instance's device.  A query that reads rebalance_jobs or coordinators raises
+`NotSupportedError` naming the placement slice (`check_ported`), and never returns
+an empty table.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from galaxysql_tpu_torch.meta.catalog import ColumnMeta, TableMeta
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils.ccl import GLOBAL_CCL
+from galaxysql_tpu_torch.utils.events import EVENTS
 
 _V = dt.VARCHAR
 _I = dt.BIGINT
@@ -162,23 +168,8 @@ _DEFS: Dict[str, List] = {
 
 # the views the port cannot fill yet -> the module each waits for
 WAITING = {
-    "metrics": "utils/metrics.py (ROADMAP Queue 1 item 16)",
-    "query_stats": "utils/tracing.py (ROADMAP Queue 1 item 16)",
-    "query_spans": "utils/tracing.py (ROADMAP Queue 1 item 16)",
-    "admission_stats": "server/admission.py (ROADMAP Queue 1 item 16)",
-    "ccl_rules": "utils/ccl.py (ROADMAP Queue 1 item 16)",
-    "statement_summary": "meta/statement_summary.py (ROADMAP Queue 1 item 16)",
-    "statement_summary_history": "meta/statement_summary.py "
-                                 "(ROADMAP Queue 1 item 16)",
-    "events": "utils/events.py (ROADMAP Queue 1 item 16)",
-    "incidents": "server/flight_recorder.py (ROADMAP Queue 1 item 16)",
-    "rebalance_jobs": "ddl/rebalance.py (ROADMAP Queue 1 item 16)",
-    "plan_baselines": "the plan-baseline surface of the operations plane "
-                      "(ROADMAP Queue 1 item 16)",
-    "slo_status": "server/slo.py (ROADMAP Queue 1 item 16)",
-    "metric_history": "utils/metric_history.py (ROADMAP Queue 1 item 16)",
-    "cluster_health": "server/slo.py (ROADMAP Queue 1 item 16)",
-    "coordinators": "server/router.py (ROADMAP Queue 1 item 16)",
+    "rebalance_jobs": "ddl/rebalance.py (ROADMAP Queue 1 item 16, the placement slice)",
+    "coordinators": "server/router.py (ROADMAP Queue 1 item 16, the placement slice)",
 }
 
 
@@ -288,3 +279,35 @@ def refresh(instance, session=None):
                          instance.batch_scheduler.stats_rows() +
                          instance.dml_batch_scheduler.stats_rows()))
     fill("workers", (list(r) for r in instance.worker_rows()))
+    import json as _json
+    profiles = instance.profiles
+    fill("query_stats", ([p.trace_id, p.conn_id, p.schema, p.workload,
+                          p.engine, p.elapsed_ms, p.rows, len(p.op_stats),
+                          len(p.segments), 1 if p.profiled else 0,
+                          p.peak_rss_kb, p.sql]
+                         for p in profiles.entries()))
+    fill("query_spans", ([p.trace_id, sp.span_id, sp.parent_id, sp.name,
+                          sp.kind, sp.node, sp.start_us, float(sp.dur_us),
+                          _json.dumps(sp.attrs, default=str)[:512]]
+                         for p in profiles.entries() for sp in p.spans))
+    fill("metrics", ([n, k, float(v), h] for n, k, v, h in instance.metrics.rows()))
+    fill("admission_stats", ([n, float(v)] for n, v in
+                             instance.admission.stats_rows()))
+    fill("ccl_rules", ([st.rule.name, st.rule.max_concurrency,
+                        st.rule.keyword or "", st.rule.user or "",
+                        st.running, st.waiting, st.total_matched,
+                        st.total_rejected] for st in GLOBAL_CCL.rules()))
+    ss = instance.stmt_summary
+    fill("statement_summary", (list(r) for r in ss.rows()))
+    fill("statement_summary_history", (list(r) for r in ss.history_rows()))
+    fill("events", ([e.seq, round(e.at, 3), e.kind, e.severity, e.node,
+                     e.detail, _json.dumps(e.attrs, default=str)[:512],
+                     e.trace_id, e.digest]
+                    for e in EVENTS.entries()))
+    fill("incidents", (list(r) for r in instance.recorder.rows()))
+    fill("plan_baselines", (list(r) for r in instance.planner.spm.rows()))
+    fill("slo_status", (list(r) for r in instance.slo.rows()))
+    fill("metric_history", (list(r) for r in instance.metric_history.rows()))
+    # pull=False: the refresh renders the workers' piggybacked telemetry only, so
+    # a wedged worker cannot stall an unrelated catalog query
+    fill("cluster_health", (list(r) for r in instance.cluster_health(pull=False)))

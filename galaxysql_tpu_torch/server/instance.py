@@ -48,19 +48,34 @@ worker, backfilled from the primary when it is empty; reads pick an endpoint by
 weight (`read_endpoint`), skipping fenced, stale and breaker-blocked ones.
 `apply_sync_action` receives a peer's broadcasts (`sync_peer()`, attached to the
 peer's `sync_bus`, in process, or `net/server.CoordinatorSyncListener` over the wire).
-Its `health` action, the serving tier's peer registry (`attach_coordinator`), moving
-a remote table between workers and the cluster-health rows wait for the operations
-plane (ROADMAP Queue 1 item 16).
+Its `health` action answers with this node's metric-history sample, admission
+snapshot and burning SLOs (the reference's), and `cluster_health` pulls every
+attached worker's.  The serving tier's peer registry (`attach_coordinator`) and
+moving a remote table between workers come with the placement slice (ROADMAP Queue 1
+item 16).
+
+The operations plane, the reference's: `profiles` (the last-N QueryProfiles),
+`trace_store` (tail-sampled span trees), `stmt_summary`
+(`meta/statement_summary.py`: per digest and plan windows, the regression sentinel
+and its self-heal), `admission` (`server/admission.py`: the workload-class gate and
+the memory governor over `exec/memory.GLOBAL_POOL`), `metric_history`, `slo` and
+`recorder` (the SLO plane and the flight recorder, sampled by `slo_tick`),
+`scheduler` (`server/scheduler.py`, whose maintain loop drives `slo_tick`) and
+`locks` (GET_LOCK).  `finish_handles` binds the query metrics once per (workload,
+engine).
 
 It also holds the configuration (`config`, the reference's `ConfigParams`) with its
 `config_listener`, the `privileges` over the metadb, the registered point plans of
 the sequential fast path (`point_plans`, cleared past 512 entries as in the
 reference), the cross-session `batch_scheduler`, the commit coordinator
-(`xa_coordinator`, `txn/xa.py`, with the group-commit gate) and `counters`
+(`xa_coordinator`, `txn/xa.py`, with the group-commit gate) and `counters`, the
+reference's dict-like view over the registry's `engine_*` counters
 (`point_plan_queries`, `batched_point_queries`, `group_commit_batches`,
-`group_committed_txns`, `gsi_async_applies`, `async_apply_failures`, `mpp_queries`,
-`mpp_fallback_local`; `count` adds to them; `information_schema.engine_counters`
-lists them).  `mesh()` is the MPP device mesh (`parallel/mesh.py`): one shard a CUDA
+`group_committed_txns`, `mpp_queries`, `mpp_fallback_local`, and the per-engine query
+counts `exec_<engine>`; `count` adds atomically; `information_schema.engine_counters`
+lists them).  The async applier's and the batchers' counters and histograms are
+registry metrics under the reference's names (`gsi_async_applies`,
+`dml_batched_queries`, `batch_group_size`, ...).  `mesh()` is the MPP device mesh (`parallel/mesh.py`): one shard a CUDA
 device when there are several, else None, as in the reference.  The write side: `cdc` (the binlog, `txn/cdc.py`), the registered DML batch
 plans (`dml_plans`) and their `dml_batch_scheduler` (`server/dml_batch.py`), and the
 `applier` of async GSI maintenance (`txn/async_apply.py`).
@@ -106,12 +121,23 @@ from galaxysql_tpu_torch.txn.cdc import CdcManager
 from galaxysql_tpu_torch.txn.xa import TwoPhaseCoordinator, recover_persisted
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
-from galaxysql_tpu_torch.utils.metrics import (BREAKER_OPENS, QUERY_TIMEOUTS,
+from galaxysql_tpu_torch.exec.operators import COMPILE_STATS
+from galaxysql_tpu_torch.meta.statement_summary import StatementSummaryStore
+from galaxysql_tpu_torch.server.admission import AdmissionController
+from galaxysql_tpu_torch.server.flight_recorder import FlightRecorder
+from galaxysql_tpu_torch.server.scheduler import ScheduledJobManager
+from galaxysql_tpu_torch.server.slo import SloEngine
+from galaxysql_tpu_torch.utils.locks import LockingFunctionManager
+from galaxysql_tpu_torch.utils.metric_history import MetricHistory
+from galaxysql_tpu_torch.utils.metrics import (BATCH_GROUP_SIZE, BATCH_WAIT_MS,
+                                               BREAKER_OPENS, DML_GROUP_SIZE,
+                                               DML_WAIT_MS, QUERY_TIMEOUTS,
                                                RETRY_BUDGET_EXHAUSTED, RPC_FAILURES,
                                                RPC_RETRIES, RPC_RTT_MS,
-                                               SYNC_FAILURES, SYNC_HEALS,
+                                               SEGMENT_WALL_MS, SPILL_BYTES,
+                                               SPILL_FILES, SYNC_FAILURES, SYNC_HEALS,
                                                WORKER_FAILOVERS, MetricsRegistry)
-from galaxysql_tpu_torch.utils.tracing import TraceIdAllocator
+from galaxysql_tpu_torch.utils.tracing import ProfileRing, TraceIdAllocator, TraceStore
 
 
 class Instance:
@@ -154,33 +180,69 @@ class Instance:
         self.ha = HaManager(self)
         # the fault-tolerance plane's process-wide counters and the RPC
         # round-trip histogram, surfaced through this instance's registry
-        for m in (RPC_RTT_MS, RPC_RETRIES, RPC_FAILURES, BREAKER_OPENS,
-                  WORKER_FAILOVERS, SYNC_FAILURES, SYNC_HEALS, QUERY_TIMEOUTS,
-                  RETRY_BUDGET_EXHAUSTED):
+        for m in (SEGMENT_WALL_MS, RPC_RTT_MS, BATCH_GROUP_SIZE, BATCH_WAIT_MS,
+                  DML_GROUP_SIZE, DML_WAIT_MS, RPC_RETRIES, RPC_FAILURES,
+                  BREAKER_OPENS, WORKER_FAILOVERS, SYNC_FAILURES, SYNC_HEALS,
+                  QUERY_TIMEOUTS, RETRY_BUDGET_EXHAUSTED, SPILL_BYTES, SPILL_FILES):
             self.metrics.adopt(m)
+        self.metrics.histogram("query_latency_ms", "end-to-end query latency (ms)")
         self.catalog.create_schema("information_schema", if_not_exists=True)
         # (schema, parameterized SQL) -> PointPlan dict (`Session._register_point_plan`)
         self.point_plans: Dict[tuple, dict] = {}
-        self.counters: Dict[str, int] = {"point_plan_queries": 0,
-                                         "batched_point_queries": 0,
-                                         "group_commit_batches": 0,
-                                         "group_committed_txns": 0,
-                                         "gsi_async_applies": 0,
-                                         "async_apply_failures": 0,
-                                         "mpp_queries": 0,
-                                         "mpp_fallback_local": 0,
-                                         "replica_async_applies": 0}
+        # dict-like view over the registry's `engine_*` counters
+        # (information_schema.engine_counters); `count` adds atomically
+        self.counters = self.metrics.counter_map("engine")
+        # (workload, engine) -> bound metric handles for `Session._finish_query`
+        self.finish_metrics: Dict[tuple, tuple] = {}
+        # last-N per-query runtime profiles (information_schema.query_stats, SHOW
+        # PROFILES, web /query/<trace_id>)
+        self.profiles = ProfileRing()
+        # tail-sampled trace retention: the finish ramps offer slow, shed, errored
+        # and sampled span trees into this byte-budgeted ring
+        self.trace_store = TraceStore(
+            budget_bytes=int(self.config.get("TRACE_STORE_BUDGET_BYTES") or (4 << 20)),
+            rate=float(self.config.get("TRACE_SAMPLE_RATE") or 0.0),
+            node=self.node_id)
+        # the statement-digest summary and the plan-regression sentinel, fed by
+        # `Session._finish_query`
+        self.stmt_summary = StatementSummaryStore(self)
+        self.locks = LockingFunctionManager()
         self.batch_scheduler = BatchScheduler(self)
         # (schema, parameterized SQL) -> DML batch plan (`dml_batch.try_register`)
         self.dml_plans: Dict[tuple, dict] = {}
         self.dml_batch_scheduler = DmlBatchScheduler(self)
         self.applier = AsyncApplier(self)
         self.columnar = ColumnarReplicaManager(self)
+        # the overload plane: the workload-class admission gate and the memory
+        # governor over exec/memory.GLOBAL_POOL
+        self.admission = AdmissionController(self)
+        # the SLO plane: the metric history, the burn-rate and anomaly engine, and
+        # the flight recorder, sampled by `slo_tick`
+        self.metric_history = MetricHistory(self)
+        self.slo = SloEngine(self)
+        self.recorder = FlightRecorder(self)
         self.xa_coordinator = TwoPhaseCoordinator(self)
         self.mdl = MdlManager()
         self.ddl_engine = DdlEngine(self)
+        self.scheduler = ScheduledJobManager(self)
         self.recycle = RecycleBin(self)
         self.boot()
+
+    def finish_handles(self, workload: str, engine: str) -> tuple:
+        """(latency histogram, total / workload / engine counters) bound once per
+        (workload, engine): shared by `Session._finish_query` and the batch
+        schedulers' bulk group finish."""
+        handles = self.finish_metrics.get((workload, engine))
+        if handles is None:
+            m = self.metrics
+            handles = (m.histogram("query_latency_ms", "end-to-end query latency (ms)"),
+                       m.counter("queries_total", "queries executed"),
+                       m.counter(f"queries_{workload.lower()}",
+                                 f"{workload} workload queries"),
+                       m.counter(f"engine_exec_{engine}",
+                                 f"queries served by the {engine} engine"))
+            self.finish_metrics[(workload, engine)] = handles
+        return handles
 
     def _reload_global_config(self, *_):
         """Pull the SET GLOBAL values persisted in the metadb (the config
@@ -259,8 +321,9 @@ class Instance:
 
     def shutdown(self):
         """Stop the background threads the instance started (the replica's
-        tailer)."""
+        tailer and the scheduler's maintain loop)."""
         self.columnar.shutdown()
+        self.scheduler.stop()
 
     def store_key(self, schema: str, table: str) -> str:
         return f"{schema.lower()}.{table.lower()}"
@@ -301,8 +364,74 @@ class Instance:
             return next(self._conn_ids)
 
     def count(self, name: str, n: int = 1):
-        with self._lock:
-            self.counters[name] = self.counters.get(name, 0) + n
+        self.counters.inc(name, n)
+
+    # -- the SLO plane ---------------------------------------------------------------
+
+    def slo_tick(self, now: Optional[float] = None, force: bool = False) -> bool:
+        """One SLO-plane tick: take a history sample (interval-gated unless
+        `force`) and, when one lands, burn-rate every objective, rate-anomaly every
+        counter and let the flight recorder scan the journal.  Driven by the
+        scheduler's maintain loop and by tests with synthetic `now` stamps.
+        Advisory: never raises (the reference's)."""
+        try:
+            mh = self.metric_history
+            sampled = mh.sample(now=now) if force else mh.maybe_sample(now=now)
+            if sampled is None:
+                return False
+            self.slo.evaluate(now=now)
+            self.recorder.tick(now=now)
+            return True
+        except Exception:  # galaxylint: disable=swallow -- advisory plane: a sampler fault must never affect serving
+            return False
+
+    def cluster_health(self, pull: bool = True):
+        """Cluster-wide health rows: this coordinator first, then one row per
+        attached worker.  `pull=True` issues the `health` sync action (an
+        unreachable worker gets an UNREACHABLE row, never an exception);
+        `pull=False` renders from the replies' piggybacked load only.  The peer
+        registry comes with the placement slice, so no peer coordinator rows yet
+        (the reference's rows with none attached)."""
+        mh = self.metric_history
+        burning = self.slo.burning_names()
+        rows = [(self.node_id, "coordinator", "local",
+                 "BURNING" if burning else "OK",
+                 1 if self.ha.is_leader() else 0,
+                 round(time.time() - self.started_at, 3),
+                 float(len(self.sessions)),
+                 round(mh.rate("queries_total"), 3),
+                 round(mh.rate("query_errors"), 6),
+                 int(self.admission.governor.tier()),
+                 ",".join(burning), int(mh.summary()["samples"]))]
+        for (host, port), client in sorted(self.workers.items()):
+            addr = f"{host}:{port}"
+            fenced = self.ha.worker_fenced((host, port))
+            if pull:
+                try:
+                    resp = client.sync_action("health", {})
+                except Exception:  # galaxylint: disable=swallow -- the UNREACHABLE row below IS the failure report; the sync client journals breaker state
+                    resp = None
+                if not (isinstance(resp, dict) and resp.get("ok")):
+                    rows.append((addr, "worker", addr, "UNREACHABLE",
+                                 0, 0.0, 0.0, 0.0, 0.0, 0, "", 0))
+                    continue
+                rows.append((resp.get("node", addr), "worker", addr,
+                             "FENCED" if fenced else "OK", 0,
+                             round(float(resp.get("uptime_s", 0.0)), 3),
+                             float(resp.get("active", 0)),
+                             round(float(resp.get("qps", 0.0)), 3),
+                             round(float(resp.get("error_rate", 0.0)), 6),
+                             int(resp.get("mem_tier", 0)), "",
+                             int(resp.get("samples", 0))))
+            else:
+                rows.append((addr, "worker", addr,
+                             "FENCED" if fenced else "OK", 0,
+                             round(float(getattr(client, "load_up", 0.0)), 3),
+                             float(getattr(client, "load_q", 0) or 0),
+                             0.0, 0.0,
+                             int(getattr(client, "load_tier", 0) or 0), "",
+                             int(getattr(client, "load_samples", 0) or 0)))
+        return rows
 
     # -- the worker plane ----------------------------------------------------------
 
@@ -522,9 +651,43 @@ class Instance:
             self.privileges.invalidate_cache()
             return {"ok": True, "action": action, "node": self.node_id}
         if action == "health":
-            raise errors.NotSupportedError(
-                "sync action health waits for utils/metric_history.py, "
-                "server/admission.py and server/slo.py (ROADMAP Queue 1 item 16)")
+            # peer coordinators answer the health pull workers answer; inbound
+            # `peer_admission` gossip is ingested and the reply carries this
+            # node's admission snapshot, sync epoch, groups and retrace count, and
+            # on request (`want`) statement-summary, metrics and trace rollups
+            mh = self.metric_history
+            mh.maybe_sample()
+            for node, snap in (payload.get("peer_admission") or {}).items():
+                self.admission.note_peer(node, snap)
+            reply = {"ok": True, "action": action, "node": self.node_id,
+                     "uptime_s": round(time.time() - self.started_at, 3),
+                     "active": float(len(self.sessions)),
+                     "qps": round(mh.rate("queries_total"), 3),
+                     "error_rate": round(mh.rate("query_errors"), 6),
+                     "mem_tier": int(self.admission.governor.tier()),
+                     "samples": int(mh.summary()["samples"]),
+                     "burning": self.slo.burning_names(),
+                     "epoch": int(self.sync_bus.epoch),
+                     "admission": self.admission.cluster_snapshot(),
+                     "groups": [g.strip().lower() for g in
+                                str(self.config.get("COORDINATOR_GROUPS")
+                                    or "").split(",") if g.strip()],
+                     "retraces": int(COMPILE_STATS.get("retraces", 0))}
+            want = payload.get("want") or []
+            if "statement_summary" in want:
+                reply["statement_summary"] = \
+                    [list(r) for r in self.stmt_summary.rows()[:256]]
+            if "metrics" in want:
+                reply["metrics"] = [[n, k, float(v), h] for n, k, v, h
+                                    in self.metrics.rows()[:512]]
+            if "traces" in want:
+                reply["traces"] = [rt.to_dict() for rt in
+                                   self.trace_store.entries(limit=64)]
+            tid = payload.get("trace_id")
+            if tid is not None:
+                rt = self.trace_store.get(tid)
+                reply["trace"] = rt.to_dict() if rt is not None else None
+            return reply
         return {"ok": False, "error": f"unknown sync action {action!r}"}
 
     def sync_peer(self):

@@ -14,7 +14,8 @@
   `route_covering_gsi`.
 
 The reference's CHECK TABLE needs `utils/fastchecker.py`, which waits for ROADMAP
-Queue 1 item 16; the port's session raises `NotSupportedError` for it.
+Queue 1 item 16 (the placement slice); the port's session raises
+`NotSupportedError` for it.
 """
 
 from __future__ import annotations

@@ -9,10 +9,11 @@ TO], PURGE RECYCLEBIN / PURGE TABLE, DROP DATABASE, CREATE [OR REPLACE] VIEW, DR
 VIEW, ALTER TABLE (ADD/DROP COLUMN, ADD/DROP INDEX, RENAME), CREATE/DROP [UNIQUE|GLOBAL]
 INDEX, ADVISE INDEX and LOAD DATA [LOCAL] INFILE (a server-side file, appended in
 DML_BATCH_SIZE batches, GSIs maintained, nothing logged to the binlog: the
-reference's).  ALTER TABLE and the index statements run as jobs of the
-instance's `ddl_engine` (`ddl/jobs.py`); the recycle bin and the advisor are
-`server/maintain.py`.  A statement the port does not take yet raises
-`NotSupportedError` naming the ROADMAP item it waits for.  Every statement is
+reference's), CREATE/DROP CCL_RULE, CREATE/DROP SLO and BASELINE DELETE/EVOLVE.
+ALTER TABLE and the index statements run as jobs of the instance's `ddl_engine`
+(`ddl/jobs.py`); the recycle bin and the advisor are `server/maintain.py`.  A
+statement the port does not take yet (CHECK TABLE, REBALANCE, repartitioning)
+raises `NotSupportedError` naming the placement slice it waits for.  Every statement is
 authorized as in the reference (`_authorize` against the instance's
 `PrivilegeManager`); a query that reads `information_schema` refreshes its views
 first (`server/information_schema.py`).  A SELECT goes parse -> bind ->
@@ -47,10 +48,9 @@ order: the COLUMNAR hint, ENABLE_COLUMNAR_REPLICA, the GALAXYSQL_COLUMNAR enviro
 switch, no transaction, no AS OF, no remote table, no point scan unless
 COLUMNAR(ON), the size signal, READY replicas of the tables' current columns, the
 session's own last write below the watermark (read your writes), and
-COLUMNAR_MAX_LAG_MS.  The size signal is the planner's estimate against
-COLUMNAR_MIN_SCAN_ROWS alone: the reference's first choice, the statement summary's
-observed rows of the digest, waits for `meta/statement_summary.py` (ROADMAP Queue 1
-item 16), so the port always takes the reference's cold-digest branch.
+COLUMNAR_MAX_LAG_MS.  The size signal is the reference's: the statement summary's
+observed rows examined of the digest, and for a digest it has not seen the
+planner's estimate, against COLUMNAR_MIN_SCAN_ROWS.
 
 Metadata locks are the reference's: every query, DML statement, sequential point
 lookup and EXPLAIN ANALYZE holds a shared MDL (`meta/mdl.py`) on each table it reads
@@ -100,6 +100,21 @@ Each such write bumps the table's fragment-cache epoch here and broadcasts it on
 sync bus, again once the transaction's outcome holds.  MAX_EXECUTION_TIME (the
 session value or the statement hint) sets the statement's deadline, which the scans
 and the worker RPCs honour (`QueryTimeoutError`).
+The operations plane is the reference's.  Every query, DML statement and point
+lookup (sequential or batched) carries a QueryProfile and a snapshot of the process
+counters the statement summary attributes (`_ss0`, host-side reads); it passes the
+admission gate (`server/admission.py`: a shed is a typed `ServerOverloadError` with
+`retry_after_ms`) and, for a query, the CCL queue (`utils/ccl.py`), and a governed
+query runs under a per-query memory pool (`exec/memory.query_pool`) whose pressure
+tier scales its spill thresholds.  One exit ramp (`_finish_query`) records the
+profile, the query metrics, the statement summary and the slow log, and a shed or
+failed query records its partial profile and trace.  A plan bound under a heal
+episode salts its fragment fingerprints (`heal_pin`) and reports its latency as a
+probation sample; the verdict goes to the summary's `apply_heal_verdict`.  GET_LOCK
+and RELEASE_LOCK hold the instance's `locks`, released when the session closes.
+None of this reads a device tensor: only EXPLAIN ANALYZE and profiling
+(ENABLE_QUERY_PROFILING) synchronize with the device.
+
 The WHERE of UPDATE and DELETE and UPDATE's SET expressions run as the reference runs
 them, `ExprCompiler(np)` over the partitions' host lanes, so the stored lanes equal
 the reference's bit for bit; every read, including INSERT ... SELECT, runs on the
@@ -115,18 +130,21 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from galaxysql_tpu_torch.chunk.batch import Column
 from galaxysql_tpu_torch.ddl.jobs import alter_table_job, create_index_job, drop_index_job
 from galaxysql_tpu_torch.exec import skew as _skew
 from galaxysql_tpu_torch.exec.device_cache import TRANSFER_STATS
 from galaxysql_tpu_torch.exec.runtime_filter import RuntimeFilterManager
-from galaxysql_tpu_torch.exec.operators import run_to_batch
+from galaxysql_tpu_torch.exec.memory import query_pool
+from galaxysql_tpu_torch.exec.operators import COMPILE_STATS, run_to_batch
 from galaxysql_tpu_torch.expr import ir
 from galaxysql_tpu_torch.expr.compiler import ExprCompiler
 from galaxysql_tpu_torch.meta.tso import LOGICAL_BITS
 from galaxysql_tpu_torch.meta.catalog import (ColumnMeta, IndexMeta, PartitionInfo,
                                               PartitionRouter, SINGLE, TableMeta, ViewDef)
+from galaxysql_tpu_torch.meta import statement_summary as _ss
 from galaxysql_tpu_torch.meta.statistics import analyze_store
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.binder import Binder, Scope
@@ -145,7 +163,9 @@ from galaxysql_tpu_torch.storage import columnar as _col
 from galaxysql_tpu_torch.storage.table_store import INFINITY_TS, visible_rows
 from galaxysql_tpu_torch.txn.xa import participants_of, remote_participants_of
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors, events
+from galaxysql_tpu_torch.utils import errors, events, tracing
+from galaxysql_tpu_torch.utils.ccl import GLOBAL_CCL, CclRule
+from galaxysql_tpu_torch.utils.failpoint import FAIL_POINTS, FP_SLO_LATENCY_MS
 from galaxysql_tpu_torch.utils.metrics import QUERY_TIMEOUTS
 
 
@@ -278,14 +298,10 @@ def gsi_delete(instance, tm, base_store, pid: int, row_ids: np.ndarray,
 
 # statements of the reference the port does not take yet -> the ROADMAP item
 _WAITING_STMTS = {
-    ast.CheckTable: "utils/fastchecker.py (ROADMAP Queue 1 item 16)",
-    ast.Rebalance: "ddl/rebalance.py and server/balancer.py (ROADMAP Queue 1 item 16)",
-    ast.CreateCclRule: "utils/ccl.py (ROADMAP Queue 1 item 16)",
-    ast.DropCclRule: "utils/ccl.py (ROADMAP Queue 1 item 16)",
-    ast.CreateSlo: "server/slo.py (ROADMAP Queue 1 item 16)",
-    ast.DropSlo: "server/slo.py (ROADMAP Queue 1 item 16)",
-    ast.BaselineStmt: "the plan-baseline surface of the operations plane "
-                      "(ROADMAP Queue 1 item 16)",
+    ast.CheckTable: "utils/fastchecker.py (ROADMAP Queue 1 item 16, the placement "
+                    "slice)",
+    ast.Rebalance: "ddl/rebalance.py and server/balancer.py (ROADMAP Queue 1 item 16, "
+                   "the placement slice)",
 }
 
 
@@ -317,6 +333,8 @@ class Session:
         self._apply_mark = 0
         # per-statement MAX_EXECUTION_TIME deadline (absolute seconds, None = none)
         self._deadline: Optional[float] = None
+        # the statement in flight's (text, ParameterizedSql), `_parameterized`
+        self._pmemo = None
         # the running statement's text and parameters (a write to a remote table
         # ships them to the worker, which plans the statement again)
         self._current_sql = ""
@@ -335,11 +353,20 @@ class Session:
         return [self._execute_one(s, params) for s in stmts] if stmts else [ok()]
 
     def close(self):
-        """Roll back an open transaction, then leave the instance."""
+        """Roll back an open transaction, then leave the instance.  A failed
+        rollback must not leak the session's advisory locks or its registry
+        entry, nor vanish silently: it lands in the event journal."""
         try:
             if self.txn is not None:
                 self._rollback()
+        except Exception as rex:
+            events.publish(
+                "session_close_failed",
+                f"rollback on session close failed for conn "
+                f"{self.conn_id}: {type(rex).__name__}: {rex}",
+                severity="warn", node=self.instance.node_id)
         finally:
+            self.instance.locks.release_all(self.conn_id)
             self.instance.sessions.pop(self.conn_id, None)
 
     @contextlib.contextmanager
@@ -362,7 +389,17 @@ class Session:
                 for n in L.walk(rel) if isinstance(n, L.Scan)}
 
     def _lock_fn(self, name: str, vals: list):
-        raise errors.NotSupportedError(f"{name.upper()} is not supported by this engine")
+        """The GET_LOCK family over the instance's `utils/locks.py` manager."""
+        lm = self.instance.locks
+        key = str(vals[0])
+        if name == "get_lock":
+            timeout = float(vals[1]) if len(vals) > 1 else 0.0
+            return lm.get_lock(key, timeout, self.conn_id)
+        if name == "release_lock":
+            return lm.release_lock(key, self.conn_id)
+        if name == "is_free_lock":
+            return lm.is_free_lock(key)
+        return lm.is_used_lock(key)
 
     def _execute_one(self, sql: str, params: Optional[list]) -> ResultSet:
         # statement deadline: MAX_EXECUTION_TIME = 0 (the default) keeps it None
@@ -413,15 +450,31 @@ class Session:
         priv = {"insert": "INSERT", "update": "UPDATE", "delete": "DELETE"}[pp["kind"]]
         self.instance.privileges.check(self.user, priv, pp["schema"], pp["table"])
         self._apply_fence()
-        gkey = (schema.lower(), p.cache_key, pp["schema_version"])
-        req = sched.submit(gkey, pp, vals, None)
+        prof = tracing.QueryProfile(
+            trace_id=self.instance.trace_ids.next(), sql=sql[:512],
+            schema=schema, conn_id=self.conn_id, started_at=time.time())
+        self._ss0 = _ss.counters_snapshot(self.instance)
+        ticket = self.instance.admission.admit(self, sql)
+        try:
+            gkey = (schema.lower(), p.cache_key, pp["schema_version"])
+            req = sched.submit(gkey, pp, vals, None, prof)
+        except Exception:
+            ticket.release(error=True)
+            raise
         if req is None:
+            # the sequential path admits the statement again
+            ticket.release()
             return None
         if req.error is not None:
+            ticket.release(error=True)
             raise req.error  # isolated to this session; the other members go on
         if req.apply_seq:
             self._apply_mark = max(self._apply_mark, req.apply_seq)
-        self.last_trace = req.trace
+        # the leader finished the profile and the query metrics at scatter; the
+        # member's tail is the summary record and the admission feedback
+        self.last_trace = prof.trace
+        self._summary_record(sql, prof, "TP", "dml_batch", req.affected)
+        ticket.release(prof)
         return ok(affected=req.affected)
 
     def _apply_wait_s(self) -> float:
@@ -577,6 +630,30 @@ class Session:
             return self._sync_privileges()
         if isinstance(stmt, ast.LoadData):
             return self._run_load_data(stmt)
+        if isinstance(stmt, ast.CreateCclRule):
+            if any(st.rule.name.lower() == stmt.name.lower()
+                   for st in GLOBAL_CCL.rules()):
+                # replacing a live rule would zero its counters and orphan its
+                # in-flight admissions: an error unless IF NOT EXISTS
+                if stmt.if_not_exists:
+                    return ok()
+                raise errors.TddlError(f"CCL rule '{stmt.name}' already exists")
+            GLOBAL_CCL.add_rule(CclRule(
+                stmt.name, stmt.max_concurrency, stmt.keyword, stmt.user,
+                stmt.wait_queue_size, stmt.wait_timeout_ms))
+            return ok()
+        if isinstance(stmt, ast.DropCclRule):
+            if not GLOBAL_CCL.drop_rule(stmt.name) and not stmt.if_exists:
+                raise errors.TddlError(f"unknown CCL rule '{stmt.name}'")
+            return ok()
+        if isinstance(stmt, ast.CreateSlo):
+            self.instance.slo.create_sql(stmt)
+            return ok()
+        if isinstance(stmt, ast.DropSlo):
+            self.instance.slo.drop_sql(stmt.name, stmt.if_exists)
+            return ok()
+        if isinstance(stmt, ast.BaselineStmt):
+            return self._run_baseline(stmt)
         waits = _WAITING_STMTS.get(type(stmt))
         if waits is not None:
             raise errors.NotSupportedError(
@@ -607,23 +684,285 @@ class Session:
             return self.txn.snapshot_ts
         return self.instance.tso.next_timestamp()
 
+    def _profiling_enabled(self) -> bool:
+        return bool(self.instance.config.get("ENABLE_QUERY_PROFILING", self.vars))
+
+    def _tracing_enabled(self) -> bool:
+        # always on by default (host-side ramp timestamps only); the
+        # GALAXYSQL_TRACING=0 environment switch or the parameter turn it off
+        return tracing.ALWAYS_ON and bool(
+            self.instance.config.get("ENABLE_QUERY_TRACING", self.vars))
+
+    def _parameterized(self, sql: str):
+        """`parameterize(sql)`, kept for the statement in flight: the admission
+        gate, the trace sampler, the summary and the slow log each ask for the
+        same text's digest, and the module's own memo skips texts past 4 KB (a
+        multi-row INSERT would be tokenized once per asker)."""
+        memo = self._pmemo
+        if memo is not None and memo[0] is sql:
+            return memo[1]
+        p = parameterize(sql)
+        self._pmemo = (sql, p)
+        return p
+
+    def _digest_of(self, sql: str, schema: str = "") -> str:
+        """Statement digest of a raw SQL text ('' for internal statements)."""
+        if not sql or sql.startswith("<"):
+            return ""
+        return _ss.digest_key((schema or self.schema or "").lower(),
+                              self._parameterized(sql).parameterized)
+
+    def _summary_record(self, sql: str, prof, workload: str, engine: str,
+                        rows: int, plan=None, error: bool = False):
+        """Feed the statement-summary store from the exit ramps: host-side adds,
+        the counter deltas against the snapshot taken at the statement's entry."""
+        if not sql or sql.startswith("<"):
+            return
+        ss = self.instance.stmt_summary
+        if not ss.on(self.vars):
+            return
+        p = self._parameterized(sql)
+        if engine in ("point", "batch"):
+            fp, orders = "point", ""  # both serve the cached PointPlan shape
+        elif engine in ("dml", "dml_batch"):
+            fp, orders = "dml", ""  # write statements have no join order
+        elif error and plan is None:
+            fp, orders = "unknown", ""
+        else:
+            fp = _ss.plan_fingerprint(plan)
+            orders = _ss.encode_orders(getattr(plan, "join_orders", None))
+        ss.record(prof.schema, p.parameterized, sql, fp, orders, workload,
+                  engine, prof.elapsed_ms, rows,
+                  rows_examined=int(getattr(plan, "scanned_rows", 0) or 0),
+                  error=error, peak_rss_kb=prof.peak_rss_kb,
+                  extras=None if error else
+                  _ss.counters_delta(getattr(self, "_ss0", None), self.instance))
+
+    def _finish_query(self, sql: str, elapsed: float, prof, workload: str,
+                      engine: str, rows: int, ctx=None, plan=None):
+        """Every query's exit ramp, the reference's: fill and record the
+        QueryProfile, bump the metrics, feed the statement summary and apply the
+        slow-SQL gate.  Host-side reads and adds only: no device sync."""
+        if FAIL_POINTS.active:
+            # SLO-plane burn determinism: inflate the OBSERVED latency of matching
+            # queries (no sleeping), so the histogram, the summary and the burn
+            # windows all see the storm
+            spec = FAIL_POINTS.value(FP_SLO_LATENCY_MS)
+            if spec is not None:
+                if isinstance(spec, dict):
+                    wl_want = str(spec.get("workload", "") or "").upper()
+                    sch_want = str(spec.get("schema", "") or "").lower()
+                    if (not wl_want or wl_want == (workload or "").upper()) \
+                            and (not sch_want or sch_want ==
+                                 (prof.schema or "").lower()):
+                        elapsed += float(spec.get("ms", 0.0)) / 1000.0
+                else:
+                    elapsed += float(spec) / 1000.0
+        prof.workload = workload
+        prof.engine = engine
+        prof.rows = rows
+        prof.elapsed_ms = round(elapsed * 1000, 3)
+        if ctx is not None:
+            prof.profiled = bool(getattr(ctx, "collect_stats", False))
+            if prof.profiled:
+                prof.op_stats = list(ctx.op_stats)
+            prof.trace = list(ctx.trace)
+        # compile-phase attribution: the process-wide compile_ms delta across this
+        # query (kernel builds; absent in steady state)
+        c0 = getattr(self, "_compile_ms0", None)
+        if c0 is not None:
+            cms = COMPILE_STATS["compile_ms"] - c0
+            if cms > 0.0:
+                prof.phases["compile"] = round(cms, 3)
+        inst = self.instance
+        slow_ms = inst.config.get("SLOW_SQL_MS", self.vars)
+        # 0 logs every query (MySQL long_query_time=0); negative disables
+        is_slow = (slow_ms is not None and slow_ms >= 0 and elapsed * 1000 >= slow_ms)
+        digest = self._digest_of(sql, prof.schema)
+        rt = None
+        store = inst.trace_store
+        if prof.traced and (prof.spans or is_slow):
+            if prof.spans and prof.phases:
+                prof.spans[0].attrs["phases"] = dict(prof.phases)
+            rt = store.offer(prof, digest, slow=bool(is_slow))
+        if prof.profiled or rt is not None:
+            try:
+                import resource
+                prof.peak_rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            except Exception:  # galaxylint: disable=swallow -- a non-POSIX host: the profile lacks the memory datapoint
+                pass
+        inst.profiles.record(prof)
+        lat_h, q_total, q_wl, q_eng = inst.finish_handles(workload, engine)
+        lat_h.observe(elapsed * 1000)
+        q_total.inc()
+        q_wl.inc()
+        q_eng.inc()
+        tracing.GLOBAL_STATS.bump("queries")
+        self._summary_record(sql, prof, workload, engine, rows, plan)
+        if is_slow:
+            tracing.SLOW_LOG.record(sql or "<stmt>", elapsed, self.conn_id,
+                                    trace_id=prof.trace_id, workload=workload,
+                                    digest=digest)
+            tracing.GLOBAL_STATS.bump("slow")
+            inst.metrics.counter("slow_queries", "queries over SLOW_SQL_MS").inc()
+
     def _run_query(self, stmt, sql: str, params: Optional[list]) -> ResultSet:
+        """The query ramp, the reference's: the read-your-writes fence, the
+        profile and the counter snapshot, the trace context, the admission gate
+        and the CCL queue, then `_run_query_admitted`; a shed or a failure
+        leaves its profile, trace and summary record behind."""
         schema = self._require_schema()
-        # read-your-writes: this session's own async GSI applies land first
+        _pc = time.perf_counter
+        f0 = _pc()
         self._apply_fence()
+        fence_ms = (_pc() - f0) * 1000.0
+        t0 = time.time()
+        prof = tracing.QueryProfile(trace_id=self.instance.trace_ids.next(),
+                                    sql=(sql or "<stmt>")[:512], schema=schema,
+                                    conn_id=self.conn_id, started_at=t0)
+        if fence_ms >= 0.05:  # steady state: the fence is one int compare
+            prof.phases["fence_wait"] = round(fence_ms, 3)
+        # the statement-summary counter bracket: host-side dict reads
+        self._ss0 = _ss.counters_snapshot(self.instance)
+        self._compile_ms0 = COMPILE_STATS["compile_ms"]
         info = "information_schema" in (sql or "").lower() or \
             schema.lower() == "information_schema"
         if info:
             information_schema.refresh(self.instance, self)
+        # trace collection first, so even a shed query leaves a (tiny) tree
+        tc = None
+        if self._tracing_enabled():
+            prof.traced = True
+            store = self.instance.trace_store
+            # the always-on budget: one dict probe and one compare; sampled
+            # queries build the full span tree, and an explicit session opt-in
+            # always does (SHOW TRACE debugging)
+            prof.sampled = store.sampler.decide(self._digest_of(sql, schema))
+            if prof.sampled or bool(self.vars.get("ENABLE_QUERY_TRACING")):
+                tc = tracing.TraceContext(prof.trace_id, node=self.instance.node_id)
+                prof.spans = tc.spans
+            else:
+                self.last_spans = []
+        else:
+            self.last_spans = []
+        ticket = None
+        admission = None
+        try:
+            a0 = _pc()
+            try:
+                ticket = self.instance.admission.admit(self, sql or "")
+            finally:
+                # a shed query keeps its admission wait in its phases
+                prof.phases["admission"] = round((_pc() - a0) * 1000, 3)
+            q0 = _pc()
+            try:
+                admission = GLOBAL_CCL.admit(self, sql or "")
+            finally:
+                prof.phases["queue"] = round((_pc() - q0) * 1000, 3)
+            if tc is None:
+                return self._run_query_admitted(stmt, sql, params, schema, t0, prof,
+                                                info)
+            root = tc.begin("query", kind="query", sql=prof.sql[:128],
+                            conn=self.conn_id, schema=schema)
+            prev = tracing.swap_active(tc)
+            try:
+                rs = self._run_query_admitted(stmt, sql, params, schema, t0, prof,
+                                              info)
+            except BaseException as e:
+                root.attrs["error"] = f"{type(e).__name__}: {e}"[:256]
+                raise
+            finally:
+                tracing.swap_active(prev)
+                tc.end(root)
+            self._finish_trace(tc)
+            return rs
+        except errors.ServerOverloadError as e:
+            self._record_query_shed(sql, t0, prof, e, tc)
+            raise
+        except Exception as e:
+            self._record_query_error(sql, t0, prof, e, tc)
+            raise
+        finally:
+            if admission is not None:
+                admission.release()
+            if ticket is not None:
+                ticket.release(prof)
+
+    def _finish_trace(self, tc):
+        """Close out a traced query: stamp the allocator's peak on the root span
+        (host-side allocator statistics, no device sync) and keep the tree for
+        SHOW TRACE."""
+        if tc.spans and self.instance.device.type == "cuda":
+            dev = self.instance.device
+            tc.spans[0].attrs["hbm_peak_bytes"] = {
+                str(dev): int(torch.cuda.max_memory_allocated(dev))}
+        self.last_spans = list(tc.spans)
+
+    def _record_query_shed(self, sql, t0, prof, exc, tc):
+        """Admission shed this query before execution: no error metrics (the
+        admission plane counted and published the typed shed), but the phase
+        attribution and the trace skeleton are kept."""
+        elapsed = time.time() - t0
+        prof.elapsed_ms = round(elapsed * 1000, 3)
+        prof.error = f"{type(exc).__name__}: {exc}"[:512]
+        if tc is not None:
+            tc.add("shed", kind="error", parent=tc.root_id, **errors.span_attrs(exc))
+            self._finish_trace(tc)
+        inst = self.instance
+        inst.profiles.record(prof)
+        if prof.traced:
+            if prof.spans and prof.phases:
+                prof.spans[0].attrs["phases"] = dict(prof.phases)
+            inst.trace_store.offer(prof, self._digest_of(sql, prof.schema), shed=True)
+        self.last_trace = [f"trace-id {prof.trace_id}", f"shed {prof.error}",
+                           f"elapsed={elapsed:.3f}s"]
+
+    def _record_query_error(self, sql, t0, prof, exc, tc):
+        """A query that dies mid-execution still records its profile (with the
+        error), an error span closing its trace, its summary record and a
+        slow-log entry when the time spent crosses the slow gate."""
+        elapsed = time.time() - t0
+        prof.elapsed_ms = round(elapsed * 1000, 3)
+        prof.error = f"{type(exc).__name__}: {exc}"[:512]
+        inst = self.instance
+        if tc is not None:
+            tc.add("error", kind="error", parent=tc.root_id, **errors.span_attrs(exc))
+            self._finish_trace(tc)
+        if prof.traced:
+            if prof.spans and prof.phases:
+                prof.spans[0].attrs["phases"] = dict(prof.phases)
+            inst.trace_store.offer(prof, self._digest_of(sql, prof.schema))
+        inst.profiles.record(prof)
+        tracing.GLOBAL_STATS.bump("errors")
+        inst.metrics.counter("query_errors", "queries failed mid-execution").inc()
+        if isinstance(exc, errors.QueryTimeoutError):
+            QUERY_TIMEOUTS.inc()
+        self._summary_record(sql, prof, prof.workload or "TP", prof.engine, 0,
+                             error=True)
+        self.last_trace = [f"trace-id {prof.trace_id}", f"error {prof.error}",
+                           f"elapsed={elapsed:.3f}s"]
+        slow_ms = inst.config.get("SLOW_SQL_MS", self.vars)
+        if slow_ms is not None and slow_ms >= 0 and elapsed * 1000 >= slow_ms:
+            tracing.SLOW_LOG.record(sql or "<stmt>", elapsed, self.conn_id,
+                                    trace_id=prof.trace_id, workload=prof.workload,
+                                    error=type(exc).__name__,
+                                    digest=self._digest_of(sql, prof.schema))
+            tracing.GLOBAL_STATS.bump("slow")
+            inst.metrics.counter("slow_queries", "queries over SLOW_SQL_MS").inc()
+
+    def _run_query_admitted(self, stmt, sql, params, schema, t0, prof,
+                            info: bool) -> ResultSet:
         if sql and self.instance.point_plans:
-            rs = self._try_point_exec(sql, params, schema)
+            rs = self._try_point_exec(sql, params, schema, t0, prof)
             if rs is not None:
                 return rs
         planner = self.instance.planner
+        p0 = time.perf_counter()
         if sql:
             plan = planner.plan_select(sql, schema, params, self)
         else:
             plan = planner.bind_statement(stmt, schema, params or [], self)
+        prof.phases["plan"] = round((time.perf_counter() - p0) * 1000, 3)
         if stmt is None:
             # the SELECT hot path skipped the raw parse; authorize on the plan's
             # (parameterized) AST: the same table names, no second parse
@@ -631,22 +970,84 @@ class Session:
         if info:
             information_schema.check_ported(plan.rel)
         ctx = self._exec_context(plan, params)
+        # resource governance (server/admission.py): memory-pressure tiers lower
+        # the spill thresholds (NORMAL scale is 1.0), and a per-query pool child
+        # charges join builds, agg partials and sort slabs against GLOBAL_POOL
+        adm = self.instance.admission
+        governed = adm.enabled(self, sql or "")
+        if governed:
+            scale = adm.governor.spill_scale()
+            if scale != 1.0:
+                ctx.sort_spill_bytes = int(ctx.sort_spill_bytes * scale)
+                ctx.join_spill_bytes = int(ctx.join_spill_bytes * scale)
+                ctx.agg_spill_bytes = int(ctx.agg_spill_bytes * scale)
+        # the profile rides the context; stats collection (device syncs) only
+        # when profiling is asked for
+        ctx.profile = prof
+        ctx.collect_stats = self._profiling_enabled()
         # large AP scans flip to the CDC-fed replica at a TSO watermark; TP point
         # reads and fresh-read sessions stay on the row store
-        self._maybe_route_columnar(plan, ctx)
+        self._maybe_route_columnar(plan, ctx, sql, schema)
+        if governed:
+            # created just before the try that closes it, so an exception in
+            # between cannot leak the child onto GLOBAL_POOL
+            ctx.mem_pool = query_pool(
+                self.conn_id,
+                int(self.instance.config.get("QUERY_MEM_BYTES", self.vars)
+                    or (4 << 30)))
         try:
             with self._mdl_shared(self._scan_keys(plan.rel)):
-                batch = self._try_mpp(plan, ctx, count=True)
-                if batch is None:
-                    batch = run_to_batch(build_operator(plan.rel, ctx))
-                batch = batch.compact()
-                rows = batch.to_pylist()
-        except errors.QueryTimeoutError:
-            QUERY_TIMEOUTS.inc()
-            raise
-        self.last_trace = ctx.trace
+                return self._run_query_locked(plan, ctx, sql, t0, prof)
+        finally:
+            # the per-query pool releases what a failed operator left reserved
+            # and leaves the global hierarchy
+            if ctx.mem_pool is not None:
+                ctx.mem_pool.close()
+
+    def _run_query_locked(self, plan, ctx, sql, t0, prof) -> ResultSet:
+        span_scope = tracing.SEGMENT_TRACER.scoped(prof.segments) \
+            if ctx.collect_stats else contextlib.nullcontext()
+        x0 = time.perf_counter()
+        with span_scope:
+            batch = self._try_mpp(plan, ctx, count=True)
+            mpp_used = batch is not None
+            if batch is None:
+                batch = run_to_batch(build_operator(plan.rel, ctx))
+        prof.phases["execute"] = round((time.perf_counter() - x0) * 1000, 3)
+        s0 = time.perf_counter()
+        batch = batch.compact()
+        rows = batch.to_pylist()
+        prof.phases["serialize"] = round((time.perf_counter() - s0) * 1000, 3)
         if plan.workload == "TP":
             self._register_point_plan(plan)
+        elapsed = time.time() - t0
+        if getattr(plan, "spm_key", None) is not None:
+            # during PROBATION this execution is a heal verification sample; a
+            # filled quota returns the episode's verdict.  Heal bookkeeping never
+            # fails the user query: the result set is already computed
+            try:
+                verdict = self.instance.planner.spm.record_execution(
+                    plan.spm_key, elapsed * 1000.0,
+                    getattr(plan, "bound_params", None),
+                    orders=plan.join_orders,
+                    stats_version=self.instance.catalog.stats_version)
+                if verdict is not None:
+                    self.instance.stmt_summary.apply_heal_verdict(verdict)
+            except Exception as heal_exc:  # pragma: no cover - defensive
+                try:
+                    self.instance.stmt_summary.heal_failures.inc()
+                    self.instance.planner.spm.abort_heal(
+                        plan.spm_key, f"verdict error {heal_exc!r}")
+                    events.publish("plan_heal_failed",
+                                   f"heal verdict error {heal_exc!r}",
+                                   node=self.instance.node_id,
+                                   reason="internal_error")
+                except Exception:  # galaxylint: disable=swallow -- the journal itself failed; the query's result stands
+                    pass
+        self.last_trace = [f"trace-id {prof.trace_id}"] + ctx.trace + \
+            [f"elapsed={elapsed:.3f}s workload={plan.workload}"]
+        self._finish_query(sql, elapsed, prof, plan.workload,
+                           "mpp" if mpp_used else "local", len(rows), ctx, plan=plan)
         return ResultSet(plan.display_names, [t for _, t, _ in plan.fields()], rows,
                          batch=batch)
 
@@ -689,9 +1090,8 @@ class Session:
 
     def _exec_context(self, plan, params: Optional[list]) -> ExecContext:
         """A query's context: the instance's device and device cache, the session's
-        snapshot and transaction, and its spill thresholds.  The reference scales the
-        thresholds down under memory pressure through admission control, which the
-        port does not have yet (ROADMAP Queue 1 item 16)."""
+        snapshot and transaction, and its spill thresholds (a governed query scales
+        them under memory pressure in `_run_query_admitted`)."""
         ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
                           self.instance.device, self.instance.device_cache,
                           params=params or [],
@@ -719,7 +1119,7 @@ class Session:
 
     # -- columnar HTAP routing (storage/columnar.py) ---------------------------
 
-    def _maybe_route_columnar(self, plan, ctx):
+    def _maybe_route_columnar(self, plan, ctx, sql="", schema=""):
         """Route this query's scans onto the columnar replica when every gate
         opens: hatch trio (COLUMNAR hint > ENABLE_COLUMNAR_REPLICA >
         GALAXYSQL_COLUMNAR env), autocommit read (no txn), no flashback, no
@@ -747,7 +1147,7 @@ class Session:
                 return  # flashback / plan-shipped scans stay where they are
             if n.point_eq is not None and hint != "on":
                 return  # TP index path: the row store's key-Get wins
-        if hint != "on" and not self._columnar_signal(scans):
+        if hint != "on" and not self._columnar_signal(sql, schema, scans):
             return
         views = {}
         for n in scans:
@@ -785,12 +1185,21 @@ class Session:
         ctx.columnar = views
         mgr.routed.inc()
 
-    def _columnar_signal(self, scans) -> bool:
-        """Is this statement big enough for the replica?  The planner's estimate
-        against COLUMNAR_MIN_SCAN_ROWS: the reference's branch for a digest the
-        statement summary has not seen (the port has no summary yet)."""
+    def _columnar_signal(self, sql, schema, scans) -> bool:
+        """Is this statement big enough for the replica?  The statement summary's
+        observed rows examined of the digest first; a cold digest falls back to the
+        planner's estimate, both against COLUMNAR_MIN_SCAN_ROWS."""
         min_rows = int(self.instance.config.get(
             "COLUMNAR_MIN_SCAN_ROWS", self.vars) or 50_000)
+        if sql and not sql.startswith("<"):
+            try:
+                execs, avg_rx = self.instance.stmt_summary.digest_signal(
+                    (schema or self.schema or "").lower(),
+                    parameterize(sql).parameterized)
+            except Exception:  # galaxylint: disable=swallow -- the size signal is advisory: a summary fault defers to the estimate below
+                execs, avg_rx = 0, 0.0
+            if execs > 0:
+                return avg_rx >= min_rows
         est = 0
         for n in scans:
             try:
@@ -852,8 +1261,8 @@ class Session:
             self.instance.point_plans.clear()
         self.instance.point_plans[plan.spm_key] = pp
 
-    def _try_point_exec(self, sql: str, params: Optional[list],
-                        schema: str) -> Optional[ResultSet]:
+    def _try_point_exec(self, sql: str, params: Optional[list], schema: str,
+                        t0: float, prof) -> Optional[ResultSet]:
         p = parameterize(sql)
         key = (schema.lower(), p.cache_key)
         pp = self.instance.point_plans.get(key)
@@ -867,12 +1276,12 @@ class Session:
         sched = self.instance.batch_scheduler
         sched.point_begin()
         try:
-            return self._point_exec(pp, p, params, schema)
+            return self._point_exec(pp, p, sql, params, schema, t0, prof)
         finally:
             sched.point_end()
 
-    def _point_exec(self, pp: dict, p, params: Optional[list],
-                    schema: str) -> Optional[ResultSet]:
+    def _point_exec(self, pp: dict, p, sql: str, params: Optional[list],
+                    schema: str, t0: float, prof) -> Optional[ResultSet]:
         vals = p.resolve(params or [])
         if len(vals) != 1:
             return None
@@ -891,7 +1300,7 @@ class Session:
                                            None):
             return None  # cold rows live outside the index: the planned path
         key_col = pp["key_col"]
-        t0 = time.perf_counter()
+        x0 = time.perf_counter()
         if value is None:
             rows = []  # eq NULL matches nothing
         else:
@@ -900,13 +1309,18 @@ class Session:
                 return None
             # cross-session batching: coalesce with other sessions executing this
             # same parameterized statement (None -> run it here)
-            brs = self._try_batched_point(pp, p, lane_val, schema)
+            brs = self._try_batched_point(pp, p, lane_val, sql, t0, prof, schema)
             if brs is not None:
                 return brs
             with self._mdl_shared({self.instance.store_key(tm.schema, tm.name)}):
                 rows = self._point_get(tm, store, key_col, lane_val, pp["out_cols"])
-        self.last_trace = [f"point-plan {pp['table']}.{key_col}",
-                           f"elapsed={time.perf_counter() - t0:.3f}s workload=TP"]
+        prof.phases["execute"] = round((time.perf_counter() - x0) * 1000, 3)
+        elapsed = time.time() - t0
+        self.last_trace = [f"trace-id {prof.trace_id}",
+                           f"point-plan {pp['table']}.{key_col}",
+                           f"elapsed={elapsed:.3f}s workload=TP"]
+        prof.trace = list(self.last_trace)
+        self._finish_query(sql, elapsed, prof, "TP", "point", len(rows))
         self.instance.count("point_plan_queries")
         return ResultSet(pp["names"], pp["types"], rows)
 
@@ -939,8 +1353,8 @@ class Session:
             rows.extend(zip(*cols))
         return rows
 
-    def _try_batched_point(self, pp: dict, psql, lane_val,
-                           schema: str) -> Optional[ResultSet]:
+    def _try_batched_point(self, pp: dict, psql, lane_val, sql: str, t0: float,
+                           prof, schema: str) -> Optional[ResultSet]:
         """Submit this point read to the cross-session batch scheduler
         (`server/batch_scheduler.py`).  Returns the scattered ResultSet, or None
         when the session must run the sequential path itself: batching disabled,
@@ -961,12 +1375,25 @@ class Session:
                 return None  # own-txn writes: sequential own-visibility path
             pinned = self.txn.snapshot_ts
         gkey = (schema.lower(), psql.cache_key, pinned, pp["schema_version"])
-        req = sched.submit(gkey, pp, lane_val, pinned)
+        req = sched.submit(gkey, pp, lane_val, pinned, prof)
         if req is None:
             return None
         if req.error is not None:
             raise req.error  # isolated to this session; group members proceed
-        self.last_trace = req.trace
+        # the leader finished the profile and the query metrics at scatter; the
+        # member's tail is SHOW TRACE state, the summary record and the slow gate
+        self.last_trace = prof.trace
+        self._summary_record(sql, prof, "TP", "batch", len(req.rows))
+        slow_ms = self.instance.config.get("SLOW_SQL_MS", self.vars)
+        if slow_ms is not None and slow_ms >= 0:
+            elapsed = time.time() - t0
+            if elapsed * 1000 >= slow_ms:
+                tracing.SLOW_LOG.record(sql, elapsed, self.conn_id,
+                                        trace_id=prof.trace_id, workload="TP",
+                                        digest=self._digest_of(sql, schema))
+                tracing.GLOBAL_STATS.bump("slow")
+                self.instance.metrics.counter(
+                    "slow_queries", "queries over SLOW_SQL_MS").inc()
         return ResultSet(pp["names"], pp["types"], req.rows)
 
     # -- transactions -------------------------------------------------------------
@@ -1081,21 +1508,43 @@ class Session:
         hint_ms = parse_hints(getattr(stmt, "hints", None)).get("max_execution_time")
         if hint_ms:
             self._deadline = time.time() + hint_ms / 1000.0
-        with self._mdl_shared(keys):
-            if isinstance(stmt, ast.Insert):
-                if stmt.ignore or stmt.replace or stmt.on_dup_update:
+        t0 = time.time()
+        prof = tracing.QueryProfile(
+            trace_id=self.instance.trace_ids.next(), sql=(sql or "<dml>")[:512],
+            schema=self.schema or "", conn_id=self.conn_id, started_at=t0)
+        self._ss0 = _ss.counters_snapshot(self.instance)
+        # DML rides the admission gate too (TP class): under overload a write
+        # queue degrades typed instead of piling onto the store locks
+        ticket = self.instance.admission.admit(self, sql or "")
+        try:
+            with self._mdl_shared(keys):
+                if isinstance(stmt, ast.Insert):
+                    if stmt.ignore or stmt.replace or stmt.on_dup_update:
+                        raise errors.NotSupportedError(
+                            "INSERT IGNORE, REPLACE and ON DUPLICATE KEY UPDATE")
+                    rs = self._run_insert(stmt, params)
+                elif stmt.order_by or stmt.limit is not None:
                     raise errors.NotSupportedError(
-                        "INSERT IGNORE, REPLACE and ON DUPLICATE KEY UPDATE")
-                rs = self._run_insert(stmt, params)
-            elif stmt.order_by or stmt.limit is not None:
-                raise errors.NotSupportedError("ORDER BY or LIMIT in UPDATE and DELETE")
-            elif isinstance(stmt, ast.Update):
-                rs = self._run_update(stmt, params)
-            else:
-                rs = self._run_delete(stmt, params)
-        if self.txn is None:
-            dml_batch.try_register(self, stmt, sql, params)
-        return rs
+                        "ORDER BY or LIMIT in UPDATE and DELETE")
+                elif isinstance(stmt, ast.Update):
+                    rs = self._run_update(stmt, params)
+                else:
+                    rs = self._run_delete(stmt, params)
+        except Exception:
+            ticket.release(error=True)
+            raise
+        else:
+            prof.workload = "TP"
+            prof.engine = "dml"
+            prof.elapsed_ms = round((time.time() - t0) * 1000, 3)
+            # the digest's observed write cost feeds the summary and the
+            # admission classifier
+            self._summary_record(sql, prof, "TP", "dml", rs.affected)
+            if self.txn is None:
+                dml_batch.try_register(self, stmt, sql, params)
+            return rs
+        finally:
+            ticket.release(prof)
 
     def _run_load_data(self, stmt: ast.LoadData) -> ResultSet:
         """Server-side CSV ingestion (LOAD DATA INFILE), the reference's: the file is
@@ -1567,6 +2016,8 @@ class Session:
             self.instance.register_table(tm)
             self.instance.metadb.save_schema(schema)
             self.instance.metadb.notify(f"table.{schema}.{tm.name}")
+            events.publish("ddl", f"CREATE TABLE {schema}.{tm.name}",
+                           node=self.instance.node_id, schema=schema, table=tm.name)
         return ok()
 
     # -- DDL ------------------------------------------------------------------------
@@ -1582,9 +2033,15 @@ class Session:
                 except errors.TddlError:
                     tm = None
                 if tm is not None and self.instance.recycle.drop(tm):
-                    continue  # parked in the bin: FLASHBACK can restore it
+                    # parked in the bin: FLASHBACK can restore it
+                    events.publish("ddl", f"DROP TABLE {s}.{name.table} (recycled)",
+                                   node=self.instance.node_id, schema=s,
+                                   table=name.table)
+                    continue
             if self.instance.catalog.drop_table(s, name.table, stmt.if_exists):
                 self.instance.drop_store(s, name.table)
+                events.publish("ddl", f"DROP TABLE {s}.{name.table}",
+                               node=self.instance.node_id, schema=s, table=name.table)
         return ok()
 
     def _drop_database(self, stmt: ast.DropDatabase):
@@ -1631,12 +2088,12 @@ class Session:
         if any(a[0] == "repartition" for a in stmt.actions):
             raise errors.NotSupportedError(
                 "ALTER TABLE ... PARTITION BY waits for ddl/repartition.py "
-                "(ROADMAP Queue 1 item 16)")
+                "(ROADMAP Queue 1 item 16, the placement slice)")
         if any(a[0] in ("split_partition", "merge_partitions", "move_partition")
                for a in stmt.actions):
             raise errors.NotSupportedError(
                 "SPLIT/MERGE/MOVE PARTITION waits for ddl/rebalance.py "
-                "(ROADMAP Queue 1 item 16)")
+                "(ROADMAP Queue 1 item 16, the placement slice)")
         job = alter_table_job(schema, sql, stmt.table.table, stmt.actions)
         try:
             self.instance.ddl_engine.submit_and_run(job)
@@ -1686,6 +2143,34 @@ class Session:
                           self.instance.config.registry() else name.lower()] = value
         return ok()
 
+    def _run_baseline(self, stmt: ast.BaselineStmt) -> ResultSet:
+        """BASELINE EVOLVE runs the unaccepted candidates with their join order
+        forced on the instance's device and promotes measurably faster ones;
+        BASELINE DELETE drops a baseline (the reference's)."""
+        spm = self.instance.planner.spm
+        if stmt.action == "delete":
+            found = spm.delete(stmt.baseline_id)
+            return ok(affected=1 if found else 0)
+
+        def measure(key, orders):
+            schema, psql = key
+            params = spm.last_params(key)
+            plan = self.instance.planner.bind_statement(
+                parse(psql), schema, params, self, forced_orders=orders)
+            ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
+                              self.instance.device, self.instance.device_cache,
+                              params=params, archive=self.instance.archive,
+                              archive_instance=self.instance)
+            op = build_operator(plan.rel, ctx)
+            t0 = time.time()
+            run_to_batch(op)
+            return (time.time() - t0) * 1000.0
+
+        rows = spm.evolve(measure)
+        return ResultSet(["BASELINE_ID", "PROMOTED", "CANDIDATE_MS", "ACCEPTED_MS"],
+                         [dt.BIGINT, dt.BOOL, dt.DOUBLE, dt.DOUBLE],
+                         [(i, p, c, a) for i, p, c, a in rows])
+
     def _run_show(self, stmt: ast.Show) -> ResultSet:
         from galaxysql_tpu_torch.server import show_handlers
         return show_handlers.handle(self, stmt)
@@ -1710,9 +2195,17 @@ class Session:
             # the query actually reads
             self._maybe_route_columnar(plan, ctx)
             col_views = ctx.columnar
+            prof = tracing.QueryProfile(trace_id=self.instance.trace_ids.next(),
+                                        sql="<explain analyze>", schema=schema,
+                                        conn_id=self.conn_id, started_at=time.time())
+            ctx.profile = prof
+            # compile and transfer attribution: deltas of the process counters
+            # around this execution (host-side reads)
+            c0 = dict(COMPILE_STATS)
             x0 = dict(TRANSFER_STATS)
             t0 = time.time()
-            with self._mdl_shared(self._scan_keys(plan.rel)):
+            with self._mdl_shared(self._scan_keys(plan.rel)), \
+                    tracing.SEGMENT_TRACER.scoped(prof.segments):
                 # the real path's engine dispatch: an AP query past the MPP
                 # threshold reports its per-shard stages (rows per shard, skew,
                 # HotKeys/Salted decisions), not a local stand-in
@@ -1724,10 +2217,15 @@ class Session:
             lines = annotate_explain(plan.rel, ctx.op_stats, rf=ctx.rf,
                                      skew_stats=ctx.skew_stats)
             # the per-operator stats behind the lines (under MPP: engine, rows per
-            # shard, shard skew), where the reference keeps them in its query
-            # profile (ROADMAP Queue 1 item 16)
+            # shard, shard skew); the profile records them too
             self.last_op_stats = ctx.op_stats
-            lines += [f"-- rows: {rows}", f"-- elapsed: {elapsed:.3f}s",
+            d_retr = COMPILE_STATS["retraces"] - c0["retraces"]
+            d_cms = COMPILE_STATS["compile_ms"] - c0["compile_ms"]
+            d_cached = COMPILE_STATS["cache_hits"] - c0["cache_hits"]
+            lines += [f"-- trace_id: {prof.trace_id}", f"-- rows: {rows}",
+                      f"-- elapsed: {elapsed:.3f}s",
+                      f"-- compile: retraces={d_retr} wall={d_cms:.3f}ms "
+                      f"cached={d_cached}",
                       f"-- transfer: h2d_bytes={TRANSFER_STATS['bytes'] - x0['bytes']} "
                       f"transfers={TRANSFER_STATS['transfers'] - x0['transfers']}"] + \
                 [f"-- {t}" for t in ctx.trace]
@@ -1735,6 +2233,12 @@ class Session:
                 tag = f" fused({st['segment']})" if st.get("fused") else ""
                 lines.append(f"-- op {st['operator']}: rows={st['rows_out']} "
                              f"batches={st['batches']} wall={st['wall_ms']}ms{tag}")
+            for sp in prof.segments:
+                lines.append(f"-- segment {sp.segment_id} {sp.chain}: "
+                             f"rows_in={sp.rows_in} rows_out={sp.rows_out} "
+                             f"compiled={sp.compiled} wall={sp.wall_ms}ms")
+            self._finish_query(prof.sql, elapsed, prof, plan.workload, "local", rows,
+                               ctx, plan=plan)
         if col_views is None:
             # plain EXPLAIN: dry-run the routing decision against a throwaway probe
             # so freshness shows up without executing anything

@@ -1,12 +1,18 @@
 """SHOW command handlers (port of `galaxysql_tpu/server/show_handlers.py`).
 
-The kinds whose data the port holds, with the reference's columns and text: databases,
-tables, columns, create table, variables, processlist, index / indexes / keys,
-warnings, trace, status, engines, charset, collation, batch stats (the point
-batcher's rows, then the DML batcher's and the async applier's), the binlog events,
-the recycle bin, the DDL jobs, the columnar replica, the fragment cache and the
-attached workers.  Every other kind raises `NotSupportedError` naming the module it
-waits for.
+Every kind of the reference but two, with the reference's columns and text:
+databases, tables, columns, create table, variables, processlist, index / indexes /
+keys, warnings, trace (the tags, then the span tree of a traced query), status,
+engines, charset, collation, batch stats (the point batcher's rows, then the DML
+batcher's and the async applier's), the binlog events, the recycle bin, the DDL
+jobs, the columnar replica, the fragment cache, the attached workers, and the
+operations plane's surfaces: baseline, slow, profiles, [full] stats, statement
+summary [history] and its cluster form, events, incidents, metrics and its cluster
+form, metric history, slo, cluster health, admission and ccl rules.  The cluster
+forms merge the peer coordinators' rows (`_peer_pull`); the peer registry comes
+with the placement slice, so they hold this node's rows alone, as the reference's
+do with no peer attached.  REBALANCE and COORDINATORS raise `NotSupportedError`
+naming the placement slice (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -20,22 +26,8 @@ from galaxysql_tpu_torch.utils import errors
 
 # SHOW kinds of the reference the port does not take yet -> the module each waits for
 _WAITING = {
-    "baseline": "the plan-baseline surface of the operations plane "
-                "(ROADMAP Queue 1 item 16)",
-    "slow": "utils/tracing.py (ROADMAP Queue 1 item 16)",
-    "profiles": "utils/tracing.py (ROADMAP Queue 1 item 16)",
-    "stats": "utils/tracing.py (ROADMAP Queue 1 item 16)",
-    "statement_summary": "meta/statement_summary.py (ROADMAP Queue 1 item 16)",
-    "events": "utils/events.py (ROADMAP Queue 1 item 16)",
-    "incidents": "server/flight_recorder.py (ROADMAP Queue 1 item 16)",
-    "metrics": "utils/metrics.py (ROADMAP Queue 1 item 16)",
-    "metric_history": "utils/metric_history.py (ROADMAP Queue 1 item 16)",
-    "slo": "server/slo.py (ROADMAP Queue 1 item 16)",
-    "cluster_health": "server/slo.py (ROADMAP Queue 1 item 16)",
-    "admission": "server/admission.py (ROADMAP Queue 1 item 16)",
-    "ccl_rules": "utils/ccl.py (ROADMAP Queue 1 item 16)",
-    "rebalance": "ddl/rebalance.py (ROADMAP Queue 1 item 16)",
-    "coordinators": "server/router.py (ROADMAP Queue 1 item 16)",
+    "rebalance": "ddl/rebalance.py (ROADMAP Queue 1 item 16, the placement slice)",
+    "coordinators": "server/router.py (ROADMAP Queue 1 item 16, the placement slice)",
 }
 
 # the default collation of each charset (MySQL 8.0)
@@ -52,6 +44,59 @@ def _like_filter(names: List[str], pattern) -> List[str]:
         return names
     translated = pattern.replace("%", "*").replace("_", "?")
     return [n for n in names if fnmatch.fnmatch(n.lower(), translated.lower())]
+
+
+def _peer_pull(inst, want: List[str]):
+    """(node_id, reply-or-None) per serving-tier peer: a `health` pull with
+    `want` sections (statement_summary / metrics rollups).  Transport
+    failures yield None — CLUSTER surfaces render them as rows, never
+    errors."""
+    out = []
+    for node_id, peer in sorted(getattr(inst, "coordinators", {}).items()):
+        try:
+            out.append((node_id, peer.sync_action("health", {"want": want})))
+        except Exception:
+            # unreachable peer: record None -- CLUSTER surfaces render it as
+            # an UNREACHABLE row, never an error
+            out.append((node_id, None))
+    return out
+
+
+def _unreachable_row(node: str, types) -> Tuple:
+    """A typed placeholder row for a peer that did not answer the pull."""
+    row = [node, "UNREACHABLE"]
+    for t in types[2:]:
+        row.append("" if t is dt.VARCHAR else 0)
+    return tuple(row)
+
+
+def _max_shard_rows(p) -> int:
+    """Largest per-shard live-row count across the profile's MPP stages —
+    slow-query triage sees shard skew straight from SHOW PROFILES, without
+    tracing enabled (0 for local-engine or unprofiled queries)."""
+    m = 0
+    for st in p.op_stats:
+        per = st.get("rows_per_shard")
+        if per:
+            m = max(m, max(per))
+    return m
+
+
+def _profile_rows(inst):
+    """Last-N QueryProfiles as a result set, newest first (SHOW FULL STATS)."""
+    from galaxysql_tpu_torch.server.session import ResultSet
+    rows = []
+    for p in reversed(inst.profiles.entries()):
+        rows.append((p.trace_id, p.conn_id, p.schema, p.workload, p.engine,
+                     p.elapsed_ms, p.rows, len(p.op_stats), len(p.segments),
+                     _max_shard_rows(p), 1 if p.profiled else 0, p.sql))
+    return ResultSet(
+        ["Trace_id", "Conn", "Schema", "Workload", "Engine", "Elapsed_ms",
+         "Rows", "Operators", "Segments", "Max_shard_rows", "Profiled",
+         "SQL"],
+        [dt.BIGINT, dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.DOUBLE,
+         dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.VARCHAR],
+        rows)
 
 
 def handle(session, stmt: ast.Show):
@@ -133,9 +178,13 @@ def handle(session, stmt: ast.Show):
         return ResultSet(["Level", "Code", "Message"],
                          [dt.VARCHAR, dt.BIGINT, dt.VARCHAR], [])
     if kind == "trace":
-        # the last query's trace tags (the reference adds its span tree, which
-        # waits for utils/tracing.py)
-        return ResultSet(["Trace"], [dt.VARCHAR], [(t,) for t in session.last_trace])
+        # the last query's trace tags, then its span tree when it ran traced
+        lines = list(session.last_trace)
+        spans = getattr(session, "last_spans", None)
+        if spans:
+            from galaxysql_tpu_torch.utils.tracing import span_tree_lines
+            lines += span_tree_lines(spans)
+        return ResultSet(["Trace"], [dt.VARCHAR], [(t,) for t in lines])
     if kind == "columnar_replica":
         # SHOW COLUMNAR REPLICA: per-table tailer state, watermark freshness and
         # tier shape (storage/columnar.py)
@@ -170,6 +219,238 @@ def handle(session, stmt: ast.Show):
                          inst.frag_cache.rows())
     if kind in ("status", "charset"):
         return ResultSet(["Variable_name", "Value"], [dt.VARCHAR, dt.VARCHAR], [])
+    if kind == "baseline":
+        # SPM DAL (PlanManager.java DAL analog): one row per plan baseline;
+        # REGRESSIONS/LAST_REGRESSION carry the statement-summary sentinel's
+        # runtime verdict on the accepted plan, STATE/ROLLBACKS/LAST_HEAL the
+        # self-heal quarantine machine (HEALTHY -> REGRESSED -> PROBATION ->
+        # HEALED | EVOLVED | HEAL_FAILED)
+        rows = inst.planner.spm.rows()
+        return ResultSet(
+            ["BASELINE_ID", "SCHEMA_NAME", "PARAMETERIZED_SQL", "ACCEPTED_PLAN",
+             "ORIGIN", "RUNS", "AVG_MS", "CANDIDATE_PLAN", "REGRESSIONS",
+             "LAST_REGRESSION", "STATE", "ROLLBACKS", "LAST_HEAL"],
+            [dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR,
+             dt.BIGINT, dt.DOUBLE, dt.VARCHAR, dt.BIGINT, dt.VARCHAR,
+             dt.VARCHAR, dt.BIGINT, dt.VARCHAR], rows)
+    if kind == "slow":
+        from galaxysql_tpu_torch.utils.tracing import SLOW_LOG
+        # Trace_id links a slow row to its profile (SHOW FULL STATS /
+        # information_schema.query_stats / web /query/<trace_id>); Error is
+        # non-empty for queries that died mid-execution AFTER crossing the
+        # slow gate — slow failures explain themselves here too
+        # Digest jumps a slow row straight to its SHOW STATEMENT SUMMARY
+        # aggregate (same digest key: schema + parameterized text)
+        rows = [(e.conn_id, round(e.elapsed_s * 1000, 1), e.sql,
+                 e.trace_id, e.workload, e.error, e.digest)
+                for e in SLOW_LOG.entries()]
+        return ResultSet(["Conn", "Elapsed_ms", "SQL", "Trace_id", "Workload",
+                          "Error", "Digest"],
+                         [dt.BIGINT, dt.DOUBLE, dt.VARCHAR, dt.BIGINT,
+                          dt.VARCHAR, dt.VARCHAR, dt.VARCHAR], rows)
+    if kind == "statement_summary":
+        # SHOW STATEMENT SUMMARY [HISTORY]: the statement-digest store
+        # (meta/statement_summary.py) — per digest x plan aggregates, or the
+        # time-bucketed window history (information_schema twins)
+        ss = inst.stmt_summary
+        if getattr(stmt, "cluster", False):
+            # SHOW CLUSTER STATEMENT SUMMARY: peer rollups merged under a
+            # leading Node column; an unreachable peer renders as a row,
+            # never an error (triage must work mid-outage)
+            names = ["Node", "Digest", "Schema", "Plan", "Engines", "Execs",
+                     "Errors", "Avg_ms", "P95_ms", "P99_ms", "Rows_returned",
+                     "Rows_examined", "Retraces", "Frag_hits",
+                     "Rf_rows_pruned", "Skew_activations", "Rpc_retries",
+                     "Spill_bytes", "Peak_rss_kb", "Regressed", "Join_order",
+                     "SQL"]
+            types = [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR,
+                     dt.VARCHAR, dt.BIGINT, dt.BIGINT, dt.DOUBLE, dt.DOUBLE,
+                     dt.DOUBLE, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
+                     dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
+                     dt.BIGINT, dt.VARCHAR, dt.VARCHAR]
+            rows = [(inst.node_id,) + tuple(r) for r in ss.rows()]
+            for node, resp in _peer_pull(inst, ["statement_summary"]):
+                if resp is None:
+                    rows.append(_unreachable_row(node, types))
+                    continue
+                for r in resp.get("statement_summary") or []:
+                    rows.append((node,) + tuple(r))
+            return ResultSet(names, types, rows)
+        if (stmt.target or "").lower() == "history":
+            return ResultSet(
+                ["Digest", "Schema", "Plan", "Window_start", "Execs",
+                 "Errors", "Avg_ms", "Min_ms", "Max_ms", "Rows_returned",
+                 "Rows_examined", "Retraces", "Frag_hits", "Rf_rows_pruned",
+                 "Rpc_retries", "Spill_bytes", "SQL"],
+                [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.BIGINT,
+                 dt.BIGINT, dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.BIGINT,
+                 dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
+                 dt.BIGINT, dt.VARCHAR], ss.history_rows())
+        return ResultSet(
+            ["Digest", "Schema", "Plan", "Engines", "Execs", "Errors",
+             "Avg_ms", "P95_ms", "P99_ms", "Rows_returned", "Rows_examined",
+             "Retraces", "Frag_hits", "Rf_rows_pruned", "Skew_activations",
+             "Rpc_retries", "Spill_bytes", "Peak_rss_kb", "Regressed",
+             "Join_order", "SQL"],
+            [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.BIGINT,
+             dt.BIGINT, dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.BIGINT,
+             dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT,
+             dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.VARCHAR,
+             dt.VARCHAR],
+            ss.rows())
+    if kind == "events":
+        # SHOW EVENTS [WARN|INFO|CRITICAL] [LIKE 'kind%']: the typed
+        # instance-event journal (utils/events.py) — newest first.  The
+        # optional severity word and kind LIKE-pattern make slo_burn /
+        # metric_anomaly triage a one-liner instead of a journal scroll.
+        import json as _json
+        from galaxysql_tpu_torch.utils.events import EVENTS
+        severity = (stmt.target or "").lower()
+        if severity and severity not in ("info", "warn", "critical"):
+            raise errors.NotSupportedError(
+                f"SHOW EVENTS severity '{stmt.target}' "
+                "(expected INFO|WARN|CRITICAL)")
+        rows = [(e.seq, round(e.at, 3), e.kind, e.severity, e.node, e.detail,
+                 _json.dumps(e.attrs, default=str)[:512],
+                 e.trace_id, e.digest)
+                for e in reversed(EVENTS.entries(
+                    severity=severity or None,
+                    kind_like=stmt.like or None))]
+        return ResultSet(
+            ["Seq", "At", "Kind", "Severity", "Node", "Detail", "Attrs",
+             "Trace_id", "Digest"],
+            [dt.BIGINT, dt.DOUBLE, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR,
+             dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.VARCHAR], rows)
+    if kind == "incidents":
+        # SHOW INCIDENTS [<seq>]: flight-recorder incident bundles
+        # (server/flight_recorder.py), newest first.  With a seq the full
+        # evidence detail renders as Field/Value lines — implicated
+        # digests, metric-history window tails, retained trace trees with
+        # their phase breakdowns, and the event tail around the trigger.
+        import json as _json
+        rec = getattr(inst, "recorder", None)
+        if stmt.target:
+            b = rec.get(stmt.target) if rec is not None else None
+            if b is None:
+                raise errors.TddlError(
+                    f"unknown incident '{stmt.target}' (SHOW INCIDENTS "
+                    "lists retained bundles)")
+            rows = [("incident_id", b.incident_id), ("at", f"{b.at:.3f}"),
+                    ("kind", b.kind), ("severity", b.severity),
+                    ("episode", b.episode), ("node", b.node),
+                    ("detail", b.detail),
+                    ("digests", ",".join(b.digests)),
+                    ("trace_ids", ",".join(str(t) for t in b.trace_ids)),
+                    ("admission",
+                     _json.dumps(b.admission, default=str)[:512]),
+                    ("state", _json.dumps(b.state, default=str)[:512])]
+            for name in sorted(b.metric_window):
+                rows.append((f"metric:{name}", _json.dumps(
+                    b.metric_window[name][-8:], default=str)[:512]))
+            from galaxysql_tpu_torch.utils.tracing import (span_from_dict,
+                                                     span_tree_lines)
+            for tr in b.traces:
+                tid = tr.get("trace_id")
+                rows.append((f"trace:{tid}",
+                             (f"{tr.get('reason')} "
+                              f"{tr.get('elapsed_ms')}ms phases="
+                              f"{_json.dumps(tr.get('phases') or {})}")
+                             [:512]))
+                spans = [span_from_dict(d) for d in tr.get("spans") or []]
+                for ln in span_tree_lines(spans)[:24]:
+                    rows.append((f"trace:{tid}", ln[:512]))
+            for e in b.events[-16:]:
+                rows.append((f"event:{e.get('seq')}",
+                             f"{e.get('kind')} {e.get('detail', '')}"[:256]))
+            return ResultSet(["Field", "Value"], [dt.VARCHAR, dt.VARCHAR],
+                             rows)
+        rows = rec.rows() if rec is not None else []
+        return ResultSet(
+            ["Incident", "At", "Kind", "Severity", "Episode", "Node",
+             "Digests", "Traces", "Events", "Detail"],
+            [dt.VARCHAR, dt.DOUBLE, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR,
+             dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.BIGINT, dt.VARCHAR],
+            rows)
+    if kind == "admission":
+        # SHOW ADMISSION: the overload plane (server/admission.py) — per-class
+        # adaptive limits/in-flight/queue depth, shed counters, memory tier,
+        # retry-budget headroom (information_schema.admission_stats twin)
+        adm = getattr(inst, "admission", None)
+        rows = adm.stats_rows() if adm is not None else []
+        return ResultSet(["Stat", "Value"], [dt.VARCHAR, dt.DOUBLE],
+                         [(n, float(v)) for n, v in rows])
+    if kind == "metrics":
+        # the typed counter/gauge registry (information_schema.metrics twin)
+        if getattr(stmt, "cluster", False):
+            # SHOW CLUSTER METRICS: every peer's registry under a leading
+            # Node column (unreachable peers as rows, never errors)
+            types = [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.DOUBLE,
+                     dt.VARCHAR]
+            rows = [(inst.node_id, n, k, float(v), h)
+                    for n, k, v, h in inst.metrics.rows()]
+            for node, resp in _peer_pull(inst, ["metrics"]):
+                if resp is None:
+                    rows.append(_unreachable_row(node, types))
+                    continue
+                for r in resp.get("metrics") or []:
+                    n, k, v, h = r
+                    rows.append((node, n, k, float(v), h))
+            return ResultSet(["Node", "Name", "Kind", "Value", "Help"],
+                             types, rows)
+        rows = [(n, k, float(v), h) for n, k, v, h in inst.metrics.rows()]
+        return ResultSet(["Name", "Kind", "Value", "Help"],
+                         [dt.VARCHAR, dt.VARCHAR, dt.DOUBLE, dt.VARCHAR],
+                         rows)
+    if kind == "profiles":
+        return _profile_rows(inst)
+    if kind == "ccl_rules":
+        from galaxysql_tpu_torch.utils.ccl import GLOBAL_CCL
+        rows = []
+        for st in GLOBAL_CCL.rules():
+            r = st.rule
+            rows.append((r.name, r.max_concurrency, r.keyword or "", r.user or "",
+                         st.running, st.waiting, st.total_matched, st.total_rejected))
+        return ResultSet(["Rule", "Max_concurrency", "Keyword", "User", "Running",
+                          "Waiting", "Matched", "Rejected"],
+                         [dt.VARCHAR, dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.BIGINT,
+                          dt.BIGINT, dt.BIGINT, dt.BIGINT], rows)
+    if kind == "stats":
+        # SHOW STATS = instance counters (§5.5); SHOW FULL STATS = the last-N
+        # per-query runtime profiles (the reference's SHOW FULL STATS surface)
+        if stmt.full:
+            return _profile_rows(inst)
+        from galaxysql_tpu_torch.utils.tracing import GLOBAL_STATS
+        return ResultSet(["Name", "Value"], [dt.VARCHAR, dt.BIGINT],
+                         GLOBAL_STATS.snapshot())
+    if kind == "slo":
+        # SHOW SLO: every objective (built-in + CREATE SLO) with its live
+        # fast/slow burn ratios and BURNING/OK state (server/slo.py)
+        return ResultSet(
+            ["Name", "Kind", "Schema", "Class", "Target", "Measured",
+             "Fast_burn", "Slow_burn", "State", "Since", "Source"],
+            [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.DOUBLE,
+             dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.VARCHAR, dt.DOUBLE,
+             dt.VARCHAR],
+            session.instance.slo.rows())
+    if kind == "metric_history":
+        # SHOW METRIC HISTORY [LIKE pattern]: per-metric window summaries
+        # from the delta-encoded ring (utils/metric_history.py)
+        return ResultSet(
+            ["Metric", "Points", "Latest", "Min", "Max", "Rate_per_s"],
+            [dt.VARCHAR, dt.BIGINT, dt.DOUBLE, dt.DOUBLE, dt.DOUBLE,
+             dt.DOUBLE],
+            session.instance.metric_history.rows(stmt.like))
+    if kind == "cluster_health":
+        # SHOW CLUSTER HEALTH: this coordinator + a fresh `health` pull
+        # from every attached worker (UNREACHABLE rows, never errors)
+        return ResultSet(
+            ["Node", "Role", "Addr", "State", "Leader", "Uptime_s",
+             "Sessions", "Qps", "Error_rate", "Mem_tier", "Burning_slos",
+             "Samples"],
+            [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.BIGINT,
+             dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.BIGINT,
+             dt.VARCHAR, dt.BIGINT],
+            session.instance.cluster_health(pull=True))
     waits = _WAITING.get(kind)
     if waits is not None:
         raise errors.NotSupportedError(f"SHOW {kind} waits for {waits}")

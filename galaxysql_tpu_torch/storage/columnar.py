@@ -7,7 +7,7 @@ torch tensors on the execution device.  A stripe is immutable, so its lanes stay
 the device between queries in the instance's device cache, keyed by the stripe's uid
 (`ColumnarReplicaManager.cache_uid`); the visibility mask of a stripe with deletes,
 and the delta, go over per query.  The tailer's failures, which the reference
-publishes as events (`utils/events.py`, ROADMAP Queue 1 item 16), are kept in
+publishes as `columnar_tail_failed` events, are published too and also kept in
 `ColumnarReplicaManager.tail_errors`.
 
 
@@ -65,7 +65,7 @@ import numpy as np
 from galaxysql_tpu_torch.meta.tso import LOGICAL_BITS
 from galaxysql_tpu_torch.storage.table_store import INFINITY_TS
 from galaxysql_tpu_torch.storage.zonemap import lane_minmax, sargs_refuted
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
 
 # environment escape hatch (trio leg 3): kills routing AND tailing wholesale
 ENABLED = os.environ.get("GALAXYSQL_COLUMNAR", "1") != "0"
@@ -424,10 +424,16 @@ class ColumnarReplicaManager:
             try:
                 self.tail_once()
             except Exception as e:
-                # background plane: a tail fault is recorded and retried next
-                # poll; dying silently would freeze the watermark
+                # background plane: a tail fault is published as an error event
+                # (and kept in `tail_errors`) and retried next poll; dying
+                # silently would freeze the watermark
                 self.tail_errors = (self.tail_errors + [
                     f"columnar tailer cycle failed: {type(e).__name__}: {e}"])[-16:]
+                events.publish(  # galaxylint: disable=event-uncorrelated -- background tailer cycle: no query trace or statement digest exists
+                    "columnar_tail_failed",
+                    f"columnar tailer cycle failed: {e}",
+                    severity="error", node=self.instance.node_id,
+                    error=f"{type(e).__name__}")
                 time.sleep(self.IDLE_WAIT_S)
 
     def shutdown(self):

@@ -8,7 +8,10 @@ prepares `SELECT c FROM sbtest1 WHERE id=?` on each (COM_STMT_PREPARE), prints
 `READY` and waits for one line on standard input.  Then every connection runs
 `--statements` executions back to back, each with an id drawn from [1, max-id]
 (numpy, seeded by `--seed` and the connection's number), and the process prints one
-JSON line: `start` and `end` (host clock, seconds), and per statement `[id, c, ms]`.
+JSON line: `start` and `end` (host clock, seconds), per statement `[id, c, ms]`, and
+`sheds`: the typed admission refusals (errno 9003, `ServerOverloadError`) the
+connections retried after the server's "retry after N ms", as a client does (the
+statement's ms includes its retries).
 Only the client modules are imported (no torch, no engine), so several such
 processes can drive one server, as sysbench's client threads do.
 """
@@ -17,16 +20,42 @@ from __future__ import annotations
 
 import argparse
 import json
+import random
+import re
 import sys
 import threading
 import time
 
 import numpy as np
 
-from galaxysql_tpu_torch.net.client import MiniClient
+from galaxysql_tpu_torch.net.client import MiniClient, MySQLError
 
 POINT_SELECT = "SELECT c FROM sbtest1 WHERE id=?"
 SOCKET_TIMEOUT = 120.0  # seconds a connection waits for the server's answer
+SHED_ERRNO = 9003       # ServerOverloadError: the admission gate refused the statement
+RETRY_S = 300.0         # how long a statement is retried after typed refusals
+_RETRY_AFTER = re.compile(r"retry after (\d+)ms")
+
+
+def _execute(conn, stmt, params, sheds):
+    """One execution, retried after each typed admission refusal for at most
+    RETRY_S: after the server's "retry after N ms" doubled for each earlier refusal
+    of the statement, capped at 1 s, with +-50 % jitter; `sheds[0]` counts the
+    refusals."""
+    deadline = time.perf_counter() + RETRY_S
+    n = 0
+    while True:
+        try:
+            return conn.execute(stmt, params)
+        except MySQLError as e:
+            if e.errno != SHED_ERRNO or time.perf_counter() > deadline:
+                raise
+            sheds[0] += 1
+            m = _RETRY_AFTER.search(str(e))
+            after = int(m.group(1)) if m else 100
+            ms = min(max(after, 1) * (2 ** min(n, 10)), 1000)
+            time.sleep(max(ms, after) * random.uniform(0.5, 1.5) / 1000.0)
+            n += 1
 
 
 def main(argv=None) -> int:
@@ -50,6 +79,7 @@ def main(argv=None) -> int:
                                                           args.statements).tolist()
            for i in range(args.connections)]
     results = [[] for _ in conns]
+    sheds = [[0] for _ in conns]
     errors = []
     go = threading.Event()
 
@@ -58,7 +88,7 @@ def main(argv=None) -> int:
             go.wait()
             for key in ids[i]:
                 t0 = time.perf_counter()
-                _names, rows = conns[i].execute(stmts[i], [key])
+                _names, rows = _execute(conns[i], stmts[i], [key], sheds[i])
                 ms = (time.perf_counter() - t0) * 1000.0
                 results[i].append([key, rows[0][0] if rows else None, ms])
         except BaseException as e:  # reported in the JSON line
@@ -77,6 +107,7 @@ def main(argv=None) -> int:
     for c in conns:
         c.close()
     print(json.dumps({"start": start, "end": end, "errors": errors,
+                      "sheds": sum(n[0] for n in sheds),
                       "results": [r for rs in results for r in rs]}), flush=True)
     return 1 if errors else 0
 

@@ -23,10 +23,12 @@ has landed.  Only idempotent tasks retry: a `gsi_delete` three times (re-stampin
 primary key is a no-op), a `gsi_insert` once (a retry of a partial append would
 append twice).
 
-Trimmed against the reference: the counters `gsi_async_applies` and
-`async_apply_failures` go through `Instance.count`, and the two gauges are plain
-values (the metrics registry, and `events.publish` of a failed apply, wait for
-ROADMAP Queue 1 item 16).
+The counters `gsi_async_applies`, `replica_async_applies` and `async_apply_failures`
+and the gauges `gsi_apply_backlog` and `gsi_apply_lag_ms` live in the instance's
+metrics registry under the reference's names, and a task that still fails publishes
+`async_apply_failed` (a stranded replica branch `replica_cleanup_failed`) into the
+event journal, as in the reference.  `backlog`, `peak_backlog` and `peak_lag_ms`
+stay as plain values beside the gauges for the chip smoke's peaks.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
 from galaxysql_tpu_torch.utils.failpoint import FAIL_POINTS, FP_APPLY_DELAY_MS
 
 
@@ -57,6 +59,18 @@ class AsyncApplier:
         self.backlog = 0
         self.peak_backlog = 0
         self.peak_lag_ms = 0.0
+        m = instance.metrics
+        self.gsi_applies = m.counter(
+            "gsi_async_applies", "GSI maintenance tasks applied async")
+        self.replica_applies = m.counter(
+            "replica_async_applies", "replica DML legs applied async")
+        self.apply_failures = m.counter(
+            "async_apply_failures", "async apply tasks that failed "
+            "(GSI apply error or replica marked stale)")
+        self.backlog_gauge = m.gauge(
+            "gsi_apply_backlog", "async apply tasks queued, not yet applied")
+        self.lag_gauge = m.gauge(
+            "gsi_apply_lag_ms", "age of the oldest pending async apply task")
 
     # -- producer side -------------------------------------------------------
 
@@ -71,6 +85,7 @@ class AsyncApplier:
             mark = self._seq
             self.backlog = len(self._queue)
             self.peak_backlog = max(self.peak_backlog, self.backlog)
+            self.backlog_gauge.set(self.backlog)
             if self._thread is None or not self._thread.is_alive():
                 self._thread = threading.Thread(
                     target=self._run, name="async-applier", daemon=True)
@@ -132,17 +147,32 @@ class AsyncApplier:
                     try:
                         self._apply(task, touched)
                         break
-                    except Exception:
+                    except Exception as ex:
                         if att + 1 < attempts:
                             time.sleep(0.05 * (att + 1))
                             continue
-                        self.instance.count("async_apply_failures")
+                        self.apply_failures.inc()
+                        try:
+                            events.publish(
+                                "async_apply_failed",
+                                f"{task.get('kind')} apply failed after "
+                                f"{attempts} attempt(s): "
+                                f"{type(ex).__name__}: {ex}",
+                                severity="error",
+                                node=self.instance.node_id,
+                                kind=task.get("kind", ""))
+                        except Exception:  # galaxylint: disable=swallow -- guards the journal itself; there is nowhere left to report to
+                            pass
             self._finish_batch(touched)
             with self._cond:
                 self.applied_seq = batch[-1][0]
                 self.backlog = len(self._queue)
+                self.backlog_gauge.set(self.backlog)
                 self.peak_lag_ms = max(self.peak_lag_ms,
                                        (time.time() - batch[0][1]) * 1000.0)
+                self.lag_gauge.set(
+                    (time.time() - self._queue[0][1]) * 1000.0
+                    if self._queue else 0.0)
                 self._cond.notify_all()
 
     def _apply(self, task: dict, touched: Dict[str, Any]):
@@ -160,7 +190,7 @@ class AsyncApplier:
                              task["row_ids"], task["ts"], None)
         else:  # pragma: no cover - queue corruption guard
             raise errors.TddlError(f"unknown async apply task kind {kind!r}")
-        self.instance.count("gsi_async_applies")
+        self.gsi_applies.inc()
         for _i, gtm, _g in _sess.gsi_targets(self.instance, tm):
             touched[f"{gtm.schema.lower()}.{gtm.name.lower()}"] = gtm
 
@@ -194,9 +224,9 @@ class AsyncApplier:
             client.request({"op": "xa_commit", "xid": xid,
                             "commit_ts": int(task["commit_ts"])},
                            deadline=deadline)
-            self.instance.count("replica_async_applies")
+            self.replica_applies.inc()
         except Exception:
-            self.instance.count("async_apply_failures")
+            self.apply_failures.inc()
             self._mark_stale(task)
             if client is not None:
                 try:

@@ -25,6 +25,9 @@ COPIES = [
     "exec/memory.py",
     "utils/metrics.py", "storage/zonemap.py", "utils/tracing.py",
     "exec/fragment_cache.py", "utils/events.py", "storage/ssb.py",
+    "meta/statement_summary.py", "utils/metric_history.py", "utils/ccl.py",
+    "server/admission.py", "server/slo.py", "server/flight_recorder.py",
+    "server/web.py", "utils/locks.py",
 ]
 
 

@@ -458,8 +458,54 @@ WAITING = [
 ]
 
 
+# the operations plane's statements of the list above, which the port now serves:
+# each runs through both engines, and the port must answer as the reference does
+SERVED = {"CREATE CCL_RULE r WITH MAX_CONCURRENCY = 1", "DROP CCL_RULE r",
+          "CREATE SLO g WITH TARGET_P99_MS = 100", "DROP SLO g", "BASELINE DELETE 1"}
+
+
+def _served_outcome(session_cls, inst, errs, sql):
+    """(outcome of `sql` alone, outcome after CREATE of the same object, the SHOW
+    rows of its surface) in a fresh session of `inst`."""
+    s = session_cls(inst)
+    s.execute("CREATE DATABASE d; USE d")
+    s.execute(BIN_TABLE)
+
+    def run(q):
+        try:
+            rs = s.execute(q)
+            return ("ok", rs.affected, [tuple(r) for r in rs.rows])
+        except errs.TddlError as e:
+            return (type(e).__name__, str(e))
+    first = run(sql)
+    if "CCL_RULE" in sql:
+        again = (run("CREATE CCL_RULE r WITH MAX_CONCURRENCY = 1, KEYWORD = 'zz_none'"),
+                 run(sql), run("DROP CCL_RULE IF EXISTS r"))
+        show = [r[:4] for r in s.execute("SHOW CCL_RULES").rows]
+    elif "SLO" in sql:
+        again = (run("CREATE SLO g WITH TARGET_P99_MS = 100"), run(sql))
+        show = [(r[0], r[1], r[4], r[8], r[10]) for r in s.execute("SHOW SLO").rows]
+    else:
+        again = (run(sql),)
+        show = [tuple(r) for r in s.execute("SHOW BASELINE").rows]
+    return first, again, show
+
+
 @pytest.mark.parametrize("sql,item", WAITING)
 def test_unported_statements_name_their_item(sql, item):
+    if sql in SERVED:
+        from galaxysql_tpu.server.instance import Instance as JaxInstance
+        from galaxysql_tpu.server.session import Session as JaxSession
+        from galaxysql_tpu.utils.ccl import GLOBAL_CCL as JAX_GLOBAL_CCL
+        from galaxysql_tpu_torch.utils.ccl import GLOBAL_CCL
+        try:
+            port = _served_outcome(Session, Instance(device="cpu"), errors, sql)
+            ref = _served_outcome(JaxSession, JaxInstance(), jax_errors, sql)
+        finally:
+            GLOBAL_CCL.drop_rule("r")
+            JAX_GLOBAL_CCL.drop_rule("r")
+        assert port == ref
+        return
     s = Session(Instance(device="cpu"))
     s.execute("CREATE DATABASE d; USE d")
     s.execute(BIN_TABLE)

@@ -75,6 +75,8 @@ def _jax_counter(inst, name):
 def _port_counter(inst, name):
     if name.startswith("dml_"):
         return inst.dml_batch_scheduler.counts[name]
+    if name == "gsi_async_applies":  # the applier's counter in the metrics registry
+        return inst.metrics.counter(name).value
     return inst.counters[name]
 
 

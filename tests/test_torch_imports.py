@@ -49,6 +49,36 @@ def test_fresh_interpreter_imports_no_jax_and_no_reference_package():
     assert count >= 40  # every module of the port was imported
 
 
+_PLANE_PROBE = r"""
+import sys
+from galaxysql_tpu_torch.meta import statement_summary
+from galaxysql_tpu_torch.server import (admission, flight_recorder, scheduler, slo,
+                                        web)
+from galaxysql_tpu_torch.utils import ccl, locks, metric_history
+from galaxysql_tpu_torch.server.instance import Instance
+from galaxysql_tpu_torch.server.session import Session
+s = Session(Instance(device="cpu"))
+s.execute("CREATE DATABASE d; USE d; CREATE TABLE t (a INT PRIMARY KEY)")
+s.execute("SELECT count(*) FROM t")
+assert s.instance.slo_tick(force=True)
+web.WebConsole(s.instance).resource("/health")
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "galaxysql_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_operations_plane_modules_load_no_jax_and_no_reference_package():
+    """The operations plane's modules, imported and driven (a query, an SLO tick,
+    the web console's health resource) in a fresh interpreter, load neither jax
+    nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _PLANE_PROBE], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _dirs, files in os.walk(os.path.join(ROOT, "galaxysql_tpu_torch")):
@@ -114,6 +144,10 @@ def test_booted_worker_loads_no_jax_and_no_reference_package():
             c.request({"op": "dml", "xid": "g1", "schema": "w", "uid": "u1",
                        "sql": "INSERT INTO t VALUES (3, 'y')"})
             assert c.request({"op": "xa_rollback", "xid": "g1"})[0]["ok"]
+            # the SLO plane's health pull runs the worker's metric history,
+            # admission governor and SLO engine
+            health = c.sync_action("health", {})
+            assert health["ok"] and health["samples"] >= 1
             c.close()
         finally:
             p.kill()

@@ -16,6 +16,7 @@ Three layers, each held to the reference exactly (no tolerance anywhere):
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.storage import sysbench, table_store
 from galaxysql_tpu_torch.types import datatype as dt
+from galaxysql_tpu_torch.utils import errors
 from galaxysql_tpu_torch.utils.failpoint import (FAIL_POINTS, FP_BATCH_POISON_KEY,
                                                  FailPointError)
 
@@ -302,6 +304,21 @@ def _batched(inst):
     return inst.batch_scheduler.counts["batched_queries"]
 
 
+def _execute_as_client(sx, sql, attempts=200):
+    """Run `sql` as a client of an admission-controlled server runs it: a typed
+    shed (`ServerOverloadError`, the reference's overload answer when a thread
+    storm drives the TP class past its AIMD target) is retried after its
+    `retry_after_ms`; any other error, or a shed that outlasts `attempts`,
+    raises.  A shed statement never reached the point path, so it is counted
+    once, when it runs."""
+    for _ in range(attempts - 1):
+        try:
+            return sx.execute(sql)
+        except errors.ServerOverloadError as e:
+            time.sleep(e.retry_after_ms / 1000.0)
+    return sx.execute(sql)
+
+
 def test_batched_equal_sequential_and_reference_104_sessions(sess):
     """104 concurrent sessions: every batched result equals the sequential
     (batching-off) execution of the same statement and the JAX engine's, and
@@ -320,12 +337,12 @@ def test_batched_equal_sequential_and_reference_104_sessions(sess):
         sx = Session(inst, schema="bsx")
         for j in range(8):
             k = keys[(i * 13 + j * 29) % len(keys)]
-            got = sx.execute(tpl % k).rows
+            got = _execute_as_client(sx, tpl % k).rows
             assert got == expected[k], (k, got, expected[k])
         sx.close()
 
-    errors = _run_threads(104, worker)
-    assert not errors, errors[:3]
+    failures = _run_threads(104, worker)
+    assert not failures, failures[:3]
     assert _batched(inst) > 0
     assert inst.batch_scheduler.counts["batch_flushes"] > 0
     assert inst.counters["batched_point_queries"] == _batched(inst)
@@ -353,17 +370,20 @@ def test_every_point_select_counted_once_under_thread_switching(sess, window_us)
             sx = Session(inst, schema="bsx")
             for j in range(10):
                 k = 1 + (i * 37 + j * 11) % 2000
-                assert sx.execute(tpl % k).rows == [(k + 0.25,)]
+                assert _execute_as_client(sx, tpl % k).rows == [(k + 0.25,)]
             sx.close()
 
-        errors = _run_threads(48, worker)
+        failures = _run_threads(48, worker)
     finally:
         sys.setswitchinterval(old)
-    assert not errors, errors[:3]
-    counted = sum(inst.counters[k] - before[k] for k in before)
+    assert not failures, failures[:3]
+    # the two path counters (the registry's engine_* map also holds the
+    # per-engine query counters of the metrics, `engine_exec_<engine>`)
+    counted = sum(inst.counters[k] - before.get(k, 0)
+                  for k in ("point_plan_queries", "batched_point_queries"))
     assert counted == 480
-    assert inst.counters["batched_point_queries"] - before["batched_point_queries"] \
-        == _batched(inst) - batched
+    assert inst.counters["batched_point_queries"] - \
+        before.get("batched_point_queries", 0) == _batched(inst) - batched
 
 
 def test_multi_row_non_unique_key_row_order():
@@ -457,7 +477,9 @@ def test_txn_write_bypass_and_snapshot_semantics(sess):
     both(s, js, "UPDATE t SET amt = 777.77 WHERE id = 42")
     before = _batched(inst)
     assert both(s, js, tpl % 42) == [(777.77,)]
-    assert s.last_trace[0] == "point-plan t.id"
+    # the reference's trace layout: the trace id first, then the path's lines
+    assert s.last_trace[0].startswith("trace-id ")
+    assert s.last_trace[1] == "point-plan t.id"
     # a concurrent autocommit session must NOT see it
     s2 = Session(inst, schema="bsx")
     assert both(s2, js2, tpl % 42) == [(42.25,)]
@@ -599,7 +621,7 @@ def test_sequential_fast_path_equals_planned_and_reference(sess):
                 assert fast.rows == planned.rows == js.execute(sql).rows, (phase, sql)
                 assert fast.names == planned.names
                 assert [t.clazz for t in fast.types] == [t.clazz for t in planned.types]
-                assert s.last_trace[0].startswith("point-plan"), (phase, sql)
+                assert s.last_trace[1].startswith("point-plan"), (phase, sql)
             inst.point_plans.clear()
         for sql in ("SELECT amt FROM t WHERE id = NULL",
                     "SELECT amt FROM t WHERE id = -3"):  # `-?` is no point plan
@@ -616,7 +638,7 @@ def test_sequential_fast_path_equals_planned_and_reference(sess):
     assert inst.catalog.schema_version > version
     rs = s.execute(POINT_SQL[0].format(6))  # the stale plan is dropped, planned again
     assert any(t.startswith(("scan", "point-get")) for t in s.last_trace)
-    assert not s.last_trace[0].startswith("point-plan")
+    assert not any(t.startswith("point-plan") for t in s.last_trace)
     assert rs.rows == js.execute(POINT_SQL[0].format(6)).rows
     check("after CREATE TABLE")
     for x in (s, js):

@@ -1,0 +1,616 @@
+"""The statement summary, the plan-regression sentinel, self-heal and BASELINE in the
+port against the JAX package (`tests/test_statement_summary.py`, the state-machine
+cases of `tests/test_selfheal.py`).
+
+Every test runs one script through a JAX `Instance` and a port
+`Instance(device="cpu")` and asserts equal outcomes (`torch_plane_harness.both`).
+The summary's time columns (avg, p95, p99), its retraces column (a COMPILE_STATS
+counter: XLA programs in the reference, kernel builds in the port) and peak_rss_kb
+are left out of every comparison; latencies the sentinel judges are fed through the
+store's own `record(..., now=)` with synthetic values and stamps."""
+
+import json
+
+import numpy as np
+import pytest
+
+from torch_plane_harness import both, mk, summary, threads
+
+pytestmark = pytest.mark.torch_port
+
+
+# -- digest aggregation ---------------------------------------------------------------
+
+
+def test_digest_stable_across_literals():
+    def scenario(pkg):
+        _inst, s = mk(pkg, "ws")
+        s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY, b BIGINT)")
+        for i in range(10):
+            s.execute(f"INSERT INTO t VALUES ({i}, {i * 10})")
+        for i in range(7):
+            s.execute(f"SELECT b FROM t WHERE a = {i}")
+        rows = summary(s, "SELECT b FROM t")
+        assert len({r[0] for r in rows}) == 1
+        assert "point" in {r[2] for r in rows}
+        return rows, summary(s, "INSERT INTO t")
+    rows, ins = both(scenario)
+    assert sum(r[4] for r in rows) == 7 and sum(r[4] for r in ins) == 10
+
+
+def test_error_count_and_unknown_plan():
+    def scenario(pkg):
+        _inst, s = mk(pkg, "wse")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        s.execute("INSERT INTO t VALUES (1)")
+        for _ in range(3):
+            with pytest.raises(Exception):
+                s.execute("SELECT nope FROM t WHERE a = 1")
+        return summary(s, "SELECT nope")
+    rows = both(scenario)
+    assert sum(r[5] for r in rows) == 3 and {r[2] for r in rows} == {"unknown"}
+
+
+def test_history_buckets_and_information_schema():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wsh")
+        s.execute("CREATE TABLE t (a BIGINT, b BIGINT)")
+        inst.store("wsh", "t").insert_pylists(
+            {"a": list(range(500)), "b": list(range(500))}, inst.tso.next_timestamp())
+        for _ in range(4):
+            s.execute("SELECT count(*) FROM t WHERE a < 250")
+        window = inst.config.get("STMT_SUMMARY_WINDOW_S")
+        hrows = [r for r in s.execute("SHOW STATEMENT SUMMARY HISTORY").rows
+                 if "count" in r[-1]]
+        aligned = all(r[3] % window == 0 for r in hrows)
+        hist = sorted((r[0], r[2], r[4], r[5], r[9], r[10], r[-1]) for r in hrows)
+        info = sorted(s.execute("SELECT digest, exec_count FROM "
+                                "information_schema.statement_summary "
+                                "WHERE exec_count > 0").rows)
+        info_h = sorted(s.execute("SELECT digest, exec_count FROM "
+                                  "information_schema.statement_summary_history").rows)
+        kinds = sorted(set(s.execute("SELECT kind FROM information_schema.events").rows))
+        return aligned, hist, info, info_h, kinds
+    aligned, hist, info, _h, kinds = both(scenario)
+    assert aligned and sum(r[2] for r in hist) == 4 and info and ("ddl",) in kinds
+
+
+def test_rows_and_counters_aggregate():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wsr")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        inst.store("wsr", "t").insert_pylists({"a": list(range(100))},
+                                              inst.tso.next_timestamp())
+        for _ in range(3):
+            s.execute("SELECT a FROM t WHERE a < 10")
+        return summary(s, "SELECT a FROM t")
+    rows = both(scenario)
+    assert sum(r[6] for r in rows) == 30
+
+
+def test_slow_entry_carries_summary_digest():
+    def scenario(pkg):
+        _inst, s = mk(pkg, "wsl")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        s.execute("INSERT INTO t VALUES (1)")
+        s.vars["SLOW_SQL_MS"] = 0  # log every query
+        s.execute("SELECT a FROM t WHERE a = 1")
+        slow = s.execute("SHOW SLOW")
+        srow = [r for r in slow.rows if "SELECT a FROM t" in r[2]][-1]
+        return (slow.names, srow[2], srow[4], srow[5], srow[6],
+                any(r[0] == srow[6] for r in summary(s)))
+    out = both(scenario)
+    assert out[0][-1] == "Digest" and out[4] and out[5]
+
+
+# -- the event journal ----------------------------------------------------------------
+
+
+def test_ddl_events_published():
+    def scenario(pkg):
+        _inst, s = mk(pkg, "wev")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        s.execute("DROP TABLE t")
+        rows = s.execute("SHOW EVENTS").rows
+        seqs = [r[0] for r in rows]
+        for r in rows:
+            json.loads(r[6])
+        return ([(r[2], r[3], r[5]) for r in rows],
+                seqs == sorted(seqs, reverse=True))
+    rows, ordered = both(scenario)
+    assert ordered and any("CREATE TABLE wev.t" in d for _k, _s, d in rows)
+    assert any(d.startswith("DROP TABLE wev.t") for _k, _s, d in rows)
+
+
+def test_event_counters_in_prometheus():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wpr")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        text = pkg.WebConsole(inst).metrics_text()
+        return sorted(ln for ln in text.splitlines() if "_events_total{" in ln)
+    lines = both(scenario)
+    assert 'galaxysql_events_total{kind="ddl"} 1' in lines
+
+
+# -- Prometheus top-K and /statements -------------------------------------------------
+
+
+def test_prom_topk_bounded_cardinality():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wpk")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        inst.store("wpk", "t").insert_pylists({"a": list(range(50))},
+                                              inst.tso.next_timestamp())
+        for i in range(8):  # 8 digests of distinct structure
+            cols = ", ".join(["a"] * (i + 1))
+            for _ in range(2):
+                s.execute(f"SELECT {cols} FROM t WHERE a < 10")
+        s.execute("SET GLOBAL STMT_SUMMARY_PROM_TOPK = 3")
+        text = pkg.WebConsole(inst).metrics_text()
+        labeled = {ln.split('digest="')[1].split('"')[0] for ln in text.splitlines()
+                   if "stmt_latency_ms{" in ln}
+        s.execute("SET GLOBAL STMT_SUMMARY_PROM_TOPK = 0")
+        off = "stmt_latency_ms{" in pkg.WebConsole(inst).metrics_text()
+        return len(labeled), off
+    assert both(scenario) == (3, False)
+
+
+def test_statements_json_resource():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wjs")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        s.execute("INSERT INTO t VALUES (1)")
+        s.execute("SELECT a FROM t WHERE a = 1")
+        body = pkg.WebConsole(inst).resource("/statements")
+        json.dumps(body, default=str)
+        keep = ("digest", "schema", "plan", "engines", "execs", "errors",
+                "rows_returned", "rows_examined", "regressed", "sql")
+        return (sorted(tuple(st[k] for k in keep) for st in body["statements"]),
+                sorted(body["top"][0]), [e["kind"] for e in body["events"]])
+    stmts, top_keys, kinds = both(scenario)
+    assert stmts and {"digest", "execs", "p50_ms"} <= set(top_keys) and "ddl" in kinds
+
+
+# -- hatches --------------------------------------------------------------------------
+
+
+def test_param_off_stops_recording_and_results_identical():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wha")
+        s.execute("CREATE TABLE t (a BIGINT, b BIGINT)")
+        inst.store("wha", "t").insert_pylists(
+            {"a": list(range(300)), "b": list(range(300))}, inst.tso.next_timestamp())
+        q = "SELECT a, b * 2 FROM t WHERE a < 100 ORDER BY a"
+        on = s.execute(q).rows
+        n0 = sum(r[4] for r in summary(s))
+        s.execute("SET ENABLE_STATEMENT_SUMMARY = 0")
+        off = s.execute(q).rows
+        n1 = sum(r[4] for r in summary(s))
+        s.execute("SET ENABLE_STATEMENT_SUMMARY = 1")
+        s.execute(q)
+        return on == off, on, n0, n1, sum(r[4] for r in summary(s))
+    same, _rows, n0, n1, n2 = both(scenario)
+    assert same and n1 == n0 and n2 == n0 + 1
+
+
+def test_env_kill_switch_gates_store(monkeypatch):
+    def scenario(pkg):
+        _inst, s = mk(pkg, "whe")
+        s.execute("CREATE TABLE t (a BIGINT)")
+        monkeypatch.setattr(pkg.ssm, "ENABLED", False)
+        s.execute("SELECT a FROM t WHERE a = 1")
+        off = summary(s, "SELECT a FROM t")
+        monkeypatch.setattr(pkg.ssm, "ENABLED", True)
+        s.execute("SELECT a FROM t WHERE a = 1")
+        return off, summary(s, "SELECT a FROM t")
+    off, on = both(scenario)
+    assert not off and on
+
+
+def test_multi_session_counts_exact_and_results_identical():
+    def scenario(pkg):
+        inst, s = mk(pkg, "wcc")
+        s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY, b BIGINT)")
+        inst.store("wcc", "t").insert_pylists(
+            {"a": list(range(64)), "b": [i * 3 for i in range(64)]},
+            inst.tso.next_timestamp())
+        got = {}
+
+        def worker(tid):
+            sess = pkg.Session(inst, "wcc")
+            try:
+                for i in range(25):
+                    key = (tid * 25 + i) % 64
+                    got[(tid, i)] = sess.execute(
+                        f"SELECT b FROM t WHERE a = {key}").rows
+            finally:
+                sess.close()
+        assert not threads(8, worker)
+        rows = summary(s, "SELECT b FROM t")
+        return (sorted(got.items()), len({r[0] for r in rows}),
+                sum(r[4] for r in rows), sum(r[6] for r in rows))
+    _rows, digests, execs, returned = both(scenario)
+    assert digests == 1 and execs == 200 and returned == 200
+
+
+def test_dispatch_count_unchanged_with_summary_on():
+    """The summary adds no device work: the same dispatches with the layer on and
+    off, in each package, and the port's count equals the reference's."""
+    def scenario(pkg):
+        inst, s = mk(pkg, "whp")
+        s.execute("CREATE TABLE t (a BIGINT, b BIGINT)")
+        inst.store("whp", "t").insert_pylists(
+            {"a": list(range(3000)), "b": list(range(3000))}, inst.tso.next_timestamp())
+        q = "SELECT a, b * 3 FROM t WHERE a < 1500"
+        s.execute(q)
+        pkg.ops.reset_dispatch_stats()
+        on = s.execute(q).rows
+        d_on = pkg.ops.DISPATCH_STATS["dispatches"]
+        s.execute("SET ENABLE_STATEMENT_SUMMARY = 0")
+        pkg.ops.reset_dispatch_stats()
+        off = s.execute(q).rows
+        return d_on, pkg.ops.DISPATCH_STATS["dispatches"], on == off
+    d_on, d_off, same = both(scenario)
+    assert d_on == d_off > 0 and same
+
+
+# -- the plan-regression sentinel -----------------------------------------------------
+
+
+def test_sentinel_episode_rearms_with_synthetic_latencies():
+    """The store driven with synthetic latencies and a pinned clock: one event per
+    regression episode, re-armed after the window recovers, a second episode
+    after it regresses again."""
+    def scenario(pkg):
+        inst, _s = mk(pkg, "wrr")
+        ss = inst.stmt_summary
+
+        def rec(fp, v):
+            ss.record("wrr", "Q1", "Q1", fp, "", "AP", "local", v, 1, now=1000.0)
+        counts = []
+        for v in (10.0,) * 5:
+            rec("p1", v)
+        for v in (40.0,) * 5:
+            rec("p2", v)
+        counts.append(inst.metrics.counter("plan_regressions").value)
+        for v in (40.0,) * 3:
+            rec("p2", v)
+        counts.append(inst.metrics.counter("plan_regressions").value)
+        for v in (9.0,) * 20:
+            rec("p2", v)
+        flagged = ss._entries[("wrr", "Q1")].plans["p2"].flagged
+        for v in (50.0,) * 40:
+            rec("p2", v)
+        counts.append(inst.metrics.counter("plan_regressions").value)
+        evs = [(e.kind, e.attrs.get("plan"), e.attrs.get("reason"))
+               for e in pkg.EVENTS.entries() if e.kind == "plan_regression"]
+        return counts, flagged, evs
+    counts, flagged, evs = both(scenario)
+    assert counts == [1, 1, 2] and not flagged and len(evs) == 2
+
+
+def test_stats_flip_regression_flagged_end_to_end():
+    """A stats change flips the join order of a known digest and its latency
+    degrades: the sentinel flags the new plan fingerprint in both packages alike.
+    The degradation is synthetic (`FP_SLO_LATENCY_MS` adds 5 s to each observed
+    latency of the second phase), so the verdict does not hang on measured time;
+    ENABLE_PLAN_AUTOHEAL = 0 keeps the sentinel detect-only."""
+    def scenario(pkg):
+        inst, s = mk(pkg, "wrg")
+        inst.config.set_instance("ENABLE_PLAN_AUTOHEAL", 0)
+        s.execute("CREATE TABLE big (id BIGINT PRIMARY KEY, k BIGINT, v BIGINT) "
+                  "PARTITION BY HASH(id) PARTITIONS 4")
+        s.execute("CREATE TABLE small (sid BIGINT PRIMARY KEY, k BIGINT, w BIGINT) "
+                  "PARTITION BY HASH(sid) PARTITIONS 4")
+        ts = inst.tso.next_timestamp
+        inst.store("wrg", "big").insert_arrays(
+            {"id": np.arange(5000), "k": np.arange(5000) % 100,
+             "v": np.arange(5000)}, ts())
+        inst.store("wrg", "small").insert_arrays(
+            {"sid": np.arange(100), "k": np.arange(100), "w": np.arange(100)}, ts())
+        s.execute("ANALYZE TABLE big, small")
+        q = ("/*+TDDL: FRAGMENT_CACHE(OFF)*/ SELECT count(*), "
+             "sum(big.v + small.w) FROM big, small WHERE big.k = small.k")
+        results = [s.execute(q).rows for _ in range(6)]
+        base_fps = {r[2] for r in summary(s, "sum(big.v")}
+        bid = s.execute("SHOW BASELINE").rows[0][0]
+        s.execute(f"BASELINE DELETE {bid}")
+        m = 50000
+        inst.store("wrg", "small").insert_arrays(
+            {"sid": np.arange(100, 100 + m), "k": np.arange(m) % 100,
+             "w": np.zeros(m, np.int64)}, ts())
+        inst.catalog.table("wrg", "small").bump_version()
+        inst.catalog.version += 1
+        s.execute("ANALYZE TABLE big, small")
+        pkg.FAIL_POINTS.arm(pkg.fp.FP_SLO_LATENCY_MS, 5000)
+        results += [s.execute(q).rows for _ in range(6)]
+        pkg.FAIL_POINTS.clear()
+        rows = summary(s, "sum(big.v")
+        new = sorted({r[2] for r in rows} - base_fps)
+        flagged = [(r[2], r[4], r[13]) for r in rows]
+        evs = [(e.kind, e.attrs.get("plan"), e.attrs.get("reason"))
+               for e in pkg.EVENTS.entries() if e.kind == "plan_regression"]
+        info = s.execute("SELECT plan_fingerprint FROM information_schema."
+                         "statement_summary WHERE regressed = 1").rows
+        brow = s.execute("SHOW BASELINE").rows[0]
+        return (sorted(base_fps), new, sorted(flagged), evs,
+                inst.metrics.counter("plan_regressions").value, info,
+                brow[8], brow[9].split(" ")[0], results)
+    base, new, flagged, evs, n, info, regs, last, _r = both(scenario)
+    assert len(base) == 1 and len(new) == 1 and n == 1
+    assert (new[0], 6, 1) in flagged and evs == [("plan_regression", new[0],
+                                                 "new_plan")]
+    assert info == [(new[0],)] and regs == 1
+
+
+# -- self-heal: the quarantine state machine ------------------------------------------
+
+
+def _mk_pm(pkg):
+    pm = pkg.spm.PlanManager()
+    key = ("s", "select ?")
+    pm.capture(key, [("s.a", "s.b")], catalog_version=1, followed_baseline=False)
+    return pm, key
+
+
+def _episode(pm, key, sample_ms, n=1, now=0.0):
+    action = pm.begin_quarantine(
+        key, "rollback", "new_plan", [("s.b", "s.a")], baseline_ms=10.0,
+        factor=1.5, verify_execs=n, max_rollbacks=3, cooldown_s=0.0,
+        stats_version=7, regressed_ms=100.0, now=now)
+    if action is None or action["action"] == "damped":
+        return action, None
+    pm.choose(key, 1)
+    verdict = None
+    for _ in range(n):
+        verdict = pm.record_execution(key, sample_ms, orders=[("s.b", "s.a")],
+                                      stats_version=7)
+    return action, verdict
+
+
+def _state(pm, key):
+    b = pm._baselines[key]
+    return (b.state, b.rollbacks, b.last_heal.split(" ")[0] if b.last_heal else "",
+            list(b.accepted.orders), b.accepted.origin)
+
+
+def _strip(v):
+    """A verdict or action without its wall-clock stamps."""
+    if v is None:
+        return None
+    return {k: val for k, val in v.items() if k not in ("at", "since", "now")}
+
+
+def test_max_rollbacks_cap_parks_and_analyze_rearms():
+    def scenario(pkg):
+        pm, key = _mk_pm(pkg)
+        out = [[_strip(x) for x in _episode(pm, key, 9.0, now=float(i))]
+               for i in range(4)]
+        out.append(_state(pm, key))
+        out.append(pm.begin_quarantine(
+            key, "rollback", "new_plan", [("s.b", "s.a")], baseline_ms=10.0,
+            factor=1.5, verify_execs=1, max_rollbacks=3, cooldown_s=0.0,
+            stats_version=7, now=100.0))
+        out.append(_strip(pm.begin_quarantine(
+            key, "rollback", "new_plan", [("s.b", "s.a")], baseline_ms=10.0,
+            factor=1.5, verify_execs=1, max_rollbacks=3, cooldown_s=0.0,
+            stats_version=8, now=101.0)))
+        out.append(_state(pm, key))
+        return out
+    out = both(scenario)
+    assert out[3][0]["action"] == "damped" and out[4][0] == "HEAL_FAILED"
+    assert out[5] is None and out[6]["action"] == "rollback"
+
+
+def test_cooldown_blocks_back_to_back_episodes():
+    def scenario(pkg):
+        pm, key = _mk_pm(pkg)
+        kw = dict(baseline_ms=10.0, factor=1.5, verify_execs=1, max_rollbacks=10,
+                  cooldown_s=60.0, stats_version=7)
+        a = _strip(pm.begin_quarantine(key, "rollback", "new_plan", [("s.b", "s.a")],
+                                       now=1000.0, **kw))
+        pm.choose(key, 1)
+        v = _strip(pm.record_execution(key, 9.0, orders=[("s.b", "s.a")],
+                                       stats_version=7))
+        within = pm.begin_quarantine(key, "rollback", "new_plan", [("s.b", "s.a")],
+                                     now=1030.0, **kw)
+        after = _strip(pm.begin_quarantine(key, "rollback", "new_plan",
+                                           [("s.b", "s.a")], now=1061.0, **kw))
+        return a, v, within, after
+    a, v, within, after = both(scenario)
+    assert a is not None and v["kind"] == "promoted" and within is None
+    assert after is not None
+
+
+def test_repair_failure_parks_then_analyze_rearms():
+    def scenario(pkg):
+        pm, key = _mk_pm(pkg)
+        kw = dict(baseline_ms=10.0, factor=1.5, max_rollbacks=3, cooldown_s=0.0,
+                  stats_version=7)
+        out = [_strip(pm.begin_quarantine(key, "repair", "plan_drift", None,
+                                          verify_execs=2, regressed_ms=30.0, now=0.0,
+                                          **kw))]
+        out.append(pm.choose(key, 1))
+        pm.arm_heal(key)
+        out.append(pm.choose(key, 1))
+        out.append(pm.record_execution(key, 500.0, orders=[("s.z", "s.a")],
+                                       stats_version=7))
+        pm.capture(key, [("s.a", "s.b")], 1, followed_baseline=False)
+        out.append(pm.record_execution(key, 28.0, orders=[("s.a", "s.b")],
+                                       stats_version=7))
+        out.append(pm.record_execution(key, 500.0, orders=[("s.z", "s.a")],
+                                       stats_version=7))
+        out.append(_strip(pm.record_execution(key, 28.0, orders=[("s.a", "s.b")],
+                                              stats_version=7)))
+        out.append((_state(pm, key), pm._baselines[key].park_version))
+        out.append(pm.begin_quarantine(key, "repair", "plan_drift", None,
+                                       verify_execs=1, now=1.0, **kw))
+        out.append(pm.choose(key, 1))
+        kw["stats_version"] = 8
+        out.append(_strip(pm.begin_quarantine(key, "repair", "plan_drift", None,
+                                              verify_execs=1, now=2.0, **kw)))
+        return out
+    out = both(scenario)
+    assert out[0]["action"] == "repair" and out[6]["kind"] == "failed"
+    assert out[7][0][0] == "HEAL_FAILED" and out[8] is None
+    assert out[10]["action"] == "repair"
+
+
+@pytest.mark.parametrize("sample_ms,kind", [(90.0, "evolved"), (40.0, "promoted"),
+                                            (9.0, "promoted")])
+def test_heal_verdicts(sample_ms, kind):
+    """The verdict of a one-sample rollback episode against a 10 ms baseline and a
+    100 ms regressed window: evolved, promoted with a re-freeze, healed."""
+    def scenario(pkg):
+        pm, key = _mk_pm(pkg)
+        action, verdict = _episode(pm, key, sample_ms)
+        return _strip(action), _strip(verdict), _state(pm, key)
+    _a, verdict, _st = both(scenario)
+    assert verdict["kind"] == kind
+
+
+def test_apply_heal_verdict_through_the_store():
+    """A regressed episode the store's sentinel opens, verified by synthetic
+    samples: `apply_heal_verdict` publishes the reference's events and counters."""
+    def scenario(pkg):
+        inst, _s = mk(pkg, "whv")
+        pm = inst.planner.spm
+        key = ("whv", "select ?")
+        pm.capture(key, [("whv.a", "whv.b")], catalog_version=1,
+                   followed_baseline=False)
+        action = pm.begin_quarantine(
+            key, "rollback", "new_plan", [("whv.b", "whv.a")], baseline_ms=10.0,
+            factor=1.5, verify_execs=2, max_rollbacks=3, cooldown_s=0.0,
+            stats_version=7, regressed_ms=100.0, now=0.0)
+        pm.choose(key, 1)
+        verdicts = [pm.record_execution(key, 9.0, orders=[("whv.b", "whv.a")],
+                                        stats_version=7) for _ in range(2)]
+        inst.stmt_summary.apply_heal_verdict(verdicts[-1])
+        kinds = sorted(e.kind for e in pkg.EVENTS.entries())
+        return (_strip(action), verdicts[0], _strip(verdicts[-1]), kinds,
+                inst.metrics.counter("plan_heals").value,
+                [r[10:12] for r in pm.rows()])
+    out = both(scenario)
+    assert out[2]["kind"] == "promoted" and out[4] == 1
+
+
+# -- BASELINE and its surfaces --------------------------------------------------------
+
+
+def test_show_baseline_web_and_information_schema_parity():
+    def scenario(pkg):
+        inst, s = mk(pkg, "hs", rows=4000)
+        s.execute("CREATE TABLE d (id BIGINT PRIMARY KEY, w BIGINT)")
+        inst.store("hs", "d").insert_arrays(
+            {"id": np.arange(97), "w": np.arange(97) * 2}, inst.tso.next_timestamp())
+        s.execute("ANALYZE TABLE d")
+        q = "SELECT count(*), sum(d.w) FROM t, d WHERE t.b = d.id"
+        for _ in range(3):
+            s.execute(q)
+        show = s.execute("SHOW BASELINE")
+        body = pkg.WebConsole(inst).resource("/baselines")
+        json.dumps(body, default=str)
+        info = s.execute("SELECT state, rollbacks FROM "
+                         "information_schema.plan_baselines").rows
+        rows = [r[1:6] + r[8:] for r in show.rows]  # without the id and avg_ms
+        web = [(b["state"], b["rollbacks"], b["last_heal"], b["regressions"])
+               for b in body["baselines"]]
+        bid = show.rows[0][0]
+        deleted = s.execute(f"BASELINE DELETE {bid}").affected
+        again = s.execute(f"BASELINE DELETE {bid}").affected
+        return show.names, rows, web, sorted(info), deleted, again, \
+            len(s.execute("SHOW BASELINE").rows)
+    names, rows, web, info, deleted, again, left = both(scenario)
+    assert names[-3:] == ["STATE", "ROLLBACKS", "LAST_HEAL"]
+    assert rows and web[0][0] == "HEALTHY" and ("HEALTHY", 0) in info
+    assert (deleted, again, left) == (1, 0, 0)
+
+
+def test_baseline_evolve_runs_candidates():
+    def scenario(pkg):
+        inst, s = mk(pkg, "hev", rows=2000)
+        s.execute("CREATE TABLE d (id BIGINT PRIMARY KEY, w BIGINT)")
+        inst.store("hev", "d").insert_arrays(
+            {"id": np.arange(50), "w": np.arange(50)}, inst.tso.next_timestamp())
+        s.execute("ANALYZE TABLE d")
+        q = "SELECT count(*) FROM t, d WHERE t.b = d.id AND d.w < 40"
+        r = s.execute(q).rows
+        ev = s.execute("BASELINE EVOLVE")
+        return r, ev.names, [row[:2] for row in ev.rows]
+    r, names, rows = both(scenario)
+    assert names == ["BASELINE_ID", "PROMOTED", "CANDIDATE_MS", "ACCEPTED_MS"]
+
+
+def test_heal_counters_in_metrics_and_prometheus():
+    def scenario(pkg):
+        inst, s = mk(pkg, "hm")
+        names = {r[0] for r in s.execute("SHOW METRICS").rows}
+        text = pkg.WebConsole(inst).metrics_text()
+        return ({"plan_heals", "plan_heal_failures"} <= names,
+                "galaxysql_plan_heals" in text, "galaxysql_plan_heal_failures" in text)
+    assert both(scenario) == (True, True, True)
+
+
+# -- the warm-digest columnar signal --------------------------------------------------
+
+
+def test_warm_digest_routes_on_observed_rows():
+    """The columnar router asks the statement summary first: a digest observed to
+    examine fewer rows than COLUMNAR_MIN_SCAN_ROWS stays on the row store although
+    the planner's estimate clears it, and one observed above it routes, in both
+    packages alike."""
+    def scenario(pkg):
+        inst, s = mk(pkg, "cw", rows=3000)
+        for k, v in (("ENABLE_COLUMNAR_REPLICA", 1), ("COLUMNAR_POLL_MS", 0),
+                     ("COLUMNAR_WATERMARK_LAG_MS", 1)):
+            inst.config.set_instance(k, v)
+        inst.columnar.ensure_ready("cw", "t")
+        q = "SELECT b, count(*) FROM t GROUP BY b ORDER BY b"
+        out = []
+        for min_rows in (100, 10**9, 100):
+            inst.config.set_instance("COLUMNAR_MIN_SCAN_ROWS", min_rows)
+            r0 = inst.columnar.routed.value
+            rows = s.execute(q).rows
+            out.append((inst.columnar.routed.value - r0, rows))
+        execs, avg = inst.stmt_summary.digest_signal("cw", "SELECT b, count(*) FROM t "
+                                                     "GROUP BY b ORDER BY b")
+        out.append(execs > 0)
+        # a warm digest whose observed rows examined fall below the floor stays
+        # on the row store even where the estimate would route it
+        inst.config.set_instance("COLUMNAR_MIN_SCAN_ROWS", 3001)
+        r0 = inst.columnar.routed.value
+        s.execute(q)
+        out.append(inst.columnar.routed.value - r0)
+        return out
+    out = both(scenario)
+    assert out[0][0] == 1 and out[1][0] == 0
+
+
+# -- batched DML attribution (`tests/test_dml_batch.py`) ------------------------------
+
+
+def test_statement_summary_and_admission_attribution():
+    """Batched members attribute latency and rows to their own digest, and the
+    admission classifier sees the digest as TP."""
+    def scenario(pkg):
+        inst, s = mk(pkg, "dbx")
+        inst.config.set_instance("DML_BATCH_WINDOW_US", 5000)
+        inst.config.set_instance("ENABLE_ADMISSION_CONTROL", 1)
+        s.execute("CREATE TABLE t (id BIGINT PRIMARY KEY, k BIGINT, v VARCHAR(8), "
+                  "amt DECIMAL(10,2))")
+        ins = "INSERT INTO t (id, k, v, amt) VALUES (%d, %d, '%s', %d.25)"
+        s.execute(ins % (1, 1, "seed", 1))  # registers the batch plan
+
+        def worker(i):
+            sx = pkg.Session(inst, schema="dbx")
+            sx.execute(ins % (11000 + i, i, "ss", i))
+            sx.close()
+        assert not threads(16, worker)
+        rows = [r for r in inst.stmt_summary.rows()
+                if "insert into t" in (r[-1] or "").lower()]
+        row = rows[0]
+        info = inst.admission._digest_cost.get(row[0])
+        return (len(rows), "dml" in row[3], row[4], info[0] if info else None,
+                sorted(s.execute("SELECT id FROM t").rows))
+    n, dml, execs, cls, ids = both(scenario)
+    assert n == 1 and dml and execs == 17 and cls == "TP" and len(ids) == 17

@@ -679,11 +679,9 @@ def _stale_by_endpoint(tm, order):
 
 
 def _async_applies(pkg, inst):
-    """Replica legs the async applier applied: the reference counts them in its
-    metrics registry, the port in its engine counters (`txn/async_apply.py`)."""
-    if pkg == "jax":
-        return inst.metrics.counter("replica_async_applies").value
-    return inst.counters["replica_async_applies"]
+    """Replica legs the async applier applied: both packages count them in the
+    metrics registry (`txn/async_apply.py`)."""
+    return inst.metrics.counter("replica_async_applies").value
 
 
 class TestReplicas:
@@ -921,9 +919,8 @@ class TestFragmentCacheAcrossCoordinators:
 
 def test_coordinator_sync_listener_serves_a_peer():
     """The wire form of `sync_peer()`: a peer's WorkerClient pings the listener and
-    its sync actions apply to the listening instance, as the reference's do; the
-    port's `health` is refused typed (the reference answers it from modules the
-    port has not ported yet)."""
+    its sync actions apply to the listening instance, as the reference's do, and
+    its `health` pull answers with the reference's keys."""
     def case(pkg):
         server = importlib.import_module(
             ("galaxysql_tpu" if pkg == "jax" else "galaxysql_tpu_torch") + ".net.server")
@@ -936,14 +933,15 @@ def test_coordinator_sync_listener_serves_a_peer():
             e0 = inst.frag_cache.epoch("w.t")
             ok = client.sync_action("invalidate_fragment_cache",
                                     {"schema": "w", "table": "t"})["ok"]
-            out = (alive, ok, inst.frag_cache.epoch("w.t") - e0)
-            if pkg == "torch":
-                # the listener answers with the error's text; the client raises it
-                with pytest.raises(errors.TddlError, match="NotSupportedError"):
-                    client.sync_action("health", {})
+            health = client.sync_action("health", {})
+            out = (alive, ok, inst.frag_cache.epoch("w.t") - e0,
+                   health["ok"], health["node"] == inst.node_id, health["mem_tier"],
+                   health["samples"] >= 1, sorted(health))
             return out
         finally:
             client.close()
             lis.stop()
             s.close()
-    _equal(per_package(case), (True, True, 1))
+    got = per_package(case)
+    _equal(got, got["jax"])
+    assert got["jax"][:7] == (True, True, 1, True, True, 0, True)
