@@ -155,6 +155,36 @@ CPU twin; no data is loaded:
     largest input (the kernels line's `ops` entries).  The script's client loops
     retry a typed shed after its retry_after_ms (`_execute_as_client`), as a client
     does, and count it.
+9e. placement: on analyzed_tpch's card instance and its CPU twin, no data loaded.
+    (f) first: both device caches emptied, `/*+TDDL: FRAGMENT_CACHE(OFF)*/` Q3 traced
+    on both: the operator, segment and transfer spans (names and their parents')
+    must be equal, `segment_wall_ms` must grow, and the card's `device_cache_*`
+    gauges must equal its cache's counts.  (a) On orders, on the card and then the
+    twin: SPLIT PARTITION p1 INTO 2 (the hash table turned into a bucket map), MERGE
+    PARTITIONS p1 and the new one back, MOVE PARTITION p0 TO 'g1', and a repartition
+    to orders' own spec (HASH(o_orderkey), its 8 partitions: the phases after this
+    one read orders as loaded, the order of rows inside a partition aside).  After
+    each: the job's ms on both, its rows copied and catchup events (SHOW REBALANCE;
+    the repartition keeps no progress row and copies every visible row), CHECK TABLE
+    orders OK on both, FastChecker's (rows, checksum) equal on both, Q3, Q5 and Q18
+    on the card equal analyzed_tpch's rows, and PLACEMENT_POINT_SELECTS point selects
+    of orders keys equal their answers from before, which the twin gives too
+    (at the phase's end the twin's Q3 and Q5 equal the card's; Q18 is held to
+    analyzed_tpch's card rows, as there).  (b)
+    With REBALANCE_GROUPS = PLACEMENT_GROUPS on both: REBALANCE TABLE orders DRY RUN,
+    then applied (a MOVE into the empty group), proposals equal on both, the checks
+    of (a), and SHOW REBALANCE equal to information_schema.rebalance_jobs.  (c) CHECK
+    TABLE of the eight tables, OK and equal on both.  (d) A `server/router.FrontRouter`
+    over the card instance and two peer coordinators on cuda:0 holding copies of
+    PLACEMENT_PEER_TABLES (`_copy_instance`, the same lanes, the same statistics):
+    Q1, Q3, Q5, Q18 and PLACEMENT_ROUTED_POINTS point selects through a
+    `RouterSession`, rows equal to the local ones, each on its ring owner; orders'
+    dominant group bound to a peer moves Q3 there; SHOW COORDINATORS; a traced routed
+    Q3 whose tree holds the peer's grafted operator spans; a peer detached and its
+    admission gossip forgotten.  (e) PLACEMENT_SEQ_SESSIONS sessions drawing NEXTVAL
+    at once: every value unique, together 1..n.  Launch counters are set to 0 at the phase's start and read at its
+    end: all four kernels must launch; each is held against its plain version on the
+    phase's largest input (the kernels line's `placement` entries).
 
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
@@ -165,8 +195,8 @@ W's rows inside the refresh, which the CPU gave for the same rows, and Q18
 
 10. dml: (a) TPC-H's refresh functions in a transaction, with analyzed_tpch's
     statistics (both copies take them instead of running ANALYZE again): session W
-    runs BEGIN, RF1 (SF x 1,500 new orders and their lineitems,
-    `storage/tpch_refresh.py`) as a few multi-row INSERTs and RF2 (SF x 1,500 orders
+    runs BEGIN, RF1 (SF x DML_RF_SF x 1,500 new orders and their lineitems,
+    `storage/tpch_refresh.py`) as a few multi-row INSERTs and RF2 (as many orders
     and their lineitems deleted); Q1, Q3 and Q18 in W see its writes (Q18 on the
     card alone), in a second
     session R the snapshot from before (R's rows held to its rows from before the
@@ -343,7 +373,8 @@ their own:
     must have launched in each.
 
 Then the columnar replica, last, on instances of its own: a card instance and a CPU
-twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
+twin holding analyzed_tpch's lanes of the orders of the lower COLUMNAR_ORDER_SHARE of
+its order keys and their lineitems, with its statistics:
 
 18. columnar: ENABLE_COLUMNAR_REPLICA = 1, COLUMNAR_POLL_MS = 0 (the phase drives
     `tail_once`), COLUMNAR_CLUSTER_BY = 'lineitem:l_shipdate'.  (a) Both replicas
@@ -377,10 +408,11 @@ twin holding analyzed_tpch's lanes of lineitem and orders, with its statistics:
 Floats in 7-10, 9a, 13, 14, 15, 17 and 18 compare as `tests/test_tpcds.py` compares
 them (relative and absolute 1e-6); every other value must be equal.  The largest input
 the phases 7-9 gave each kernel, and apart from it the largest input each of the
-exec_hub, mpp, workers, dml, ddl, durable, cdc and spill phases gave it, are then held
-against the kernel's plain version CHECK_REPEATS times and timed, beside the main
-path's, in the kernel's `new_phases` entry (`exec_hub_input`, `mpp_input`,
-`workers_input`, `dml_input`, `ddl_input`, `durable_input`, `cdc_input`, `spill_input`,
+exec_hub, mpp, workers, ops, placement, dml, ddl, durable, cdc, spill and columnar
+phases gave it, are then held against the kernel's plain version CHECK_REPEATS times
+and timed, beside the main path's, in the kernel's `new_phases` entry
+(`exec_hub_input`, `mpp_input`, `workers_input`, `ops_input`, `placement_input`,
+`dml_input`, `ddl_input`, `durable_input`, `cdc_input`, `spill_input`,
 `columnar_input`).
 
 It prints one `{"kernels": [...]}` line, and as its last line
@@ -420,10 +452,10 @@ DML_OLTP_ROWS = 250_000     # rows of the dml phase's sysbench table (a cut for 
 OLTP_TRANSACTIONS = 10      # oltp_read_write transactions in the dml phase
 POINT_STATEMENTS = 1000     # sequential oltp_point_select statements in the point phase
 POINT_SESSIONS = (64, 256)  # closed-loop session counts of the point phase
-# statements each session runs in a closed loop, by session count (8 at 256 sessions,
-# 16 before a cut for time: with the admission plane the 256-session loops shed and
+# statements each session runs in a closed loop, by session count (16 and 16, then 16
+# and 8, before cuts for time: with the admission plane the 256-session loops shed and
 # retry, 4.9-8.7 s a loop on the H100's host)
-POINT_PER_SESSION = {64: 16, 256: 8}
+POINT_PER_SESSION = {64: 8, 256: 4}
 FLUSH_KEYS = (1, 64, 1024)  # keys of the timed batched_point_lookup calls
 WIRE_REPEATS = 3            # timed runs of each TPC-H query over the wire, per protocol
 WIRE_PROCESSES = 4          # oltp_point_select client processes in the wire phase
@@ -443,9 +475,9 @@ DML_CPU_QUERIES = (4, 5, 6, 10, 12, 21)
 # 30-50 s); their rows after COMMIT are held to the card's rows inside it
 DML_CARD_ONLY = (18,)
 # analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
-# twin takes 29-38 s, Q16's and Q17's 5.9 s each); tests/test_torch_tpch.py holds them
-# to the reference at SF 0.01
-ANALYZED_CARD_ONLY = (16, 17, 20)
+# twin takes 29-38 s, Q16's and Q17's 5.9 s each, Q7's 3.5 s and Q13's 2.4 s);
+# tests/test_torch_tpch.py holds them to the reference at SF 0.01
+ANALYZED_CARD_ONLY = (7, 13, 16, 17, 20)
 # window queries not compared on the CPU at SF 1 (for time: the CPU twin's
 # w_one_partition takes 7.3 s); tests/test_torch_window.py holds it to the reference
 WINDOW_CARD_ONLY = ("w_one_partition",)
@@ -456,13 +488,19 @@ ANALYZED_CPU_SKIP = (18,)
 # analyzed_tpch's card rows the dml phase holds its own to before its refresh: Q1 and Q3
 # (which analyzed_tpch held to the CPU) and ANALYZED_CPU_SKIP's
 DML_HELD = (1, 3) + ANALYZED_CPU_SKIP
-DURABLE_SESSIONS = 64       # concurrent committing sessions in the durable phase
-DURABLE_TXNS = 2            # transactions each of them commits, per policy
+DML_RF_SF = 0.25            # the scale of the dml phase's RF1/RF2, a fraction of sf (a
+# cut for time: SF x 1,500 orders before)
+DURABLE_SESSIONS = 32       # concurrent committing sessions in the durable phase (64
+# before a cut for time)
+DURABLE_TXNS = 1            # transactions each of them commits, per policy (2 before a
+# cut for time)
 DURABLE_SEQUENTIAL = 32     # transactions one session commits one after another
 DURABLE_RF1_SF = 0.1        # the scale of txn A's RF1, a fraction of sf (a cut for time)
 DURABLE_QUERIES = (1, 3, 5, 6)
-CDC_SESSIONS = 64           # concurrent writing sessions in the cdc phase
-CDC_PER_SESSION = 4         # sbtest1 writes each of them runs, per pass (a cut for time)
+CDC_SESSIONS = 32           # concurrent writing sessions in the cdc phase (64 before a
+# cut for time)
+CDC_PER_SESSION = 3         # sbtest1 writes each of them runs, per pass: one of each
+# kind (8, then 4, before cuts for time)
 # orders writes each of them runs (8 before a cut for time: with the admission plane
 # the batched writes shed and retry, 512 writes took 7.4 s on the H100's host)
 CDC_ORDERS_PER_SESSION = 4
@@ -1080,10 +1118,11 @@ def _rows_match(got, want):
     return True, floats, worst
 
 
-def _copy_instance(src_inst, schema, tables, ddl, device, data_dir=None):
+def _copy_instance(src_inst, schema, tables, ddl, device, data_dir=None, keep=None):
     """A fresh instance on `device` holding `src_inst`'s tables of `schema` (the same
     host lanes, carried through `storage.transfer`); no plan has run on it.  Its
-    metadb and checkpoints go to `data_dir` (in memory without one)."""
+    metadb and checkpoints go to `data_dir` (in memory without one).  `keep` maps a
+    table to (column, bound): only its rows whose lane is at most the bound."""
     from galaxysql_tpu_torch.server.instance import Instance
     from galaxysql_tpu_torch.server.session import Session
     from galaxysql_tpu_torch.storage import transfer
@@ -1094,6 +1133,13 @@ def _copy_instance(src_inst, schema, tables, ddl, device, data_dir=None):
     for t in tables:
         s.execute(ddl[t])
         parts, dicts = transfer.arrays_of(src_inst.store(schema, t))
+        if keep and t in keep:
+            col, bound = keep[t]
+            for p in parts:
+                m = p["lanes"][col] <= bound
+                p["lanes"] = {k: v[m] for k, v in p["lanes"].items()}
+                p["valid"] = {k: v[m] for k, v in p["valid"].items()}
+                p["begin_ts"], p["end_ts"] = p["begin_ts"][m], p["end_ts"][m]
         inst.install_store(transfer.store_from_arrays(inst.catalog.table(schema, t),
                                                       parts, dicts))
     return inst, s
@@ -1535,19 +1581,20 @@ MPP_HINT = "/*+TDDL: ENGINE(MPP)*/ "
 # reference's; at SF 0.01 no query falls back)
 MPP_FALLBACK_QUERIES = {15: "MPP cross product too large"}
 MPP_CACHE_QUERIES = (3, 5)                # (b) the fragment cache replays MPP artifacts
-# (a) the queries run a second, timed time under MPP; the others run once (a cut for
-# time: the second pass of all 21 distributed queries took 2.8-3.2 s)
-MPP_WARM_QUERIES = (1, 3, 5, 9, 16, 18, 21)
+# (a) the queries run a second, timed time under MPP; the others run once (cuts for
+# time: the second pass of all 21 distributed queries took 2.8-3.2 s, and Q9, Q16 and
+# Q21 were in it before a later cut)
+MPP_WARM_QUERIES = (1, 3, 5, 18)
 MPP_SHUFFLE_QUERIES = (3, 5, 9, 18)       # (c) at BROADCAST_BUILD_LIMIT = 0
 # `tests/test_mpp.py`'s: True = the result is ordered (compared in order)
 MPP_ORDERED = {6: False, 14: False, 17: False, 19: False}
-SKEW_FACT_ROWS = 1 << 23    # (d) fact_hot (2^24 before a cut for time)
+SKEW_FACT_ROWS = 1 << 22    # (d) fact_hot (2^24, then 2^23, before cuts for time)
 SKEW_KEYS = 100_000         # fact_hot's key domain; dim holds one row a key
 SKEW_HOT_SHARE = 0.35       # the one hot key's share of fact_hot
 # mid: one row a key over [0, SKEW_MID_ROWS); at a quarter of fact_hot's rows the
 # engine keeps fact_hot as the join's build side, the reference's skewed-build shape
 # (test_skew.py's mid is 16,384 rows beside 57,344: above a quarter too)
-SKEW_MID_ROWS = 1 << 21
+SKEW_MID_ROWS = SKEW_FACT_ROWS // 4
 SKEW_SQL = {
     "hybrid_probe": ("SELECT d.attr, COUNT(*), SUM(f.v) FROM fact_hot f, dim d "
                      "WHERE f.k = d.k GROUP BY d.attr"),
@@ -2873,6 +2920,382 @@ def ops_phase(gi, ci, analyzed_rows):
     return out
 
 
+# -- placement ---------------------------------------------------------------------------
+
+PLACEMENT_QUERIES = (3, 5, 18)
+PLACEMENT_CPU_QUERIES = (3, 5)     # of them, the ones the CPU twin runs after the moves
+PLACEMENT_POINT_SELECTS = 1000
+PLACEMENT_ROUTED_QUERIES = (1, 3, 5, 18)
+PLACEMENT_ROUTED_POINTS = 30        # (d): routed point selects of orders keys
+PLACEMENT_PEER_TABLES = ("lineitem", "orders", "customer", "supplier", "nation",
+                         "region")  # what the routed queries read
+PLACEMENT_SEQ_SESSIONS = 64         # (e): sessions drawing NEXTVAL at once
+PLACEMENT_SEQ_PER_SESSION = 16
+PLACEMENT_GROUPS = "g0,g1"          # (b): REBALANCE_GROUPS: the balancer proposes a MOVE
+
+
+def _span_names(spans, skip=("compile",)):
+    """(kind, name, parent's name) of every span but those of the `skip` kinds."""
+    by_id = {sp.span_id: sp for sp in spans}
+    return sorted((sp.kind, sp.name, by_id[sp.parent_id].name
+                   if sp.parent_id in by_id else None)
+                  for sp in spans if sp.kind not in skip)
+
+
+def _placement_trace(gi, ci, gs, cs):
+    """(f) A traced, uncached Q3 with both device caches cold: its operator, segment
+    and transfer spans (names and parents) on the card must equal the CPU twin's,
+    `segment_wall_ms` must grow, and the `device_cache_*` gauges must equal the card
+    cache's own counts (hits: at its last push, every 64th hit)."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    sql = "/*+TDDL: FRAGMENT_CACHE(OFF)*/ " + SQL[3]
+    trees, seg = [], []
+    for inst, s in ((gi, gs), (ci, cs)):
+        inst.device_cache.clear()
+        s.execute("SET ENABLE_QUERY_TRACING = 1")
+        h = inst.metrics.histogram("segment_wall_ms")
+        c0 = h.count
+        s.execute(sql)
+        seg.append(h.count - c0)
+        trees.append(_span_names(s.last_spans))
+        s.execute("SET ENABLE_QUERY_TRACING = 0")
+    if trees[0] != trees[1]:
+        raise AssertionError(f"placement (f): traced Q3's spans differ:\n  cuda "
+                             f"{trees[0]}\n  cpu  {trees[1]}")
+    kinds = [k for k, _n, _p in trees[0]]
+    if kinds.count("operator") < 5 or kinds.count("transfer") < 5 or not seg[0]:
+        raise AssertionError(f"placement (f): traced Q3 lacks spans: {trees[0]}")
+    c = gi.device_cache
+    g = {n: v for n, _k, v, _h in gi.metrics.rows() if n.startswith("device_cache_")}
+    own = {"device_cache_misses": c.misses, "device_cache_bytes": c.nbytes,
+           "device_cache_entries": len(c._map)}
+    if any(g[k] != v for k, v in own.items()) or g["device_cache_hits"] > c.hits:
+        raise AssertionError(f"placement (f): gauges {g} against the cache's {own}, "
+                             f"hits {c.hits}")
+    return {"spans": len(trees[0]), "operator_spans": kinds.count("operator"),
+            "segment_spans": kinds.count("segment"),
+            "transfer_spans": kinds.count("transfer"), "segment_wall_ms_count": seg,
+            "gauges": g, "cache": dict(own, device_cache_hits=c.hits)}
+
+
+def _placement_check(gi, ci, gs, cs, label, before, points, point_want):
+    """After a move: CHECK TABLE orders OK on both, FastChecker's (rows, checksum)
+    equal on both, Q3, Q5 and Q18 on the card equal their rows from before, and the
+    point selects equal their answers from before on the card and the CPU twin."""
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    from galaxysql_tpu_torch.utils import fastchecker
+    out = {}
+    checks = [s.execute("CHECK TABLE orders").rows for s in (gs, cs)]
+    if checks[0] != checks[1] or checks[0] != [("tpch.orders", "check", "status", "OK")]:
+        raise AssertionError(f"placement {label}: CHECK TABLE {checks}")
+    cols = gi.catalog.table("tpch", "orders").column_names()
+    t0 = time.perf_counter()
+    sums = [fastchecker.table_checksum(inst.store("tpch", "orders"), cols, None)
+            for inst in (gi, ci)]
+    out["checksum_ms"] = (time.perf_counter() - t0) * 1000.0
+    if sums[0] != sums[1]:
+        raise AssertionError(f"placement {label}: FastChecker {sums}")
+    out["rows"], out["checksum"] = sums[0]
+    out["query_ms"] = {}
+    for q in PLACEMENT_QUERIES:
+        t0 = time.perf_counter()
+        rows = gs.execute(SQL[q]).rows
+        out["query_ms"][f"Q{q}"] = (time.perf_counter() - t0) * 1000.0
+        if not _rows_match(rows, before[f"Q{q}"])[0]:
+            raise AssertionError(f"placement {label}: Q{q} rows differ from before")
+    t0 = time.perf_counter()
+    got = [gs.execute(_ops_point_sql(k)).rows for k in points]
+    out["point_ms"] = (time.perf_counter() - t0) * 1000.0
+    if got != point_want:
+        bad = next(k for k, a, b in zip(points, got, point_want) if a != b)
+        raise AssertionError(f"placement {label}: point select of {bad} differs")
+    tm = gi.catalog.table("tpch", "orders")
+    out["partitions"] = tm.partition.num_partitions
+    out["bucket_map"] = tm.partition.bucket_map is not None
+    out["groups"] = sorted({tm.partition.group_of(i)
+                            for i in range(tm.partition.num_partitions)})
+    return out
+
+
+def _placement_moves(gi, ci, gs, cs, before, points, point_want):
+    """(a) SPLIT, MERGE back, MOVE into a group, then a repartition of orders to its
+    own spec (HASH(o_orderkey), its partition count: later phases read orders as
+    loaded), each on the card and on the CPU twin, each checked."""
+    n = gi.catalog.table("tpch", "orders").partition.num_partitions
+    spec = gi.catalog.table("tpch", "orders").partition.columns[0]
+    steps = (("split", "ALTER TABLE orders SPLIT PARTITION p1 INTO 2"),
+             ("merge", f"ALTER TABLE orders MERGE PARTITIONS p1, p{n}"),
+             ("move", "ALTER TABLE orders MOVE PARTITION p0 TO 'g1'"),
+             ("repartition", f"ALTER TABLE orders PARTITION BY HASH({spec}) "
+                             f"PARTITIONS {n}"))
+    out = {}
+    for label, sql in steps:
+        jobs0 = len(gs.execute("SHOW REBALANCE").rows)
+        t0 = time.perf_counter()
+        gs.execute(sql)
+        card_ms = (time.perf_counter() - t0) * 1000.0
+        t0 = time.perf_counter()
+        cs.execute(sql)
+        cpu_ms = (time.perf_counter() - t0) * 1000.0
+        step = {"sql": sql, "job_ms": card_ms, "cpu_twin_job_ms": cpu_ms}
+        jobs = gs.execute("SHOW REBALANCE").rows
+        if label == "repartition":
+            # the repartition job keeps no progress row: its backfill copies every
+            # visible row, and no write ran during it
+            step["progress"] = "none kept by the repartition job"
+        else:
+            if len(jobs) != jobs0 + 1 or jobs[-1][3:5] != ("DONE", "cutover"):
+                raise AssertionError(f"placement {label}: SHOW REBALANCE {jobs[-1:]}")
+            step["rows_copied"], step["catchup_events"] = jobs[-1][7], jobs[-1][8]
+            step["progress"] = list(jobs[-1])
+        step.update(_placement_check(gi, ci, gs, cs, label, before, points,
+                                     point_want))
+        if label == "repartition":
+            step["rows_copied"], step["catchup_events"] = step["rows"], 0
+        say("placement_step", step=label, **step)
+        out[label] = step
+    if out["repartition"]["partitions"] != n or out["repartition"]["bucket_map"]:
+        raise AssertionError("placement: the repartition did not restore orders' spec")
+    return out
+
+
+def _placement_balancer(gi, ci, gs, cs, before, points, point_want):
+    """(b) With REBALANCE_GROUPS = PLACEMENT_GROUPS on both: REBALANCE TABLE orders
+    DRY RUN, then applied; the proposals (job ids aside) equal the CPU twin's, and
+    SHOW REBALANCE equals information_schema.rebalance_jobs."""
+    out = {}
+    for inst in (gi, ci):
+        inst.config.set_instance("REBALANCE_GROUPS", PLACEMENT_GROUPS)
+    try:
+        for label, sql in (("dry_run", "REBALANCE TABLE orders DRY RUN"),
+                           ("apply", "REBALANCE TABLE orders")):
+            t0 = time.perf_counter()
+            card = gs.execute(sql).rows
+            ms = (time.perf_counter() - t0) * 1000.0
+            cpu = cs.execute(sql).rows
+            if [r[:6] for r in card] != [r[:6] for r in cpu] or not card:
+                raise AssertionError(f"placement (b) {label}: {card} against {cpu}")
+            out[label] = {"ms": ms, "proposals": [list(r) for r in card]}
+    finally:
+        for inst in (gi, ci):
+            inst.config.set_instance("REBALANCE_GROUPS", "")
+    if out["apply"]["proposals"][0][5] != "applied":
+        raise AssertionError(f"placement (b): not applied: {out['apply']}")
+    out["check"] = _placement_check(gi, ci, gs, cs, "balancer", before, points,
+                                    point_want)
+    show = [r[:9] + r[10:] for r in gs.execute("SHOW REBALANCE").rows]
+    info = gs.execute("SELECT job_id, table_name, kind, state, phase, src_partitions, "
+                      "targets, rows_copied, events_applied, last_checkpoint, "
+                      "router_epoch FROM information_schema.rebalance_jobs "
+                      "ORDER BY job_id").rows
+    if show != info:
+        raise AssertionError(f"placement (b): SHOW REBALANCE {show} against "
+                             f"information_schema {info}")
+    out["jobs"] = len(show)
+    return out
+
+
+def _placement_router(gi, before, points, point_want):
+    """(d) A FrontRouter over the card instance and two peer coordinators on cuda:0
+    holding copies of PLACEMENT_PEER_TABLES (the same lanes, `_copy_instance`, and
+    statistics): routed Q1, Q3, Q5, Q18 and point selects equal the local rows, each
+    on its ring owner; orders' dominant group bound to a peer moves Q3 there; SHOW
+    COORDINATORS; a traced routed Q3 holds the peer's grafted operator spans; a
+    detached peer's admission gossip is forgotten."""
+    import gc
+    from galaxysql_tpu_torch.meta.statement_summary import digest_key
+    from galaxysql_tpu_torch.server import router as R
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.sql.parameterize import parameterize
+    from galaxysql_tpu_torch.storage import tpch
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    out = {}
+    t0 = time.perf_counter()
+    peers = []
+    for _ in range(2):
+        pi, ps = _copy_instance(gi, "tpch", PLACEMENT_PEER_TABLES, tpch.TPCH_DDL, "cuda")
+        _take_statistics(gi, pi, "tpch", PLACEMENT_PEER_TABLES)
+        ps.close()
+        peers.append(R.InprocPeer(pi))
+    out["peer_copy_s"] = time.perf_counter() - t0
+    router = R.FrontRouter(gi)
+    try:
+        for p in peers:
+            router.add_peer(p)
+        role = {gi.node_id: "local", peers[0].node_id: "peer0",
+                peers[1].node_id: "peer1"}
+        rs = R.RouterSession(router, schema="tpch")
+        stmts = [(f"Q{q}", SQL[q], before[f"Q{q}"]) for q in PLACEMENT_ROUTED_QUERIES]
+        stmts += [(f"point{k}", _ops_point_sql(k), want) for k, want in
+                  list(zip(points, point_want))[:PLACEMENT_ROUTED_POINTS]]
+        landed, routed_ms = {}, {}
+        for name, sql, want in stmts:
+            owner = router.ring_owner(digest_key("tpch", parameterize(sql).cache_key))
+            n0 = router.affinity_of(owner)[0]
+            t1 = time.perf_counter()
+            rows = rs.execute(sql).rows
+            routed_ms[name] = (time.perf_counter() - t1) * 1000.0
+            if not _rows_match(rows, want)[0]:
+                raise AssertionError(f"placement (d): routed {name} differs from local")
+            if router.affinity_of(owner)[0] != n0 + 1:
+                raise AssertionError(f"placement (d): {name} missed its ring owner")
+            landed.setdefault(role[owner], []).append(name)
+        out["landed"] = landed
+        out["routed_ms"] = {k: v for k, v in routed_ms.items() if k.startswith("Q")}
+        out["routed_point_ms_sum"] = sum(v for k, v in routed_ms.items()
+                                         if k.startswith("point"))
+        tm = gi.catalog.table("tpch", "orders")
+        group = gi.placement.dominant_group(tm)
+        gi.placement.bind(group, coordinator=peers[1].node_id)
+        gi.placement._cache_at = 0.0
+        digest = digest_key("tpch", parameterize(SQL[3]).cache_key)
+        target = router.targets_for(digest, SQL[3], "tpch")[0]
+        n0 = router.affinity_of(peers[1].node_id)[0]
+        rows = rs.execute(SQL[3]).rows
+        if target is not peers[1] or router.affinity_of(peers[1].node_id)[0] != n0 + 1 \
+                or not _rows_match(rows, before["Q3"])[0]:
+            raise AssertionError("placement (d): the bound peer did not serve Q3")
+        out["bound"] = {"group": group, "q3_on": role[target.node_id]}
+        s = Session(gi, "tpch")
+        coords = sorted((role.get(r[0], r[0]), r[1], r[2])
+                        for r in s.execute("SHOW COORDINATORS").rows)
+        if coords != [("local", "local", "OK"), ("peer0", "peer", "OK"),
+                      ("peer1", "peer", "OK")]:
+            raise AssertionError(f"placement (d): SHOW COORDINATORS {coords}")
+        out["coordinators"] = coords
+        rate = gi.trace_store.sampler.rate
+        gi.trace_store.configure(rate=1.0)
+        try:
+            rows = rs.execute(SQL[3]).rows
+        finally:
+            gi.trace_store.configure(rate=rate)
+        grafted = [sp for sp in rs.last_spans
+                   if sp.node == peers[1].node_id and sp.kind == "operator"]
+        if rs.last_spans[0].name != "route" or len(grafted) < 5 or \
+                not _rows_match(rows, before["Q3"])[0]:
+            raise AssertionError("placement (d): the traced routed Q3 holds no grafted "
+                                 "operator spans")
+        out["traced"] = {"spans": len(rs.last_spans), "grafted_operator_spans":
+                         len(grafted), "trace_id": rs.last_trace_id}
+        gi.placement.unbind(group)
+        router.gossip_tick()
+        node = peers[0].node_id
+        seen = any(n == node for n, _s, _a in gi.admission.peer_gossip_rows())
+        router.remove_peer(node)
+        gone = not any(n == node for n, _s, _a in gi.admission.peer_gossip_rows())
+        if not (seen and gone and node not in gi.coordinators):
+            raise AssertionError("placement (d): the detached peer's admission state "
+                                 "was not forgotten")
+        out["detached"] = {"gossiped_before": seen, "forgotten": gone}
+        s.close()
+        rs.close()
+    finally:
+        router.close()
+        gi.__dict__.pop("router", None)
+        del peers
+        gc.collect()
+    return out
+
+
+def _placement_sequences(gi):
+    """(e) PLACEMENT_SEQ_SESSIONS sessions drawing NEXTVAL('placement_seq') at once,
+    as clients (a typed shed is retried, `_execute_as_client`; admission refuses a
+    statement before it draws a value): every value unique, together 1..n."""
+    import threading
+    from galaxysql_tpu_torch.server.session import Session
+    got, errs = [], []
+    lock = threading.Lock()
+
+    def worker():
+        s = Session(gi, "tpch")
+        try:
+            vals = [_execute_as_client(s, "SELECT NEXTVAL('placement_seq')").rows[0][0]
+                    for _ in range(PLACEMENT_SEQ_PER_SESSION)]
+            with lock:
+                got.extend(vals)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append(repr(e))
+        finally:
+            s.close()
+    t0, sheds0 = time.perf_counter(), CLIENT_SHEDS["count"]
+    ts = [threading.Thread(target=worker) for _ in range(PLACEMENT_SEQ_SESSIONS)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+    n = PLACEMENT_SEQ_SESSIONS * PLACEMENT_SEQ_PER_SESSION
+    if errs or sorted(got) != list(range(1, n + 1)):
+        raise AssertionError(f"placement (e): NEXTVAL {errs[:3]} {len(got)} values, "
+                             f"{len(set(got))} unique")
+    return {"values": n, "unique": len(set(got)), "ms": (time.perf_counter() - t0) * 1e3,
+            "sheds_retried": CLIENT_SHEDS["count"] - sheds0}
+
+
+def placement_phase(gi, ci, analyzed_rows):
+    """The placement slice on analyzed_tpch's card instance `gi` and its CPU twin `ci`
+    at the run's scale: (f) the span tree and the device-cache gauges, (a) SPLIT,
+    MERGE, MOVE and a repartition of orders, (b) the balancer, (c) CHECK TABLE of the
+    eight tables, (d) the front router over two peer coordinators, (e) NEXTVAL from
+    many sessions.  Kernel launches are counted over the whole phase."""
+    from galaxysql_tpu_torch.server.session import Session
+    t_phase = time.perf_counter()
+    gs, cs = Session(gi, "tpch"), Session(ci, "tpch")
+    out = {}
+    try:
+        _reset_launches()
+        before = {f"Q{q}": analyzed_rows[f"Q{q}"]
+                  for q in set(PLACEMENT_QUERIES + PLACEMENT_ROUTED_QUERIES)}
+        points = _ops_point_keys(gi, PLACEMENT_POINT_SELECTS, seed=20241018)
+        point_want = [gs.execute(_ops_point_sql(k)).rows for k in points]
+        if point_want != [cs.execute(_ops_point_sql(k)).rows for k in points]:
+            raise AssertionError("placement: point selects differ on the CPU twin")
+        steps = (("trace", lambda: _placement_trace(gi, ci, gs, cs)),
+                 ("moves", lambda: _placement_moves(gi, ci, gs, cs, before, points,
+                                                    point_want)),
+                 ("balancer", lambda: _placement_balancer(gi, ci, gs, cs, before,
+                                                          points, point_want)),
+                 ("check_table", lambda: _placement_check_tables(gs, cs)),
+                 ("router", lambda: _placement_router(gi, before, points, point_want)),
+                 ("sequences", lambda: _placement_sequences(gi)))
+        for name, fn in steps:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name + "_s"] = time.perf_counter() - t0
+            if name != "moves":
+                say("placement_step", step=name, seconds=out[name + "_s"],
+                    **out[name])
+        # the CPU twin's Q3 and Q5 after every move, against the card's (Q18, 26 s
+        # on the twin, is held to analyzed_tpch's card rows, as there: a cut for time)
+        from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+        t0 = time.perf_counter()
+        for q in PLACEMENT_CPU_QUERIES:
+            if not _rows_match(cs.execute(SQL[q]).rows, before[f"Q{q}"])[0]:
+                raise AssertionError(f"placement: the CPU twin's Q{q} differs")
+        out["cpu_twin_queries_s"] = time.perf_counter() - t0
+        out["launches"] = _launch_counts()
+    finally:
+        gs.close()
+        cs.close()
+    missing = [k for k in KERNELS if out["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in placement: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _placement_check_tables(gs, cs):
+    """(c) CHECK TABLE of the eight TPC-H tables: every row OK, equal on both."""
+    from galaxysql_tpu_torch.storage import tpch
+    sql = "CHECK TABLE " + ", ".join(tpch.TABLE_ORDER)
+    t0 = time.perf_counter()
+    card = gs.execute(sql).rows
+    ms = (time.perf_counter() - t0) * 1000.0
+    want = [(f"tpch.{t}", "check", "status", "OK") for t in tpch.TABLE_ORDER]
+    if card != want or cs.execute(sql).rows != want:
+        raise AssertionError(f"placement (c): CHECK TABLE {card}")
+    return {"tables": len(card), "ms": ms}
+
+
 # -- writes and transactions -----------------------------------------------------------
 
 def _both(s_gpu, s_cpu, sql, what):
@@ -2943,9 +3366,9 @@ def dml_tpch(src_inst, sf, held, analyzed):
 
     keys = np.concatenate([p.lanes["o_orderkey"]
                            for p in gi.store("tpch", "orders").partitions])
-    rows = tpch_refresh.rf1_rows(sf, int(keys.max()))
+    rows = tpch_refresh.rf1_rows(sf * DML_RF_SF, int(keys.max()))
     rf1 = tpch_refresh.rf1_statements(rows)
-    rf2 = tpch_refresh.rf2_statements(tpch_refresh.rf2_keys(sf, keys))
+    rf2 = tpch_refresh.rf2_statements(tpch_refresh.rf2_keys(sf * DML_RF_SF, keys))
     _both(gw, cw, "BEGIN", "BEGIN")
     rf1_ms, rf2_ms, affected = [], [], []
     for sql in rf1:
@@ -2956,7 +3379,7 @@ def dml_tpch(src_inst, sf, held, analyzed):
         rs, ms = _both(gw, cw, sql, "RF2")
         rf2_ms.append(ms)
         affected.append(rs.affected)
-    n_orders = tpch_refresh.refresh_orders(sf)
+    n_orders = tpch_refresh.refresh_orders(sf * DML_RF_SF)
     n_lines = len(rows["lineitem"]["l_orderkey"])
     if sum(affected[:len(rf1)]) != n_orders + n_lines or affected[-1] != n_orders:
         raise AssertionError(f"refresh affected {affected}")
@@ -4046,12 +4469,12 @@ def _durable_writes(gs, cs, keys, out):
     acked = {}
     n = DURABLE_SESSIONS * DURABLE_TXNS
     for i, policy in enumerate(("TSO", "XA")):
-        batches0 = gi.counters["group_commit_batches"]
-        rows0 = gi.counters["group_committed_txns"]
+        batches0 = gi.metrics.counter("group_commit_batches").value
+        rows0 = gi.metrics.counter("group_committed_txns").value
         part = keys[i * n:(i + 1) * n]
         lat, done, wall = _commit_storm(gi, part, policy)
-        batches = gi.counters["group_commit_batches"] - batches0
-        rows = gi.counters["group_committed_txns"] - rows0
+        batches = gi.metrics.counter("group_commit_batches").value - batches0
+        rows = gi.metrics.counter("group_committed_txns").value - rows0
         out[f"concurrent_{policy.lower()}"] = {
             "sessions": DURABLE_SESSIONS, "transactions": len(done),
             "commit_p50_ms": _pct(lat, 50), "commit_p99_ms": _pct(lat, 99),
@@ -5463,6 +5886,9 @@ def spill_phase(analyzed, unspilled, unspilled_ms, seed=20241017):
 # -- the columnar replica, AS OF and the archive ------------------------------------
 
 COLUMNAR_TABLES = ("lineitem", "orders")
+COLUMNAR_ORDER_SHARE = 0.25  # the orders the phase holds, by key, with their lineitems
+# (a cut for time: every order before; the first replica delete's match-key map is
+# built over every live row)
 COLUMNAR_QUERIES = (1, 6, 4, 12)
 COLUMNAR_HINT = "/*+TDDL:COLUMNAR(ON)*/ "
 COLUMNAR_OFF = "/*+TDDL:COLUMNAR(OFF)*/ "
@@ -5743,8 +6169,13 @@ def columnar_phase(analyzed, sf, seed=20241017):
     from galaxysql_tpu_torch.storage import tpch, tpch_refresh
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
     t_phase = time.perf_counter()
-    gi, gs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cuda")
-    ci, cs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cpu")
+    bound = int(np.quantile(_lanes_of(analyzed, "orders", ["o_orderkey"])["o_orderkey"],
+                            COLUMNAR_ORDER_SHARE))
+    keep = {"orders": ("o_orderkey", bound), "lineitem": ("l_orderkey", bound)}
+    gi, gs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cuda",
+                            keep=keep)
+    ci, cs = _copy_instance(analyzed, "tpch", COLUMNAR_TABLES, tpch.TPCH_DDL, "cpu",
+                            keep=keep)
     _take_statistics(analyzed, gi, "tpch", COLUMNAR_TABLES)
     _take_statistics(analyzed, ci, "tpch", COLUMNAR_TABLES)
     for inst in (gi, ci):
@@ -5987,6 +6418,20 @@ def run(args, data_dir) -> int:
         step_s={k: v["step_s"] for k, v in ops.items() if isinstance(v, dict)
                 and "step_s" in v})
     ops_inputs = check_new_phase_inputs(ops_capture, {"ops": ops["launches"]})
+
+    placement_capture = kernel_capture()
+    try:
+        placement = placement_phase(analyzed, _ci,
+                                    {f"Q{q}": unspilled[f"Q{q}"] for q in
+                                     set(PLACEMENT_QUERIES + PLACEMENT_ROUTED_QUERIES)})
+    finally:
+        placement_capture.restore()
+    print(card, flush=True)
+    say("placement", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf,
+        seconds=placement["seconds"], launches=placement["launches"],
+        step_s={k[:-2]: v for k, v in placement.items() if k.endswith("_s")})
+    placement_inputs = check_new_phase_inputs(placement_capture,
+                                              {"placement": placement["launches"]})
     unspilled = {k: v for k, v in unspilled.items()
                  if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
@@ -6010,6 +6455,9 @@ def run(args, data_dir) -> int:
         entry["new_phases"]["workers_input"] = workers_inputs[entry["name"]]
         entry["new_phases"]["launches"]["ops"] = ops["launches"][entry["name"]]
         entry["new_phases"]["ops_input"] = ops_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["placement"] = \
+            placement["launches"][entry["name"]]
+        entry["new_phases"]["placement_input"] = placement_inputs[entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

@@ -379,7 +379,8 @@ class FusedSegment:
     def run_batch(self, batch: ColumnBatch) -> ColumnBatch:
         """Apply the segment to one ColumnBatch."""
         sink = self.stats_sink
-        timed = sink is not None or _tracer_on()
+        tc = _trace_ctx()
+        timed = sink is not None or tc is not None or _tracer_on()
         t0 = time.perf_counter() if timed else 0.0
         counts = None
         n = batch.capacity
@@ -400,7 +401,7 @@ class FusedSegment:
         result = ColumnBatch(self.attach_columns(batch.columns, out), live)
         if timed:
             wall = round((time.perf_counter() - t0) * 1000, 3)
-            self._observe(sink, counts, wall)
+            self._observe(tc, sink, counts, wall)
             if _tracer_on():
                 self._record_span(batch, result, wall)
         return result
@@ -413,11 +414,23 @@ class FusedSegment:
             return np.ones(batch.capacity, dtype=np.bool_)
         return np.broadcast_to(to_numpy(live), (batch.capacity,))
 
-    def _observe(self, sink, counts, wall_ms: float):
+    def _observe(self, tc, sink, counts, wall_ms: float):
+        """A timed segment run's bookkeeping, the reference's: the wall histogram,
+        the stats-sink row, and in a traced query one `segment` span under the
+        operator span whose pull ran it (host wall time; no device sync)."""
         from galaxysql_tpu_torch.utils.metrics import SEGMENT_WALL_MS
         SEGMENT_WALL_MS.observe(wall_ms)
         if sink is not None and counts is not None:
             sink.append((counts, wall_ms))
+        if tc is not None:
+            from galaxysql_tpu_torch.utils import tracing as _tr
+            attrs = {"compiled": False, "segment_id": self.segment_id}
+            if counts is not None:
+                attrs["rows_in"] = int(counts[0])
+                attrs["rows_out"] = int(counts[-1])
+            tc.add(f"segment:{self.chain}", kind="segment",
+                   start_us=_tr.now_us() - int(wall_ms * 1000),
+                   dur_us=wall_ms * 1000, **attrs)
 
     def _record_span(self, batch_in: ColumnBatch, batch_out: ColumnBatch,
                      wall_ms: float):
@@ -431,6 +444,12 @@ class FusedSegment:
 def _tracer_on() -> bool:
     from galaxysql_tpu_torch.utils.tracing import SEGMENT_TRACER
     return SEGMENT_TRACER.active
+
+
+def _trace_ctx():
+    """The thread's active TraceContext (span tracing), or None."""
+    from galaxysql_tpu_torch.utils import tracing
+    return tracing.current()
 
 
 class FusedPipelineOp(ops.Operator):

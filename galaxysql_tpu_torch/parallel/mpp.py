@@ -44,6 +44,7 @@ import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
                                              dictionary_union_translation)
+from galaxysql_tpu_torch.exec import fusion as _fusion
 from galaxysql_tpu_torch.exec import operators as ops
 from galaxysql_tpu_torch.exec import skew
 from galaxysql_tpu_torch.exec.operators import (DISPATCH_STATS, AggCall, HashAggOp,
@@ -58,7 +59,7 @@ from galaxysql_tpu_torch.parallel.mesh import GLOBAL_MESH_CACHE, Mesh
 from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.plan.rules import estimate_rows
 from galaxysql_tpu_torch.types import collation as _coll
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, tracing
 
 BROADCAST_BUILD_LIMIT = 1 << 19  # est. rows: at or below, broadcast the build side
 
@@ -266,7 +267,6 @@ class MppExecutor:
     # -- dispatch ------------------------------------------------------------
 
     def run(self, node: L.RelNode) -> DistBatch:
-        from galaxysql_tpu_torch.utils import tracing
         # MPP stage boundary: a deadline-killed query aborts between stages with a
         # typed error instead of dispatching the rest of the plan
         self.ctx.check_deadline()
@@ -397,6 +397,7 @@ class MppExecutor:
         a stats sink, one entry: the live counts after each stage summed over the
         shards, and the wall ms."""
         sink = seg.stats_sink
+        tc = tracing.current()
         t0 = time.perf_counter()
         DISPATCH_STATS["dispatches"] += 1
         shards = [None] if b.replicated else list(range(self.S))
@@ -423,9 +424,11 @@ class MppExecutor:
             outs.append({name: broadcast_value(n, *env[name], xp)
                          for name in seg.computed})
             lives.append(live)
-        if sink is not None:
-            totals = torch.stack(counts).sum(0).cpu().numpy()
-            sink.append((totals, round((time.perf_counter() - t0) * 1000, 3)))
+        totals = torch.stack(counts).sum(0).cpu().numpy() if sink is not None else None
+        if sink is not None or tc is not None or _fusion._tracer_on():
+            # the reference's timed run: the wall histogram, the sink row, and in a
+            # traced query the `segment` span
+            seg._observe(tc, sink, totals, round((time.perf_counter() - t0) * 1000, 3))
         return outs, lives
 
     def _segment_batch(self, seg, child: DistBatch) -> DistBatch:

@@ -79,7 +79,7 @@ from galaxysql_tpu_torch.plan.rules import conjuncts, estimate_rows
 from galaxysql_tpu_torch.storage.table_store import TableStore
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.types import temporal
-from galaxysql_tpu_torch.utils import errors, events
+from galaxysql_tpu_torch.utils import errors, events, tracing
 from galaxysql_tpu_torch.utils.metrics import WORKER_FAILOVERS
 
 
@@ -683,11 +683,66 @@ def record_rf_stats(ctx, segment, rf_node, totals):
                            node_id=id(rf_node) if rf_node is not None else None)
 
 
-def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
+class TraceOp(ops.Operator):
+    """The span-tracing wrapper, the reference's: one `operator` span a plan node,
+    parented at build time (the plan tree is the span tree) and timed at drain
+    time.  While a batch is pulled from the wrapped operator the trace cursor
+    points at this span, so what fires inside the pull (fused segment runs,
+    device-cache transfers, worker RPCs) lands under the operator doing the work.
+    It measures host wall time only: no row counts, no device sync."""
+
+    def __init__(self, inner: ops.Operator, span, tc):
+        self.inner = inner
+        self.span = span
+        self.tc = tc
+
+    def batches(self):
+        tc, sp = self.tc, self.span
+        sp.start_us = tracing.now_us()
+        t0 = time.perf_counter()
+        batches = 0
+        it = self.inner.batches()
+        while True:
+            prev = tc.cursor
+            tc.cursor = sp.span_id
+            try:
+                try:
+                    b = next(it)
+                except StopIteration:
+                    break
+            finally:
+                tc.cursor = prev
+            batches += 1
+            # finalized at every pull: a LIMIT above may drop the generator early
+            sp.dur_us = round((time.perf_counter() - t0) * 1e6, 1)
+            sp.attrs["batches"] = batches
+            yield b
+        sp.dur_us = round((time.perf_counter() - t0) * 1e6, 1)
+        sp.attrs["batches"] = batches
+
+
+def _build_with_stats(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
     op = _build_operator(node, ctx)
     if ctx.collect_stats and not (isinstance(op, SegmentStatsOp) and op.covers(node)):
         return StatsOp(op, node, ctx)
     return op
+
+
+def build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
+    tc = tracing.current()
+    if tc is None:
+        return _build_with_stats(node, ctx)
+    # a traced build: this node's span under its parent operator's (the recursion
+    # threads the parent through ctx), then the drain wrapped
+    parent = getattr(ctx, "_trace_parent", None)
+    sp = tc.add(type(node).__name__, kind="operator",
+                parent=tc.cursor if parent is None else parent)
+    ctx._trace_parent = sp.span_id
+    try:
+        op = _build_with_stats(node, ctx)
+    finally:
+        ctx._trace_parent = parent
+    return TraceOp(op, sp, tc)
 
 
 def _fusing(ctx: ExecContext) -> bool:

@@ -9,10 +9,9 @@ columnar_replica, fragment_cache, workers, and the operations plane's views:
 query_stats, query_spans, metrics, admission_stats, ccl_rules, statement_summary,
 statement_summary_history, events, incidents, plan_baselines, slo_status,
 metric_history and cluster_health (from the workers' piggybacked telemetry, no
-pull).  They are ordinary stores, read by the planner and the operators on the
-instance's device.  A query that reads rebalance_jobs or coordinators raises
-`NotSupportedError` naming the placement slice (`check_ported`), and never returns
-an empty table.
+pull), and placement's rebalance_jobs (`ddl/rebalance.progress_rows`) and
+coordinators (the peer registry from the last gossip snapshots, no pull).  They are
+ordinary stores, read by the planner and the operators on the instance's device.
 """
 
 from __future__ import annotations
@@ -20,9 +19,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 from galaxysql_tpu_torch.meta.catalog import ColumnMeta, TableMeta
-from galaxysql_tpu_torch.plan import logical as L
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors
 from galaxysql_tpu_torch.utils.ccl import GLOBAL_CCL
 from galaxysql_tpu_torch.utils.events import EVENTS
 
@@ -166,13 +163,6 @@ _DEFS: Dict[str, List] = {
         ("applied_events", _I), ("applied_rows", _I)],
 }
 
-# the views the port cannot fill yet -> the module each waits for
-WAITING = {
-    "rebalance_jobs": "ddl/rebalance.py (ROADMAP Queue 1 item 16, the placement slice)",
-    "coordinators": "server/router.py (ROADMAP Queue 1 item 16, the placement slice)",
-}
-
-
 def ensure_tables(instance):
     """Create the views' TableMetas and stores once (idempotent)."""
     s = instance.catalog.schema("information_schema")
@@ -185,18 +175,8 @@ def ensure_tables(instance):
         instance.register_table(tm, persist=False)
 
 
-def check_ported(rel: L.RelNode):
-    """Raise `NotSupportedError` when the plan reads a view the port cannot fill."""
-    for n in L.walk(rel):
-        if isinstance(n, L.Scan) and n.table.schema.lower() == "information_schema":
-            waits = WAITING.get(n.table.name.lower())
-            if waits is not None:
-                raise errors.NotSupportedError(
-                    f"information_schema.{n.table.name} waits for {waits}")
-
-
 def refresh(instance, session=None):
-    """Re-materialize every ported view from live state."""
+    """Re-materialize every view from live state."""
     ensure_tables(instance)
     ts = instance.tso.next_timestamp()
     cat = instance.catalog
@@ -311,3 +291,8 @@ def refresh(instance, session=None):
     # pull=False: the refresh renders the workers' piggybacked telemetry only, so
     # a wedged worker cannot stall an unrelated catalog query
     fill("cluster_health", (list(r) for r in instance.cluster_health(pull=False)))
+    from galaxysql_tpu_torch.ddl.rebalance import progress_rows
+    fill("rebalance_jobs", (list(r) for r in progress_rows(instance)))
+    # pull=False: the serving tier's rows from the gossip snapshots only, the same
+    # no-stall rule
+    fill("coordinators", (list(r) for r in instance.coordinator_rows(pull=False)))

@@ -50,9 +50,19 @@ weight (`read_endpoint`), skipping fenced, stale and breaker-blocked ones.
 peer's `sync_bus`, in process, or `net/server.CoordinatorSyncListener` over the wire).
 Its `health` action answers with this node's metric-history sample, admission
 snapshot and burning SLOs (the reference's), and `cluster_health` pulls every
-attached worker's.  The serving tier's peer registry (`attach_coordinator`) and
-moving a remote table between workers come with the placement slice (ROADMAP Queue 1
-item 16).
+attached worker's.
+
+Placement, the reference's: `rebalance_shadows` (the shadow partitions of running
+SPLIT / MERGE / MOVE PARTITION jobs, `ddl/rebalance.py`), `balancer` (the heat-driven
+`server/balancer.py`), `placement` (group bindings to workers, coordinators and
+devices, `server/placement.py`; `read_endpoint` gives the endpoint bound to a table's
+dominant group four times its weight), `sequences` (`meta/sequence.py`, NEXTVAL) and
+the serving tier's peer registry: `coordinators`, `attach_coordinator` /
+`detach_coordinator` (which forgets the peer's admission gossip) and
+`coordinator_rows` (SHOW COORDINATORS), read by `server/router.FrontRouter`, which
+sets `router`.  `move_remote_table` moves a worker-resident table to another worker
+online: a snapshot copy under the shared MDL, then the delta and the endpoint swap
+under the exclusive one.
 
 The operations plane, the reference's: `profiles` (the last-N QueryProfiles),
 `trace_store` (tail-sampled span trees), `stmt_summary`
@@ -70,11 +80,11 @@ the sequential fast path (`point_plans`, cleared past 512 entries as in the
 reference), the cross-session `batch_scheduler`, the commit coordinator
 (`xa_coordinator`, `txn/xa.py`, with the group-commit gate) and `counters`, the
 reference's dict-like view over the registry's `engine_*` counters
-(`point_plan_queries`, `batched_point_queries`, `group_commit_batches`,
-`group_committed_txns`, `mpp_queries`, `mpp_fallback_local`, and the per-engine query
-counts `exec_<engine>`; `count` adds atomically; `information_schema.engine_counters`
-lists them).  The async applier's and the batchers' counters and histograms are
-registry metrics under the reference's names (`gsi_async_applies`,
+(`point_plan_queries`, `batched_point_queries`, `mpp_queries`, `mpp_fallback_local`,
+and the per-engine query counts `exec_<engine>`; `count` adds atomically;
+`information_schema.engine_counters` lists them).  The async applier's, the batchers'
+and the group-commit gate's counters and histograms are registry metrics under the
+reference's names (`gsi_async_applies`, `group_commit_batches`,
 `dml_batched_queries`, `batch_group_size`, ...).  `mesh()` is the MPP device mesh (`parallel/mesh.py`): one shard a CUDA
 device when there are several, else None, as in the reference.  The write side: `cdc` (the binlog, `txn/cdc.py`), the registered DML batch
 plans (`dml_plans`) and their `dml_batch_scheduler` (`server/dml_batch.py`), and the
@@ -107,12 +117,15 @@ from galaxysql_tpu_torch.meta.gms import ConfigListener, MetaDb
 from galaxysql_tpu_torch.meta.ha import HaManager
 from galaxysql_tpu_torch.meta.mdl import MdlManager
 from galaxysql_tpu_torch.meta.privileges import PrivilegeManager
-from galaxysql_tpu_torch.meta.tso import TimestampOracle
+from galaxysql_tpu_torch.meta.sequence import SequenceManager
+from galaxysql_tpu_torch.meta.tso import LOGICAL_BITS, TimestampOracle
 from galaxysql_tpu_torch.net.dn import SyncBus, WorkerClient
 from galaxysql_tpu_torch.plan.planner import Planner
+from galaxysql_tpu_torch.server.balancer import Balancer
 from galaxysql_tpu_torch.server.batch_scheduler import BatchScheduler
 from galaxysql_tpu_torch.server.dml_batch import DmlBatchScheduler
 from galaxysql_tpu_torch.server.maintain import RecycleBin
+from galaxysql_tpu_torch.server.placement import PlacementBinding
 from galaxysql_tpu_torch.storage.archive import ArchiveManager
 from galaxysql_tpu_torch.storage.columnar import ColumnarReplicaManager
 from galaxysql_tpu_torch.storage.table_store import TableStore
@@ -120,7 +133,7 @@ from galaxysql_tpu_torch.txn.async_apply import AsyncApplier
 from galaxysql_tpu_torch.txn.cdc import CdcManager
 from galaxysql_tpu_torch.txn.xa import TwoPhaseCoordinator, recover_persisted
 from galaxysql_tpu_torch.types import datatype as dt
-from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils import errors, events
 from galaxysql_tpu_torch.exec.operators import COMPILE_STATS
 from galaxysql_tpu_torch.meta.statement_summary import StatementSummaryStore
 from galaxysql_tpu_torch.server.admission import AdmissionController
@@ -157,12 +170,15 @@ class Instance:
         self._lock = threading.Lock()
         self.config = ConfigParams()
         self.metrics = MetricsRegistry()
+        # the device_cache_* gauges ride this registry
+        self.device_cache.bind_metrics(self.metrics)
         # cross-query fragment cache; frag_cache_* metrics ride this registry
         self.frag_cache = FragmentCache(metrics=self.metrics)
         self.data_dir = data_dir
         self.metadb = MetaDb(os.path.join(data_dir, "metadb.sqlite")
                              if data_dir else None)
         self.config_listener = ConfigListener(self.metadb)
+        self.sequences = SequenceManager(self.metadb)
         self.privileges = PrivilegeManager(self.metadb)
         # the change log lives in the metadb beside the transaction log
         self.cdc = CdcManager(self)
@@ -226,6 +242,14 @@ class Instance:
         self.ddl_engine = DdlEngine(self)
         self.scheduler = ScheduledJobManager(self)
         self.recycle = RecycleBin(self)
+        # elastic rebalancing: the running jobs' shadow partitions, outside every
+        # store until their cutover
+        self.rebalance_shadows: Dict[str, object] = {}
+        self.balancer = Balancer(self)
+        # group label -> worker endpoint / coordinator / device, in the metadb
+        self.placement = PlacementBinding(self)
+        # node id -> peer coordinator's sync endpoint (`attach_coordinator`)
+        self.coordinators: Dict[str, object] = {}
         self.boot()
 
     def finish_handles(self, workload: str, engine: str) -> tuple:
@@ -389,9 +413,9 @@ class Instance:
         """Cluster-wide health rows: this coordinator first, then one row per
         attached worker.  `pull=True` issues the `health` sync action (an
         unreachable worker gets an UNREACHABLE row, never an exception);
-        `pull=False` renders from the replies' piggybacked load only.  The peer
-        registry comes with the placement slice, so no peer coordinator rows yet
-        (the reference's rows with none attached)."""
+        `pull=False` renders from the replies' piggybacked load only.  Peer
+        coordinators are not rows here, as in the reference: SHOW COORDINATORS
+        lists them (`coordinator_rows`)."""
         mh = self.metric_history
         burning = self.slo.burning_names()
         rows = [(self.node_id, "coordinator", "local",
@@ -582,6 +606,82 @@ class Instance:
                            f"VALUES {', '.join(rows)}", schema,
                            uid=f"{self.node_id}:{self.trace_ids.next()}")
 
+    def move_remote_table(self, schema: str, name: str, host: str, port: int):
+        """Move a worker-resident table to another worker online, as the reference
+        does: (1) a snapshot copy under the shared MDL, so writes keep reaching the
+        source; (2) under the exclusive MDL, once no open transaction holds a
+        branch on the source worker, the rows inserted and deleted since the
+        snapshot (less a 10-minute margin: a commit may draw its timestamp before
+        the snapshot and stamp after the copy read) are replayed onto the target,
+        delete-by-key before insert, and the table's primary endpoint swaps."""
+        tm = self.catalog.table(schema, name)
+        if getattr(tm, "remote", None) is None:
+            raise errors.NotSupportedError(f"{schema}.{name} is not a remote table")
+        src = self.workers[(tm.remote["host"], tm.remote["port"])]
+        dst = self.worker_client(host, port)
+        cols_sql = ", ".join(
+            f"{c.name} {c.dtype.sql_name()}" + ("" if c.nullable else " NOT NULL")
+            for c in tm.columns)
+        pk_sql = (f", PRIMARY KEY ({', '.join(tm.primary_key)})"
+                  if tm.primary_key else "")
+        dst.execute(f"CREATE DATABASE IF NOT EXISTS {schema}", "", idem=True)
+        dst.execute(f"CREATE TABLE IF NOT EXISTS {name} ({cols_sql}{pk_sql})",
+                    schema, idem=True)
+        cols = tm.column_names()
+        mdl_key = self.store_key(schema, name)
+        pk = tm.primary_key[0] if tm.primary_key else cols[0]
+        with self.mdl.shared({mdl_key}):
+            s0 = self.tso.next_timestamp()
+            names, types, data, valid = src.exec_plan(
+                {"schema": schema, "table": name, "columns": cols})
+            self._bulk_insert_remote(dst, schema, name, names, types, data, valid)
+        with self.mdl.exclusive(mdl_key):
+            # an open transaction's branch on the source commits past the MDL
+            # (statement scope) and would land on the old primary
+            src_addr = (src.addr[0], src.addr[1])
+            deadline = time.time() + 30.0
+
+            def _pinned():
+                for sess in list(self.sessions.values()):
+                    txn = getattr(sess, "txn", None)
+                    if txn is not None and src_addr in getattr(txn, "remote", {}):
+                        return True
+                with self.xa_coordinator._lock:
+                    for parts in self.xa_coordinator._in_doubt.values():
+                        for sp in parts:
+                            if getattr(sp, "addr", None) == src_addr:
+                                return True
+                return False
+            while _pinned():
+                if time.time() > deadline:
+                    raise errors.TddlError(
+                        f"move {schema}.{name}: open transactions pin the "
+                        f"source worker {src_addr}; retry later")
+                time.sleep(0.05)
+            margin = 600_000 << LOGICAL_BITS  # 10 minutes of physical TSO
+            resp, arrs = src.request(
+                {"op": "exec_plan",
+                 "fragment": {"schema": schema, "table": name, "columns": cols,
+                              "since": max(s0 - margin, 0),
+                              "deleted_since_of": pk}})
+            ddata = {c: arrs[f"d::{c}"] for c in cols}
+            dvalid = {c: arrs[f"v::{c}"] for c in cols if f"v::{c}" in arrs}
+            gone = arrs.get("deleted::keys")
+            new_keys = list(ddata[pk].tolist()) if cols else []
+            drop = set(new_keys) | set(gone.tolist() if gone is not None else [])
+            if drop:
+                # the key's literals in its wire type, as the backfill's INSERTs
+                pk_type = dict(zip(resp["columns"], resp["types"]))[pk]
+                in_list = ", ".join(self._sql_literal(pk_type, k, True) for k in drop)
+                dst.execute(f"DELETE FROM {name} WHERE {pk} IN ({in_list})",
+                            schema, idem=True)
+            self._bulk_insert_remote(dst, schema, name, resp["columns"],
+                                     resp["types"], ddata, dvalid)
+            tm.remote = {"host": host, "port": port}
+            self.catalog.bump_schema()
+        self.counters.inc("table_moves")
+        return tm
+
     def try_revive_worker(self, addr) -> bool:
         """Lazy fence revival: one ping decides whether a fenced endpoint came
         back (no background prober runs).  True when it is now unfenced."""
@@ -617,9 +717,20 @@ class Instance:
             raise errors.WorkerUnavailableError(
                 f"remote table {tm.name}: every endpoint is fenced/unattached")
         now = time.time()
+        # placement locality: the endpoint bound to the table's dominant group
+        # gets four times its weight (a boost, never a filter: a mis-bound group
+        # must not black-hole reads)
+        preferred = None
+        if len(live) > 1:
+            try:
+                preferred = self.placement.preferred_endpoint(tm)
+            except Exception:  # locality is advisory: a placement fault never fails a read
+                preferred = None
 
         def _load_weight(a, w):
             c = self.workers.get(a)
+            if a == preferred:
+                w = w * 4.0
             if c is None or now - getattr(c, "load_at", 0.0) > 5.0:
                 return float(w)
             penalty = 1.0 + getattr(c, "load_q", 0) + 4.0 * getattr(c, "load_tier", 0)
@@ -689,6 +800,78 @@ class Instance:
                 reply["trace"] = rt.to_dict() if rt is not None else None
             return reply
         return {"ok": False, "error": f"unknown sync action {action!r}"}
+
+    # -- the serving tier (peer coordinators) -------------------------------------
+
+    def attach_coordinator(self, node_id: str, peer) -> None:
+        """Register a peer coordinator (`peer`: a `sync_peer()` object in process
+        or a dn-wire client of the peer's sync listener): it joins this instance's
+        sync bus, and the admission gossip and the CLUSTER views see it."""
+        self.coordinators[node_id] = peer
+        self.sync_bus.attach(peer)
+        events.publish("coordinator_joined",
+                       f"peer coordinator {node_id} joined the serving tier",
+                       node=self.node_id, peer=node_id)
+
+    def detach_coordinator(self, node_id: str, reason: str = "detach") -> None:
+        peer = self.coordinators.pop(node_id, None)
+        if peer is None:
+            return
+        with self.sync_bus._lock:
+            if peer in self.sync_bus.workers:
+                self.sync_bus.workers.remove(peer)
+        self.admission.forget_peer(node_id)
+        events.publish("coordinator_left",
+                       f"peer coordinator {node_id} left the serving tier "
+                       f"({reason})", node=self.node_id, peer=node_id,
+                       reason=reason)
+
+    def coordinator_rows(self, pull: bool = True):
+        """SHOW COORDINATORS / information_schema.coordinators rows: this node,
+        then every registered peer.  `pull=True` asks each peer's `health` afresh
+        (an UNREACHABLE row, never an error); `pull=False` renders from the last
+        gossip snapshots."""
+        router = getattr(self, "router", None)
+        adm = self.admission
+        gossip_age = {n: age for n, _s, age in adm.peer_gossip_rows()}
+
+        def _aff(node):
+            if router is None:
+                return 0, 0, 0.0
+            return router.affinity_of(node)
+
+        routed, hits, ratio = _aff(self.node_id)
+        rows = [(self.node_id, "local", "OK", int(self.sync_bus.epoch),
+                 round(adm.effective_limit("TP"), 1),
+                 round(adm.effective_limit("AP"), 1),
+                 float(len(adm._tokens["TP"])), float(len(adm._tokens["AP"])),
+                 routed, round(ratio, 4), -1.0)]
+        for node_id, peer in sorted(self.coordinators.items()):
+            routed, hits, ratio = _aff(node_id)
+            age = round(gossip_age.get(node_id, -1.0), 3)
+            resp = None
+            if pull:
+                try:
+                    resp = peer.sync_action("health", {})
+                except Exception:  # the UNREACHABLE row below is the report
+                    resp = None
+            else:
+                snap = next((s for n, s, _a in adm.peer_gossip_rows()
+                             if n == node_id), None)
+                if snap is not None:
+                    resp = {"ok": True, "admission": snap, "epoch": -1}
+            if not (isinstance(resp, dict) and resp.get("ok")):
+                rows.append((node_id, "peer", "UNREACHABLE", -1,
+                             0.0, 0.0, 0.0, 0.0, routed, round(ratio, 4), age))
+                continue
+            snap = resp.get("admission") or {}
+            tp, ap = snap.get("tp") or {}, snap.get("ap") or {}
+            rows.append((resp.get("node", node_id), "peer", "OK",
+                         int(resp.get("epoch", -1)),
+                         float(tp.get("limit", 0.0)), float(ap.get("limit", 0.0)),
+                         float(tp.get("inflight", 0)), float(ap.get("inflight", 0)),
+                         routed, round(ratio, 4), age))
+        return rows
 
     def sync_peer(self):
         """An in-process sync-bus endpoint of this instance: attached to a peer

@@ -1,4 +1,4 @@
-"""Maintenance surfaces: the recycle bin and the index advisor (port of
+"""Maintenance surfaces: the recycle bin, CHECK TABLE and the index advisor (port of
 `galaxysql_tpu/server/maintain.py`).
 
 - The recycle bin: DROP TABLE renames the table into the bin (`__recycle__<name>_<ms>_
@@ -13,9 +13,9 @@
   covering the scan's other columns, so the suggestion is routable by
   `route_covering_gsi`.
 
-The reference's CHECK TABLE needs `utils/fastchecker.py`, which waits for ROADMAP
-Queue 1 item 16 (the placement slice); the port's session raises
-`NotSupportedError` for it.
+- CHECK TABLE (`check_table`): every partition's lanes, validity and stamps agree
+  on the row count, and every PUBLIC global index holds the FastChecker checksum of
+  its base table (`utils/fastchecker.check_gsi`, host numpy over the row store).
 """
 
 from __future__ import annotations
@@ -130,6 +130,44 @@ class RecycleBin:
         for d in self._entries():
             if d["schema"].lower() == schema.lower():
                 self.instance.metadb.kv_delete(_BIN_PREFIX + d["bin_name"].lower())
+
+
+def check_table(instance, tm, store) -> List[tuple]:
+    """CHECK TABLE rows for one table: the structural invariants, then the GSI
+    checksums."""
+    rows = []
+    ok = True
+    # structural: every lane, validity and stamp array agrees on the row count
+    for p in store.partitions:
+        n = p.num_rows
+        for c in tm.columns:
+            lane = p.lanes.get(c.name)
+            valid = p.valid.get(c.name)
+            if lane is None or valid is None or lane.shape[0] != n or \
+                    valid.shape[0] != n or p.end_ts.shape[0] != n:
+                rows.append((f"{tm.schema}.{tm.name}", "check", "Error",
+                             f"partition {p.pid} lane '{c.name}' shape mismatch"))
+                ok = False
+    # GSI consistency: the order-insensitive checksum of base against index table
+    from galaxysql_tpu_torch.utils import fastchecker
+    for i in tm.indexes:
+        if not i.global_index or i.status != "PUBLIC":
+            continue
+        try:
+            res = fastchecker.check_gsi(instance, tm.schema, tm.name, i.name)
+        except errors.TddlError as e:
+            rows.append((f"{tm.schema}.{tm.name}", "check", "Error", f"gsi {i.name}: {e}"))
+            ok = False
+            continue
+        if not res.get("consistent", False):
+            rows.append((f"{tm.schema}.{tm.name}", "check", "Error",
+                         f"gsi {i.name} diverges from base "
+                         f"(base_rows={res.get('base_rows')}, "
+                         f"gsi_rows={res.get('gsi_rows')})"))
+            ok = False
+    if ok:
+        rows.append((f"{tm.schema}.{tm.name}", "check", "status", "OK"))
+    return rows
 
 
 def advise_indexes(instance, plan) -> List[tuple]:

@@ -1,16 +1,10 @@
-"""Scheduled background jobs (port of `galaxysql_tpu/server/scheduler.py`).
+"""Scheduled background jobs.
 
-Cron-style jobs persisted in the metadb (`scheduled_jobs` + `fired_scheduled_jobs`):
-TTL rotation into the archive, statistics refresh and the tx-log purge.
-Interval-based; each fire is recorded, so introspection and at-most-once semantics
-per interval hold across restarts.  The maintain loop (`start`) also drives the
-instance's `slo_tick` on every poll.
-
-The port differs from the reference in one job kind: `rebalance` needs the
-heat-driven balancer (`server/balancer.py`), which comes with the placement slice
-(ROADMAP Queue 1 item 16), so the job raises a typed `NotSupportedError` naming it,
-and the loop records the fire as FAILED with that message, as the reference records
-any failed job.
+Reference analog: `executor/scheduler` (SURVEY.md §2.6) — cron-style jobs persisted in
+the metadb (`scheduled_jobs` + `fired_scheduled_jobs`, Appendix B): local-partition/TTL
+rotation, OSS purge, statistics refresh.  Interval-based here (cron parsing adds
+nothing for an embedded engine); each fire is recorded so SHOW-style introspection and
+at-most-once semantics per interval hold across restarts.
 """
 
 from __future__ import annotations
@@ -60,12 +54,18 @@ def _run_analyze(instance, schema: str, table: str, params: dict) -> str:
 
 @job_kind("rebalance")
 def _run_rebalance(instance, schema: str, table: str, params: dict) -> str:
-    """Maintain-loop tick of the heat-driven balancer: it waits for
-    `server/balancer.py`, which comes with cluster placement."""
-    from galaxysql_tpu_torch.utils import errors
-    raise errors.NotSupportedError(
-        "the rebalance job waits for server/balancer.py, which comes with cluster "
-        "placement (ROADMAP Queue 1 item 16, the placement slice)")
+    """Maintain-loop tick of the heat-driven balancer (server/balancer.py):
+    propose partition split/merge/move from observed heat and execute at most
+    one per tick.  Yields (proposes nothing) under admission pressure."""
+    props = instance.balancer.run_once(schema or None, table or None,
+                                       apply=bool(params.get("apply", True)))
+    if not props:
+        return "balanced (no proposals)"
+    first = props[0]
+    applied = f" job={first.get('job_id')}" if first.get("applied") else \
+        f" NOT applied ({first.get('error', 'apply=0')})"
+    return (f"{len(props)} proposal(s); first: {first['op']} "
+            f"{first['table']} p{first['pids']}{applied}")
 
 
 @job_kind("purge_tx_log")

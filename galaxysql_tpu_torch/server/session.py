@@ -11,9 +11,14 @@ INDEX, ADVISE INDEX and LOAD DATA [LOCAL] INFILE (a server-side file, appended i
 DML_BATCH_SIZE batches, GSIs maintained, nothing logged to the binlog: the
 reference's), CREATE/DROP CCL_RULE, CREATE/DROP SLO and BASELINE DELETE/EVOLVE.
 ALTER TABLE and the index statements run as jobs of the instance's `ddl_engine`
-(`ddl/jobs.py`); the recycle bin and the advisor are `server/maintain.py`.  A
-statement the port does not take yet (CHECK TABLE, REBALANCE, repartitioning)
-raises `NotSupportedError` naming the placement slice it waits for.  Every statement is
+(`ddl/jobs.py`); the recycle bin and the advisor are `server/maintain.py`.  The
+placement statements are the reference's: ALTER TABLE ... PARTITION BY (an online
+repartition, `ddl/repartition.py`), SPLIT / MERGE / MOVE PARTITION (`ddl/rebalance.py`),
+REBALANCE TABLE / DATABASE [DRY RUN] (`server/balancer.py`) and CHECK TABLE (with
+each GSI's FastChecker checksum, `server/maintain.check_table`).  A statement that
+carries the router's `/*trace:id:parent:node:sampled*/` prefix has it stripped before
+the digest, and a traced query adopts its trace id and is kept by the trace store
+when the router sampled it.  Every statement is
 authorized as in the reference (`_authorize` against the instance's
 `PrivilegeManager`); a query that reads `information_schema` refreshes its views
 first (`server/information_schema.py`).  A SELECT goes parse -> bind ->
@@ -296,15 +301,6 @@ def gsi_delete(instance, tm, base_store, pid: int, row_ids: np.ndarray,
                 gp.delete_rows(ids, ts)
 
 
-# statements of the reference the port does not take yet -> the ROADMAP item
-_WAITING_STMTS = {
-    ast.CheckTable: "utils/fastchecker.py (ROADMAP Queue 1 item 16, the placement "
-                    "slice)",
-    ast.Rebalance: "ddl/rebalance.py and server/balancer.py (ROADMAP Queue 1 item 16, "
-                   "the placement slice)",
-}
-
-
 class Session:
     # the bound wait of a replica's DML leg: a hung replica costs this, then goes
     # stale
@@ -313,6 +309,11 @@ class Session:
         r"^\s*(?:/\*.*?\*/\s*)*select\b", __import__("re").I | __import__("re").S)
     _DML_RE = __import__("re").compile(
         r"^\s*(?:insert|update|delete)\b", __import__("re").I)
+    # the router's trace hint, `/*trace:<id>:<parent>:<node>:<0|1>*/`, prefixed
+    # onto a routed statement: parsed and stripped before the digest and the
+    # parameterization, so plan-cache keys and digests never split per trace id
+    _TRACE_HINT_RE = __import__("re").compile(
+        r"^/\*trace:(\d+):(\d+):([^:*]*):([01])\*/\s*")
 
     def __init__(self, instance: Instance, schema: Optional[str] = None):
         self.instance = instance
@@ -325,6 +326,9 @@ class Session:
         self.user = "root"
         self.last_trace: List[str] = []
         self.last_op_stats: List[dict] = []
+        # the router's trace hint of the current statement: (trace id, parent span
+        # id, origin node, sampled), None for a statement that originates here
+        self._trace_hint: Optional[tuple] = None
         # tables this session's running statement holds a shared MDL on
         self._mdl_held: set = set()
         # commit timestamp of this session's last COMMIT
@@ -402,6 +406,14 @@ class Session:
         return lm.is_used_lock(key)
 
     def _execute_one(self, sql: str, params: Optional[list]) -> ResultSet:
+        if sql.startswith("/*trace:"):
+            m = self._TRACE_HINT_RE.match(sql)
+            if m is not None:
+                self._trace_hint = (int(m.group(1)), int(m.group(2)),
+                                    m.group(3), m.group(4) == "1")
+                sql = sql[m.end():]
+        elif self._trace_hint is not None:
+            self._trace_hint = None  # a hint covers exactly one statement
         # statement deadline: MAX_EXECUTION_TIME = 0 (the default) keeps it None
         ms = self.instance.config.get("MAX_EXECUTION_TIME", self.vars)
         self._deadline = time.time() + ms / 1000.0 if ms else None
@@ -570,6 +582,8 @@ class Session:
             return self._run_truncate(stmt)
         if isinstance(stmt, ast.AnalyzeTable):
             return self._run_analyze(stmt)
+        if isinstance(stmt, ast.CheckTable):
+            return self._run_check_table(stmt)
         if isinstance(stmt, ast.CreateDatabase):
             self.instance.catalog.create_schema(stmt.name, stmt.if_not_exists)
             self.instance.metadb.save_schema(stmt.name)
@@ -586,6 +600,8 @@ class Session:
             return self._run_advise_index(stmt, params)
         if isinstance(stmt, ast.AlterTable):
             return self._run_alter(stmt, sql)
+        if isinstance(stmt, ast.Rebalance):
+            return self._run_rebalance(stmt)
         if isinstance(stmt, (ast.CreateIndex, ast.DropIndex)):
             return self._run_index_ddl(stmt, sql)
         if isinstance(stmt, ast.KillStmt):
@@ -654,10 +670,6 @@ class Session:
             return ok()
         if isinstance(stmt, ast.BaselineStmt):
             return self._run_baseline(stmt)
-        waits = _WAITING_STMTS.get(type(stmt))
-        if waits is not None:
-            raise errors.NotSupportedError(
-                f"statement {type(stmt).__name__} waits for {waits}")
         raise errors.NotSupportedError(f"statement {type(stmt).__name__}")
 
     def _sync_privileges(self) -> ResultSet:
@@ -784,7 +796,9 @@ class Session:
         if prof.traced and (prof.spans or is_slow):
             if prof.spans and prof.phases:
                 prof.spans[0].attrs["phases"] = dict(prof.phases)
-            rt = store.offer(prof, digest, slow=bool(is_slow))
+            hint = self._trace_hint
+            rt = store.offer(prof, digest, slow=bool(is_slow),
+                             forced=bool(hint is not None and hint[3]))
         if prof.profiled or rt is not None:
             try:
                 import resource
@@ -834,11 +848,20 @@ class Session:
         if self._tracing_enabled():
             prof.traced = True
             store = self.instance.trace_store
-            # the always-on budget: one dict probe and one compare; sampled
-            # queries build the full span tree, and an explicit session opt-in
-            # always does (SHOW TRACE debugging)
-            prof.sampled = store.sampler.decide(self._digest_of(sql, schema))
-            if prof.sampled or bool(self.vars.get("ENABLE_QUERY_TRACING")):
+            hint = self._trace_hint
+            if hint is not None:
+                # adopt the router's trace id: it pulls this id back over the sync
+                # wire and grafts these spans under its route span
+                prof.trace_id = hint[0]
+                prof.sampled = hint[3]
+                full = True
+            else:
+                # the always-on budget: one dict probe and one compare; sampled
+                # queries build the full span tree, and an explicit session
+                # opt-in always does (SHOW TRACE debugging)
+                prof.sampled = store.sampler.decide(self._digest_of(sql, schema))
+                full = prof.sampled or bool(self.vars.get("ENABLE_QUERY_TRACING"))
+            if full:
                 tc = tracing.TraceContext(prof.trace_id, node=self.instance.node_id)
                 prof.spans = tc.spans
             else:
@@ -967,8 +990,6 @@ class Session:
             # the SELECT hot path skipped the raw parse; authorize on the plan's
             # (parameterized) AST: the same table names, no second parse
             self._authorize(plan.statement)
-        if info:
-            information_schema.check_ported(plan.rel)
         ctx = self._exec_context(plan, params)
         # resource governance (server/admission.py): memory-pressure tiers lower
         # the spill thresholds (NORMAL scale is 1.0), and a per-query pool child
@@ -2086,20 +2107,87 @@ class Session:
         schema = stmt.table.schema or self._require_schema()
         self.instance.catalog.table(schema, stmt.table.table)  # validate early
         if any(a[0] == "repartition" for a in stmt.actions):
-            raise errors.NotSupportedError(
-                "ALTER TABLE ... PARTITION BY waits for ddl/repartition.py "
-                "(ROADMAP Queue 1 item 16, the placement slice)")
-        if any(a[0] in ("split_partition", "merge_partitions", "move_partition")
-               for a in stmt.actions):
-            raise errors.NotSupportedError(
-                "SPLIT/MERGE/MOVE PARTITION waits for ddl/rebalance.py "
-                "(ROADMAP Queue 1 item 16, the placement slice)")
-        job = alter_table_job(schema, sql, stmt.table.table, stmt.actions)
+            if len(stmt.actions) != 1:
+                raise errors.NotSupportedError(
+                    "PARTITION BY cannot be combined with other ALTER actions")
+            job = self._repartition_job(stmt, sql, schema)
+        elif any(a[0] in ("split_partition", "merge_partitions", "move_partition")
+                 for a in stmt.actions):
+            if len(stmt.actions) != 1:
+                raise errors.NotSupportedError(
+                    "SPLIT/MERGE/MOVE PARTITION cannot be combined with "
+                    "other ALTER actions")
+            job = self._partition_rebalance_job(stmt, sql, schema)
+        else:
+            job = alter_table_job(schema, sql, stmt.table.table, stmt.actions)
         try:
             self.instance.ddl_engine.submit_and_run(job)
         finally:
             self.instance.invalidate_fragment_cache(schema, stmt.table.table)
         return ok()
+
+    def _repartition_job(self, stmt: ast.AlterTable, sql: str, schema: str):
+        """Online repartition (`ddl/repartition.py`): a shadow table with the
+        target partitioning, a chunked backfill, the catchup, the FastChecker
+        verify and the cutover under the exclusive MDL."""
+        from galaxysql_tpu_torch.ddl.repartition import repartition_job
+        pd = stmt.actions[0][1]
+        cols = []
+        for e in pd.exprs:
+            if not isinstance(e, ast.Name):
+                raise errors.NotSupportedError(
+                    "PARTITION BY expression must be a column name")
+            cols.append(e.parts[-1])
+        tm = self.instance.catalog.table(schema, stmt.table.table)
+        for c in cols:
+            tm.column(c)  # the partition column must exist
+        method = pd.method if pd.method in ("hash", "key", "range") else "hash"
+        count = pd.count or tm.partition.num_partitions or 4
+        return repartition_job(schema, sql, stmt.table.table, method, cols, count)
+
+    def _partition_rebalance_job(self, stmt: ast.AlterTable, sql: str, schema: str):
+        """SPLIT / MERGE / MOVE PARTITION (`ddl/rebalance.py`): shadow partitions
+        backfilled, caught up from the binlog, verified, and swapped in at a TSO
+        fence under the exclusive MDL."""
+        from galaxysql_tpu_torch.ddl import rebalance as rb
+        action = stmt.actions[0]
+        table = stmt.table.table
+        if action[0] == "split_partition":
+            return rb.split_partition_job(schema, sql, table, action[1],
+                                          into=action[3], at=action[2])
+        if action[0] == "merge_partitions":
+            return rb.merge_partitions_job(schema, sql, table, action[1], action[2])
+        return rb.move_partition_job(schema, sql, table, action[1], action[2])
+
+    def _run_rebalance(self, stmt: ast.Rebalance) -> ResultSet:
+        """REBALANCE TABLE / DATABASE [DRY RUN]: one pass of the balancer; the rows
+        are its proposals and, unless DRY RUN, what became of the first."""
+        schema = stmt.schema or (None if stmt.table is None
+                                 else self._require_schema())
+        props = self.instance.balancer.run_once(schema, stmt.table,
+                                                apply=not stmt.dry_run)
+        rows = [(p["table"], p["op"], ",".join(str(i) for i in p["pids"]),
+                 p.get("group", ""), p["why"],
+                 "applied" if p.get("applied") else p.get("error", "proposed"),
+                 p.get("job_id") or 0)
+                for p in props]
+        return ResultSet(["TABLE_NAME", "OP", "PARTITIONS", "TARGET_GROUP", "REASON",
+                          "STATUS", "JOB_ID"], [dt.VARCHAR] * 6 + [dt.BIGINT], rows)
+
+    def _run_check_table(self, stmt: ast.CheckTable) -> ResultSet:
+        from galaxysql_tpu_torch.server.maintain import check_table
+        schema = self._require_schema()
+        rows = []
+        for name in stmt.names:
+            tm = self.instance.catalog.table(name.schema or schema, name.table)
+            if getattr(tm, "remote", None) is not None:
+                raise errors.NotSupportedError(
+                    f"CHECK TABLE on worker-resident table '{tm.name}' is not "
+                    "supported from this CN (run it on the worker)")
+            store = self.instance.store(tm.schema, tm.name)
+            rows.extend(check_table(self.instance, tm, store))
+        return ResultSet(["Table", "Op", "Msg_type", "Msg_text"],
+                         [dt.VARCHAR] * 4, rows)
 
     def _run_index_ddl(self, stmt, sql: str) -> ResultSet:
         schema = stmt.table.schema or self._require_schema()

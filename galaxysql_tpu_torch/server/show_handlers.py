@@ -8,11 +8,10 @@ batcher's and the async applier's), the binlog events, the recycle bin, the DDL
 jobs, the columnar replica, the fragment cache, the attached workers, and the
 operations plane's surfaces: baseline, slow, profiles, [full] stats, statement
 summary [history] and its cluster form, events, incidents, metrics and its cluster
-form, metric history, slo, cluster health, admission and ccl rules.  The cluster
-forms merge the peer coordinators' rows (`_peer_pull`); the peer registry comes
-with the placement slice, so they hold this node's rows alone, as the reference's
-do with no peer attached.  REBALANCE and COORDINATORS raise `NotSupportedError`
-naming the placement slice (ROADMAP Queue 1 item 16).
+form, metric history, slo, cluster health, admission and ccl rules, and
+placement's rebalance (the elastic jobs, `ddl/rebalance.progress_rows`) and
+coordinators (the serving tier, `Instance.coordinator_rows`).  The cluster forms
+merge the peer coordinators' rows (`_peer_pull` over `Instance.coordinators`).
 """
 
 from __future__ import annotations
@@ -23,12 +22,6 @@ from typing import List, Tuple
 from galaxysql_tpu_torch.sql import ast
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
-
-# SHOW kinds of the reference the port does not take yet -> the module each waits for
-_WAITING = {
-    "rebalance": "ddl/rebalance.py (ROADMAP Queue 1 item 16, the placement slice)",
-    "coordinators": "server/router.py (ROADMAP Queue 1 item 16, the placement slice)",
-}
 
 # the default collation of each charset (MySQL 8.0)
 _DEFAULT_COLLATIONS = {"utf8mb4": "utf8mb4_0900_ai_ci", "utf8": "utf8_general_ci",
@@ -451,9 +444,29 @@ def handle(session, stmt: ast.Show):
              dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.BIGINT,
              dt.VARCHAR, dt.BIGINT],
             session.instance.cluster_health(pull=True))
-    waits = _WAITING.get(kind)
-    if waits is not None:
-        raise errors.NotSupportedError(f"SHOW {kind} waits for {waits}")
+    if kind == "rebalance":
+        # SHOW REBALANCE: the live elastic jobs (phase, rows copied, catchup lag,
+        # last checkpoint) and the bounded history of finished ones
+        from galaxysql_tpu_torch.ddl.rebalance import progress_rows
+        return ResultSet(
+            ["JOB_ID", "TABLE_NAME", "KIND", "STATE", "PHASE", "SRC_PARTITIONS",
+             "TARGETS", "ROWS_COPIED", "EVENTS_APPLIED", "CATCHUP_LAG_MS",
+             "LAST_CHECKPOINT", "ROUTER_EPOCH"],
+            [dt.BIGINT, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.VARCHAR,
+             dt.VARCHAR, dt.BIGINT, dt.BIGINT, dt.BIGINT, dt.DOUBLE,
+             dt.VARCHAR, dt.BIGINT], progress_rows(session.instance))
+    if kind == "coordinators":
+        # SHOW COORDINATORS: every coordinator of the serving tier with its epoch,
+        # admission limits, routed counts, affinity ratio and gossip age; a dead
+        # peer is an UNREACHABLE row
+        return ResultSet(
+            ["Node", "Role", "State", "Epoch", "Tp_limit", "Ap_limit",
+             "Tp_inflight", "Ap_inflight", "Routed", "Affinity_ratio",
+             "Gossip_age_s"],
+            [dt.VARCHAR, dt.VARCHAR, dt.VARCHAR, dt.BIGINT, dt.DOUBLE,
+             dt.DOUBLE, dt.DOUBLE, dt.DOUBLE, dt.BIGINT, dt.DOUBLE,
+             dt.DOUBLE],
+            session.instance.coordinator_rows(pull=True))
     raise errors.NotSupportedError(f"SHOW {kind}")
 
 

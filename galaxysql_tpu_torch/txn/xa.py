@@ -265,14 +265,24 @@ class GroupCommitGate:
     nobody sleeps waiting for company.  `log_state` groups the non-allocating
     writes (DONE markers) the same way.  A failed flush falls every member back to
     its own solo write: grouping is an optimization, never a correctness
-    dependency.  Counted in the instance's `group_commit_batches` and
-    `group_committed_txns`."""
+    dependency.  Counted in the registry counters `group_commit_batches` and
+    `group_committed_txns`, as in the reference."""
 
     def __init__(self, instance):
         self.instance = instance
         self._lock = threading.Lock()
         self._flushing = False
         self._waiters: List[_CommitWaiter] = []
+        self._counters = None  # bound at the first flush
+
+    def _stat(self):
+        if self._counters is None:
+            m = self.instance.metrics
+            self._counters = (
+                m.counter("group_commit_batches", "commit-point flush groups written"),
+                m.counter("group_committed_txns",
+                          "transactions whose commit point rode a flush group"))
+        return self._counters
 
     def commit_point(self, txn_id: int) -> int:
         """Allocate a commit TSO and durably log `txn_id` COMMITTED at it, grouped
@@ -340,8 +350,9 @@ class GroupCommitGate:
             self.instance.metadb.tx_log_put_many(
                 [(w.txn_id, w.state,
                   w.ts if w.ts is not None else w.commit_ts) for w in batch])
-            self.instance.count("group_commit_batches")
-            self.instance.count("group_committed_txns", len(batch))
+            batches, txns = self._stat()
+            batches.inc()
+            txns.inc(len(batch))
         except Exception:
             # every member (DONE markers included) falls back to its own solo
             # write, which raises its own error if the metadb is really down

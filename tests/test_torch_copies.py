@@ -27,7 +27,9 @@ COPIES = [
     "exec/fragment_cache.py", "utils/events.py", "storage/ssb.py",
     "meta/statement_summary.py", "utils/metric_history.py", "utils/ccl.py",
     "server/admission.py", "server/slo.py", "server/flight_recorder.py",
-    "server/web.py", "utils/locks.py",
+    "server/web.py", "utils/locks.py", "server/scheduler.py",
+    "meta/sequence.py", "utils/fastchecker.py", "server/placement.py",
+    "server/balancer.py", "server/router.py", "ddl/rebalance.py", "ddl/repartition.py",
 ]
 
 

@@ -75,8 +75,8 @@ def _jax_counter(inst, name):
 def _port_counter(inst, name):
     if name.startswith("dml_"):
         return inst.dml_batch_scheduler.counts[name]
-    if name == "gsi_async_applies":  # the applier's counter in the metrics registry
-        return inst.metrics.counter(name).value
+    if name in ("gsi_async_applies", "group_commit_batches", "group_committed_txns"):
+        return inst.metrics.counter(name).value  # registry counters, as the reference
     return inst.counters[name]
 
 

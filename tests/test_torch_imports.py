@@ -79,6 +79,49 @@ def test_operations_plane_modules_load_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+_PLACEMENT_PROBE = r"""
+import sys
+from galaxysql_tpu_torch.ddl import rebalance, repartition
+from galaxysql_tpu_torch.meta import sequence
+from galaxysql_tpu_torch.server import balancer, placement, router
+from galaxysql_tpu_torch.utils import fastchecker
+from galaxysql_tpu_torch.server.instance import Instance
+from galaxysql_tpu_torch.server.session import Session
+inst = Instance(device="cpu")
+s = Session(inst)
+s.execute("CREATE DATABASE d; USE d; CREATE TABLE t (a BIGINT PRIMARY KEY, b BIGINT) "
+          "PARTITION BY HASH(a) PARTITIONS 2")
+s.execute("INSERT INTO t VALUES (1, 1), (2, 2), (3, 3)")
+s.execute("ALTER TABLE t SPLIT PARTITION p0 INTO 2")
+s.execute("ALTER TABLE t PARTITION BY HASH(b) PARTITIONS 3")
+assert s.execute("CHECK TABLE t").rows[0][3] == "OK"
+assert s.execute("SELECT NEXTVAL('q')").rows == [(1,)]
+s.execute("REBALANCE TABLE t DRY RUN")
+peer = Instance(device="cpu")
+Session(peer).execute("CREATE DATABASE d; USE d; CREATE TABLE t (a BIGINT PRIMARY KEY)")
+fr = router.FrontRouter(inst)
+fr.add_peer(router.InprocPeer(peer))
+router.RouterSession(fr, schema="d").execute("SELECT count(*) FROM t")
+s.execute("SHOW COORDINATORS")
+s.execute("SHOW REBALANCE")
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "galaxysql_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_placement_modules_load_no_jax_and_no_reference_package():
+    """The placement slice's modules, imported and driven (a split, a repartition,
+    CHECK TABLE, NEXTVAL, a balancer pass, a routed statement, SHOW COORDINATORS
+    and SHOW REBALANCE) in a fresh interpreter, load neither jax nor the JAX
+    package."""
+    out = subprocess.run([sys.executable, "-c", _PLACEMENT_PROBE], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _dirs, files in os.walk(os.path.join(ROOT, "galaxysql_tpu_torch")):

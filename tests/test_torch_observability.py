@@ -6,9 +6,10 @@ against the JAX package (`tests/test_observability.py`, `tests/test_tracing.py`,
 Every test runs one script through a JAX `Instance` and a port
 `Instance(device="cpu")` and asserts equal outcomes (`torch_plane_harness.both`).
 Trace ids, node ids, wall times and the three COMPILE_STATS counters are left out
-of every comparison; the span trees are compared by their root and phase names
-(the reference also records per-operator compile events, which the port has no
-counterpart of)."""
+of every comparison.  The span trees are compared by the names and kinds of their
+spans with their parents' names: the root, the operator spans, the fused segments
+and the host-to-device transfer events; the reference's per-operator `compile`
+events are left out (XLA programs, which the port has no counterpart of)."""
 
 import json
 import threading
@@ -133,29 +134,102 @@ def test_metrics_roundtrip_counter_bump():
 
 def test_metric_names_and_kinds_equal_after_a_script():
     """After the same script the registries hold the same metric names and kinds,
-    and the same counts of queries by workload and engine."""
+    the `device_cache_*` gauges and the group-commit counters among them, and the
+    same counts of queries by workload and engine.  The gauges' values are compared
+    with the instance's own cache in the port only: the reference's cache is one for
+    the whole process, the port's one for each instance, so their counts differ by
+    what earlier instances of the process cached."""
     def scenario(pkg):
         inst, s = _obs(pkg, "mn")
         s.execute("SELECT b FROM t WHERE a = 1")
         s.execute("SELECT b FROM t WHERE a = 2")
         s.execute("SELECT b, count(*) FROM t GROUP BY b")
         s.execute("INSERT INTO t VALUES (5000, 1)")
+        s.execute("BEGIN")
+        s.execute("INSERT INTO t VALUES (5001, 2)")
+        s.execute("COMMIT")
         rows = inst.metrics.rows()
         kinds = sorted((n, k) for n, k, _v, _h in rows
-                       if not n.startswith(("compile_cache", "device_cache",
-                                            "pallas", "kernel")))
+                       if not n.startswith(("compile_cache", "pallas", "kernel")))
         counts = {n: v for n, k, v, _h in rows
-                  if n.startswith(("queries_", "engine_exec_"))}
-        return kinds, counts
-    kinds, counts = both(scenario)
+                  if n.startswith(("queries_", "engine_exec_", "group_commit"))}
+        show = {r[0]: r[1] for r in s.execute("SHOW METRICS").rows}
+        listed = sorted(n for n in show if n.startswith(("device_cache", "group_comm")))
+        own = None
+        if pkg.name == "port":
+            g = {n: v for n, _k, v, _h in rows if n.startswith("device_cache_")}
+            c = inst.device_cache
+            own = (g["device_cache_misses"] == c.misses,
+                   g["device_cache_bytes"] == c.nbytes,
+                   g["device_cache_entries"] == len(c._map),
+                   g["device_cache_hits"] <= c.hits)
+        return kinds, counts, listed, own
+    kinds, counts, listed, _own = both_port_checked(scenario)
     assert counts["queries_total"] == 3 and counts["engine_exec_point"] == 1
+    assert counts["group_commit_batches"] >= 1 and counts["group_committed_txns"] >= 2
+    assert listed == ["device_cache_bytes", "device_cache_entries", "device_cache_hits",
+                      "device_cache_misses", "group_commit_batches",
+                      "group_committed_txns"]
+    assert ("device_cache_hits", "gauge") in kinds
 
 
-def test_traced_query_builds_a_span_tree_and_show_trace():
+def both_port_checked(scenario):
+    """`both` for a scenario whose last element only the port fills (its own
+    checks, all true)."""
+    got = {}
+
+    def run(pkg):
+        *same, own = scenario(pkg)
+        got[pkg.name] = own
+        return tuple(same)
+    out = both(run)
+    assert got["jax"] is None and got["port"] is not None and all(got["port"]), got
+    return (*out, got["port"])
+
+
+def _span_names(spans, skip=("compile",)):
+    """(kind, name, parent's name) of every span but those of the `skip` kinds,
+    sorted."""
+    by_id = {sp.span_id: sp for sp in spans}
+    return sorted((sp.kind, sp.name, by_id[sp.parent_id].name
+                   if sp.parent_id in by_id else None)
+                  for sp in spans if sp.kind not in skip)
+
+
+@pytest.fixture(scope="module")
+def tpch_arrays():
+    from galaxysql_tpu.storage import tpch
+    return tpch.generate(0.01)
+
+
+def test_traced_query_builds_a_span_tree_and_show_trace(tpch_arrays):
+    """A traced query's tree: the root, one operator span a plan node under its
+    parent's, the fused segments and the transfers under the operator that ran
+    them, and `segment_wall_ms` observed once a timed segment run.  TPC-H SF 0.01
+    Q3 uncached, then a small two-table join and a GROUP BY.  The small queries'
+    transfer events are left out: the reference scans a table this small as a
+    host numpy batch, past its device cache (ROADMAP, "Allowed by rule 2")."""
+    from galaxysql_tpu.storage import tpch
+    from galaxysql_tpu.storage.tpch_queries import QUERIES
+
     def scenario(pkg):
         inst, s = _obs(pkg, "tr")
+        for t in tpch.TABLE_ORDER:
+            s.execute(tpch.TPCH_DDL[t])
+            inst.store("tr", t).insert_pylists(tpch_arrays[t], inst.tso.next_timestamp())
         s.execute("SET ENABLE_QUERY_TRACING = 1")
-        s.execute("SELECT b, count(*) FROM t WHERE a < 100 GROUP BY b")
+        seg = inst.metrics.histogram("segment_wall_ms")
+        trees = []
+        for sql, skip in (
+                ("/*+TDDL: FRAGMENT_CACHE(OFF)*/ " + QUERIES[3], ("compile",)),
+                ("SELECT count(*) FROM t t1, nation n WHERE t1.b = n.n_nationkey",
+                 ("compile", "transfer")),
+                ("SELECT b, count(*) FROM t WHERE a < 100 GROUP BY b",
+                 ("compile", "transfer"))):
+            c0 = seg.count
+            rows = s.execute(sql).rows
+            trees.append((_span_names(s.last_spans, skip), seg.count - c0,
+                          sorted(rows)))
         spans = s.last_spans
         root = spans[0]
         phases = sorted(k for k in root.attrs.get("phases", {})
@@ -166,9 +240,14 @@ def test_traced_query_builds_a_span_tree_and_show_trace():
         trace_id = inst.profiles.entries()[-1].trace_id
         return (root.name, root.kind, root.parent_id, phases,
                 tree[0].startswith("trace-id"), any("query" in ln for ln in tree),
-                sorted(set(q)), trace_id > 0)
+                sorted(set(q)), trace_id > 0, trees)
     out = both(scenario)
     assert out[0:3] == ("query", "query", 0) and "execute" in out[3]
+    q3, join, _agg = out[8]
+    kinds = [k for k, _n, _p in q3[0]]
+    assert kinds.count("operator") == 9 and kinds.count("transfer") >= 10
+    assert ("segment", "segment:rf", "Scan") in q3[0] and q3[1] >= 1
+    assert [k for k, _n, _p in join[0]].count("operator") >= 4
 
 
 def test_error_spans_and_slow_log():

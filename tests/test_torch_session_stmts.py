@@ -14,7 +14,6 @@ from galaxysql_tpu.server.session import Session as JaxSession
 from galaxysql_tpu.storage import tpch
 from galaxysql_tpu.storage.tpch_queries import QUERIES
 from galaxysql_tpu.utils import errors as jax_errors
-from galaxysql_tpu_torch.server import information_schema, show_handlers
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.storage import transfer
@@ -194,16 +193,25 @@ def test_show_trace_of_a_point_select(twin):
     assert tags(got) == tags(want) == ["point-plan one.k", "elapsed=?s workload=TP"]
 
 
-@pytest.mark.parametrize("kind", sorted(show_handlers._WAITING))
+# the SHOW kinds the port once refused, each now answered as the reference answers
+FORMERLY_WAITING_SHOWS = ["coordinators", "rebalance"]
+
+
+@pytest.mark.parametrize("kind", FORMERLY_WAITING_SHOWS)
 def test_unported_show_kinds_raise(twin, kind):
-    _js, ps = twin.session()
-    sql = {"statement_summary":
-           "SHOW STATEMENT SUMMARY", "metric_history": "SHOW METRIC HISTORY",
-           "columnar_replica": "SHOW COLUMNAR REPLICA",
-           "cluster_health": "SHOW CLUSTER HEALTH", "binlog": "SHOW BINLOG EVENTS",
-           "ccl_rules": "SHOW CCL_RULES"}.get(kind, f"SHOW {kind.upper()}")
-    with pytest.raises(errors.NotSupportedError, match="ROADMAP Queue 1 item"):
-        ps.execute(sql)
+    """SHOW COORDINATORS and SHOW REBALANCE, which waited for the placement slice:
+    the same columns and types as the reference's, SHOW REBALANCE the same rows, and
+    SHOW COORDINATORS this node's row alone (no peer attached), with the node id
+    (random) left out."""
+    js, ps = twin.session()
+    sql = f"SHOW {kind.upper()}"
+    want, got = js.execute(sql), ps.execute(sql)
+    assert got.names == want.names and _types(got) == _types(want)
+    if kind == "coordinators":
+        assert [r[1:] for r in got.rows] == [r[1:] for r in want.rows]
+        assert [r[0] for r in got.rows] == [twin.pi.node_id]
+    else:
+        assert got.rows == want.rows
 
 
 def test_show_fragment_cache(twin):
@@ -269,11 +277,24 @@ def test_information_schema_batch_stats(twin):
     assert [r[0] for r in got.rows] == [r[0] for r in want.rows]
 
 
-@pytest.mark.parametrize("view", sorted(information_schema.WAITING))
+# the views the port once refused, each now filled as the reference fills it
+FORMERLY_WAITING_VIEWS = ["coordinators", "rebalance_jobs"]
+
+
+@pytest.mark.parametrize("view", FORMERLY_WAITING_VIEWS)
 def test_unported_views_raise(twin, view):
-    _js, ps = twin.session()
-    with pytest.raises(errors.NotSupportedError, match="ROADMAP Queue 1 item"):
-        ps.execute(f"SELECT * FROM information_schema.{view}")
+    """information_schema.coordinators and .rebalance_jobs, which waited for the
+    placement slice: the reference's columns and types, and its rows (the node id,
+    random, left out)."""
+    js, ps = twin.session()
+    sql = f"SELECT * FROM information_schema.{view}"
+    want, got = js.execute(sql), ps.execute(sql)
+    assert got.names == want.names and _types(got) == _types(want)
+    if view == "coordinators":
+        assert [r[1:] for r in got.rows] == [r[1:] for r in want.rows]
+        assert [r[0] for r in got.rows] == [twin.pi.node_id]
+    else:
+        assert got.rows == want.rows
 
 
 def test_users_grants_and_refusals():

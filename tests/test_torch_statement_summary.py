@@ -293,11 +293,17 @@ def test_stats_flip_regression_flagged_end_to_end():
     """A stats change flips the join order of a known digest and its latency
     degrades: the sentinel flags the new plan fingerprint in both packages alike.
     The degradation is synthetic (`FP_SLO_LATENCY_MS` adds 5 s to each observed
-    latency of the second phase), so the verdict does not hang on measured time;
-    ENABLE_PLAN_AUTOHEAL = 0 keeps the sentinel detect-only."""
+    latency of the second phase and 1 s to each of the first, which the baseline
+    forms from), so the verdict does not hang on measured time: a cold first run's
+    few ms of jitter could otherwise lift the first plan's window median past 1.5x
+    its baseline; and the summary's window is an hour, so a phase of a loaded run
+    does not straddle a window boundary (a window with fewer than
+    PLAN_REGRESSION_MIN_EXECS executions is not judged).  ENABLE_PLAN_AUTOHEAL = 0
+    keeps the sentinel detect-only."""
     def scenario(pkg):
         inst, s = mk(pkg, "wrg")
         inst.config.set_instance("ENABLE_PLAN_AUTOHEAL", 0)
+        inst.config.set_instance("STMT_SUMMARY_WINDOW_S", 3600)
         s.execute("CREATE TABLE big (id BIGINT PRIMARY KEY, k BIGINT, v BIGINT) "
                   "PARTITION BY HASH(id) PARTITIONS 4")
         s.execute("CREATE TABLE small (sid BIGINT PRIMARY KEY, k BIGINT, w BIGINT) "
@@ -311,7 +317,9 @@ def test_stats_flip_regression_flagged_end_to_end():
         s.execute("ANALYZE TABLE big, small")
         q = ("/*+TDDL: FRAGMENT_CACHE(OFF)*/ SELECT count(*), "
              "sum(big.v + small.w) FROM big, small WHERE big.k = small.k")
+        pkg.FAIL_POINTS.arm(pkg.fp.FP_SLO_LATENCY_MS, 1000)
         results = [s.execute(q).rows for _ in range(6)]
+        pkg.FAIL_POINTS.clear()
         base_fps = {r[2] for r in summary(s, "sum(big.v")}
         bid = s.execute("SHOW BASELINE").rows[0][0]
         s.execute(f"BASELINE DELETE {bid}")
