@@ -137,10 +137,11 @@ CPU twin; no data is loaded:
     OPS_AP_SESSIONS sessions cycling Q3, Q5, Q10 and Q18 and OPS_TP_SESSIONS point
     sessions for OPS_FLOOD_SECONDS: every outcome is analyzed_tpch's rows or a typed
     ServerOverloadError with retry_after_ms, and SHOW ADMISSION's admitted and shed
-    counts equal the clients'.  (d) Under FP_MEM_PRESSURE: Q5 and Q18 at the
-    JOIN_SPILL_BYTES at which they do not spill (the rung above the first spilling
-    one on OPS_SPILL_LADDER) spill under ELEVATED (a quarter of it), and Q18 under a
-    QUERY_MEM_BYTES of half of it, rows equal; the fragment cache's budget halves and
+    counts equal the clients'.  (d) Under FP_MEM_PRESSURE: OPS_PRESSURE_QUERIES at
+    the JOIN_SPILL_BYTES at which they do not spill (the rung above the first
+    spilling one on OPS_SPILL_LADDER) spill under ELEVATED (a quarter of it), and the
+    last of them under a QUERY_MEM_BYTES of half of it, rows equal (Q5 alone since a
+    cut for time: Q18's three spilled runs took 17.5 s); the fragment cache's budget halves and
     restores; SHOW EVENTS lists mem_pressure; under CRITICAL an AP query is refused
     typed while a point select serves; each tier prints the pool's reserved peak
     beside the card allocator's bytes.  (e) CREATE SLO with a 1 ms AP target, then
@@ -185,6 +186,23 @@ CPU twin; no data is loaded:
     at once: every value unique, together 1..n.  Launch counters are set to 0 at the phase's start and read at its
     end: all four kernels must launch; each is held against its plain version on the
     phase's largest input (the kernels line's `placement` entries).
+
+9f. formulations: the reference's accelerator branch of the relational layer
+    (`kernels/relational.formulation_scope("sort")`: `sort_groupby`,
+    `matmul_groupby`, the sorted hash join and the host-built bloom) on
+    analyzed_tpch's card instance, no data loaded.  (a) The 22 queries under the
+    scope, cold (the branch's first run) and warm, then warm on the default scatter
+    branch, each timed; every run's rows equal analyzed_tpch's, and the four kernels
+    launch 0 times under the scope.  (b) FORMULATION_MPP_QUERIES under ENGINE(MPP) on
+    a mesh of MPP_SHARDS shards on cuda:0, twice under the scope and once on the
+    scatter branch: rows equal to analyzed_tpch's, no launch under the scope outside
+    a hybrid join's probe (which keeps the CSR, as in the reference).  (c) Each of
+    `sort_groupby`, `matmul_groupby` and `_hash_join_pairs_sorted` on the largest
+    input (a) gave it: equal to its own run on the CPU over the same inputs (integers
+    and flags bit for bit, float sums within 4 * n * 2^-24 * sum(|x|)), equal to its
+    scatter twin (`hash_groupby`, `scatter_groupby`, the CSR join) after a canonical
+    ordering, and timed beside the twin as the kernels are.  The launches under the
+    scope are the kernels line's `formulations` entries.
 
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
@@ -475,9 +493,10 @@ DML_CPU_QUERIES = (4, 5, 6, 10, 12, 21)
 # 30-50 s); their rows after COMMIT are held to the card's rows inside it
 DML_CARD_ONLY = (18,)
 # analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
-# twin takes 29-38 s, Q16's and Q17's 5.9 s each, Q7's 3.5 s and Q13's 2.4 s);
-# tests/test_torch_tpch.py holds them to the reference at SF 0.01
-ANALYZED_CARD_ONLY = (7, 13, 16, 17, 20)
+# twin takes 29-38 s, Q16's and Q17's 5.9 s each, Q21's 4.8 s, Q7's 3.5 s, Q15's
+# 3.3 s and Q13's 2.4 s); tests/test_torch_tpch.py holds them to the reference at SF
+# 0.01, and the formulations phase holds their card rows on two formulation branches
+ANALYZED_CARD_ONLY = (7, 13, 15, 16, 17, 20, 21)
 # window queries not compared on the CPU at SF 1 (for time: the CPU twin's
 # w_one_partition takes 7.3 s); tests/test_torch_window.py holds it to the reference
 WINDOW_CARD_ONLY = ("w_one_partition",)
@@ -2357,7 +2376,7 @@ OPS_AP_QUERIES = (3, 5, 10, 18)
 OPS_AP_SESSIONS = 24        # (c): AP sessions cycling OPS_AP_QUERIES
 OPS_TP_SESSIONS = 64        # (c): point sessions
 OPS_FLOOD_SECONDS = 2.0
-OPS_PRESSURE_QUERIES = (5, 18)
+OPS_PRESSURE_QUERIES = (5,)   # (d): Q18 too before a cut for time (17.5 s more)
 # (d): the JOIN_SPILL_BYTES ladder a query climbs down until it spills; the rung above
 # the first spilling one is the threshold at which it does not spill unscaled
 OPS_SPILL_LADDER = tuple(1 << k for k in range(30, 21, -1))   # 1 GiB .. 4 MiB
@@ -2620,13 +2639,14 @@ def _ops_tier_line(stop_sampler):
 
 
 def _ops_pressure(gi, s, analyzed_rows):
-    """(d) Memory pressure through FP_MEM_PRESSURE: under ELEVATED, Q5 and Q18 at the
-    JOIN_SPILL_BYTES at which they do not spill unscaled (found on OPS_SPILL_LADDER)
-    grace-join at a quarter of it with analyzed_tpch's rows; the fragment cache's
-    budget halves and restores, and a mem_pressure event is journaled; under CRITICAL
-    a new AP query is refused typed while point selects serve; with QUERY_MEM_BYTES
-    below Q18's build the pool itself forces the spill.  Each tier prints the pool's
-    reserved bytes beside the card allocator's."""
+    """(d) Memory pressure through FP_MEM_PRESSURE: under ELEVATED,
+    OPS_PRESSURE_QUERIES at the JOIN_SPILL_BYTES at which they do not spill unscaled
+    (found on OPS_SPILL_LADDER) grace-join at a quarter of it with analyzed_tpch's
+    rows; the fragment cache's budget halves and restores, and a mem_pressure event is
+    journaled; under CRITICAL a new AP query is refused typed while point selects
+    serve; with QUERY_MEM_BYTES below the last query's build the pool itself forces
+    the spill.  Each tier prints the pool's reserved bytes beside the card
+    allocator's."""
     import torch
     from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
     from galaxysql_tpu_torch.utils import errors
@@ -2673,9 +2693,9 @@ def _ops_pressure(gi, s, analyzed_rows):
                                      f"{line['elevated_tier']}, spill files {files}")
             line["elevated_spill_files"] = files
             out["queries"][f"Q{q}"] = line
-            if q != 18:
+            if q != OPS_PRESSURE_QUERIES[-1]:
                 continue
-            # Q18: the pool forces the spill: QUERY_MEM_BYTES under the build, which
+            # the pool forces the spill: QUERY_MEM_BYTES under the build, which
             # passed half of last_clean (it spilled at the rung below)
             torch.cuda.reset_peak_memory_stats()
             stop = _pool_sampler()
@@ -3294,6 +3314,298 @@ def _placement_check_tables(gs, cs):
     if card != want or cs.execute(sql).rows != want:
         raise AssertionError(f"placement (c): CHECK TABLE {card}")
     return {"tables": len(card), "ms": ms}
+
+
+# -- formulations: the reference's accelerator branch on the card ---------------------
+
+FORMULATION_MPP_QUERIES = (1, 3, 5, 18)   # (b): MPP under the sort branch
+F32_EPS = 2.0 ** -24
+
+
+def _formulation_capture():
+    """A `Capture` of the sort branch's three formulations: the largest card call's
+    arguments of each, by rows times key and aggregate lanes for a group-by (so Q1's
+    lineitem aggregation outweighs a global one over the same batch), by build plus
+    probe rows for a join."""
+    from galaxysql_tpu_torch.kernels import relational as K
+
+    def work(keys, inputs, specs, live, _cap):
+        return live.numel() * (len(keys) + len(specs))
+    return Capture([
+        (K, "sort_groupby", work),
+        (K, "matmul_groupby", work),
+        (K, "_hash_join_pairs_sorted", lambda bk, pk, bl, pl, cap: bl.numel() + pl.numel()),
+    ])
+
+
+def _moved(x, device):
+    """Tensors inside nested lists and tuples moved to `device` (specs kept)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_moved(a, device) for a in x)
+    return x
+
+
+def _nbytes(x) -> int:
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(a) for a in x)
+    return 0
+
+
+def _equal(a, b, float_tol=0.0) -> bool:
+    """Nested results equal: every tensor bit for bit, float lanes within `float_tol`
+    where it is given (NaN equal to NaN); flags as bools."""
+    import torch
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_equal(x, y, float_tol) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        return bool(a) == bool(b)
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        if float_tol > 0:
+            near = (a.double() - b.double()).abs() <= float_tol
+            return bool((near | (torch.isnan(a) & torch.isnan(b))).all())
+        bits = torch.int32 if a.element_size() == 4 else torch.int64
+        return bool(torch.equal(a.view(bits), b.view(bits)))
+    return bool(torch.equal(a, b))
+
+
+def _groupby_equal(a, b, float_tol) -> bool:
+    return (_equal(a.keys, b.keys) and _equal(a.aggs, b.aggs, float_tol) and
+            _equal(a.live, b.live) and _equal(a.num_groups, b.num_groups) and
+            bool(a.overflow) == bool(b.overflow))
+
+
+def _float_sum_tol(inputs, specs, live) -> float:
+    """4 * n * 2^-24 * sum(|x|) over each float SUM input: twice the bound on a running
+    float32 sum's error, for the two running sums a group's sum differences (or the
+    atomic adds of the scatter twin, in any order)."""
+    tol = 0.0
+    for s in specs:
+        if s.kind == "sum" and s.arg >= 0:
+            d, v = inputs[s.arg]
+            if d.dtype.is_floating_point:
+                m = live if v is None else (live & v)
+                tol = max(tol, 4 * d.numel() * F32_EPS * float(d[m].double().abs().sum()))
+    return tol
+
+
+def _canonical_groups(r):
+    """A GroupByResult's live groups in key order, every lane gathered to it; key data
+    under a NULL key and aggregate data under an invalid flag zeroed (unspecified)."""
+    import torch
+    from galaxysql_tpu_torch.kernels import relational as K
+    idx = torch.nonzero(r.live).flatten()
+
+    def clean(d, v):
+        d = d[idx]
+        if v is None:
+            return d, None
+        v = v[idx]
+        return torch.where(v, d, torch.zeros_like(d)), v
+    keys = [clean(d, v) for d, v in r.keys]
+    aggs = [clean(d, v) for d, v in r.aggs]
+    lanes = []
+    for d, v in keys:
+        if v is not None:
+            lanes.append((~v).to(torch.int8))
+        lanes.append(K._sort_lane(d))
+    order = K.lexsort_major_first(lanes) if lanes else \
+        torch.arange(idx.numel(), device=idx.device)
+
+    def pick(p):
+        return p[0][order], None if p[1] is None else p[1][order]
+    return [pick(p) for p in keys], [pick(p) for p in aggs]
+
+
+def _canonical_pairs(p):
+    """The verified (probe row, build row) pairs of a JoinPairs, in that order."""
+    import torch
+    from galaxysql_tpu_torch.kernels import relational as K
+    b, q = p.build_idx[p.live], p.probe_idx[p.live]
+    order = K.lexsort_major_first([q, b])
+    return torch.stack([q[order], b[order]])
+
+
+def _formulation_check(name, args, source_query):
+    """(c): one formulation on its largest input from (a): on the card against its own
+    run on the CPU over the same inputs, and against its scatter-branch twin after a
+    canonical ordering (groups by key, pairs by probe and build row); each of the two
+    timed as the kernels are (`_device_ms`, `_time`)."""
+    import torch
+    from galaxysql_tpu_torch.kernels import relational as K
+    fn = getattr(K, name)
+    if name == "sort_groupby":
+        keys, inputs, specs, live, mg = args
+        twin_name = "hash_groupby"
+        twin = lambda: K.hash_groupby(keys, inputs, specs, live, mg)  # noqa: E731
+        tol = _float_sum_tol(inputs, specs, live)
+        shape = {"n": live.numel(), "keys": len(keys), "max_groups": mg}
+    elif name == "matmul_groupby":
+        keys, inputs, specs, live, domains = args
+        twin_name = "scatter_groupby"
+        twin = lambda: K.scatter_groupby(keys, inputs, specs, live, domains)  # noqa: E731
+        tol = 0.0
+        shape = {"n": live.numel(), "domains": list(domains)}
+    else:
+        bk, pk, bl, pl, cap = args
+        twin_name = "_hash_join_pairs_table"
+        twin = lambda: K._hash_join_pairs_table(bk, pk, bl, pl, cap)  # noqa: E731
+        tol = 0.0
+        shape = {"nb": bl.numel(), "npr": pl.numel(), "cap": cap}
+    run = lambda: fn(*args)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = fn(*_moved(args, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    want_twin = twin()
+    if name == "_hash_join_pairs_sorted":
+        same_cpu = _equal(tuple(got), tuple(cpu))
+        same_twin = _equal(_canonical_pairs(got), _canonical_pairs(want_twin)) and \
+            _equal(got.probe_matched, want_twin.probe_matched)
+        shape["pairs"] = int(got.live.sum())
+    else:
+        same_cpu = _groupby_equal(got, cpu, tol)
+        same_twin = _equal(_canonical_groups(got), _canonical_groups(want_twin), tol)
+        shape["groups"] = int(got.num_groups)
+    if not (same_cpu and same_twin):
+        raise AssertionError(f"formulations (c): {name} on Q{source_query}'s input: "
+                             f"equal to its CPU run {same_cpu}, to {twin_name} "
+                             f"{same_twin}")
+    nbytes = _nbytes(args) + _nbytes(tuple(got))
+    return {"name": name, "input_of": f"Q{source_query}", "shape": shape,
+            "float_tol": tol, "equal_cpu": True, "equal_twin": True,
+            "cpu_s": cpu_s, "ms": _device_ms(run), "call_ms": _time(run),
+            "twin": twin_name, "twin_ms": _device_ms(twin), "twin_call_ms": _time(twin),
+            **_bound(nbytes)}
+
+
+def formulations_phase(gi, analyzed_rows, sf):
+    """The reference's accelerator branch (`formulation_scope("sort")`) on
+    analyzed_tpch's card instance `gi`, no data loaded: (a) the 22 queries under the
+    scope, cold (this branch's first run) and warm, each timed, then warm on the
+    default scatter branch beside it; rows equal to analyzed_tpch's, and no launch of
+    the four kernels; (b) FORMULATION_MPP_QUERIES under ENGINE(MPP) on a mesh of
+    MPP_SHARDS shards on cuda:0, twice under the scope and once on the scatter branch,
+    rows equal to analyzed_tpch's, and no launch outside a hybrid join's probe; (c)
+    `sort_groupby`, `matmul_groupby` and `_hash_join_pairs_sorted` on the largest
+    input (a) gave each: against their own CPU run and their scatter twins, timed."""
+    import torch
+    from galaxysql_tpu_torch.kernels import relational as K
+    from galaxysql_tpu_torch.parallel.mesh import GLOBAL_MESH_CACHE, make_mesh
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    t_phase = time.perf_counter()
+    s = Session(gi, "tpch")
+    out = {"queries": {}, "mpp": {}}
+    capture = _formulation_capture()
+    source = {}
+    _reset_launches()
+
+    def timed(sql, branch):
+        with K.formulation_scope(branch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = s.execute(sql)
+            torch.cuda.synchronize()
+        return rs, (time.perf_counter() - t0) * 1000.0
+
+    try:
+        for q in range(1, 23):
+            want = analyzed_rows[f"Q{q}"]
+            before = _launch_counts()
+            seen = {k: v[1] for k, v in capture.calls.items()}
+            cold, cold_ms = timed(SQL[q], "sort")
+            warm, warm_ms = timed(SQL[q], "sort")
+            after = _launch_counts()
+            for k, v in capture.calls.items():
+                if seen.get(k) is not v[1]:
+                    source[k] = q
+            scatter, scatter_ms = timed(SQL[q], "scatter")
+            launches = {k: after[k] - before[k] for k in after}
+            for what, rows in (("cold", cold.rows), ("warm", warm.rows),
+                               ("scatter", scatter.rows)):
+                if not _rows_match(rows, want)[0]:
+                    raise AssertionError(f"formulations Q{q} ({what}): rows differ from "
+                                         f"analyzed_tpch's:\n  got  {rows[:3]}\n  want "
+                                         f"{want[:3]}")
+            if any(launches.values()):
+                raise AssertionError(f"formulations Q{q}: kernels launched on the sort "
+                                     f"branch: {launches}")
+            out["queries"][f"Q{q}"] = line = {
+                "sort_cold_ms": cold_ms, "sort_warm_ms": warm_ms,
+                "scatter_warm_ms": scatter_ms, "launches": launches,
+                "rows": len(warm.rows)}
+            say("formulations_query", query=f"Q{q}", **line)
+        out["sum_sort_warm_ms"] = sum(v["sort_warm_ms"] for v in out["queries"].values())
+        out["sum_scatter_warm_ms"] = sum(v["scatter_warm_ms"]
+                                         for v in out["queries"].values())
+        out["formulation_calls"] = {k: len(v) for k, v in capture.shapes.items()}
+    finally:
+        capture.restore()
+    missing = [k for k in ("sort_groupby", "matmul_groupby", "_hash_join_pairs_sorted")
+               if k not in capture.calls]
+    if missing:
+        raise AssertionError(f"formulations (a): never reached {missing}")
+
+    # (b) MPP under the sort branch on the phase's own mesh
+    mesh = make_mesh(devices=[torch.device(gi.device.type, gi.device.index or 0)] *
+                     MPP_SHARDS)
+    enable_mpp = gi.config.get("ENABLE_MPP")
+    gi._mesh = mesh
+    gi.config.set_instance("ENABLE_MPP", 0)
+    GLOBAL_MESH_CACHE.clear()
+    try:
+        for q in FORMULATION_MPP_QUERIES:
+            sql = MPP_HINT + SQL[q]
+            before = _launch_counts()
+            first, first_ms = timed(sql, "sort")
+            warm, warm_ms = timed(sql, "sort")
+            after = _launch_counts()
+            hybrid = any("mpp-hybrid-join" in t for t in s.last_trace)
+            scatter, scatter_ms = timed(sql, "scatter")
+            launches = {k: after[k] - before[k] for k in after}
+            for what, rows in (("first", first.rows), ("warm", warm.rows),
+                               ("scatter", scatter.rows)):
+                if not _mpp_rows_equal(rows, analyzed_rows[f"Q{q}"],
+                                       MPP_ORDERED.get(q, True)):
+                    raise AssertionError(f"formulations mpp Q{q} ({what}): rows differ "
+                                         f"from analyzed_tpch's")
+            if launches["hash_place"] or (not hybrid and any(launches.values())):
+                raise AssertionError(f"formulations mpp Q{q}: kernels launched on the "
+                                     f"sort branch outside a hybrid probe: {launches}")
+            out["mpp"][f"Q{q}"] = line = {
+                "sort_first_ms": first_ms, "sort_warm_ms": warm_ms,
+                "scatter_warm_ms": scatter_ms, "hybrid_join": hybrid,
+                "launches": launches, "rows": len(warm.rows)}
+            say("formulations_mpp", query=f"Q{q}", **line)
+    finally:
+        gi._mesh = None
+        gi.config.set_instance("ENABLE_MPP", enable_mpp)
+        GLOBAL_MESH_CACHE.clear()
+        s.close()
+    # the sort branch's launches of the four kernels over (a) and (b)
+    out["launches"] = {k: sum(line["launches"][k] for part in ("queries", "mpp")
+                              for line in out[part].values()) for k in KERNELS}
+
+    # (c) each formulation on its largest input from (a)
+    out["checks"] = []
+    for name, (_size, args) in capture.calls.items():
+        entry = _formulation_check(name, args, source[name])
+        out["checks"].append(entry)
+        say("formulations_check", **entry)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # -- writes and transactions -----------------------------------------------------------
@@ -6432,6 +6744,11 @@ def run(args, data_dir) -> int:
         step_s={k[:-2]: v for k, v in placement.items() if k.endswith("_s")})
     placement_inputs = check_new_phase_inputs(placement_capture,
                                               {"placement": placement["launches"]})
+
+    formulations = formulations_phase(analyzed, unspilled, args.sf)
+    print(card, flush=True)
+    say("formulations", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf,
+        **{k: v for k, v in formulations.items() if k != "queries"})
     unspilled = {k: v for k, v in unspilled.items()
                  if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
@@ -6458,6 +6775,8 @@ def run(args, data_dir) -> int:
         entry["new_phases"]["launches"]["placement"] = \
             placement["launches"][entry["name"]]
         entry["new_phases"]["placement_input"] = placement_inputs[entry["name"]]
+        entry["new_phases"]["launches"]["formulations"] = \
+            formulations["launches"][entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

@@ -37,6 +37,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
+from galaxysql_tpu_torch import native
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
                                              concat_batches, dictionary_translation,
                                              to_numpy, torch_dtype, u64_ordered)
@@ -625,9 +626,14 @@ class HashJoinOp(Operator):
     """Equi hash join: build side materialized, probe side streamed.
 
     join_type: inner | left | semi | anti (probe side is the outer/left side).  The
-    build side is compacted and padded to a capacity bucket, a slot CSR is built over
-    it on its device (`relational._device_csr`), and every probe batch enumerates its
-    verified pairs through `relational.hash_join_probe_csr`.  A build side past
+    build side is compacted and padded to a capacity bucket.  On the scatter branch
+    (`relational.prefer_scatter()`) a slot CSR is built over it on its device
+    (`relational._device_csr`), every probe batch enumerates its verified pairs
+    through `relational.hash_join_probe_csr`, and the probe bloom is built on the
+    device.  On the sort branch, as in the reference on its accelerator, there is no
+    CSR: every probe batch goes through `relational.hash_join_pairs` (the sorted build
+    hashes), and the bloom is built on the host (`native.bloom_build`) and queried on
+    the device (`relational.bloom_query_device`).  A build side past
     `spill_threshold` bytes takes the grace path instead: both sides are split by key
     hash into GRACE_PARTITIONS host spill buckets and each bucket pair joins in
     memory (`_grace_batches`)."""
@@ -827,9 +833,14 @@ class HashJoinOp(Operator):
         return [broadcast_value(batch.capacity, *f(env), xp) for f in fns]
 
     def _build_bloom(self, build_batch: ColumnBatch, pf, xp):
-        """Byte-plane bloom over the single build key (one flag byte per bloom bit);
-        probe rows that cannot match are masked out before pair enumeration.
-        Exact for inner/semi joins: bloom-negative rows are provably unmatched."""
+        """Runtime bloom over the single build key; probe rows that cannot match are
+        masked out before pair enumeration.  Exact for inner/semi joins:
+        bloom-negative rows are provably unmatched.  The scatter branch builds a
+        byte-plane filter on the device (one flag byte per bloom bit, below); the sort
+        branch builds packed words on the host and queries them on the device
+        (`_build_bloom_host`), as the reference does on its accelerator."""
+        if not K.prefer_scatter():
+            return self._build_bloom_host(build_batch, pf, xp)
         n_build = build_batch.num_live() if build_batch.capacity else 0
         if n_build == 0 or n_build > self.BLOOM_MAX_BUILD:
             return None
@@ -861,6 +872,33 @@ class HashJoinOp(Operator):
             return ColumnBatch(batch.columns, live2)
         return apply
 
+    def _build_bloom_host(self, build_batch: ColumnBatch, pf, xp):
+        """The reference's accelerator bloom: the live build keys go to the host (a
+        count and a copy of the build lanes), `native.bloom_build` sets two bits a
+        key in about 16 bits a key of uint64 words, and probe batches test their
+        keys against the words on the device."""
+        n_build = build_batch.num_live()
+        if n_build == 0 or n_build > self.BLOOM_MAX_BUILD:
+            return None
+        d, v = ExprCompiler(np).compile(self.build_keys[0])(_host_env(build_batch))
+        live = build_batch.np_live()
+        if v is not None:
+            live = live & v
+        keys = np.asarray(d)[live].astype(np.int64)
+        nwords = 1
+        while nwords < max(2 * keys.size // 8, 64):  # ~16 bits/key
+            nwords *= 2
+        words = as_tensor(native.bloom_build(keys, nwords).view(np.int64),
+                          build_batch.device)
+
+        def apply(batch: ColumnBatch) -> ColumnBatch:
+            pd, pv = broadcast_value(batch.capacity, *pf(batch_env(batch)), xp)
+            live2 = batch.live_mask() & K.bloom_query_device(pd.to(torch.int64), words)
+            if pv is not None:
+                live2 = live2 & pv  # NULL keys never match an inner/semi join
+            return ColumnBatch(batch.columns, live2)
+        return apply
+
     def _empty_build_batches(self) -> Iterator[ColumnBatch]:
         # empty build: inner/semi yield nothing; anti passes probe rows through;
         # left null-extends using the declared build schema
@@ -883,13 +921,14 @@ class HashJoinOp(Operator):
 
     def _frag_entry_key(self):
         """Artifact identity: the build subtree's versioned fingerprint plus what
-        shapes the stored state: the build key exprs and the ACTIVE filter-publish
-        spec set (a RUNTIME_FILTER(OFF) run must not hand a filterless artifact to
-        a filters-on execution).  The reference's key also holds its backend; here
-        the cache is per instance, and an instance has one device."""
+        shapes the stored state: the formulation branch (a sort-branch artifact holds
+        no slot CSR), the build key exprs and the ACTIVE filter-publish spec set (a
+        RUNTIME_FILTER(OFF) run must not hand a filterless artifact to a filters-on
+        execution).  The reference's key also holds its backend; here the cache is
+        per instance, and an instance has one device."""
         rf_sig = tuple(sorted((s.filter_id, tuple(sorted(s.kinds)))
                               for s in self.rf_publish))
-        return ("join_build", self.frag_key.key,
+        return ("join_build", self.frag_key.key, bool(K.prefer_scatter()),
                 tuple(expr_cache_key(e) for e in self.build_keys), rf_sig)
 
     def _frag_lookup(self):
@@ -968,10 +1007,10 @@ class HashJoinOp(Operator):
                 from galaxysql_tpu_torch.exec.fusion import publish_on_device
                 publish_on_device(self.rf_manager, self.rf_publish, build_batch)
             if self.skew_watch and build_batch.capacity and \
-                    build_batch.device.type == "cpu":
+                    build_batch.device.type == "cpu" and K.prefer_scatter():
                 # heavy-hitter refresh from host lanes; on the card the lanes are
-                # device-resident and the refresh must not add a copy (the
-                # reference skips it on the TPU for the same reason)
+                # device-resident and the refresh must not add a copy, and the
+                # sort branch skips it, as the reference does on its accelerator
                 self._observe_skew(build_batch)
             art = self._frag_admit(build_batch)
             if build_batch.capacity == 0:
@@ -996,10 +1035,11 @@ class HashJoinOp(Operator):
 
     def _device_probe(self, build_batch: ColumnBatch, art=None,
                       stored: bool = False) -> Iterator[ColumnBatch]:
-        """Probe every batch against `build_batch`.  The slot CSR comes from the
-        artifact on a fragment-cache hit; a cold build's CSR is stored into its
-        artifact.  Cached tensors are only read: nothing here writes into the
-        build batch or the CSR."""
+        """Probe every batch against `build_batch`.  On the scatter branch the slot
+        CSR comes from the artifact on a fragment-cache hit, and a cold build's CSR
+        is stored into its artifact; the sort branch builds no CSR and enumerates
+        each batch's pairs with `K.hash_join_pairs`.  Cached tensors are only read:
+        nothing here writes into the build batch or the CSR."""
         from galaxysql_tpu_torch.exec.runtime_filter import RF_STATS
         device = build_batch.device
         xp = TorchXP(device)
@@ -1013,12 +1053,13 @@ class HashJoinOp(Operator):
 
         bkeys = self._lanes(bk, build_batch, xp)
         b_live = build_batch.live_mask()
-        csr = art.csr if art is not None and art.csr is not None else \
-            K._device_csr(bkeys, b_live, build_batch.capacity)
+        csr = None
+        if K.prefer_scatter():
+            csr = art.csr if art is not None and art.csr is not None else \
+                K._device_csr(bkeys, b_live, build_batch.capacity)
         if art is not None and not stored:
             art.csr = csr
             self._frag_store(art)
-        perm, starts, counts, M = csr
         for pb in self.probe.batches():
             if RF_STATS["enabled"]:
                 # probe rows REACHING the join: after the scan-side runtime filters,
@@ -1035,8 +1076,12 @@ class HashJoinOp(Operator):
             cap = bucket_capacity(max(n_live * 2, MIN_BUCKET))
             pkeys = self._lanes(pk, pb, xp)
             while True:
-                pairs = K.hash_join_probe_csr(bkeys, pkeys, b_live, pb.live_mask(),
-                                              perm, starts, counts, M, cap)
+                if csr is not None:
+                    perm, starts, counts, M = csr
+                    pairs = K.hash_join_probe_csr(bkeys, pkeys, b_live, pb.live_mask(),
+                                                  perm, starts, counts, M, cap)
+                else:
+                    pairs = K.hash_join_pairs(bkeys, pkeys, b_live, pb.live_mask(), cap)
                 if not pairs.overflow:
                     break
                 cap *= 2

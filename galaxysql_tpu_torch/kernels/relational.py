@@ -1,29 +1,42 @@
 """Core relational kernels over fixed-shape torch tensors.
 
-Counterpart of `galaxysql_tpu/kernels/relational.py`, trimmed to the formulations the
-port runs.  The reference picks a formulation per backend (`prefer_scatter`): hash and
-scatter on XLA:CPU, sort and matmul on a TPU.  Scatters and atomics are cheap on a GPU,
-so the port takes the scatter branch on every device:
+Counterpart of `galaxysql_tpu/kernels/relational.py`.  The reference picks a formulation
+per backend (`prefer_scatter`): hash and scatter on XLA:CPU, sort and matmul on a TPU.
+Scatters and atomics are cheap on a GPU, so the port runs the scatter branch on every
+device by default, and runs the reference's accelerator branch inside a
+`formulation_scope("sort")` of the calling thread (from Python only: no hint, parameter
+or environment variable reaches it).  The choice is read each time a function runs.
 
-- group-by: `scatter_groupby` for small static key domains (dictionary strings,
-  booleans, global aggregation), `hash_groupby` (open-addressing placement) otherwise;
+- group-by: small static key domains (dictionary strings, booleans, global
+  aggregation) take `scatter_groupby` (scatter-add) or, on the sort branch,
+  `matmul_groupby` (a one-hot contraction of byte limbs; a float SUM takes
+  `sort_groupby`); general keys take `hash_groupby` (open-addressing placement) or,
+  on the sort branch, `sort_groupby` (a stable lexsort, then prefix sums and gathers
+  at the group boundaries);
 - hash join: a slot-table CSR over the build side, a gather probe and a scatter
-  expansion (`hash_join_build_slots`, `hash_join_probe_csr`);
+  expansion (`hash_join_build_slots`, `hash_join_probe_csr`), or, on the sort branch,
+  the sorted build hashes searched by the probe hashes (`_hash_join_pairs_sorted`);
+  `bloom_query_device` tests probe keys against a bloom built on the host;
 - window functions: a stable sort by (partition, order) keys, then cumulative scans
   and boundary gathers over the partition and peer runs (`window_eval`).
 
 The skew-aware hybrid join of `parallel/mpp.py` classifies rows with `hot_key_mask`
-and probes its unioned lanes with `hash_join_probe_hybrid`, the same CSR pipeline.
+and probes its unioned lanes with `hash_join_probe_hybrid`, the CSR pipeline on both
+branches, as in the reference.
 
 The four kernel call sites — build-row slots, probe-row slots, pair expansion and group
-placement — go through `cuda_join` / `cuda_agg`, whose wrappers launch the hand-written
-CUDA kernel for a CUDA tensor and run the plain version for a CPU tensor.  Output
-capacities are arguments; kernels report `overflow` so the caller can re-bucket and
-retry.  Dead rows ride `live` masks and are never compacted implicitly.
+placement — sit on the scatter branch and go through `cuda_join` / `cuda_agg`, whose
+wrappers launch the hand-written CUDA kernel for a CUDA tensor and run the plain version
+for a CPU tensor.  The sort branch's sorts, searches and products are torch calls, as
+they are plain XLA in the reference.  Output capacities are arguments; kernels report
+`overflow` so the caller can re-bucket and retry.  Dead rows ride `live` masks and are
+never compacted implicitly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -49,9 +62,37 @@ class GroupByResult(NamedTuple):
     overflow: Any                  # scalar bool
 
 
+FORMULATIONS = ("scatter", "sort")
+
+_FORMULATION_TLS = threading.local()
+
+
+def formulation() -> str:
+    """The calling thread's formulation branch: 'scatter' (the default on every
+    device) or 'sort' (the reference's accelerator branch)."""
+    return getattr(_FORMULATION_TLS, "name", "scatter")
+
+
+@contextlib.contextmanager
+def formulation_scope(name: str):
+    """Run the calling thread's statements on one formulation branch (thread-local,
+    as the reference's `kernel_scope`: concurrent sessions keep their own)."""
+    if name not in FORMULATIONS:
+        raise ValueError(f"unknown formulation {name!r}")
+    prev = formulation()
+    _FORMULATION_TLS.name = name
+    try:
+        yield
+    finally:
+        _FORMULATION_TLS.name = prev
+
+
 def prefer_scatter() -> bool:
-    """The scatter formulations run on every device of the port (see module doc)."""
-    return True
+    """The reference's seam: True takes the scatter and hash formulations, False the
+    sort and matmul ones.  True unless the thread is inside `formulation_scope("sort")`;
+    read when each function runs, so a cache holding state one branch built carries
+    `formulation()` in its key."""
+    return formulation() == "scatter"
 
 
 def _neutral(dtype: torch.dtype, kind: str):
@@ -174,6 +215,221 @@ def scatter_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
     return GroupByResult(tuple(out_keys), tuple(out_aggs), out_live, num_groups, False)
 
 
+def _sort_lane(data):
+    """A key lane as the sort compares it: booleans as int8, and floats with -0.0 made
+    +0.0 and every NaN one NaN, the reference's sort comparator's canonical form (a
+    radix sort on the card would otherwise split -0.0 from +0.0).  Equality of
+    adjacent canonical values finds the same group boundaries as the raw values."""
+    if data.dtype == torch.bool:
+        return data.to(torch.int8)
+    if data.dtype.is_floating_point:
+        d = torch.where(data == 0, torch.zeros_like(data), data)
+        return torch.where(torch.isnan(d), torch.full_like(d, float("nan")), d)
+    return data
+
+
+def sort_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
+                 inputs: Sequence[Tuple[Any, Optional[Any]]],
+                 specs: Sequence[AggSpec],
+                 live: Any,
+                 max_groups: int) -> GroupByResult:
+    """Grouped aggregation by sort: rows are lexsorted on (dead, key lanes) with a NULL
+    flag per nullable key, so groups are contiguous runs; every reduction is a prefix
+    sum differenced at the run boundaries (min/max a segmented scan read at each run's
+    last row).  No scatter-add and no atomics.
+
+    Groups come out in key order, compacted to a prefix of `max_groups` slots (NULL
+    keys sort after every value; dead slots past `num_groups`); `overflow` (a tensor)
+    is True when there are more groups than slots, and the caller retries with more."""
+    n = keys[0][0].shape[0] if keys else live.shape[0]
+    device = live.device
+    idx = torch.arange(max_groups, dtype=torch.int64, device=device)
+    dead = ~live
+
+    # null flag participates in grouping (SQL GROUP BY: NULLs form one group)
+    key_lanes: List[Any] = []
+    for data, valid in keys:
+        if valid is not None:
+            key_lanes.append((~valid).to(torch.int8))
+            key_lanes.append(_sort_lane(torch.where(valid, data, torch.zeros_like(data))))
+        else:
+            key_lanes.append(_sort_lane(data))
+    order = lexsort_major_first([dead.to(torch.int8)] + key_lanes)
+    live_s = live[order]
+
+    new_group = torch.zeros(n, dtype=torch.bool, device=device)
+    if n:
+        for lane in key_lanes:
+            lane_s = lane[order]
+            new_group[1:] |= lane_s[1:] != lane_s[:-1]
+        new_group &= live_s
+        new_group[0] = live_s[0]
+    num_groups = new_group.to(torch.int32).sum()
+    overflow = num_groups > max_groups
+
+    # run starts: the first max_groups + 1 positions of new_group, padded with n (the
+    # reference's fixed-size nonzero); rows past them write into a spare slot
+    ordinal = torch.cumsum(new_group.to(torch.int64), 0) - 1
+    slot = torch.where(new_group & (ordinal <= max_groups), ordinal,
+                       torch.full_like(ordinal, max_groups + 1))
+    starts_raw = torch.full((max_groups + 2,), n, dtype=torch.int64, device=device)
+    starts_raw.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=device))
+    starts = starts_raw[:max_groups]
+    # dead rows sort to the end, so group g covers sorted rows [starts[g], ends[g]);
+    # the LAST live group's end is the count of live rows, not n
+    n_live = live_s.to(torch.int64).sum()
+    ends = torch.minimum(starts_raw[1:max_groups + 1], n_live)
+    gvalid = starts < n_live
+    starts_c = torch.clamp(starts, 0, max(n - 1, 0))
+
+    def run_reduce_sum(masked):
+        c0 = torch.cat([torch.zeros(1, dtype=masked.dtype, device=device),
+                        torch.cumsum(masked, 0, dtype=masked.dtype)])
+        return c0[ends] - c0[starts_c]
+
+    out_keys = []
+    for data, valid in keys:
+        out_keys.append((_gather(data[order], starts_c),
+                         None if valid is None else _gather(valid[order], starts_c)))
+
+    out_aggs: List[Tuple[Any, Any]] = []
+    for spec in specs:
+        if spec.kind == "count_star":
+            out_aggs.append((run_reduce_sum(live_s.to(torch.int64)), None))
+            continue
+        data, valid = inputs[spec.arg]
+        d_s = data[order]
+        present = live_s if valid is None else (live_s & valid[order])
+        if spec.kind == "count":
+            out_aggs.append((run_reduce_sum(present.to(torch.int64)), None))
+        elif spec.kind in ("sum", "sum_float"):
+            if d_s.dtype.is_floating_point:
+                masked = torch.where(present, d_s, torch.zeros_like(d_s))
+            else:
+                masked = torch.where(present, d_s.to(torch.int64),
+                                     torch.zeros((), dtype=torch.int64, device=device))
+            nonempty = run_reduce_sum(present.to(torch.int32)) > 0
+            out_aggs.append((run_reduce_sum(masked), nonempty))
+        elif spec.kind in ("min", "max"):
+            masked = torch.where(present, d_s,
+                                 torch.full_like(d_s, _neutral(d_s.dtype, spec.kind)))
+            # segmented running min/max restarting at each run boundary; the last
+            # row of each run then holds the run's reduction
+            m = _segmented_scan(masked, new_group, spec.kind == "min")
+            last = torch.clamp(ends - 1, 0, max(n - 1, 0))
+            nonempty = run_reduce_sum(present.to(torch.int32)) > 0
+            out_aggs.append((_gather(m, last), nonempty))
+        else:
+            raise ValueError(f"unknown agg kind {spec.kind}")
+
+    kept = torch.clamp(num_groups, max=max_groups)
+    out_live = gvalid & (idx < kept)
+    return GroupByResult(tuple(out_keys), tuple(out_aggs), out_live,
+                         kept.to(torch.int32), overflow)
+
+
+# rows of one contraction of `matmul_groupby`: a float64 product of 0..255 limbs and
+# 0/1 one-hot columns stays exact while rows * 255 < 2^53; the size bounds the
+# [rows, lanes] and [rows, D] operands' memory
+MATMUL_CHUNK = 1 << 20
+# cells of one [rows, D] masked min/max slab of `matmul_groupby`
+MATMUL_MINMAX_CELLS = 1 << 25
+
+
+def matmul_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
+                   inputs: Sequence[Tuple[Any, Optional[Any]]],
+                   specs: Sequence[AggSpec],
+                   live: Any,
+                   domains: Sequence[int]) -> GroupByResult:
+    """Small-domain grouped aggregation as a matrix product: no sort, no scatter.
+
+    The group id enumerates the key-domain cross product, and the per-slot counts and
+    sums are `A^T @ onehot(gid)`, where A holds a 1 per live row, a presence lane per
+    input and the 8 bytes of each SUM input.  Each byte lane sums exactly and the byte
+    sums recombine with shifts mod 2^64, so the sums wrap as int64 arithmetic does (the
+    reference's int8 byte limbs, byte - 128, sum to the same values).  min/max are
+    masked reductions over [rows, D] slabs.  Float SUMs are not supported (the dispatch
+    sends them to `sort_groupby`).
+
+    Slots are in domain order (major key .. minor key, NULL slot last), not compacted;
+    `live` marks the non-empty slots; `overflow` is always False."""
+    n = live.shape[0]
+    device = live.device
+    gid, sizes, D = _domain_gid(keys, domains, n, device)
+    idx = torch.arange(D, dtype=torch.int32, device=device)
+
+    # lane plan: [live] + [present per distinct input] + [8 bytes per sum input]
+    present_lane: dict = {}
+    present_of: List[Any] = []
+    for spec in specs:
+        if spec.arg >= 0 and spec.arg not in present_lane:
+            _dta, val = inputs[spec.arg]
+            present_lane[spec.arg] = len(present_of)
+            present_of.append(live if val is None else (live & val))
+    sum_args = sorted({s.arg for s in specs if s.kind == "sum" and s.arg >= 0})
+    limb_base = {a: 1 + len(present_of) + 8 * i for i, a in enumerate(sum_args)}
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+
+    acc = torch.zeros((1 + len(present_of) + 8 * len(sum_args), D), dtype=torch.int64,
+                      device=device)
+    for s0 in range(0, n, MATMUL_CHUNK):
+        s1 = min(s0 + MATMUL_CHUNK, n)
+        lv = live[s0:s1]
+        parts = [torch.stack([lv] + [p[s0:s1] for p in present_of], 1)
+                 .to(torch.float64)]
+        for a in sum_args:
+            pres = present_of[present_lane[a]][s0:s1]
+            v = torch.where(pres, inputs[a][0][s0:s1].to(torch.int64), zero)
+            # little-endian bytes: column j is (v >> 8j) & 0xFF
+            parts.append(v.contiguous().view(torch.uint8).view(s1 - s0, 8)
+                         .to(torch.float64))
+        A = torch.cat(parts, 1)
+        onehot = ((gid[s0:s1, None] == idx[None, :]) & lv[:, None]).to(torch.float64)
+        acc += (A.t() @ onehot).to(torch.int64)
+
+    live_cnt = acc[0]
+    out_live = live_cnt > 0
+    num_groups = out_live.to(torch.int32).sum()
+
+    def decode_sum(a: int) -> Any:
+        total = torch.zeros(D, dtype=torch.int64, device=device)
+        for j in range(8):
+            total = total + (acc[limb_base[a] + j] << (8 * j))
+        return total
+
+    def masked_reduce(dta, pres, kind: str) -> Any:
+        neutral = _neutral(dta.dtype, kind)
+        red = torch.full((D,), neutral, dtype=dta.dtype, device=device)
+        fill = torch.full((), neutral, dtype=dta.dtype, device=device)
+        step = max(1, MATMUL_MINMAX_CELLS // max(D, 1))
+        for s0 in range(0, n, step):
+            s1 = min(s0 + step, n)
+            sel = (gid[s0:s1, None] == idx[None, :]) & pres[s0:s1, None]
+            m = torch.where(sel, dta[s0:s1, None], fill)
+            red = torch.minimum(red, m.amin(0)) if kind == "min" else \
+                torch.maximum(red, m.amax(0))
+        return red
+
+    out_keys = _domain_out_keys(keys, domains, sizes, D, device)
+    out_aggs: List[Tuple[Any, Any]] = []
+    for spec in specs:
+        if spec.kind == "count_star":
+            out_aggs.append((live_cnt, None))
+            continue
+        pres_cnt = acc[1 + present_lane[spec.arg]]
+        if spec.kind == "count":
+            out_aggs.append((pres_cnt, None))
+        elif spec.kind == "sum":
+            out_aggs.append((decode_sum(spec.arg), pres_cnt > 0))
+        elif spec.kind in ("min", "max"):
+            out_aggs.append((masked_reduce(inputs[spec.arg][0],
+                                           present_of[present_lane[spec.arg]],
+                                           spec.kind), pres_cnt > 0))
+        else:
+            raise ValueError(f"unsupported matmul agg kind {spec.kind}")
+    return GroupByResult(tuple(out_keys), tuple(out_aggs), out_live, num_groups, False)
+
+
 def _ident_lanes(keys):
     """Per-key (data_canon, valid) identity lanes for hashing/equality.
 
@@ -236,13 +492,23 @@ def hash_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
 
 
 def groupby(keys, inputs, specs, live, max_groups, domains=None):
-    """Grouped aggregation dispatch: dense slots for small static domains (and global
-    aggregation), hash placement otherwise."""
+    """Grouped aggregation dispatch on `prefer_scatter()`, the reference's: small
+    static domains (and global aggregation) take the dense slots of `scatter_groupby`,
+    or of `matmul_groupby` on the sort branch unless a SUM is over floats; general
+    keys take `hash_groupby`, or `sort_groupby` on the sort branch."""
     if domains is None and not keys:
-        domains = []  # global aggregation: one dense slot, never hash
+        domains = []  # global aggregation: one dense slot, never hash/sort
     if domains is not None:
-        return scatter_groupby(keys, inputs, specs, live, domains)
-    return hash_groupby(keys, inputs, specs, live, max_groups)
+        if prefer_scatter():
+            return scatter_groupby(keys, inputs, specs, live, domains)
+        float_sum = any(
+            s.kind in ("sum", "sum_float") and s.arg >= 0 and
+            inputs[s.arg][0].dtype.is_floating_point for s in specs)
+        if not float_sum:
+            return matmul_groupby(keys, inputs, specs, live, domains)
+    if prefer_scatter():
+        return hash_groupby(keys, inputs, specs, live, max_groups)
+    return sort_groupby(keys, inputs, specs, live, max_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +538,86 @@ def hash_join_pairs(build_keys: Sequence[Tuple[Any, Optional[Any]]],
                     build_live: Any,
                     probe_live: Any,
                     cap: int) -> JoinPairs:
-    """Equi-join match enumeration: verified (build, probe) index pairs, through the
-    slot-table CSR formulation.  NULL join keys never match."""
+    """Equi-join match enumeration: verified (build, probe) index pairs.  NULL join
+    keys never match.  Dispatch on `prefer_scatter()`, the reference's: the slot-table
+    CSR (`_hash_join_pairs_table`), or the sorted build hashes
+    (`_hash_join_pairs_sorted`) on the sort branch."""
+    if prefer_scatter():
+        return _hash_join_pairs_table(build_keys, probe_keys, build_live, probe_live,
+                                      cap)
+    return _hash_join_pairs_sorted(build_keys, probe_keys, build_live, probe_live, cap)
+
+
+def _no_pairs(cap: int, device) -> JoinPairs:
+    """The pairs of an empty probe side: `cap` dead slots."""
+    zero = torch.zeros(cap, dtype=torch.int64, device=device)
+    empty = torch.zeros(0, dtype=torch.int64, device=device)
+    return JoinPairs(zero, zero, torch.zeros(cap, dtype=torch.bool, device=device),
+                     torch.zeros(0, dtype=torch.bool, device=device), empty, empty,
+                     False)
+
+
+# flipping the sign bit of int64 lanes holding uint64 bits makes their signed order
+# the unsigned order of the bits (torch sorts and searches int64, never uint64)
+_SIGN_BIT = -(1 << 63)
+
+
+def _hash_join_pairs_sorted(build_keys, probe_keys, build_live, probe_live,
+                            cap: int) -> JoinPairs:
+    """The reference's accelerator join: a stable argsort of the build hashes, two
+    binary searches of each probe hash for its candidate run, a ragged expansion of
+    the runs into `cap` pair slots by a search over the running offsets, and a verify
+    of every candidate on the key lanes.  Hashes are ordered as uint64, as the
+    reference orders them; dead and NULL-key build rows take the all-ones hash, which
+    sorts last and is never verified."""
+    b_live = _effective_live(build_keys, build_live)
+    p_live = _effective_live(probe_keys, probe_live)
+    nb = build_keys[0][0].shape[0]
+    npr = probe_keys[0][0].shape[0]
+    device = p_live.device
+    if npr == 0:
+        return _no_pairs(cap, device)
+
+    h_b = torch.where(b_live, hash_columns(build_keys),
+                      torch.full((), -1, dtype=torch.int64, device=device))
+    h_b = h_b ^ _SIGN_BIT
+    perm = torch.argsort(h_b, stable=True)
+    h_sorted = h_b[perm].contiguous()
+    h_p = (hash_columns(probe_keys) ^ _SIGN_BIT).contiguous()
+    left = torch.searchsorted(h_sorted, h_p, side="left")
+    right = torch.searchsorted(h_sorted, h_p, side="right")
+    counts = torch.where(p_live, right - left,
+                         torch.zeros((), dtype=torch.int64, device=device))
+
+    offsets = torch.cumsum(counts, 0)
+    total = offsets[-1]
+    overflow = total > cap
+    starts = offsets - counts
+
+    # ragged expansion: slot j -> probe row p, its k-th candidate
+    slots = torch.arange(cap, dtype=torch.int64, device=device)
+    p_of = torch.clamp(torch.searchsorted(offsets, slots, side="right"), 0, npr - 1)
+    k = slots - starts[p_of]
+    pair_live = slots < torch.clamp(total, max=cap)
+    bpos = torch.clamp(left[p_of] + k, 0, max(nb - 1, 0))
+    b_of = _gather(perm, bpos)
+
+    # verify candidate pairs on the actual key lanes (hash collisions filtered here)
+    verified = pair_live
+    for (bd, _bv), (pd, _pv) in zip(build_keys, probe_keys):
+        verified = verified & (_gather(bd, b_of) == pd[p_of])
+    verified = verified & _gather(b_live, b_of) & p_live[p_of]
+
+    # pair slots are ordered by probe row: "any verified" is a prefix-sum range query
+    probe_matched = probe_matched_from(verified, starts, offsets)
+    return JoinPairs(b_of, p_of, verified, probe_matched, starts, offsets, overflow)
+
+
+def _hash_join_pairs_table(build_keys, probe_keys, build_live, probe_live,
+                           cap: int) -> JoinPairs:
+    """The scatter branch's join: a slot-table CSR over the build side, a gather
+    probe and a scatter expansion (`_device_csr` + `hash_join_probe_csr`, the
+    pipeline the hybrid probe rides too)."""
     nb = build_keys[0][0].shape[0]
     perm, slot_starts, slot_counts, M = _device_csr(build_keys, build_live, nb)
     return hash_join_probe_csr(build_keys, probe_keys, build_live, probe_live,
@@ -318,13 +662,9 @@ def hash_join_probe_csr(build_keys, probe_keys, build_live, probe_live,
     nb = build_keys[0][0].shape[0]
     npr = probe_keys[0][0].shape[0]
     device = p_live.device
-    slots = torch.arange(cap, dtype=torch.int64, device=device)
     if npr == 0:
-        zero = torch.zeros(cap, dtype=torch.int64, device=device)
-        empty = torch.zeros(0, dtype=torch.int64, device=device)
-        return JoinPairs(zero, zero, torch.zeros(cap, dtype=torch.bool, device=device),
-                         torch.zeros(0, dtype=torch.bool, device=device), empty, empty,
-                         False)
+        return _no_pairs(cap, device)
+    slots = torch.arange(cap, dtype=torch.int64, device=device)
 
     keys = [(d.contiguous(), None if v is None else v.contiguous()) for d, v in probe_keys]
     s_p = cuda_join.hash_slots(keys, M).to(torch.int64)
@@ -391,6 +731,20 @@ def probe_matched_from(pair_live: Any, starts: Any, offsets: Any) -> Any:
     s = torch.clamp(starts, 0, cap)
     e = torch.clamp(offsets, 0, cap)
     return (c[e] - c[s]) > 0
+
+
+def bloom_query_device(keys: Any, words: Any) -> Any:
+    """Membership of each key in a bloom filter whose words were built on the host
+    (`galaxysql_tpu_torch.native.bloom_build`, the reference's layout: two bits a key
+    from SplitMix64, in int64 words holding the uint64 bits).  Word indices are
+    logical shifts (`lsr`); a bit test of an arithmetic shift reads the same bit."""
+    h = _mix64(keys.to(torch.int64))
+    m = words.shape[0] - 1
+    w1 = words[lsr(h, 6) & m]
+    w2 = words[lsr(h, 38) & m]
+    hit1 = (w1 >> (h & 63)) & 1
+    hit2 = (w2 >> (lsr(h, 32) & 63)) & 1
+    return (hit1 & hit2).to(torch.bool)
 
 
 # ---------------------------------------------------------------------------

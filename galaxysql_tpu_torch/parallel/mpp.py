@@ -596,7 +596,7 @@ class MppExecutor:
         fkey = fc.fingerprint(node, self.ctx)
         if fkey is None:
             return self._aggregate(node)
-        akey = ("mpp_agg", fkey.key, self.S, id(self.mesh))
+        akey = ("mpp_agg", fkey.key, self.S, id(self.mesh), K.formulation())
         got = cache.get(akey)
         if got is not None:
             self.ctx.trace.append(
@@ -829,7 +829,8 @@ class MppExecutor:
                 # RUNTIME_FILTER(OFF) run must not poison the filters-on path
                 rf_sig = tuple(sorted((s.filter_id, tuple(sorted(s.kinds)))
                                       for s in active_specs))
-                akey = ("mpp_build", fkey.key, self.S, id(self.mesh), rf_sig)
+                akey = ("mpp_build", fkey.key, self.S, id(self.mesh), rf_sig,
+                        K.formulation())
                 art = cache.get(akey)
                 if art is not None:
                     self.ctx.trace.append(
@@ -911,21 +912,27 @@ class MppExecutor:
             for s in range(self.S):
                 moved = _unpack_lanes(glanes[s], pairs[s])
                 per_shard.append((dict(zip(ids, moved)), glive[s]))
+        # the sort branch builds no CSR: each shard's pairs come from the sorted
+        # build hashes (`K.hash_join_pairs`), as in the reference's broadcast join
         csrs: Dict[int, Any] = {}
+        scatter = K.prefer_scatter()
         while True:
             outs = []
             for s in range(self.S):
                 dev = self.devices[s]
                 bk, pk = self._join_key_fns(build_keys, probe_keys, dev)
                 benv, blive = per_shard[s]
-                csr = csrs.get(id(blive))
-                if csr is None:
-                    bkeys = [f(benv) for f in bk]
-                    csr = K._device_csr(bkeys, blive, int(blive.shape[0]))
-                    csrs[id(blive)] = csr
+                pairs_fn = K.hash_join_pairs
+                if scatter:
+                    csr = csrs.get(id(blive))
+                    if csr is None:
+                        bkeys = [f(benv) for f in bk]
+                        csr = K._device_csr(bkeys, blive, int(blive.shape[0]))
+                        csrs[id(blive)] = csr
+                    pairs_fn = _csr_pairs(csr)
                 res, over = _join_block(benv, blive, probe.env(s), probe.live[s], bk, pk,
                                         node.kind, self._residual(node, dev), cap,
-                                        build_ids, probe_ids, pairs_fn=_csr_pairs(csr))
+                                        build_ids, probe_ids, pairs_fn=pairs_fn)
                 if any_flag([over]):
                     break  # the one flag of the round: retry at once with 2 cap
                 outs.append(res)
@@ -1064,16 +1071,21 @@ class MppExecutor:
             cls.append((hot_b, hot_p, K.hash_columns(bkeys), K.hash_columns(pkeys)))
 
         def compact_hot(env, hot_mask, ids, q):
-            """Rows under `hot_mask` compacted into a [q] lane env (rank scatter)."""
+            """Rows under `hot_mask` compacted into a [q] lane env: a rank scatter on
+            the scatter branch, the first q of a stable argsort (live rows first) on
+            the sort branch, as in the reference."""
             dev = hot_mask.device
             over = hot_mask.to(torch.int32).sum() > q
-            rank = torch.cumsum(hot_mask.to(torch.int64), 0) - 1
-            pos = torch.where(hot_mask & (rank < q), rank,
-                              torch.full_like(rank, q))
-            slots = torch.full((q + 1,), hot_mask.shape[0], dtype=torch.int64,
-                               device=dev)
-            slots[pos] = torch.arange(hot_mask.shape[0], device=dev)
-            slots = slots[:q]
+            if K.prefer_scatter():
+                rank = torch.cumsum(hot_mask.to(torch.int64), 0) - 1
+                pos = torch.where(hot_mask & (rank < q), rank,
+                                  torch.full_like(rank, q))
+                slots = torch.full((q + 1,), hot_mask.shape[0], dtype=torch.int64,
+                                   device=dev)
+                slots[pos] = torch.arange(hot_mask.shape[0], device=dev)
+                slots = slots[:q]
+            else:
+                slots = torch.argsort((~hot_mask).to(torch.int8), stable=True)[:q]
 
             def compact(lane):
                 return exchange._take(lane, slots)
