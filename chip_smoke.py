@@ -204,6 +204,21 @@ CPU twin; no data is loaded:
     ordering, and timed beside the twin as the kernels are.  The launches under the
     scope are the kernels line's `formulations` entries.
 
+9g. tp_host: the reference's TP host engine (a statement gets the device cache only
+    when its plan is AP and ENABLE_TPU_ENGINE holds; otherwise its scans yield host
+    batches that Filter, Project and fused segments run with numpy).  (a) The C++
+    host runtime (`galaxysql_tpu_torch/native`) is live.  (b) TP_HOST_STATEMENTS on
+    small tables of a fresh card instance equal a fresh CPU instance's bit for bit
+    (the first three gave float32 answers before the host engine), each planned TP.
+    (c) `torch.profiler` with CUDA activity sees no CUDA kernel and no copy while
+    TP_HOST_PROFILED runs (a host scan under Filter and Project, off the point-plan
+    fast path) and some while TP_HOST_AP_CONTROL runs on the main path's instance.
+    (d) TP_HOST_QUERIES (Q1, Q6) at --sf on the main path's instance with
+    ENABLE_TPU_ENGINE = 1 and = 0 in its session, once and TP_HOST_WARM times each:
+    the engine-off rows equal the engine-on rows (floats within 1e-6).  (e) The p50
+    and p99 of TP_HOST_PROFILED over TP_HOST_P50_RUNS runs.  Its launches are the
+    kernels line's `tp_host` entries.
+
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
 order, and every result must be equal (the queries before the refresh run on the card
@@ -494,9 +509,11 @@ DML_CPU_QUERIES = (4, 5, 6, 10, 12, 21)
 DML_CARD_ONLY = (18,)
 # analyzed_tpch queries not compared on the CPU at SF 1 (for time: Q20's CPU
 # twin takes 29-38 s, Q16's and Q17's 5.9 s each, Q21's 4.8 s, Q7's 3.5 s, Q15's
-# 3.3 s and Q13's 2.4 s); tests/test_torch_tpch.py holds them to the reference at SF
-# 0.01, and the formulations phase holds their card rows on two formulation branches
-ANALYZED_CARD_ONLY = (7, 13, 15, 16, 17, 20, 21)
+# 3.3 s, Q13's 2.4 s, and, cut to make room for the tp_host phase, Q9's 2.0 s, Q8's
+# 1.4 s, Q2's 1.3 s and Q10's 1.2 s); tests/test_torch_tpch.py holds them to the
+# reference at SF 0.01, and the formulations phase holds their card rows on two
+# formulation branches
+ANALYZED_CARD_ONLY = (2, 7, 8, 9, 10, 13, 15, 16, 17, 20, 21)
 # window queries not compared on the CPU at SF 1 (for time: the CPU twin's
 # w_one_partition takes 7.3 s); tests/test_torch_window.py holds it to the reference
 WINDOW_CARD_ONLY = ("w_one_partition",)
@@ -3604,6 +3621,172 @@ def formulations_phase(gi, analyzed_rows, sf):
         entry = _formulation_check(name, args, source[name])
         out["checks"].append(entry)
         say("formulations_check", **entry)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the TP host engine -------------------------------------------------------------
+
+TP_HOST_SETUP = (
+    "CREATE DATABASE tp", "USE tp",
+    "CREATE TABLE t (id INT PRIMARY KEY, a INT, f DOUBLE)",
+    "INSERT INTO t VALUES (1, 10, 0.1), (2, 7, 0.2)",
+    "CREATE TABLE s (id INT PRIMARY KEY, a INT, g DOUBLE, name VARCHAR(8)) "
+    "PARTITION BY HASH(id) PARTITIONS 3",
+    "INSERT INTO s VALUES " + ", ".join(
+        f"({i}, {i % 7}, {(i % 11) / 4}, '{'xyz'[i % 3]}{i % 5}')" for i in range(1, 41)),
+    "INSERT INTO s VALUES (41, NULL, NULL, NULL)",
+    "CREATE TABLE u (tid INT, b VARCHAR(8))",
+    "INSERT INTO u VALUES (1, 'one'), (2, 'two'), (2, 'deux'), (9, 'nine')",
+)
+# TP statements over the small tables, held to the port on the CPU bit for bit; the
+# first three gave float32 answers before the host engine (ROADMAP Queue 3 item 17)
+TP_HOST_STATEMENTS = (
+    "SELECT a / 3 FROM t WHERE id = 1",
+    "SELECT a / 3, f * 3 FROM t ORDER BY id",
+    "SELECT id FROM t WHERE f = 0.1",
+    "SELECT id, a / 4, g * 3, g > 0.5 FROM s WHERE g < 2.25",
+    "SELECT a, COUNT(*), SUM(id), MIN(name), MAX(g) FROM s WHERE g < 2 GROUP BY a "
+    "ORDER BY a",
+    "SELECT name, SUM(g * 3), AVG(a / 2) FROM s GROUP BY name ORDER BY name",
+    "SELECT s.id, u.b FROM s JOIN u ON s.id = u.tid WHERE s.g * 3 > 0.1 "
+    "ORDER BY s.id, u.b",
+    "SELECT id FROM s WHERE a > (SELECT AVG(a) FROM t) ORDER BY id",
+    "SELECT DISTINCT g * 3 FROM s WHERE id < 12 ORDER BY 1",
+    "SELECT a / 3 FROM t UNION ALL SELECT g * 3 FROM s WHERE id < 4",
+    "SELECT id, ROW_NUMBER() OVER (PARTITION BY a ORDER BY id), "
+    "SUM(g) OVER (PARTITION BY a ORDER BY id) FROM s ORDER BY id",
+    "SELECT 1 / 3, 2.5 * 3, 0.1 + 0.2",
+)
+# a host scan under Filter and Project, outside the point-plan fast path
+TP_HOST_PROFILED = "SELECT id, a / 3, g * 3 FROM s WHERE g > 1"
+TP_HOST_AP_CONTROL = "SELECT SUM(l_quantity), COUNT(*) FROM lineitem WHERE l_discount > 0.05"
+TP_HOST_QUERIES = (1, 6)    # at --sf with ENABLE_TPU_ENGINE = 0 and = 1
+TP_HOST_WARM = 2            # warm runs of each, each way
+TP_HOST_P50_RUNS = 200      # runs of TP_HOST_PROFILED for its p50
+
+
+def _cuda_activity(fn):
+    """(CUDA kernels, CUDA memory copies, their names) that `torch.profiler` saw
+    while `fn` ran, with CUDA activity traced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.name.lower().startswith("memcpy") or
+              e.name.lower().startswith("memset")]
+    kernels = [e for e in events if e not in copies]
+    return len(kernels), len(copies), sorted({e.name[:60] for e in events})[:6]
+
+
+def tp_host_phase(inst, sf):
+    """The reference's TP host engine on the card: (a) the C++ host runtime is live;
+    (b) TP_HOST_STATEMENTS over small tables on a card instance equal the port on the
+    CPU bit for bit; (c) `torch.profiler` sees no CUDA kernel while
+    TP_HOST_PROFILED runs and some while TP_HOST_AP_CONTROL runs on the main path's
+    instance `inst`; (d) TP_HOST_QUERIES at `sf` with ENABLE_TPU_ENGINE = 0 equal
+    their engine-on rows (floats within 1e-6), warm ms both ways; (e) the p50 of
+    TP_HOST_PROFILED on the card."""
+    import torch
+    from galaxysql_tpu_torch import native
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    t_phase = time.perf_counter()
+    out = {"native_available": native.AVAILABLE, "native_build_error": native.BUILD_ERROR}
+    if not out["native_available"]:
+        raise AssertionError(f"tp_host: the C++ host runtime is not live: "
+                             f"{native.BUILD_ERROR}")
+    launches0 = _launch_counts()
+    steps = {}
+    t_step = time.perf_counter()
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = now - t_step
+        t_step = now
+    gs = Session(_frag_off(Instance(device="cuda")))
+    cs = Session(_frag_off(Instance(device="cpu")))
+    try:
+        for sql in TP_HOST_SETUP:
+            gs.execute(sql)
+            cs.execute(sql)
+        # (b) bit for bit against the CPU
+        for sql in TP_HOST_STATEMENTS:
+            got, want = gs.execute(sql), cs.execute(sql)
+            if got.rows != want.rows:
+                raise AssertionError(f"tp_host: {sql}: card {got.rows[:3]} != CPU "
+                                     f"{want.rows[:3]}")
+            if gs.last_trace[-1].split("workload=")[-1] != "TP":
+                raise AssertionError(f"tp_host: {sql} did not plan TP")
+        out["statements"] = len(TP_HOST_STATEMENTS)
+        step("statements_s")
+        rs = gs.execute(TP_HOST_PROFILED)
+        if rs.batch.host is None:
+            raise AssertionError("tp_host: the profiled statement's result left the host")
+        # (c) no CUDA kernel for a host-run TP statement; some for an AP one
+        kernels, copies, names = _cuda_activity(lambda: gs.execute(TP_HOST_PROFILED))
+        out["tp_profile"] = {"cuda_kernels": kernels, "cuda_copies": copies,
+                             "names": names}
+        if kernels or copies:
+            raise AssertionError(f"tp_host: {TP_HOST_PROFILED} ran on the card: "
+                                 f"{out['tp_profile']}")
+        ms = Session(inst, "tpch")
+        kernels, copies, names = _cuda_activity(lambda: ms.execute(TP_HOST_AP_CONTROL))
+        out["ap_profile"] = {"cuda_kernels": kernels, "cuda_copies": copies,
+                             "names": names}
+        if kernels == 0:
+            raise AssertionError("tp_host: the profiler saw no CUDA kernel of the AP "
+                                 "control statement")
+        step("profiles_s")
+        # (d) the engine off at --sf
+        out["queries"] = {}
+        for q in TP_HOST_QUERIES:
+            line = {}
+            rows = {}
+            for label, flag in (("engine_on", 1), ("engine_off", 0)):
+                ms.execute(f"SET ENABLE_TPU_ENGINE = {flag}")
+                times = []
+                for _ in range(1 + TP_HOST_WARM):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rs = ms.execute(SQL[q])
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1000.0)
+                rows[label] = rs.rows
+                line[f"{label}_first_ms"] = times[0]
+                line[f"{label}_warm_ms"] = times[1:]
+            ms.execute("SET ENABLE_TPU_ENGINE = 1")
+            ok, floats, worst = _rows_match(rows["engine_off"], rows["engine_on"])
+            if not ok:
+                raise AssertionError(f"tp_host Q{q}: engine-off rows differ from "
+                                     f"engine-on rows: {rows['engine_off'][:2]} vs "
+                                     f"{rows['engine_on'][:2]}")
+            line.update(rows=len(rows["engine_on"]), float_cells=floats,
+                        worst_rel_diff=worst)
+            out["queries"][f"Q{q}"] = line
+        ms.close()
+        step("engine_off_queries_s")
+        # (e) the p50 of the host-run TP statement on the card
+        times = []
+        for _ in range(TP_HOST_P50_RUNS):
+            t0 = time.perf_counter()
+            gs.execute(TP_HOST_PROFILED)
+            times.append((time.perf_counter() - t0) * 1000.0)
+        out["tp_p50_ms"] = statistics.median(times)
+        out["tp_p99_ms"] = sorted(times)[int(0.99 * len(times)) - 1]
+        step("p50_s")
+    finally:
+        gs.close()
+        cs.close()
+    after = _launch_counts()
+    out["launches"] = {k: after[k] - launches0[k] for k in after}
+    out["step_s"] = steps
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6749,6 +6932,9 @@ def run(args, data_dir) -> int:
     print(card, flush=True)
     say("formulations", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf,
         **{k: v for k, v in formulations.items() if k != "queries"})
+    tp_host = tp_host_phase(inst, args.sf)
+    print(card, flush=True)
+    say("tp_host", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf, **tp_host)
     unspilled = {k: v for k, v in unspilled.items()
                  if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
@@ -6777,6 +6963,7 @@ def run(args, data_dir) -> int:
         entry["new_phases"]["placement_input"] = placement_inputs[entry["name"]]
         entry["new_phases"]["launches"]["formulations"] = \
             formulations["launches"][entry["name"]]
+        entry["new_phases"]["launches"]["tp_host"] = tp_host["launches"][entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

@@ -272,11 +272,20 @@ class ColumnBatch:
     """A batch of rows: named Columns of equal length + a `live` row mask.
 
     Rows with live=False exist physically (capacity buckets) but are logically
-    deleted.  `None` means all rows live."""
+    deleted.  `None` means all rows live.
 
-    def __init__(self, columns: Dict[str, Column], live: Optional[Any] = None):
+    `host` marks a host batch: CPU tensors that the reference would hold as numpy
+    lanes (the host scan of a statement run without a device cache, a point get,
+    VALUES).  It names the device the batch joins once it leaves the host tier
+    (`to_device`); None for every other batch.  A CPU device cannot tell the two
+    apart by the tensors' device, so the mark is explicit.  `compact`, `pad_to` and
+    `rename` keep it."""
+
+    def __init__(self, columns: Dict[str, Column], live: Optional[Any] = None,
+                 host: Optional[torch.device] = None):
         self.columns = columns
         self.live = live
+        self.host = host
 
     @property
     def capacity(self) -> int:
@@ -326,7 +335,7 @@ class ColumnBatch:
                 if bool(valid.all()):
                     valid = None
             cols[name] = Column(c.data[idx], valid, c.dtype, c.dictionary)
-        return ColumnBatch(cols, None)
+        return ColumnBatch(cols, None, self.host)
 
     def pad_to(self, capacity: int) -> "ColumnBatch":
         """Pad with dead rows up to `capacity` (capacity buckets)."""
@@ -335,7 +344,7 @@ class ColumnBatch:
         if n == capacity:
             if self.live is None:
                 return ColumnBatch(dict(self.columns),
-                                   torch.ones(n, dtype=torch.bool, device=dev))
+                                   torch.ones(n, dtype=torch.bool, device=dev), self.host)
             return self
         if n > capacity:
             raise ValueError(f"cannot pad batch of {n} down to {capacity}")
@@ -348,7 +357,7 @@ class ColumnBatch:
             valid = torch.cat([c.valid_mask(),
                                torch.zeros(pad, dtype=torch.bool, device=dev)])
             cols[name] = Column(data, valid, c.dtype, c.dictionary)
-        return ColumnBatch(cols, live)
+        return ColumnBatch(cols, live, self.host)
 
     def to_pylist(self) -> List[Tuple]:
         """Live rows as tuples of Python values."""
@@ -357,7 +366,21 @@ class ColumnBatch:
         return list(zip(*cols)) if cols else []
 
     def rename(self, mapping: Dict[str, str]) -> "ColumnBatch":
-        return ColumnBatch({mapping.get(n, n): c for n, c in self.columns.items()}, self.live)
+        return ColumnBatch({mapping.get(n, n): c for n, c in self.columns.items()},
+                           self.live, self.host)
+
+
+def to_device(b: ColumnBatch) -> ColumnBatch:
+    """A host batch as a device batch on the device its mark names (on the CPU this
+    only drops the mark); any other batch as it is.  Every operator that the
+    reference runs on jnp takes its input through here."""
+    if b.host is None:
+        return b
+    dev = b.host
+    return ColumnBatch(
+        {n: Column(c.data.to(dev), None if c.valid is None else c.valid.to(dev),
+                   c.dtype, c.dictionary) for n, c in b.columns.items()},
+        None if b.live is None else b.live.to(dev))
 
 
 def batch_from_pydict(data: Dict[str, Sequence[Any]], schema: Dict[str, dt.DataType],
@@ -370,12 +393,18 @@ def batch_from_pydict(data: Dict[str, Sequence[Any]], schema: Dict[str, dt.DataT
 
 
 def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
-    """Concatenation of compacted batches on their device (dictionaries must be shared)."""
+    """Concatenation of compacted batches on their device (dictionaries must be
+    shared).  Host batches stay host batches; mixed with device batches, they join
+    the device first."""
     batches = [b.compact() for b in batches if b.capacity]
     if not batches:
         return ColumnBatch({}, None)
     if len(batches) == 1:
         return batches[0]
+    host = batches[0].host
+    if any(b.host != host for b in batches):
+        batches = [to_device(b) for b in batches]
+        host = None
     names = batches[0].names()
     cols = {}
     for n in names:
@@ -385,4 +414,4 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
         if any(b.columns[n].valid is not None for b in batches):
             valid = torch.cat([b.columns[n].valid_mask() for b in batches])
         cols[n] = Column(data, valid, ref.dtype, ref.dictionary)
-    return ColumnBatch(cols, None)
+    return ColumnBatch(cols, None, host)

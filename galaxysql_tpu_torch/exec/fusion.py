@@ -10,7 +10,12 @@ build side's published runtime filter (`exec/runtime_filter.py`).  Nothing is
 compiled (no `torch.compile`); the composed closure is kept in the operators'
 `closure_cache` under the segment's structural key, so a repeated query does not
 rebuild it.  The runtime filter's words and range are call-time arguments, as in the
-reference, so the cached closure serves every build.
+reference, so the cached closure serves every build.  A host batch (`ColumnBatch.host`)
+of at most `TP_HOST_ROWS` rows runs the same composition on `ExprCompiler(np)` with
+the copied `RfStageRef.make_fn(np)` for its rf stages, the reference's host program,
+and stays a host batch; the aggregation and join-probe preludes see device batches
+only (their operators pull through `operators.device_batches`), as the reference's
+run inside its jitted programs.
 
 What fusion still saves in eager PyTorch: no intermediate `ColumnBatch` per operator,
 and zero-copy passthrough.  Output columns that resolve to a bare input column
@@ -42,7 +47,8 @@ import numpy as np
 import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
-                                             dictionary_translation, to_numpy)
+                                             dictionary_translation, to_device,
+                                             to_numpy)
 from galaxysql_tpu_torch.exec import operators as ops
 from galaxysql_tpu_torch.exec import runtime_filter as _rf
 from galaxysql_tpu_torch.expr import ir
@@ -224,6 +230,37 @@ def publish_on_device(manager, specs, build_batch: ColumnBatch):
     manager.note_build(round((time.perf_counter() - t0) * 1000, 3))
 
 
+def _compose(stages: Sequence[Stage], comp: ExprCompiler, rf_fn):
+    """The stages compiled by `comp` (rf stages by `rf_fn(ref)`) and composed into
+    `(env, live, rf_args[, on_stage]) -> (env', live')`: a filter stage ANDs its
+    predicate into the live mask, a project stage rebinds the environment, an rf
+    stage masks the live rows with its call-time args."""
+    compiled = []
+    for kind, payload in stages:
+        if kind == "rf":
+            compiled.append(("rf", rf_fn(payload)))
+        elif kind == "filter":
+            compiled.append(("filter", comp.compile_predicate(payload)))
+        else:
+            compiled.append(("project", [(name, comp.compile(e)) for name, e in payload]))
+
+    def apply(env, live, rf_args, on_stage=None):
+        env = dict(env)
+        ri = 0
+        for kind, fns in compiled:
+            if kind == "rf":
+                live = fns(env, live, rf_args[ri])
+                ri += 1
+            elif kind == "filter":
+                live = live & fns(env)
+            else:
+                env = {name: f(env) for name, f in fns}
+            if on_stage is not None:
+                on_stage(kind, live)
+        return env, live
+    return apply
+
+
 class FusedSegment:
     """A streaming-operator chain composed into one closure, plus the passthrough
     metadata the host needs to reattach un-computed lanes."""
@@ -307,32 +344,8 @@ class FusedSegment:
         its SQL type (unsigned lanes compare unsigned).  `on_stage(kind, live)` fires
         after each stage when given (the EXPLAIN ANALYZE counts)."""
         comp = ExprCompiler(TorchXP(device))
-        compiled = []
-        for kind, payload in self.stages:
-            if kind == "rf":
-                compiled.append(("rf", rf_stage_fn(
-                    payload, (rf_dtypes or {}).get(payload.target.out_id))))
-            elif kind == "filter":
-                compiled.append(("filter", comp.compile_predicate(payload)))
-            else:
-                compiled.append(
-                    ("project", [(name, comp.compile(e)) for name, e in payload]))
-
-        def apply(env, live, rf_args, on_stage=None):
-            env = dict(env)
-            ri = 0
-            for kind, fns in compiled:
-                if kind == "rf":
-                    live = fns(env, live, rf_args[ri])
-                    ri += 1
-                elif kind == "filter":
-                    live = live & fns(env)
-                else:
-                    env = {name: f(env) for name, f in fns}
-                if on_stage is not None:
-                    on_stage(kind, live)
-            return env, live
-        return apply
+        return _compose(self.stages, comp, lambda payload: rf_stage_fn(
+            payload, (rf_dtypes or {}).get(payload.target.out_id)))
 
     def _apply_for(self, batch: ColumnBatch):
         device = batch.device
@@ -349,6 +362,45 @@ class FusedSegment:
         got = ops.closure_cache(key, lambda: self.build_apply(device, rf_dtypes))
         self._apply_memo[str(device)] = got
         return got
+
+    def _apply_np(self):
+        """The stage composition on the numpy expression backend, the reference's
+        `_program(False)`: runtime-filter stages lowered by the copied
+        `RfStageRef.make_fn(np)`, over the lanes' host views."""
+        return ops.closure_cache(("fused-np", self.key()), lambda: _compose(
+            self.stages, ExprCompiler(np), lambda payload: payload.make_fn(np)))
+
+    def _rf_args_np(self) -> Tuple:
+        """Each rf stage's call-time args with its bloom flags as a host array."""
+        got = self._dev_args.get("np")
+        if got is None:
+            got = tuple((to_numpy(a[0]), a[1], a[2]) if a else ()
+                        for a in (r.runtime_args() for r in self.rf_refs))
+            self._dev_args["np"] = got
+        return got
+
+    def _run_host(self, batch: ColumnBatch, sink):
+        """`run_batch`'s host branch: the segment over a host batch with numpy, the
+        result a host batch; (result, per-stage live counts or None)."""
+        n = batch.capacity
+        live_in = batch.np_live()
+        counts = None
+        on_stage = None
+        if sink is not None:
+            counts = [int(live_in.sum())]
+
+            def on_stage(_kind, lv):
+                counts.append(int(np.broadcast_to(lv, (n,)).sum()))
+        env, live = self._apply_np()(ops._host_env(batch), live_in,
+                                     self._rf_args_np(), on_stage)
+        live = np.broadcast_to(np.asarray(live), (n,))
+        out = {}
+        for name in self.computed:
+            d, v = env[name]
+            out[name] = (ops.host_lane(d, n), ops.host_lane(v, n))
+        result = ColumnBatch(self.attach_columns(batch.columns, out),
+                             ops.host_lane(live, n), batch.host)
+        return result, (None if counts is None else np.array(counts, dtype=np.int64))
 
     def apply_batch(self, batch: ColumnBatch, on_stage=None):
         """(env', live') of the segment over one batch: the prelude form HashAggOp's
@@ -377,11 +429,29 @@ class FusedSegment:
         return cols
 
     def run_batch(self, batch: ColumnBatch) -> ColumnBatch:
-        """Apply the segment to one ColumnBatch."""
+        """Apply the segment to one ColumnBatch.  As FilterOp and ProjectOp do, a
+        host batch of at most TP_HOST_ROWS rows runs the numpy backend and stays a
+        host batch; a larger one joins the device first."""
         sink = self.stats_sink
         tc = _trace_ctx()
         timed = sink is not None or tc is not None or _tracer_on()
         t0 = time.perf_counter() if timed else 0.0
+        if ops._is_host_batch(batch) and batch.capacity <= ops.TP_HOST_ROWS:
+            result, counts = self._run_host(batch, sink)
+        else:
+            batch = to_device(batch)
+            result, counts = self._run_device(batch, sink)
+        ops.DISPATCH_STATS["dispatches"] += 1
+        if timed:
+            wall = round((time.perf_counter() - t0) * 1000, 3)
+            self._observe(tc, sink, counts, wall)
+            if _tracer_on():
+                self._record_span(batch, result, wall)
+        return result
+
+    def _run_device(self, batch: ColumnBatch, sink):
+        """`run_batch` on the batch's device; (result, per-stage live counts or
+        None)."""
         counts = None
         n = batch.capacity
         if sink is not None:
@@ -393,18 +463,11 @@ class FusedSegment:
             counts = np.array([int(c) for c in counts], dtype=np.int64)
         else:
             env, live = self.apply_batch(batch)
-        ops.DISPATCH_STATS["dispatches"] += 1
         if live is not None:
             live = torch.broadcast_to(live, (n,))
         xp = TorchXP(batch.device)
         out = {name: ops.broadcast_value(n, *env[name], xp) for name in self.computed}
-        result = ColumnBatch(self.attach_columns(batch.columns, out), live)
-        if timed:
-            wall = round((time.perf_counter() - t0) * 1000, 3)
-            self._observe(tc, sink, counts, wall)
-            if _tracer_on():
-                self._record_span(batch, result, wall)
-        return result
+        return ColumnBatch(self.attach_columns(batch.columns, out), live), counts
 
     def run_live_np(self, batch: ColumnBatch) -> np.ndarray:
         """Host live mask of `batch` with the segment's stages applied (the grace

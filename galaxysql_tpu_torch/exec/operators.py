@@ -11,6 +11,13 @@ sorted runs go through host files (`exec/spill.py`, charged to an optional
 `exec/memory.py` pool); bucketing, key codes and run merging run on the host, as in
 the reference, and each in-memory piece runs on the device again.
 
+The reference's TP host engine: a host batch (the scan of a statement run without a
+device cache, a point get, VALUES; `ColumnBatch.host`) of at most TP_HOST_ROWS rows
+runs `FilterOp` and `ProjectOp` with `ExprCompiler(np)`, floats in float64, and stays
+a host batch; a larger one, and the input of every other operator, joins the device
+through `device_batches` (`chunk.batch.to_device`), where the reference takes the
+numpy lanes into jnp.
+
 The execution hub's operator side is the reference's: `HashAggOp(prelude=...)` runs a
 fused Filter/Project chain (`exec/fusion.py`) inside its partial pass; `HashJoinOp`
 runs a filter-only `probe_prelude`, publishes the planned runtime filters of its build
@@ -40,7 +47,8 @@ import torch
 from galaxysql_tpu_torch import native
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
                                              concat_batches, dictionary_translation,
-                                             to_numpy, torch_dtype, u64_ordered)
+                                             to_device, to_numpy, torch_dtype,
+                                             u64_ordered)
 from galaxysql_tpu_torch.exec.memory import PoolCharge
 from galaxysql_tpu_torch.exec.spill import Spiller
 from galaxysql_tpu_torch.expr import ir
@@ -223,8 +231,43 @@ class SourceOp(Operator):
         yield from self._batches
 
 
+# The reference's TP host engine: an all-host batch of at most this many rows runs
+# Filter, Project and fused segments on the numpy expression backend (float64 floats,
+# `expr/compiler._to_float`); a larger one, and every other operator's input, joins
+# the device (`to_device`).
+TP_HOST_ROWS = 1 << 16
+
+
+def _is_host_batch(b: ColumnBatch) -> bool:
+    """True for a host batch (the `ColumnBatch.host` mark), the reference's all-numpy
+    batch."""
+    return b.host is not None
+
+
+def device_batches(op: Operator) -> Iterator[ColumnBatch]:
+    """`op`'s batches on the device: the pull of every operator the reference runs
+    on jnp, which takes a host batch's numpy lanes onto the device there."""
+    for b in op.batches():
+        yield to_device(b)
+
+
+def host_lane(x, n: int) -> Optional[torch.Tensor]:
+    """A numpy result of the host expression backend as a CPU tensor of `n` rows:
+    constants broadcast, lanes shared with the array (no copy)."""
+    if x is None:
+        return None
+    a = np.asarray(x)
+    if a.shape != (n,):
+        a = np.broadcast_to(a, (n,)).copy()
+    elif not a.flags.writeable:
+        a = a.copy()
+    return as_tensor(a)
+
+
 class FilterOp(Operator):
-    """WHERE: ANDs the predicate into the live mask (selection-vector style)."""
+    """WHERE: ANDs the predicate into the live mask (selection-vector style).  A host
+    batch of at most TP_HOST_ROWS rows evaluates it with numpy and stays a host
+    batch."""
 
     def __init__(self, child: Operator, predicate: ir.Expr):
         self.child = child
@@ -235,15 +278,33 @@ class FilterOp(Operator):
         return closure_cache(key, lambda: ExprCompiler(TorchXP(device))
                              .compile_predicate(self.predicate))
 
+    def _compiled_np(self):
+        def build():
+            pred = ExprCompiler(np).compile_predicate(self.predicate)
+
+            def run(batch: ColumnBatch) -> ColumnBatch:
+                mask = np.broadcast_to(np.asarray(pred(_host_env(batch))),
+                                       (batch.capacity,))
+                return ColumnBatch(batch.columns, as_tensor(batch.np_live() & mask),
+                                   batch.host)
+            return run
+        return closure_cache(("filter-np", expr_cache_key(self.predicate)), build)
+
     def batches(self) -> Iterator[ColumnBatch]:
         for b in self.child.batches():
             DISPATCH_STATS["dispatches"] += 1
+            if _is_host_batch(b):
+                if b.capacity <= TP_HOST_ROWS:
+                    yield self._compiled_np()(b)
+                    continue
+                b = to_device(b)
             pred = self._compiled(b.device)
             yield ColumnBatch(b.columns, b.live_mask() & pred(batch_env(b)))
 
 
 class ProjectOp(Operator):
-    """SELECT expressions; preserves the live mask."""
+    """SELECT expressions; preserves the live mask.  A host batch of at most
+    TP_HOST_ROWS rows computes them with numpy and stays a host batch."""
 
     def __init__(self, child: Operator, exprs: Sequence[Tuple[str, ir.Expr]]):
         self.child = child
@@ -269,9 +330,33 @@ class ProjectOp(Operator):
             return run
         return closure_cache(key, build)
 
+    def _compiled_np(self):
+        def build():
+            comp = ExprCompiler(np)
+            fns = [(name, e, comp.compile(e)) for name, e in self.exprs]
+
+            def run(batch: ColumnBatch) -> ColumnBatch:
+                env = _host_env(batch)
+                cols = {}
+                n = batch.capacity
+                for name, e, f in fns:
+                    data, valid = f(env)
+                    cols[name] = Column(host_lane(data, n), host_lane(valid, n),
+                                        e.dtype, _find_dictionary(e))
+                return ColumnBatch(cols, batch.live, batch.host)
+            return run
+        return closure_cache(("project-np",
+                              tuple((n, expr_cache_key(e)) for n, e in self.exprs)),
+                             build)
+
     def batches(self) -> Iterator[ColumnBatch]:
         for b in self.child.batches():
             DISPATCH_STATS["dispatches"] += 1
+            if _is_host_batch(b):
+                if b.capacity <= TP_HOST_ROWS:
+                    yield self._compiled_np()(b)
+                    continue
+                b = to_device(b)
             yield self._compiled(b.device)(b)
 
 
@@ -412,7 +497,7 @@ class HashAggOp(Operator):
                 partial_bytes = 0
                 charge.to(0)
                 overflowed = False
-                for b in self.child.batches():
+                for b in device_batches(self.child):
                     device = b.device
                     if self.prelude is not None:
                         env, live = self.prelude.apply_batch(b)
@@ -804,7 +889,7 @@ class HashJoinOp(Operator):
                 env = _host_env(bb)
                 self._spill_split(bb, env, self._np_bucket(env, bb.capacity, bk, P), P,
                                   b_spill, b_schema)
-            for pb in self.probe.batches():
+            for pb in device_batches(self.probe):
                 env = _host_env(pb)
                 plive = self.probe_prelude.run_live_np(pb) \
                     if self.probe_prelude is not None else None
@@ -902,7 +987,7 @@ class HashJoinOp(Operator):
     def _empty_build_batches(self) -> Iterator[ColumnBatch]:
         # empty build: inner/semi yield nothing; anti passes probe rows through;
         # left null-extends using the declared build schema
-        for pb in self.probe.batches():
+        for pb in device_batches(self.probe):
             if self.join_type in ("inner", "semi"):
                 continue
             if self.join_type == "anti":
@@ -986,7 +1071,7 @@ class HashJoinOp(Operator):
         build_bytes = 0
         charge = PoolCharge(self.mem_pool)
         try:
-            build_iter = iter(self.build.batches())
+            build_iter = device_batches(self.build)
             for b in build_iter:
                 build_parts.append(b)
                 build_bytes += _batch_bytes(b)
@@ -1060,7 +1145,7 @@ class HashJoinOp(Operator):
         if art is not None and not stored:
             art.csr = csr
             self._frag_store(art)
-        for pb in self.probe.batches():
+        for pb in device_batches(self.probe):
             if RF_STATS["enabled"]:
                 # probe rows REACHING the join: after the scan-side runtime filters,
                 # before the join's own bloom and the probe prelude
@@ -1136,12 +1221,12 @@ class CrossJoinOp(Operator):
         self.build_schema = build_schema
 
     def batches(self) -> Iterator[ColumnBatch]:
-        build = concat_batches(list(self.build.batches()))
+        build = concat_batches(list(device_batches(self.build)))
         nb = build.num_live() if build.capacity else 0
         if self.scalar and nb > 1:
             raise errors.TddlError("Subquery returns more than 1 row")
         if self.scalar and nb == 0:
-            for pb in self.probe.batches():
+            for pb in device_batches(self.probe):
                 ncols = {}
                 for name, (typ, d_) in (self.build_schema or {}).items():
                     z = torch.zeros(pb.capacity, dtype=torch_dtype(typ.lane),
@@ -1153,7 +1238,7 @@ class CrossJoinOp(Operator):
             return
         build = build.compact().pad_to(build.num_live()) if build.capacity else build
         nb = build.capacity
-        for pb in self.probe.batches():
+        for pb in device_batches(self.probe):
             if nb == 0:
                 return  # empty build: cross join is empty
             if nb == 1:
@@ -1263,7 +1348,7 @@ class SortOp(Operator):
         run_meta: List[int] = []  # row count per spilled run
         device = None
         try:
-            for b in self.child.batches():
+            for b in device_batches(self.child):
                 device = b.device
                 slab.append(b)
                 slab_bytes += _batch_bytes(b)
@@ -1446,7 +1531,7 @@ class LimitOp(Operator):
     def batches(self) -> Iterator[ColumnBatch]:
         remaining_skip = self.offset
         remaining = self.limit
-        for b in self.child.batches():
+        for b in device_batches(self.child):
             if remaining <= 0:
                 break
             n = b.num_live()
@@ -1511,7 +1596,7 @@ class WindowOp(Operator):
         return inputs, lanes
 
     def batches(self) -> Iterator[ColumnBatch]:
-        merged = concat_batches(list(self.child.batches()))
+        merged = concat_batches(list(device_batches(self.child)))
         if merged.capacity == 0:
             cols = dict(merged.columns)
             for fid, typ, dic in (self.out_schema or []):

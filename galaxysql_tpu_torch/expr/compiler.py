@@ -6,7 +6,10 @@ backends:
 - `TorchXP(device)` — the device path: a thin numpy-style shim over torch, so the
   lowering below reads the same as the reference's `xp` code.  Floats compute in
   float32, the reference's device semantics (`_to_float`).
-- `numpy`           — the golden reference evaluator used by tests.
+- `numpy`           — the host engine of TP statements (`exec/operators.FilterOp`,
+  `ProjectOp` and fused segments over host batches of at most TP_HOST_ROWS rows),
+  the spill paths' host work, and the tests' golden evaluator.  Floats compute in
+  float64, as in the reference's host path.
 
 Values flow as `(data, valid)` pairs; `valid=None` means all-valid (saves mask traffic for
 the common non-null case, like the reference's mayHaveNull fast paths).  NULL semantics are

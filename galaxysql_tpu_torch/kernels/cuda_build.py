@@ -5,11 +5,16 @@ interface, loaded with ctypes.  Builds are keyed by a hash of the source and the
 into `kernels/_build/` beside this file, and happen at first use: nothing is built or
 imported from CUDA when the module is imported.  `build()` compiles every missing
 library at once, one `nvcc` process per source, all started together.
+
+The same directory caches the C++ host runtime (`galaxysql_tpu_torch/native`):
+`build_host` compiles a host source with g++ under the same kind of key, once across
+threads and processes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -104,6 +109,41 @@ def library(source: str) -> ctypes.CDLL:
             if cached:
                 _compile_stats()["cache_hits"] += 1
     return lib
+
+
+def host_library_path(source_path: str, compiler: str, flags: Sequence[str]) -> str:
+    """Where a host C++ library builds: `BUILD_DIR/<stem>-<key>.so`, the key a hash
+    of the source, the flags, the compiler's version and the macros it defines for
+    `flags` (so a `-march=native` build made for one CPU is never loaded on
+    another)."""
+    with open(source_path, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(flags).encode())
+    for probe in ([compiler, "--version"],
+                  [compiler, *flags, "-dM", "-E", "-x", "c++", "-"]):
+        h.update(subprocess.run(probe, input=b"", capture_output=True,
+                                timeout=60).stdout)
+    stem = os.path.splitext(os.path.basename(source_path))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(source_path: str, compiler: str, flags: Sequence[str]) -> str:
+    """Build a host C++ source into a shared library unless it is built already;
+    returns its path.  An exclusive lock on a file beside the library makes the
+    processes that race here build it once; the library appears by an atomic
+    rename, so no process ever loads a half-written file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = host_library_path(source_path, compiler, flags)
+    if os.path.exists(path):
+        return path
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run([compiler, *flags, "-o", tmp, source_path], check=True,
+                           capture_output=True, timeout=300)
+            os.replace(tmp, path)
+    return path
 
 
 def function(source: str, name: str, argtypes):

@@ -300,7 +300,7 @@ def hash_partition_of(values: np.ndarray, count: int) -> np.ndarray:
     """Shard id per value — the same mix the device kernels use, so shard-local data
     stays consistent with device-side repartitioning.  Routed through the native
     runtime (libgalaxystore) when available."""
-    from galaxysql_tpu_torch.utils import partition_hash as native
+    from galaxysql_tpu_torch import native
     return native.hash_partition(np.asarray(values).astype(np.int64), count)
 
 

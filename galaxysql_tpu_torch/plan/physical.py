@@ -1,11 +1,17 @@
 """Physical planning: logical plan -> operator tree (trimmed port of
 `galaxysql_tpu/plan/physical.py`).
 
-- scans read whole tables as one device-resident batch (lanes cached per table
-  version), with MVCC visibility computed on the device; a full-table scan of more
-  than FUSE_MAX_ROWS rows streams one cached batch a partition instead; a scan the
-  rules marked `point_eq` reads its candidate rows through the partitions' sorted
-  key indexes on the host and ships them as one small batch;
+- the engine is the reference's choice (`Session._exec_context`): an AP plan, while
+  ENABLE_TPU_ENGINE holds, scans whole tables as one device-resident batch (lanes
+  cached per table version) with MVCC visibility computed on the device, and a
+  full-table scan of more than FUSE_MAX_ROWS rows streams one cached batch a
+  partition instead; a context without a device cache (a TP plan, or the engine off)
+  scans `TableStore.scan`'s host batches, up to 1M visible rows a partition, padded to
+  their capacity bucket; a scan the rules marked `point_eq` reads its candidate rows
+  through the partitions' sorted key indexes on the host, one host batch a partition;
+  VALUES rows are a host batch too.  Filter, Project and fused segments run a host
+  batch of at most `ops.TP_HOST_ROWS` rows with numpy, and every other operator
+  takes it onto the context's device (`chunk.batch.to_device`);
 - a scan of a remote table (one a worker process holds, `net/worker.py`) ships a
   bound fragment (pruned columns, lane-domain SARGs, runtime-filter ranges and
   IN-lists, a point key, the session's branch xid) to an endpoint `read_endpoint`
@@ -93,10 +99,11 @@ class ExecContext:
         self.stores = stores          # "schema.table" -> TableStore
         self.snapshot_ts = snapshot_ts
         self.device = torch.device(device)
-        self.device_cache = device_cache if device_cache is not None \
-            else DeviceCache(self.device)
-        if self.device_cache.device != self.device:
-            raise ValueError(f"device cache on {self.device_cache.device}, "
+        # None: no device cache, the reference's engine for TP statements and for
+        # ENABLE_TPU_ENGINE = 0 (`Session._exec_context`): scans yield host batches
+        self.device_cache = device_cache
+        if device_cache is not None and device_cache.device != self.device:
+            raise ValueError(f"device cache on {device_cache.device}, "
                              f"execution on {self.device}")
         self.params = params or []
         self.txn_id = txn_id          # owning txn for MVCC visibility (0 = none)
@@ -250,9 +257,10 @@ def remote_column(arr: np.ndarray, valid: Optional[np.ndarray], typ: dt.DataType
 
 
 class ScanSource(ops.Operator):
-    """Storage scan renamed into plan field-id space: the scanned partitions fused
-    into ONE batch whose lanes come from the device cache, or, for a full-table scan
-    past FUSE_MAX_ROWS rows, one such batch a partition."""
+    """Storage scan renamed into plan field-id space: with a device cache, the
+    scanned partitions fused into ONE batch whose lanes come from the cache, or, for
+    a full-table scan past FUSE_MAX_ROWS rows, one such batch a partition; without
+    one, the store's host batches."""
 
     def __init__(self, node: L.Scan, ctx: ExecContext):
         self.node = node
@@ -286,13 +294,20 @@ class ScanSource(ops.Operator):
         pids = tuple(range(len(store.partitions)) if self.node.partitions is None
                      else self.node.partitions)
         if self.node.point_eq is not None:
-            b = self._point_batch(t, store, pids, snap, txn_id)
-            if b is not None:
+            for b in self._point_batches(t, store, pids, snap, txn_id):
                 yield b.rename(rename)
             return
         self.ctx.trace.append(
             f"scan {t.name} partitions={self.node.partitions or 'all'}" +
             (f" as_of={as_of}" if as_of is not None else ""))
+        if self.ctx.device_cache is None:
+            # the reference's host scan: batches of up to 1M visible rows a
+            # partition, padded to their capacity bucket, marked for the device
+            for b in store.scan(storage_cols, self.node.partitions, snap,
+                                txn_id=txn_id, home=self.ctx.device):
+                self.ctx.check_deadline()  # per-partition drain boundary
+                yield b.pad_to(ops.bucket_capacity(b.capacity)).rename(rename)
+            return
         if self.node.partitions is None and \
                 sum(p.num_rows for p in store.partitions) > FUSE_MAX_ROWS:
             # the reference's per-partition loop: one batch a partition, its lanes
@@ -437,8 +452,14 @@ class ScanSource(ops.Operator):
         self.ctx.trace.append(
             f"scan-columnar {t.name} watermark={view.watermark} "
             f"stripes={len(view.stripes)} delta={len(view.delta)}")
-        for b in _col.scan_view(view, t, storage_cols, sargs, mgr,
-                                self.ctx.device_cache):
+        # the replica's stripes always read through a device cache: a context
+        # without one (ENABLE_TPU_ENGINE = 0; TP statements never route here) uses
+        # the instance's
+        cache = self.ctx.device_cache
+        if cache is None:
+            cache = getattr(self.ctx.archive_instance, "device_cache", None) or \
+                DeviceCache(self.ctx.device)
+        for b in _col.scan_view(view, t, storage_cols, sargs, mgr, cache):
             yield b.rename(rename)
         pruned = view.replica.pruned_stripes - pruned0
         if pruned:
@@ -465,18 +486,14 @@ class ScanSource(ops.Operator):
             self.ctx.trace.append(f"scan-archive {t.name} rows={b.capacity}")
             yield b.pad_to(ops.bucket_capacity(max(b.capacity, 1))).rename(rename)
 
-    def _point_batch(self, t, store, pids, ts, txn_id) -> Optional[ColumnBatch]:
-        """Index access path: candidate rows from each partition's sorted key index
-        instead of whole lanes (the reference's `_point_batches`).  The index and the
-        row store live on the host, so the candidates are found and gathered there
-        and shipped as ONE small batch on the context's device.  The Filter above
-        the scan re-verifies the whole predicate, so candidates only need to be a
-        superset of the matches for the indexed column; MVCC visibility is applied
-        here (`Partition.key_rows`)."""
+    def _point_batches(self, t, store, pids, ts, txn_id) -> Iterator[ColumnBatch]:
+        """Index access path (the reference's `_point_batches`): each partition's
+        candidate rows from its sorted key index instead of whole lanes, gathered on
+        the host into one host batch a partition, padded to its capacity bucket.
+        The Filter above the scan re-verifies the whole predicate, so candidates
+        only need to be a superset of the matches for the indexed column; MVCC
+        visibility is applied here (`Partition.key_rows`)."""
         col, val = self.node.point_eq
-        lanes: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
-        valids: Dict[str, List[np.ndarray]] = {c: [] for _oid, c in self.node.columns}
-        total = 0
         for pid in pids:
             p = store.partitions[pid]
             if p.num_rows == 0:
@@ -485,21 +502,16 @@ class ScanSource(ops.Operator):
                 ids = p.key_rows(col, val, ts, txn_id)
                 if ids.size == 0:
                     continue
+                cols = {}
                 for _oid, cname in self.node.columns:
-                    lanes[cname].append(p.lanes[cname][ids])
-                    valids[cname].append(p.valid[cname][ids])
+                    v = p.valid[cname][ids]
+                    cols[cname] = Column(as_tensor(p.lanes[cname][ids]),
+                                         None if bool(v.all()) else as_tensor(v),
+                                         t.column(cname).dtype,
+                                         t.dictionaries.get(cname.lower()))
             self.ctx.trace.append(f"point-get {t.name} p{pid} rows={ids.size}")
-            total += ids.size
-        if total == 0:
-            return None
-        dev = self.ctx.device
-        cols = {}
-        for _oid, cname in self.node.columns:
-            v = np.concatenate(valids[cname])
-            cols[cname] = Column(as_tensor(np.concatenate(lanes[cname]), dev),
-                                 None if bool(v.all()) else as_tensor(v, dev),
-                                 t.column(cname).dtype, t.dictionaries.get(cname.lower()))
-        return ColumnBatch(cols, None)
+            yield ColumnBatch(cols, None, self.ctx.device).pad_to(
+                ops.bucket_capacity(max(int(ids.size), 1)))
 
     def _fused_table_batch(self, t, store, pids, sig, ts,
                            txn_id) -> Optional[ColumnBatch]:
@@ -555,8 +567,8 @@ class ScanSource(ops.Operator):
 
 
 class ValuesSource(ops.Operator):
-    """Literal rows (and SELECT without FROM: one anonymous row) on the context's
-    device."""
+    """Literal rows (and SELECT without FROM: one anonymous row) as one host
+    batch."""
 
     def __init__(self, node: L.Values, ctx: ExecContext):
         self.node = node
@@ -573,11 +585,8 @@ class ValuesSource(ops.Operator):
             schema = {fid: typ for fid, typ, _ in self.node.schema}
             dicts = {fid: d for fid, typ, d in self.node.schema if d is not None}
             b = batch_from_pydict(data, schema, dicts)
-        dev = self.ctx.device
-        yield ColumnBatch({n: Column(c.data.to(dev),
-                                     None if c.valid is None else c.valid.to(dev),
-                                     c.dtype, c.dictionary)
-                           for n, c in b.columns.items()}, None)
+        # a host batch, as the reference's numpy VALUES batch
+        yield ColumnBatch(b.columns, None, self.ctx.device)
 
 
 class UnionOp(ops.Operator):
@@ -610,7 +619,7 @@ class UnionOp(ops.Operator):
             trans = as_tensor(dictionary_union_translation(tgt, c.dictionary),
                               c.data.device)
             cols[fid] = Column(trans[c.data.to(torch.int64)], c.valid, c.dtype, tgt)
-        return ColumnBatch(cols, b.live)
+        return ColumnBatch(cols, b.live, b.host)
 
 
 class StatsOp(ops.Operator):

@@ -108,6 +108,7 @@ from typing import Dict, Optional
 
 import torch
 
+from galaxysql_tpu_torch import native
 from galaxysql_tpu_torch.config.params import ConfigParams
 from galaxysql_tpu_torch.ddl.jobs import DdlEngine
 from galaxysql_tpu_torch.exec.device_cache import DeviceCache
@@ -165,6 +166,9 @@ class Instance:
         self.planner = Planner(self.catalog)
         self.tso = TimestampOracle()
         self.device_cache = DeviceCache(device)
+        # the C++ host runtime (visibility, routing, blooms) builds or loads here,
+        # not inside the first statement that calls it
+        native.load()
         self.sessions: Dict[int, object] = {}
         self._conn_ids = itertools.count(1)
         self._lock = threading.Lock()

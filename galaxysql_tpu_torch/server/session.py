@@ -1110,11 +1110,20 @@ class Session:
             return None
 
     def _exec_context(self, plan, params: Optional[list]) -> ExecContext:
-        """A query's context: the instance's device and device cache, the session's
-        snapshot and transaction, and its spill thresholds (a governed query scales
-        them under memory pressure in `_run_query_admitted`)."""
+        """A query's context: the instance's device, the session's snapshot and
+        transaction, and its spill thresholds (a governed query scales them under
+        memory pressure in `_run_query_admitted`).  The engine is the reference's
+        choice: an AP plan gets the device cache while ENABLE_TPU_ENGINE holds
+        (instance, global or session scope); a TP plan, or any plan with the engine
+        off, gets none, so its scans yield host batches that Filter, Project and
+        fused segments run with numpy (`exec/operators.TP_HOST_ROWS`).  EXPLAIN
+        ANALYZE takes its context from here too."""
+        cache = None
+        if plan.workload == "AP" and self.instance.config.get("ENABLE_TPU_ENGINE",
+                                                              self.vars):
+            cache = self.instance.device_cache
         ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
-                          self.instance.device, self.instance.device_cache,
+                          self.instance.device, cache,
                           params=params or [],
                           txn_id=self.txn.txn_id if self.txn is not None else 0,
                           hints=getattr(plan, "hints", None),
@@ -2245,8 +2254,9 @@ class Session:
             params = spm.last_params(key)
             plan = self.instance.planner.bind_statement(
                 parse(psql), schema, params, self, forced_orders=orders)
+            # no device cache, as the reference's measure context has none
             ctx = ExecContext(self.instance.stores, self._snapshot_ts(),
-                              self.instance.device, self.instance.device_cache,
+                              self.instance.device, None,
                               params=params, archive=self.instance.archive,
                               archive_instance=self.instance)
             op = build_operator(plan.rel, ctx)

@@ -5,12 +5,14 @@ and per-row MVCC stamps (`begin_ts`/`end_ts`; a snapshot at ts sees rows with
 begin_ts <= ts < end_ts), and an append-aware sorted key index per probed column
 (`key_index` / `key_candidates` / `key_rows`, the point path's access method).  Rows
 route to partitions with the catalog's `PartitionRouter`, so a table loaded into the
-port lands in the same partitions as in the reference.  The scan reads these lanes
-through the device cache (`plan/physical.py`).  Loading is `insert_pylists` (Python
-values, encoded as the reference encodes them) or `insert_arrays` (numpy columns);
-`storage/transfer.py` adopts the lanes of a reference store as they are.  `save` and
-`load` write and read the reference's checkpoint files, so a data directory crosses
-between the two packages in both directions.
+port lands in the same partitions as in the reference.  A statement with a device
+cache reads these lanes through it (`plan/physical.py`); one the reference runs
+without a cache (TP, or `ENABLE_TPU_ENGINE = 0`) reads host batches from `scan`.
+Loading is `insert_pylists` (Python values, encoded as the reference encodes them)
+or `insert_arrays` (numpy columns); `storage/transfer.py` adopts the lanes of a
+reference store as they are.  `save` and `load` write and read the reference's
+checkpoint files, so a data directory crosses between the two packages in both
+directions.
 
 Writes follow the reference: an insert appends rows stamped with its timestamp, a
 delete stamps `end_ts` in place, an update does both (the new versions move to the
@@ -25,11 +27,13 @@ import json
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from galaxysql_tpu_torch.chunk.batch import column_from_pylist
+from galaxysql_tpu_torch import native
+from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
+                                             column_from_pylist)
 from galaxysql_tpu_torch.meta.catalog import PartitionRouter, TableMeta
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
@@ -41,19 +45,11 @@ def visible_rows(b: np.ndarray, e: np.ndarray, snapshot_ts: Optional[int],
                  txn_id: int = 0) -> np.ndarray:
     """MVCC visibility of rows stamped `b`/`e` on the host.  Uncommitted changes
     carry NEGATIVE timestamps (-txn_id), visible only to the owning transaction;
-    commit turns them into TSO values.  The reference's numpy body
-    (`native.visible_mask`); `plan/physical._device_visibility` and the batched
-    point program (`exec/operators._batched_point_program`) are its device twins."""
-    if snapshot_ts is None:
-        ins = b >= 0
-        dele = e != np.iinfo(np.int64).max
-    else:
-        ins = (b >= 0) & (b <= snapshot_ts)
-        dele = (e >= 0) & (e <= snapshot_ts)
-    if txn_id:
-        ins = ins | (b == -txn_id)
-        dele = dele | (e == -txn_id)
-    return ins & ~dele
+    commit turns them into TSO values.  The reference's `native.visible_mask`, run by
+    the C++ host runtime (`galaxysql_tpu_torch/native`); `plan/physical.
+    _device_visibility` and the batched point program
+    (`exec/operators._batched_point_program`) are its device twins."""
+    return native.visible_mask(b, e, snapshot_ts, txn_id)
 
 
 class Partition:
@@ -297,6 +293,41 @@ class TableStore:
         keys = [lanes[c] if c in lanes else lanes[self.table.column(c).name]
                 for c in info.columns]
         return self.router.route_rows(keys)
+
+    # -- read path: the host scan ------------------------------------------------------
+
+    def scan_partition(self, pid: int, columns: Sequence[str],
+                       snapshot_ts: Optional[int] = None, batch_rows: int = 1 << 20,
+                       txn_id: int = 0, home=None) -> Iterator[ColumnBatch]:
+        """Host batches (CPU tensors marked for `home`, the device they join once
+        they leave the host tier) of up to `batch_rows` visible rows of partition
+        `pid`.  An empty partition yields one empty batch, as in the reference."""
+        p = self.partitions[pid]
+        with p.lock:
+            idx = np.nonzero(p.visible_mask(snapshot_ts, txn_id))[0]
+            data = {c: p.lanes[c][idx] for c in columns}
+            valid = {c: p.valid[c][idx] for c in columns}
+        n = idx.shape[0]
+        table = self.table
+        for off in range(0, max(n, 1), batch_rows):
+            hi = min(off + batch_rows, n)
+            cols = {}
+            for c in columns:
+                v = valid[c][off:hi]
+                cols[c] = Column(as_tensor(data[c][off:hi]),
+                                 None if v.all() else as_tensor(v),
+                                 table.column(c).dtype, table.dictionaries.get(c.lower()))
+            yield ColumnBatch(cols, None, host=home)
+            if hi >= n:
+                break
+
+    def scan(self, columns: Sequence[str], partitions: Optional[Sequence[int]] = None,
+             snapshot_ts: Optional[int] = None, txn_id: int = 0,
+             home=None) -> Iterator[ColumnBatch]:
+        pids = range(len(self.partitions)) if partitions is None else partitions
+        for pid in pids:
+            yield from self.scan_partition(pid, columns, snapshot_ts, txn_id=txn_id,
+                                           home=home)
 
     def row_count(self, snapshot_ts: Optional[int] = None, txn_id: int = 0) -> int:
         return sum(int(p.visible_mask(snapshot_ts, txn_id).sum())

@@ -68,3 +68,13 @@ def test_copy_matches_source(rel):
     for mod in _imports(dst):
         assert mod != "galaxysql_tpu" and not mod.startswith("galaxysql_tpu.")
         assert mod != "jax" and not mod.startswith("jax.")
+
+
+def test_native_source_is_verbatim():
+    """The C++ host runtime the port builds (`galaxysql_tpu_torch/native`) is the
+    reference's source, byte for byte."""
+    with open(os.path.join(ROOT, "galaxysql_tpu", "native", "galaxystore.cpp"), "rb") as f:
+        src = f.read()
+    with open(os.path.join(ROOT, "galaxysql_tpu_torch", "native", "galaxystore.cpp"),
+              "rb") as f:
+        assert f.read() == src

@@ -35,7 +35,7 @@ from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.storage import transfer
 from galaxysql_tpu_torch.utils import errors
 from galaxysql_tpu_torch.utils.failpoint import FAIL_POINTS, FailPointError
-from test_torch_dml import Pair, _classes, _multiset, _stamp_ranks
+from test_torch_dml import Pair, _classes, _multiset, _stamp_ranks, ap_plans
 
 pytestmark = pytest.mark.torch_port
 
@@ -900,7 +900,8 @@ def _store_bytes(inst, store):
                    if k[0] == store.uid)
 
 
-def test_device_cache_evicts_stores_that_leave_for_good():
+def test_device_cache_evicts_stores_that_leave_for_good(monkeypatch):
+    ap_plans(monkeypatch)
     inst = Instance(device="cpu")
     s = Session(inst)
     s.execute("CREATE DATABASE d; USE d")
@@ -936,7 +937,8 @@ def test_device_cache_evicts_stores_that_leave_for_good():
     assert all(k.startswith("information_schema.") for k in inst.stores)
 
 
-def test_device_cache_evicts_a_dropped_gsi():
+def test_device_cache_evicts_a_dropped_gsi(monkeypatch):
+    ap_plans(monkeypatch)
     inst = Instance(device="cpu")
     s = Session(inst)
     s.execute("CREATE DATABASE d; USE d")
@@ -955,9 +957,10 @@ def test_device_cache_evicts_a_dropped_gsi():
     assert inst.device_cache.nbytes == before - freed
 
 
-def test_rename_keeps_the_stores_device_cache_entries():
+def test_rename_keeps_the_stores_device_cache_entries(monkeypatch):
     """RENAME keeps the same store under the new name, so the rename task itself
     leaves its lanes in the device cache (the job's last task clears the cache)."""
+    ap_plans(monkeypatch)
     inst = Instance(device="cpu")
     s = Session(inst)
     s.execute("CREATE DATABASE d; USE d")

@@ -21,9 +21,11 @@ import torch
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
+from galaxysql_tpu.plan import planner as jax_planner
 from galaxysql_tpu.server.instance import Instance as JaxInstance
 from galaxysql_tpu.server.session import Session as JaxSession
 from galaxysql_tpu.utils import errors as jax_errors
+from galaxysql_tpu_torch.plan import planner as port_planner
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.storage import transfer
@@ -473,9 +475,18 @@ def test_transfer_gives_the_port_store_its_own_arrays():
     assert ps.execute("SELECT count(*) FROM t").rows == [(4,)]
 
 
-def test_reads_miss_every_cache_after_writes_commit_and_rollback():
+def ap_plans(monkeypatch):
+    """Every plan AP in both packages, so the reads of a test's small tables take
+    the device-cache path the test is about: below AP_ROW_THRESHOLD scanned rows
+    both packages run a statement on the host engine, without the cache."""
+    for planner in (jax_planner, port_planner):
+        monkeypatch.setattr(planner, "AP_ROW_THRESHOLD", 0)
+
+
+def test_reads_miss_every_cache_after_writes_commit_and_rollback(monkeypatch):
     """After each write, COMMIT and ROLLBACK the table version moves, so the scan
     metadata and the device-cache lanes of the old stamps are not served again."""
+    ap_plans(monkeypatch)
     pair = Pair()
     pair.run("W", TYPED_TABLE)
     pair.run("W", TYPED_ROWS)

@@ -48,6 +48,7 @@ from galaxysql_tpu_torch.utils import errors
 from galaxysql_tpu_torch.utils.failpoint import (FAIL_POINTS, FP_BEFORE_COMMIT,
                                                  FailPointError)
 from test_torch_ddl import _catalog, _norm
+from test_torch_dml import ap_plans
 
 pytestmark = pytest.mark.torch_port
 
@@ -718,10 +719,11 @@ def test_group_commit_gate_falls_back_to_solo_writes(tmp_path):
 
 # -- cached lanes after an in-process recovery -----------------------------------------
 
-def test_cached_lanes_miss_after_recovery(tmp_path):
+def test_cached_lanes_miss_after_recovery(tmp_path, monkeypatch):
     """A port instance caches a table's lanes; an XA transaction stops before its
     commit point and `xa_coordinator.recover()` rolls it back in place.  The next
     query misses the cache and equals the reference's."""
+    ap_plans(monkeypatch)
     def scenario(eng, d):
         inst, s = _xa_tables(eng, d)
         q = "SELECT id, v FROM a ORDER BY id"

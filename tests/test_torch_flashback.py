@@ -17,6 +17,7 @@ from galaxysql_tpu_torch.plan import physical
 from galaxysql_tpu_torch.server.instance import Instance
 from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.utils import errors
+from test_torch_dml import ap_plans
 
 pytestmark = pytest.mark.torch_port
 
@@ -112,6 +113,7 @@ def test_as_of_on_streamed_partitions(monkeypatch):
     """Past FUSE_MAX_ROWS a full scan streams one batch a partition; each honours
     the AS OF snapshot as the fused batch does."""
     monkeypatch.setattr(physical, "FUSE_MAX_ROWS", 10)
+    ap_plans(monkeypatch)
 
     def scenario(pkg):
         s = _session(pkg)

@@ -42,6 +42,7 @@ from galaxysql_tpu_torch.server.session import Session
 from galaxysql_tpu_torch.storage import transfer
 from galaxysql_tpu_torch.types import datatype as pdt
 from galaxysql_tpu_torch.utils import metrics
+from test_torch_dml import ap_plans
 
 pytestmark = pytest.mark.torch_port
 
@@ -378,6 +379,7 @@ def test_tpch_with_lowered_spill_thresholds_matches_reference(q, engines):
 def test_streamed_scan_matches_the_reference_fused_scan(q, engines, monkeypatch):
     js, ps, want = engines
     monkeypatch.setattr(physical, "FUSE_MAX_ROWS", 1000)
+    ap_plans(monkeypatch)  # Q13 scans under 50,000 rows: TP, and no device cache
     # without the fragment cache, which would replay what earlier tests ran
     got = ps.execute("/*+TDDL:FRAGMENT_CACHE(OFF)*/ " + QUERIES[q]).rows
     _same_rows(got, want[q], QUERIES[q])
