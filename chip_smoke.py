@@ -38,7 +38,11 @@ own, its launch counters set to 0 just before its timed runs and read just after
    port on the CPU over the same lanes with the same statistics (the CPU twin takes
    the card's, `_take_statistics`; ANALYZED_CPU_SKIP's rows are held to numpy in
    the dml phase, before its refresh, on copies of the same lanes, and
-   ANALYZED_CARD_ONLY's are not compared at SF 1);
+   ANALYZED_CARD_ONLY's are not compared at SF 1); with each query's host-tier
+   traffic in its timed run (`chunk.batch.HOST_TIER_STATS`, every phase of
+   `run_phase`): the bytes and card ms of the aggregate finalize's pull to the host,
+   of host batches returning to the card, and the Filter, Project and fused-segment
+   runs on numpy (in these AP runs every host batch descends from an aggregate);
 8. tpcds: `tpcds.generate(--sf * TPCDS_SF_SCALE)` loaded with `insert_pylists`, ANALYZEd (the CPU twin
    takes the card's statistics), the 10 queries twice each; rows must equal the port
    on the CPU;
@@ -218,6 +222,12 @@ CPU twin; no data is loaded:
     the engine-off rows equal the engine-on rows (floats within 1e-6).  (e) The p50
     and p99 of TP_HOST_PROFILED over TP_HOST_P50_RUNS runs.  Its launches are the
     kernels line's `tp_host` entries.
+9h. host_agg: the reference's host aggregate output (ROADMAP Queue 3 item 18).
+    HOST_AGG_STATEMENTS on small tables of a fresh card instance: each aggregate's
+    output pulled to the host and the HAVING or projection above it run with numpy,
+    the rows equal bit for bit to a fresh CPU instance and to the reference's answers,
+    held here as literals (the script imports nothing of the JAX package); the
+    finalize's pull bytes and ms.
 
 Then writes and transactions, on a card instance and a CPU instance of their own
 holding copies of the main path's lanes; every statement runs on both, in the same
@@ -486,14 +496,15 @@ OLTP_TRANSACTIONS = 10      # oltp_read_write transactions in the dml phase
 POINT_STATEMENTS = 1000     # sequential oltp_point_select statements in the point phase
 POINT_SESSIONS = (64, 256)  # closed-loop session counts of the point phase
 # statements each session runs in a closed loop, by session count (16 and 16, then 16
-# and 8, before cuts for time: with the admission plane the 256-session loops shed and
-# retry, 4.9-8.7 s a loop on the H100's host)
-POINT_PER_SESSION = {64: 8, 256: 4}
+# and 8, then 8 and 4, before cuts for time: with the admission plane the 256-session
+# loops shed and retry, 4.9-8.7 s a loop on the H100's host)
+POINT_PER_SESSION = {64: 4, 256: 2}
 FLUSH_KEYS = (1, 64, 1024)  # keys of the timed batched_point_lookup calls
 WIRE_REPEATS = 3            # timed runs of each TPC-H query over the wire, per protocol
 WIRE_PROCESSES = 4          # oltp_point_select client processes in the wire phase
 WIRE_CONNECTIONS = 16       # connections of each client process
-WIRE_STATEMENTS = 40        # point selects each connection runs, per setting
+WIRE_STATEMENTS = 20        # point selects each connection runs, per setting (40
+# before a cut for time)
 WIRE_RAMP_STATEMENTS = 8    # untimed point selects a connection runs before them
 WIRE_SERIAL_STATEMENTS = 400  # point selects of one connection alone, batching off
 WIRE_POOL = 80              # the wire server's statement threads (>= every connection)
@@ -526,15 +537,15 @@ ANALYZED_CPU_SKIP = (18,)
 DML_HELD = (1, 3) + ANALYZED_CPU_SKIP
 DML_RF_SF = 0.25            # the scale of the dml phase's RF1/RF2, a fraction of sf (a
 # cut for time: SF x 1,500 orders before)
-DURABLE_SESSIONS = 32       # concurrent committing sessions in the durable phase (64
-# before a cut for time)
+DURABLE_SESSIONS = 16       # concurrent committing sessions in the durable phase (64,
+# then 32, before cuts for time)
 DURABLE_TXNS = 1            # transactions each of them commits, per policy (2 before a
 # cut for time)
 DURABLE_SEQUENTIAL = 32     # transactions one session commits one after another
 DURABLE_RF1_SF = 0.1        # the scale of txn A's RF1, a fraction of sf (a cut for time)
 DURABLE_QUERIES = (1, 3, 5, 6)
-CDC_SESSIONS = 32           # concurrent writing sessions in the cdc phase (64 before a
-# cut for time)
+CDC_SESSIONS = 16           # concurrent writing sessions in the cdc phase (64, then
+# 32, before cuts for time)
 CDC_PER_SESSION = 3         # sbtest1 writes each of them runs, per pass: one of each
 # kind (8, then 4, before cuts for time)
 # orders writes each of them runs (8 before a cut for time: with the admission plane
@@ -543,7 +554,8 @@ CDC_ORDERS_PER_SESSION = 4
 CDC_TXN_UPDATES = 16        # UPDATEs of the one explicit transaction on orders
 CDC_REPLICA_TABLES = ("lineitem", "orders", "customer")  # what Q1, Q3 and Q13 read
 CDC_QUERIES = (1, 3, 13)
-LOAD_ORDERS_ROWS = 500_000  # orders rows of the .tbl file (a third of SF 1, for time)
+LOAD_ORDERS_ROWS = 250_000  # orders rows of the .tbl file (a sixth of SF 1, for time;
+# a third before a cut)
 LOAD_SB_ROWS = 100_000      # sysbench-shaped rows LOAD DATA appends to sbtest1
 LOAD_POINT_SELECTS = 200    # point selects of loaded sbtest1 ids on the fast path
 LOAD_TXN_ROWS = 10_000      # orders rows of the load rolled back
@@ -1224,8 +1236,9 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
     instead, rows the CPU gave for the same data earlier.  The card's rows of the
     `keep_rows` queries come back under "rows"."""
     import torch
+    from galaxysql_tpu_torch.chunk.batch import HOST_TIER_STATS
     first, timed, per_query, rows_n, plans, spilled = {}, {}, {}, {}, {}, {}
-    rows = {}
+    rows, host_tier = {}, {}
     for name, sql in queries.items():
         t0 = time.perf_counter()
         rows[name] = s_gpu.execute(sql).rows
@@ -1237,11 +1250,13 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
     for name, sql in queries.items():
         before = _launch_counts()
         spill0 = _spill_totals()
+        tier0 = dict(HOST_TIER_STATS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rs = s_gpu.execute(sql)
         torch.cuda.synchronize()
         timed[name] = (time.perf_counter() - t0) * 1000.0
+        host_tier[name] = {k: HOST_TIER_STATS[k] - tier0[k] for k in tier0}
         after = _launch_counts()
         per_query[name] = {k: after[k] - before[k] for k in after}
         spill1 = _spill_totals()
@@ -1273,7 +1288,9 @@ def run_phase(s_gpu, s_cpu, schema, queries, reset=True, cpu_queries=None, held=
     return {"query_ms": timed, "first_run_ms": first, "launches": launches,
             "launches_per_query": per_query, "join_order": plans,
             "peak_device_bytes": peak, "result_rows": rows_n, "cpu_ms": cpu_ms,
-            "spilled_per_query": spilled,
+            "spilled_per_query": spilled, "host_tier_per_query": host_tier,
+            "host_tier": {k: sum(v[k] for v in host_tier.values())
+                          for k in HOST_TIER_STATS},
             "float_cells": floats, "max_float_rel_diff": worst, "equal": True,
             "rows": {name: rows[name] for name in keep_rows}}
 
@@ -2388,7 +2405,7 @@ OPS_COST_SESSIONS = 64      # (a): oltp_point_select sessions, with the plane an
 OPS_COST_SECONDS = 1.5      # (a): seconds of each closed loop
 OPS_SUMMARY_QUERIES = (1, 3, 5, 18)
 OPS_SUMMARY_SESSIONS = 4    # (b): sessions, each running every query OPS_SUMMARY_RUNS times
-OPS_SUMMARY_RUNS = 3
+OPS_SUMMARY_RUNS = 2        # (b): 3 before a cut for time
 OPS_AP_QUERIES = (3, 5, 10, 18)
 OPS_AP_SESSIONS = 24        # (c): AP sessions cycling OPS_AP_QUERIES
 OPS_TP_SESSIONS = 64        # (c): point sessions
@@ -3787,6 +3804,77 @@ def tp_host_phase(inst, sf):
     after = _launch_counts()
     out["launches"] = {k: after[k] - launches0[k] for k in after}
     out["step_s"] = steps
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- the host aggregate output -----------------------------------------------------
+
+HOST_AGG_SETUP = (
+    "CREATE DATABASE ha", "USE ha",
+    "CREATE TABLE t (id INT PRIMARY KEY, a INT, f DOUBLE)",
+    "INSERT INTO t VALUES (1, 10, 0.1), (2, 7, 0.2)",
+    "CREATE TABLE s (id INT PRIMARY KEY, a INT, g DOUBLE) PARTITION BY HASH(id) "
+    "PARTITIONS 3",
+    "INSERT INTO s VALUES " + ", ".join(
+        f"({i}, {i % 7}, {(i % 11) / 4})" for i in range(1, 41)),
+)
+# statement: the reference's rows (ROADMAP Queue 3 item 18 for the first two; the
+# JAX package on the CPU gives all four, `tests/test_torch_host_agg.py`)
+HOST_AGG_STATEMENTS = {
+    "SELECT SUM(f) / 3 FROM t": [(0.10000000397364299,)],
+    "SELECT a, COUNT(*) FROM t GROUP BY a HAVING SUM(f) > 0.1": [(7, 1), (10, 1)],
+    "SELECT AVG(f) * 3 FROM t": [(0.45000001788139343,)],
+    "SELECT a, COUNT(*) FROM t GROUP BY a HAVING AVG(f) * 3 > 0.3 ORDER BY a":
+        [(7, 1), (10, 1)],
+}
+# statements without literals: equal to the CPU instance bit for bit
+HOST_AGG_CPU_HELD = (
+    "SELECT a, SUM(g) / 3, AVG(g) * 3, MAX(g) / 7 FROM s GROUP BY a ORDER BY a",
+    "SELECT a, COUNT(*) FROM s GROUP BY a HAVING SUM(g) > 6.25 ORDER BY a",
+    "SELECT x * 3 FROM (SELECT SUM(g) AS x FROM s WHERE a < 3 UNION ALL "
+    "SELECT AVG(f) FROM t) v ORDER BY 1",
+)
+
+
+def host_agg_phase():
+    """HOST_AGG_STATEMENTS and HOST_AGG_CPU_HELD on a fresh card instance: each
+    aggregate's output pulled to the host and the work above it run with numpy, the
+    rows equal to a fresh CPU instance's bit for bit and to the reference's
+    literals; the finalize's pull on the card."""
+    from galaxysql_tpu_torch.chunk.batch import HOST_TIER_STATS
+    from galaxysql_tpu_torch.server.instance import Instance
+    from galaxysql_tpu_torch.server.session import Session
+    t_phase = time.perf_counter()
+    launches0 = _launch_counts()
+    gs = Session(_frag_off(Instance(device="cuda")))
+    cs = Session(_frag_off(Instance(device="cpu")))
+    out = {"statements": {}}
+    try:
+        for sql in HOST_AGG_SETUP:
+            gs.execute(sql)
+            cs.execute(sql)
+        for sql in list(HOST_AGG_STATEMENTS) + list(HOST_AGG_CPU_HELD):
+            tier0 = dict(HOST_TIER_STATS)
+            got = gs.execute(sql)
+            tier = {k: HOST_TIER_STATS[k] - tier0[k] for k in tier0}
+            want = cs.execute(sql).rows
+            if got.rows != want:
+                raise AssertionError(f"host_agg: {sql}: card {got.rows} != CPU {want}")
+            ref = HOST_AGG_STATEMENTS.get(sql)
+            if ref is not None and got.rows != ref:
+                raise AssertionError(f"host_agg: {sql}: card {got.rows} != the "
+                                     f"reference's {ref}")
+            if tier["pull_bytes"] == 0 or tier["numpy_runs"] == 0:
+                raise AssertionError(f"host_agg: {sql}: no aggregate output came to the "
+                                     f"host, or nothing above it ran numpy ({tier})")
+            out["statements"][sql] = {"rows": got.rows, "reference": ref is not None,
+                                      **tier}
+    finally:
+        gs.close()
+        cs.close()
+    after = _launch_counts()
+    out["launches"] = {k: after[k] - launches0[k] for k in after}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6935,6 +7023,8 @@ def run(args, data_dir) -> int:
     tp_host = tp_host_phase(inst, args.sf)
     print(card, flush=True)
     say("tp_host", nvidia_smi=card, enable_fragment_cache=0, sf=args.sf, **tp_host)
+    host_agg = host_agg_phase()
+    say("host_agg", nvidia_smi=card, enable_fragment_cache=0, **host_agg)
     unspilled = {k: v for k, v in unspilled.items()
                  if k in {f"Q{q}" for q in SPILL_QUERIES}}
     gs.close()
@@ -6964,6 +7054,7 @@ def run(args, data_dir) -> int:
         entry["new_phases"]["launches"]["formulations"] = \
             formulations["launches"][entry["name"]]
         entry["new_phases"]["launches"]["tp_host"] = tp_host["launches"][entry["name"]]
+        entry["new_phases"]["launches"]["host_agg"] = host_agg["launches"][entry["name"]]
         entry["new_phases"]["launches"]["dml"] = line["launches"][entry["name"]]
         entry["new_phases"]["dml_input"] = dml_inputs[entry["name"]]
 

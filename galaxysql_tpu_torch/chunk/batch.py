@@ -18,8 +18,10 @@ bit flipped, which maps unsigned order onto signed order).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -279,19 +281,31 @@ class ColumnBatch:
     VALUES).  It names the device the batch joins once it leaves the host tier
     (`to_device`); None for every other batch.  A CPU device cannot tell the two
     apart by the tensors' device, so the mark is explicit.  `compact`, `pad_to` and
-    `rename` keep it."""
+    `rename` keep it.
+
+    `nominal` is the capacity the reference gives a batch whose lanes the port sizes
+    tighter: a hash join's output, whose pair capacity the reference counts from the
+    probe rows before the probe prelude (its fused WHERE runs inside the pair
+    program).  None where it is `capacity`.  Operators that keep a batch's rows keep
+    it, and a GROUP BY above sizes its slots from it (`min(max_groups, n)`), so its
+    output's capacity, which decides numpy or device above, is the reference's."""
 
     def __init__(self, columns: Dict[str, Column], live: Optional[Any] = None,
-                 host: Optional[torch.device] = None):
+                 host: Optional[torch.device] = None, nominal: Optional[int] = None):
         self.columns = columns
         self.live = live
         self.host = host
+        self.nominal = nominal
 
     @property
     def capacity(self) -> int:
         if not self.columns:
             return 0
         return int(next(iter(self.columns.values())).data.shape[0])
+
+    @property
+    def nominal_capacity(self) -> int:
+        return self.capacity if self.nominal is None else self.nominal
 
     @property
     def device(self) -> torch.device:
@@ -367,7 +381,38 @@ class ColumnBatch:
 
     def rename(self, mapping: Dict[str, str]) -> "ColumnBatch":
         return ColumnBatch({mapping.get(n, n): c for n, c in self.columns.items()},
-                           self.live, self.host)
+                           self.live, self.host, self.nominal)
+
+
+# The host tier's traffic: `pull_*` the aggregate finalize's copies of its lanes to
+# the host (`exec/operators.HashAggOp._finalize`), `push_*` the copies of host batches
+# onto their device (`to_device`), `numpy_runs` the Filter, Project and fused-segment
+# runs on `ExprCompiler(np)`.  Bytes are the lanes handed over (on the CPU nothing is
+# copied); ms the card's time for the copies alone (CUDA events, not the work queued
+# before them), the host clock on the CPU.  Plain adds, as DISPATCH_STATS.
+HOST_TIER_STATS = {"pull_bytes": 0, "pull_ms": 0.0, "push_bytes": 0, "push_ms": 0.0,
+                   "numpy_runs": 0}
+
+
+@contextlib.contextmanager
+def copy_clock(kind: str, device: torch.device, nbytes: int):
+    """Times the blocking copies inside the block into HOST_TIER_STATS[kind + "_ms"]
+    and adds `nbytes` to HOST_TIER_STATS[kind + "_bytes"]."""
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        end.synchronize()  # the copies blocked already: no wait for other work
+        ms = start.elapsed_time(end)
+    else:
+        t0 = time.perf_counter()
+        yield
+        ms = (time.perf_counter() - t0) * 1000
+    HOST_TIER_STATS[kind + "_bytes"] += nbytes
+    HOST_TIER_STATS[kind + "_ms"] += ms
 
 
 def to_device(b: ColumnBatch) -> ColumnBatch:
@@ -377,10 +422,14 @@ def to_device(b: ColumnBatch) -> ColumnBatch:
     if b.host is None:
         return b
     dev = b.host
-    return ColumnBatch(
-        {n: Column(c.data.to(dev), None if c.valid is None else c.valid.to(dev),
-                   c.dtype, c.dictionary) for n, c in b.columns.items()},
-        None if b.live is None else b.live.to(dev))
+    lanes = [t for c in b.columns.values() for t in (c.data, c.valid) if t is not None]
+    if b.live is not None:
+        lanes.append(b.live)
+    with copy_clock("push", dev, sum(t.nbytes for t in lanes)):
+        return ColumnBatch(
+            {n: Column(c.data.to(dev), None if c.valid is None else c.valid.to(dev),
+                       c.dtype, c.dictionary) for n, c in b.columns.items()},
+            None if b.live is None else b.live.to(dev))
 
 
 def batch_from_pydict(data: Dict[str, Sequence[Any]], schema: Dict[str, dt.DataType],
@@ -398,7 +447,7 @@ def concat_batches(batches: Sequence[ColumnBatch]) -> ColumnBatch:
     the device first."""
     batches = [b.compact() for b in batches if b.capacity]
     if not batches:
-        return ColumnBatch({}, None)
+        return ColumnBatch({}, None, torch.device("cpu"))  # the reference's: all numpy
     if len(batches) == 1:
         return batches[0]
     host = batches[0].host

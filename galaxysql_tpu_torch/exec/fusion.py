@@ -437,6 +437,7 @@ class FusedSegment:
         timed = sink is not None or tc is not None or _tracer_on()
         t0 = time.perf_counter() if timed else 0.0
         if ops._is_host_batch(batch) and batch.capacity <= ops.TP_HOST_ROWS:
+            ops.HOST_TIER_STATS["numpy_runs"] += 1
             result, counts = self._run_host(batch, sink)
         else:
             batch = to_device(batch)
@@ -467,7 +468,8 @@ class FusedSegment:
             live = torch.broadcast_to(live, (n,))
         xp = TorchXP(batch.device)
         out = {name: ops.broadcast_value(n, *env[name], xp) for name in self.computed}
-        return ColumnBatch(self.attach_columns(batch.columns, out), live), counts
+        return ColumnBatch(self.attach_columns(batch.columns, out), live,
+                           nominal=batch.nominal), counts
 
     def run_live_np(self, batch: ColumnBatch) -> np.ndarray:
         """Host live mask of `batch` with the segment's stages applied (the grace

@@ -12,7 +12,8 @@ sorted runs go through host files (`exec/spill.py`, charged to an optional
 the reference, and each in-memory piece runs on the device again.
 
 The reference's TP host engine: a host batch (the scan of a statement run without a
-device cache, a point get, VALUES; `ColumnBatch.host`) of at most TP_HOST_ROWS rows
+device cache, a point get, VALUES, every aggregate's output; `ColumnBatch.host`) of
+at most TP_HOST_ROWS rows
 runs `FilterOp` and `ProjectOp` with `ExprCompiler(np)`, floats in float64, and stays
 a host batch; a larger one, and the input of every other operator, joins the device
 through `device_batches` (`chunk.batch.to_device`), where the reference takes the
@@ -45,8 +46,9 @@ import numpy as np
 import torch
 
 from galaxysql_tpu_torch import native
-from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, Dictionary, as_tensor,
-                                             concat_batches, dictionary_translation,
+from galaxysql_tpu_torch.chunk.batch import (HOST_TIER_STATS, Column, ColumnBatch,
+                                             Dictionary, as_tensor, concat_batches,
+                                             copy_clock, dictionary_translation,
                                              to_device, to_numpy, torch_dtype,
                                              u64_ordered)
 from galaxysql_tpu_torch.exec.memory import PoolCharge
@@ -295,11 +297,13 @@ class FilterOp(Operator):
             DISPATCH_STATS["dispatches"] += 1
             if _is_host_batch(b):
                 if b.capacity <= TP_HOST_ROWS:
+                    HOST_TIER_STATS["numpy_runs"] += 1
                     yield self._compiled_np()(b)
                     continue
                 b = to_device(b)
             pred = self._compiled(b.device)
-            yield ColumnBatch(b.columns, b.live_mask() & pred(batch_env(b)))
+            yield ColumnBatch(b.columns, b.live_mask() & pred(batch_env(b)),
+                              nominal=b.nominal)
 
 
 class ProjectOp(Operator):
@@ -326,7 +330,7 @@ class ProjectOp(Operator):
                 for name, e, f in fns:
                     data, valid = broadcast_value(n, *f(env), xp)
                     cols[name] = Column(data, valid, e.dtype, _find_dictionary(e))
-                return ColumnBatch(cols, batch.live)
+                return ColumnBatch(cols, batch.live, nominal=batch.nominal)
             return run
         return closure_cache(key, build)
 
@@ -354,6 +358,7 @@ class ProjectOp(Operator):
             DISPATCH_STATS["dispatches"] += 1
             if _is_host_batch(b):
                 if b.capacity <= TP_HOST_ROWS:
+                    HOST_TIER_STATS["numpy_runs"] += 1
                     yield self._compiled_np()(b)
                     continue
                 b = to_device(b)
@@ -367,14 +372,16 @@ class HashAggOp(Operator):
     concatenated and merged by the same kernels.  Once the resident partials pass
     `spill_threshold` bytes (or the per-query pool cannot cover them), they are
     copied to host spill files in the reference's format, and the merge reads them
-    back in threshold-bounded waves (`_merge_waves`)."""
+    back in threshold-bounded waves (`_merge_waves`).  The output is the reference's:
+    a host batch (`_finalize`)."""
 
     DENSE_AGG_MAX_DOMAIN = 64
     MAX_GROUPS_CEILING = 1 << 24
 
     def __init__(self, child: Operator, group_exprs: Sequence[Tuple[str, ir.Expr]],
                  aggs: Sequence[AggCall], max_groups: int = 1 << 16,
-                 spill_threshold: int = 256 << 20, prelude=None, mem_pool=None):
+                 spill_threshold: int = 256 << 20, prelude=None, mem_pool=None,
+                 device=None):
         self.child = child
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
@@ -389,6 +396,8 @@ class HashAggOp(Operator):
         # partial pass: its environment feeds the group keys and the agg inputs,
         # with no intermediate batch per operator
         self.prelude = prelude
+        # the device a global aggregation over no input batch joins (the context's)
+        self.device = torch.device("cpu") if device is None else torch.device(device)
 
     def _partial_specs(self) -> Tuple[List[ir.Expr], List[Tuple[str, K.AggSpec]]]:
         """Decompose SQL aggs into kernel specs (avg -> sum + count).  MIN/MAX of a
@@ -474,10 +483,10 @@ class HashAggOp(Operator):
                 ifns.append(f)
             specs = tuple(s for _, s in lanes)
 
-            def run(env, live, n: int):
+            def run(env, live, n: int, rows: int):
                 keys = [broadcast_value(n, *f(env), xp) for f in gfns]
                 ins = [broadcast_value(n, *f(env), xp) for f in ifns]
-                return K.groupby(keys, ins, specs, live, max_groups, domains)
+                return K.groupby(keys, ins, specs, live, max_groups, domains, rows)
             return run
         return closure_cache(key, build)
 
@@ -506,7 +515,8 @@ class HashAggOp(Operator):
                     else:
                         env, live = batch_env(b), b.live_mask()
                     DISPATCH_STATS["dispatches"] += 1
-                    r = self._partial_fn(mg, b.device)(env, live, b.capacity)
+                    r = self._partial_fn(mg, b.device)(env, live, b.capacity,
+                                                       b.nominal_capacity)
                     if bool(r.overflow):
                         overflowed = True
                         break
@@ -575,7 +585,7 @@ class HashAggOp(Operator):
         if not partials and not spiller.spilled_files:
             if self.group_exprs:
                 return None  # grouped agg over empty input: no rows at all
-            dev = torch.device("cpu")
+            dev = self.device
             empty = [(torch.zeros(1, dtype=torch.int64, device=dev),
                       torch.zeros(1, dtype=torch.bool, device=dev)) for _ in lane_names]
             r = K.GroupByResult(tuple(), tuple(empty),
@@ -613,16 +623,21 @@ class HashAggOp(Operator):
         return self._finalize(acc, lane_names)
 
     def _finalize(self, r: K.GroupByResult, lane_names: Tuple[str, ...]) -> ColumnBatch:
-        """Output batch on the partials' device; avg = sum/count with MySQL decimal
-        scale."""
+        """The output batch, the reference's host batch: the lanes and the live mask
+        come to the host (`_host_result`), the per-group fix-ups run there in the
+        reference's dtypes (AVG = sum / count with MySQL decimal scale, float SUM
+        and AVG in float32), and `host` names the partials' device, which the batch
+        joins when an operator the reference runs on jnp pulls it."""
+        home = r.live.device
+        r = _host_result(r)
+        cpu = r.live.device
+        xp = TorchXP(cpu)
         cols: Dict[str, Column] = {}
         for i, (name, ge) in enumerate(self.group_exprs):
             d, v = r.keys[i]
             cols[name] = Column(d, v, ge.dtype, _find_dictionary(ge))
         lanes = {n: r.aggs[j] for j, n in enumerate(lane_names)}
         groups_live = r.live
-        device = groups_live.device
-        xp = TorchXP(device)
         if not self.group_exprs and groups_live.shape[0]:
             # global aggregation always yields exactly one row
             groups_live = torch.zeros_like(groups_live)
@@ -656,10 +671,22 @@ class HashAggOp(Operator):
                     d = u64_ordered(d)  # back from unsigned order to the bits
                 if dict_ is not None and _needs_rank(a.arg) is not None:
                     # min/max ran on collation ranks; map winners back to codes
-                    order = as_tensor(_coll.sort_order_array(a.arg, dict_), device)
+                    order = as_tensor(_coll.sort_order_array(a.arg, dict_))
                     d = order[torch.clamp(d, 0, len(order) - 1).to(torch.int64)]
                 cols[a.name] = Column(d, v, rt, dict_)
-        return ColumnBatch(cols, groups_live)
+        return ColumnBatch(cols, groups_live, home)
+
+
+def _host_result(r: K.GroupByResult) -> K.GroupByResult:
+    """`r`'s lanes and live mask on the host, one copy a lane (the reference's
+    `jax.tree.map(np.asarray, r)`), counted and timed as the host tier's pull."""
+    lanes = [x for pair in (*r.keys, *r.aggs) for x in pair if x is not None]
+    with copy_clock("pull", r.live.device,
+                    sum(x.nbytes for x in lanes) + r.live.nbytes):
+        keys = tuple((d.cpu(), None if v is None else v.cpu()) for d, v in r.keys)
+        aggs = tuple((d.cpu(), None if v is None else v.cpu()) for d, v in r.aggs)
+        live = r.live.cpu()
+    return r._replace(keys=keys, aggs=aggs, live=live)
 
 
 def _host_env(batch: ColumnBatch) -> Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]:
@@ -954,7 +981,7 @@ class HashJoinOp(Operator):
             live2 = batch.live_mask() & ((flags[q1] & flags[q2]) > 0)
             if pv is not None:
                 live2 = live2 & pv  # NULL keys never match an inner/semi join
-            return ColumnBatch(batch.columns, live2)
+            return ColumnBatch(batch.columns, live2, nominal=batch.nominal)
         return apply
 
     def _build_bloom_host(self, build_batch: ColumnBatch, pf, xp):
@@ -981,18 +1008,31 @@ class HashJoinOp(Operator):
             live2 = batch.live_mask() & K.bloom_query_device(pd.to(torch.int64), words)
             if pv is not None:
                 live2 = live2 & pv  # NULL keys never match an inner/semi join
-            return ColumnBatch(batch.columns, live2)
+            return ColumnBatch(batch.columns, live2, nominal=batch.nominal)
         return apply
 
+    @staticmethod
+    def _nominal_pairs(n_pre: int, cap: int, pairs) -> int:
+        """The reference's pair capacity: its count of the probe rows before the
+        probe prelude, bucketed and doubled past the pairs as `cap` was."""
+        ref = bucket_capacity(max(n_pre * 2, MIN_BUCKET))
+        if ref < cap:  # `cap` grew past an overflow: the pairs decide
+            total = int(pairs.probe_offsets[-1])
+            while ref < total:
+                ref *= 2
+        return ref
+
     def _empty_build_batches(self) -> Iterator[ColumnBatch]:
-        # empty build: inner/semi yield nothing; anti passes probe rows through;
-        # left null-extends using the declared build schema
-        for pb in device_batches(self.probe):
+        # empty build: inner/semi yield nothing; anti passes probe batches through as
+        # they come (a host batch stays one, as in the reference); left null-extends
+        # using the declared build schema
+        for pb in self.probe.batches():
             if self.join_type in ("inner", "semi"):
                 continue
             if self.join_type == "anti":
                 yield pb
                 continue
+            pb = to_device(pb)
             dev = pb.device
             ncols: Dict[str, Column] = {}
             for name, (typ, d_) in (self.build_schema or {}).items():
@@ -1000,7 +1040,7 @@ class HashJoinOp(Operator):
                 ncols[name] = Column(z, torch.zeros(pb.capacity, dtype=torch.bool,
                                                     device=dev), typ, d_)
             ncols.update(pb.columns)
-            yield ColumnBatch(ncols, pb.live)
+            yield ColumnBatch(ncols, pb.live, nominal=pb.nominal)
 
     # -- fragment cache (exec/fragment_cache) ---------------------------------------
 
@@ -1129,8 +1169,12 @@ class HashJoinOp(Operator):
         device = build_batch.device
         xp = TorchXP(device)
         bk, pk = self._key_compilers(device)
-        residual_pred = (ExprCompiler(xp).compile_predicate(self.residual)
-                         if self.residual is not None else None)
+        residual_pred = None
+        if self.residual is not None:
+            # FilterOp's closure of the same predicate on the same device
+            residual_pred = closure_cache(
+                ("filter", str(device), expr_cache_key(self.residual)),
+                lambda: ExprCompiler(TorchXP(device)).compile_predicate(self.residual))
         bloom_filter = None
         if self.enable_bloom and self.join_type in ("inner", "semi") and \
                 len(self.build_keys) == 1:
@@ -1155,9 +1199,13 @@ class HashJoinOp(Operator):
             if bloom_filter is not None:
                 pb = bloom_filter(pb)
             if self.probe_prelude is not None:
+                before = pb.live_mask()
                 _env, plive = self.probe_prelude.apply_batch(pb)
-                pb = ColumnBatch(pb.columns, torch.broadcast_to(plive, (pb.capacity,)))
-            n_live = pb.num_live()
+                pb = ColumnBatch(pb.columns, torch.broadcast_to(plive, (pb.capacity,)),
+                                 nominal=pb.nominal)
+                n_pre, n_live = torch.stack([before.sum(), pb.live.sum()]).tolist()
+            else:
+                n_pre = n_live = pb.num_live()
             cap = bucket_capacity(max(n_live * 2, MIN_BUCKET))
             pkeys = self._lanes(pk, pb, xp)
             while True:
@@ -1173,21 +1221,23 @@ class HashJoinOp(Operator):
             if residual_pred is None and self.join_type in ("semi", "anti"):
                 matched = pairs.probe_matched
                 live = pb.live_mask() & (matched if self.join_type == "semi" else ~matched)
-                yield ColumnBatch(pb.columns, live)
+                yield ColumnBatch(pb.columns, live, nominal=pb.nominal)
                 continue
             bcols = self._gather(build_batch, pairs.build_idx)
             pcols = self._gather(pb, pairs.probe_idx)
-            out = ColumnBatch({**bcols, **pcols}, pairs.live)
+            out = ColumnBatch({**bcols, **pcols}, pairs.live,
+                              nominal=self._nominal_pairs(n_pre, cap, pairs))
             if residual_pred is not None:
                 mask = residual_pred(batch_env(out))
-                out = ColumnBatch(out.columns, out.live_mask() & mask)
+                out = ColumnBatch(out.columns, out.live_mask() & mask,
+                                  nominal=out.nominal)
             if self.join_type in ("left", "semi", "anti"):
                 # matched flags must reflect pairs that ALSO passed the residual
                 matched = K.probe_matched_from(out.live_mask(), pairs.probe_starts,
                                                pairs.probe_offsets)
             if self.join_type in ("semi", "anti"):
                 live = pb.live_mask() & (matched if self.join_type == "semi" else ~matched)
-                yield ColumnBatch(pb.columns, live)
+                yield ColumnBatch(pb.columns, live, nominal=pb.nominal)
                 continue
             yield out
             if self.join_type == "left":
@@ -1200,7 +1250,7 @@ class HashJoinOp(Operator):
                         torch.zeros(pb.capacity, dtype=torch.bool, device=device),
                         c.dtype, c.dictionary)
                 ncols.update(pb.columns)
-                yield ColumnBatch(ncols, unmatched)
+                yield ColumnBatch(ncols, unmatched, nominal=pb.nominal)
 
 
 class CrossJoinOp(Operator):
@@ -1221,7 +1271,7 @@ class CrossJoinOp(Operator):
         self.build_schema = build_schema
 
     def batches(self) -> Iterator[ColumnBatch]:
-        build = concat_batches(list(device_batches(self.build)))
+        build = concat_batches(list(self.build.batches()))
         nb = build.num_live() if build.capacity else 0
         if self.scalar and nb > 1:
             raise errors.TddlError("Subquery returns more than 1 row")
@@ -1238,36 +1288,58 @@ class CrossJoinOp(Operator):
             return
         build = build.compact().pad_to(build.num_live()) if build.capacity else build
         nb = build.capacity
-        for pb in device_batches(self.probe):
+        on_host = on_device = None
+        for pb in self.probe.batches():
             if nb == 0:
                 return  # empty build: cross join is empty
+            if nb > 1 and pb.host is not None and pb.live is not None:
+                # the reference concatenates the build on the host, and the product
+                # of two numpy batches is numpy: a host batch (a probe without a live
+                # mask takes jnp's ones and gives a device batch)
+                if on_host is None:
+                    on_host = _on_host(build)
+                yield _product(on_host, pb, pb.host)
+                continue
+            pb = to_device(pb)
+            if on_device is None:
+                on_device = to_device(build)
             if nb == 1:
                 cols = {}
-                for name, c in build.columns.items():
+                for name, c in on_device.columns.items():
                     data = c.data[:1].expand(pb.capacity).contiguous()
                     valid = (c.valid[:1].expand(pb.capacity).contiguous()
                              if c.valid is not None else None)
                     cols[name] = Column(data, valid, c.dtype, c.dictionary)
                 cols.update(pb.columns)
-                yield ColumnBatch(cols, pb.live)
+                yield ColumnBatch(cols, pb.live, nominal=pb.nominal)
                 continue
-            if nb * pb.capacity > self.MAX_CELLS:
-                raise RuntimeError("cross join too large")
-            # expand: probe rows repeated nb times each
-            pidx = torch.repeat_interleave(
-                torch.arange(pb.capacity, device=pb.device), nb)
-            bidx = torch.arange(nb, device=pb.device).repeat(pb.capacity)
-            cols = {}
-            for name, c in build.columns.items():
-                cols[name] = Column(c.data[bidx],
-                                    c.valid[bidx] if c.valid is not None else None,
-                                    c.dtype, c.dictionary)
-            for name, c in pb.columns.items():
-                cols[name] = Column(c.data[pidx],
-                                    c.valid[pidx] if c.valid is not None else None,
-                                    c.dtype, c.dictionary)
-            live = pb.live_mask()[pidx] & build.live_mask()[bidx]
-            yield ColumnBatch(cols, live)
+            yield _product(on_device, pb, None)
+
+
+def _on_host(b: ColumnBatch) -> ColumnBatch:
+    """A batch's lanes on the host, marked as a host batch of its device."""
+    if b.host is not None:
+        return b
+    return ColumnBatch({n: Column(c.data.cpu(), None if c.valid is None else c.valid.cpu(),
+                                  c.dtype, c.dictionary) for n, c in b.columns.items()},
+                       None if b.live is None else b.live.cpu(), b.device)
+
+
+def _product(build: ColumnBatch, pb: ColumnBatch, host) -> ColumnBatch:
+    """Every probe row repeated once a build row, on the probe's device."""
+    nb = build.capacity
+    if nb * pb.capacity > CrossJoinOp.MAX_CELLS:
+        raise RuntimeError("cross join too large")
+    pidx = torch.repeat_interleave(torch.arange(pb.capacity, device=pb.device), nb)
+    bidx = torch.arange(nb, device=pb.device).repeat(pb.capacity)
+    cols = {}
+    for name, c in build.columns.items():
+        cols[name] = Column(c.data[bidx], c.valid[bidx] if c.valid is not None else None,
+                            c.dtype, c.dictionary)
+    for name, c in pb.columns.items():
+        cols[name] = Column(c.data[pidx], c.valid[pidx] if c.valid is not None else None,
+                            c.dtype, c.dictionary)
+    return ColumnBatch(cols, pb.live_mask()[pidx] & build.live_mask()[bidx], host)
 
 
 class SortOp(Operator):
@@ -1362,7 +1434,7 @@ class SortOp(Operator):
             if not run_meta:
                 merged = concat_batches(slab)
                 if merged.capacity == 0:
-                    yield merged
+                    yield _on_host(merged)  # the reference's: an empty numpy batch
                     return
                 padded = merged.pad_to(bucket_capacity(merged.capacity))
                 yield self._compiled(padded.device)(padded)
@@ -1541,7 +1613,7 @@ class LimitOp(Operator):
             taken = min(max(n - remaining_skip, 0), remaining)
             remaining_skip = max(remaining_skip - n, 0)
             remaining -= taken
-            yield ColumnBatch(b.columns, take_mask)
+            yield ColumnBatch(b.columns, take_mask, nominal=b.nominal)
 
 
 class DistinctOp(HashAggOp):
@@ -1603,7 +1675,7 @@ class WindowOp(Operator):
                 if fid not in cols:
                     cols[fid] = Column(torch.zeros(0, dtype=torch_dtype(typ.lane)),
                                        None, typ, dic)
-            yield ColumnBatch(cols, None)
+            yield _on_host(ColumnBatch(cols, None))  # the reference's: numpy lanes
             return
         padded = merged.pad_to(bucket_capacity(merged.capacity))
         inputs, lanes = self._specs()

@@ -454,16 +454,18 @@ def hash_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
                  specs: Sequence[AggSpec],
                  live: Any,
                  max_groups: int,
-                 max_rounds: int = 64) -> GroupByResult:
+                 max_rounds: int = 64,
+                 rows: Optional[int] = None) -> GroupByResult:
     """General grouped aggregation via open-addressing hash slots — no sort.
 
     Group ids come from `cuda_agg.hash_place` (the placement kernel); aggregation is
     a scatter by slot.  Output slots are in hash order, not compacted — `live` marks
     real groups.  `overflow` is True when placement fails within `max_rounds`;
-    callers retry with doubled `max_groups`."""
+    callers retry with doubled `max_groups`.  `rows` is the input capacity the slots
+    are sized from where it is not the lanes' (a batch's `nominal` capacity)."""
     n = live.shape[0] if not keys else keys[0][0].shape[0]
     device = live.device
-    cap = max(16, min(max_groups, n))
+    cap = max(16, min(max_groups, n if rows is None else rows))
     M = 1 << int(cap * 2 - 1).bit_length()  # load factor <= 0.5 at capacity
 
     ident = _ident_lanes(keys)
@@ -491,11 +493,12 @@ def hash_groupby(keys: Sequence[Tuple[Any, Optional[Any]]],
     return GroupByResult(tuple(out_keys), tuple(out_aggs), out_live, num_groups, overflow)
 
 
-def groupby(keys, inputs, specs, live, max_groups, domains=None):
+def groupby(keys, inputs, specs, live, max_groups, domains=None, rows=None):
     """Grouped aggregation dispatch on `prefer_scatter()`, the reference's: small
     static domains (and global aggregation) take the dense slots of `scatter_groupby`,
     or of `matmul_groupby` on the sort branch unless a SUM is over floats; general
-    keys take `hash_groupby`, or `sort_groupby` on the sort branch."""
+    keys take `hash_groupby` (slots sized from `rows`, the input's nominal capacity),
+    or `sort_groupby` (`max_groups` slots) on the sort branch."""
     if domains is None and not keys:
         domains = []  # global aggregation: one dense slot, never hash/sort
     if domains is not None:
@@ -507,7 +510,7 @@ def groupby(keys, inputs, specs, live, max_groups, domains=None):
         if not float_sum:
             return matmul_groupby(keys, inputs, specs, live, domains)
     if prefer_scatter():
-        return hash_groupby(keys, inputs, specs, live, max_groups)
+        return hash_groupby(keys, inputs, specs, live, max_groups, rows=rows)
     return sort_groupby(keys, inputs, specs, live, max_groups)
 
 

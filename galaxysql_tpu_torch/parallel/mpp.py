@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
-                                             dictionary_union_translation)
+                                             dictionary_union_translation, to_device)
 from galaxysql_tpu_torch.exec import fusion as _fusion
 from galaxysql_tpu_torch.exec import operators as ops
 from galaxysql_tpu_torch.exec import skew
@@ -677,7 +677,8 @@ class MppExecutor:
             G *= 2
             if G > (1 << 22):
                 raise errors.TddlError("MPP aggregation exceeds group ceiling")
-        batch = helper._finalize(r, lane_names)
+        # the reference's stage programs take the finalize's numpy lanes into jnp
+        batch = to_device(helper._finalize(r, lane_names))
         return DistBatch(batch.columns, batch.live_mask(), True)
 
     def _agg_round(self, groups, child, inputs, specs, merge_specs, G, prelude=None):
@@ -725,7 +726,8 @@ class MppExecutor:
                 G *= 2
             if max(quota, G) > (1 << 22):
                 raise errors.TddlError("MPP salted aggregation exceeds capacity ceiling")
-        batch = helper._finalize(r, lane_names)
+        # the reference's stage programs take the finalize's numpy lanes into jnp
+        batch = to_device(helper._finalize(r, lane_names))
         return DistBatch(batch.columns, batch.live_mask(), True)
 
     def _salted_agg_round(self, groups, child, inputs, specs, merge_specs, G, factor,

@@ -619,7 +619,7 @@ class UnionOp(ops.Operator):
             trans = as_tensor(dictionary_union_translation(tgt, c.dictionary),
                               c.data.device)
             cols[fid] = Column(trans[c.data.to(torch.int64)], c.valid, c.dtype, tgt)
-        return ColumnBatch(cols, b.live, b.host)
+        return ColumnBatch(cols, b.live, b.host, b.nominal)
 
 
 class StatsOp(ops.Operator):
@@ -827,7 +827,8 @@ def _build_operator(node: L.RelNode, ctx: ExecContext) -> ops.Operator:
                 ctx.trace.append(f"fuse-agg-prelude {prelude.chain}")
         agg = ops.HashAggOp(build_operator(child_node, ctx), node.groups, calls,
                             max_groups=max_groups, spill_threshold=ctx.agg_spill_bytes,
-                            prelude=prelude, mem_pool=ctx.mem_pool)
+                            prelude=prelude, mem_pool=ctx.mem_pool,
+                            device=ctx.device)
         # a deterministic, usually tiny output: replayed from the fragment cache
         # while its tables' versions hold.  Profiling measures the real pipeline.
         if not ctx.collect_stats:
@@ -907,10 +908,12 @@ def _through_cross(node: L.Filter) -> Optional[L.RelNode]:
     subquery) even where it reads only the cross's probe side, so an equi predicate
     between the two sides of a plain cross below never becomes a join key: TPC-H
     Q15's supplier x revenue0, 10,000 x 10,000 rows at SF 1, past
-    `CrossJoinOp.MAX_CELLS`.  Here conjuncts that read only the probe side move below
-    a scalar cross (which keeps each probe row once), and equi conjuncts across a
-    plain cross make it an inner equi join.  The rows are the same; the logical plan
-    is not touched."""
+    `CrossJoinOp.MAX_CELLS`.  Here, where the probe side of a scalar cross is such a
+    plain cross, the conjuncts that read only the probe side move below the scalar
+    cross (which keeps each probe row once) to make that cross an inner equi join;
+    those left over run above the equi join, a device batch, as the reference runs
+    them above the scalar cross.  Any other filter stays as planned.  The rows are
+    the same; the logical plan is not touched."""
     child = node.child
     if not (isinstance(child, L.Join) and child.kind == "cross"):
         return None
@@ -920,8 +923,11 @@ def _through_cross(node: L.Filter) -> Optional[L.RelNode]:
         below = [set(ir.referenced_columns(c)) <= left_ids for c in conj]
         if not any(below):
             return None
-        j = L.Join(L.Filter(child.left, ir.and_(*[c for c, b in zip(conj, below) if b])),
-                   child.right, "cross", [])
+        joined = _through_cross(
+            L.Filter(child.left, ir.and_(*[c for c, b in zip(conj, below) if b])))
+        if joined is None:
+            return None
+        j = L.Join(joined, child.right, "cross", [])
         j.scalar = True
         rest = [c for c, b in zip(conj, below) if not b]
         return L.Filter(j, ir.and_(*rest)) if rest else j

@@ -289,7 +289,7 @@ class DmlBatchScheduler(BatchScheduler):
                  reqs: List[BatchRequest]):
         inst = self.instance
         if inst.catalog.schema_version != pp["schema_version"]:
-            raise RuntimeError("schema changed under the group")
+            raise RuntimeError("schema changed under the group")  # galaxylint: disable=untyped-raise -- group fallback signal caught by the flush; never crosses the wire
         tm = inst.catalog.table(pp["schema"], pp["table"])
         store = inst.store(pp["schema"], pp["table"])
         if inst.archive.files_for(f"{tm.schema.lower()}.{tm.name.lower()}", None):
@@ -297,7 +297,7 @@ class DmlBatchScheduler(BatchScheduler):
             # statements go sequential directly instead of paying a window and a
             # fallback on every execution
             inst.dml_plans.pop((gkey[0], gkey[1]), None)
-            raise RuntimeError("archive-backed table")
+            raise RuntimeError("archive-backed table")  # galaxylint: disable=untyped-raise -- group fallback signal (archive) caught by the flush; never crosses the wire
         # one shared flush-time TSO: every member's write stamps at the instant
         # the group linearizes at
         ts = inst.tso.next_timestamp()

@@ -728,7 +728,7 @@ class Instance:
         if len(live) > 1:
             try:
                 preferred = self.placement.preferred_endpoint(tm)
-            except Exception:  # locality is advisory: a placement fault never fails a read
+            except Exception:  # galaxylint: disable=swallow -- locality is advisory: a placement fault must never fail a read
                 preferred = None
 
         def _load_weight(a, w):
@@ -857,7 +857,7 @@ class Instance:
             if pull:
                 try:
                     resp = peer.sync_action("health", {})
-                except Exception:  # the UNREACHABLE row below is the report
+                except Exception:  # galaxylint: disable=swallow -- the UNREACHABLE row below IS the failure report
                     resp = None
             else:
                 snap = next((s for n, s, _a in adm.peer_gossip_rows()

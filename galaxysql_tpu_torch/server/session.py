@@ -1234,7 +1234,7 @@ class Session:
         for n in scans:
             try:
                 est += int(estimate_rows(n) or 0)
-            except Exception:  # an estimate fault defers to "too small"
+            except Exception:  # galaxylint: disable=swallow -- estimate faults defer to "too small": mis-estimating must never fail a query
                 pass
         return est >= min_rows
 
@@ -1828,6 +1828,7 @@ class Session:
         data = {tm.column(c).name: vals for c, vals in data.items()}
         # a bad value fails here, before anything is appended
         lanes, valid, n = store.encode_pylists(data)
+        store._lockdep_probe()  # FP_LOCK_INVERT only; disarmed = one bool
         with store.append_lock:
             before = [p.num_rows for p in store.partitions]
             store.append_encoded(lanes, valid, n, ts)
@@ -2372,7 +2373,7 @@ def _fold_constant(e: ir.Expr) -> ir.Literal:
     d, v = f({})
     if v is not None and not np.all(np.asarray(v)):
         return ir.Literal(None, e.dtype)
-    val = np.asarray(d).item()
+    val = np.asarray(d).item()  # galaxylint: disable=jit-device-sync -- np-backend constant fold at bind time: d is a host numpy scalar, no device involved
     if e.dtype.clazz == dt.TypeClass.DECIMAL:
         val = val / (10 ** e.dtype.scale)
     return ir.Literal(val, e.dtype)

@@ -25,7 +25,6 @@ from __future__ import annotations
 import itertools
 import json
 import os
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -37,6 +36,8 @@ from galaxysql_tpu_torch.chunk.batch import (Column, ColumnBatch, as_tensor,
 from galaxysql_tpu_torch.meta.catalog import PartitionRouter, TableMeta
 from galaxysql_tpu_torch.types import datatype as dt
 from galaxysql_tpu_torch.utils import errors
+from galaxysql_tpu_torch.utils.failpoint import FAIL_POINTS, FP_LOCK_INVERT
+from galaxysql_tpu_torch.utils.lockdep import named_lock
 
 INFINITY_TS = (1 << 63) - 1  # int64 max; must exceed any TSO value
 
@@ -64,8 +65,10 @@ class Partition:
             c.name: np.zeros(0, dtype=np.bool_) for c in table.columns}
         self.begin_ts = np.zeros(0, dtype=np.int64)
         self.end_ts = np.zeros(0, dtype=np.int64)
-        # re-entrant: update_rows appends under the lock it already holds
-        self.lock = threading.RLock()
+        # re-entrant: update_rows appends under the lock it already holds.  The
+        # lockdep class splits base tables from GSI stores ($-named): UPDATE holds
+        # the base partition lock while it maintains the index, a cross-class order
+        self.lock = named_lock("partition.gsi" if "$" in table.name else "partition")
         # append-aware sorted key indexes: col -> (lane_gen, n0, perm, sorted_keys)
         # where perm sorts rows [0, n0).  Appends don't invalidate (MVCC rows are
         # immutable; the [n0, n) tail is probed linearly until it outgrows
@@ -202,7 +205,20 @@ class TableStore:
         self.uid = next(TableStore._next_uid)
         # serializes a writer's (count rows -> append -> derive its appended ranges),
         # taken before any partition lock
-        self.append_lock = threading.RLock()
+        self.append_lock = named_lock(
+            "append_lock.gsi" if "$" in table.name else "append_lock")
+
+    def _lockdep_probe(self):
+        """FP_LOCK_INVERT: a partition lock and THEN the append_lock, the reverse of
+        the canonical order, on the real insert ramp, so the lockdep witness is
+        shown to trip where it matters.  Disarmed, one bool read.  Called before
+        the ramp takes append_lock (a re-entrant acquisition adds no edge)."""
+        if FAIL_POINTS.active and FAIL_POINTS.value(FP_LOCK_INVERT) \
+                and self.partitions:
+            p = self.partitions[0]
+            with p.lock:
+                with self.append_lock:  # galaxylint: disable=lock-order -- deliberate seeded inversion proving the lockdep witness trips (tests/test_torch_lint.py)
+                    pass
 
     def insert_pylists(self, data: Dict[str, List[Any]], begin_ts: int) -> int:
         """Encode Python values (None = NULL) and route rows to partitions; returns the

@@ -1,11 +1,17 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
     python3 -m galaxysql_tpu_torch.tools.profile_slice [--sf 1.0] [--out chiprun_out/profile]
-        [--queries 1,3,5,6] [--analyze]
+        [--queries 1,3,5,6] [--analyze] [--warm N [--mpp 1,3,5,18]]
 
 Loads TPC-H at `--sf` into the port on the card (with `--analyze`, then runs ANALYZE
-TABLE on its eight tables), runs the queries twice to warm the device cache, then once
-more each under `torch.profiler` (CPU and CUDA activities).  `--queries` names TPC-H
+TABLE on its eight tables; joins stay in memory, as on `chip_smoke.py`'s main path),
+runs the queries twice to warm the device cache, then once more each under
+`torch.profiler` (CPU and CUDA activities).  With `--warm N` it profiles nothing and
+times each query N more times instead (host clock around the statement and a device
+sync), then the `--mpp` queries under ENGINE(MPP) on a mesh of 8 shards of the card
+(one first run, then N), and prints one JSON line of every time and the sums of the
+per-query medians.  To time another checkout's package with this file, put that
+checkout first on the path: `PYTHONPATH=<checkout> python3 <this file> --warm 3`.  `--queries` names TPC-H
 query numbers and the window queries of `storage/window_queries.py`.  For each query it prints one JSON line: the wall time, the device-busy
 time (sum of device kernel and memcpy/memset times; one stream, so they do not
 overlap), the device's idle share of the wall time, the number of device operations,
@@ -26,6 +32,10 @@ import subprocess
 import sys
 import time
 
+JOIN_SPILL_BYTES = 8 << 30  # every join of TPC-H SF 1 stays in memory
+MPP_HINT = "/*+TDDL: ENGINE(MPP)*/ "
+
+
 def _device_ms(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -41,7 +51,11 @@ def load_tpch(sf: float):
     from galaxysql_tpu_torch.storage import tpch
     data = tpch.generate(sf)
     inst = Instance(device="cuda")
+    # the profiled run executes its operators: no fragment-cache replay
+    inst.config.set_instance("ENABLE_FRAGMENT_CACHE", 0)
     s = Session(inst)
+    s.execute(f"SET GLOBAL JOIN_SPILL_BYTES = {JOIN_SPILL_BYTES}")
+    s.execute(f"SET GLOBAL QUERY_MEM_BYTES = {JOIN_SPILL_BYTES}")
     s.execute("CREATE DATABASE tpch")
     s.execute("USE tpch")
     for t in tpch.TABLE_ORDER:
@@ -96,6 +110,40 @@ def profile_query(s, sql: str, trace_path: str) -> dict:
                                  for live, lanes, M, r, resolved in calls]}
 
 
+def _timed(s, sql: str, n: int) -> list:
+    import torch
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.execute(sql)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1000.0)
+    return out
+
+
+def time_warm(s, queries: dict, n: int, mpp: list) -> dict:
+    """Each query's `n` warm times, then each `mpp` query's first and `n` warm times
+    under ENGINE(MPP) on 8 shards of the card; sums of the per-query medians."""
+    import statistics
+
+    import torch
+    from galaxysql_tpu_torch.parallel.mesh import make_mesh
+    from galaxysql_tpu_torch.storage.tpch_queries import QUERIES as SQL
+    local = {q: _timed(s, sql, n) for q, sql in queries.items()}
+    inst = s.instance
+    inst._mesh = make_mesh(devices=[torch.device("cuda", 0)] * 8)
+    inst.config.set_instance("ENABLE_MPP", 0)  # the hint alone runs on the mesh
+    dist = {}
+    for q in mpp:
+        first = _timed(s, MPP_HINT + SQL[q], 1)[0]
+        dist[q] = {"first": first, "warm": _timed(s, MPP_HINT + SQL[q], n)}
+    return {"local_ms": local,
+            "local_sum_ms": sum(statistics.median(v) for v in local.values()),
+            "mpp_ms": dist,
+            "mpp_sum_ms": sum(statistics.median(v["warm"]) for v in dist.values())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -105,6 +153,10 @@ def main(argv=None) -> int:
                     help="comma-separated TPC-H query numbers and window query names")
     ap.add_argument("--analyze", action="store_true",
                     help="ANALYZE TABLE the eight tables before the runs")
+    ap.add_argument("--warm", type=int, default=0,
+                    help="time each query this many times instead of profiling it")
+    ap.add_argument("--mpp", default="",
+                    help="with --warm: comma-separated TPC-H queries timed under MPP")
     args = ap.parse_args(argv)
 
     import torch
@@ -121,13 +173,19 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True)
-    print(card.stdout.strip().splitlines()[0], flush=True)
+    card_name = card.stdout.strip().splitlines()[0]
+    print(card_name, flush=True)
     s = load_tpch(args.sf)
     if args.analyze:
         s.execute("ANALYZE TABLE " + ", ".join(tpch.TABLE_ORDER))
     for _ in range(2):
         for sql in queries.values():
             s.execute(sql)
+    if args.warm:
+        mpp = [int(q) for q in args.mpp.split(",") if q]
+        print(json.dumps({"sf": args.sf, "analyzed": args.analyze, "card": card_name,
+                          **time_warm(s, queries, args.warm, mpp)}), flush=True)
+        return 0
     os.makedirs(args.out, exist_ok=True)
     for q, sql in queries.items():
         trace = os.path.join(args.out, f"{'q' if q.isdigit() else ''}{q}_trace.json")

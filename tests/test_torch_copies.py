@@ -70,6 +70,29 @@ def test_copy_matches_source(rel):
         assert mod != "jax" and not mod.startswith("jax.")
 
 
+# galaxylint's jax-free modules: copies whose package path strings (the hot, scope
+# and ramp prefixes, the tree walked, the fixture path) name the port
+DEVTOOLS_COPIES = ["devtools/lint.py", "devtools/checkers/__init__.py",
+                   "devtools/checkers/hygiene.py", "devtools/checkers/lock_order.py",
+                   "devtools/checkers/typed_errors.py"]
+
+
+def _renamed_body(path: str) -> str:
+    with open(path) as f:
+        tree = ast.parse(f.read().replace("galaxysql_tpu_torch", "galaxysql_tpu"))
+    return ast.dump(_DropImports().visit(tree))
+
+
+@pytest.mark.parametrize("rel", DEVTOOLS_COPIES)
+def test_devtools_copy_matches_source_with_the_package_renamed(rel):
+    src = os.path.join(ROOT, "galaxysql_tpu", rel)
+    dst = os.path.join(ROOT, "galaxysql_tpu_torch", rel)
+    assert _body(src) == _renamed_body(dst), f"{rel} drifted from galaxysql_tpu/{rel}"
+    for mod in _imports(dst):
+        assert mod != "galaxysql_tpu" and not mod.startswith("galaxysql_tpu.")
+        assert mod != "jax" and not mod.startswith("jax.")
+
+
 def test_native_source_is_verbatim():
     """The C++ host runtime the port builds (`galaxysql_tpu_torch/native`) is the
     reference's source, byte for byte."""

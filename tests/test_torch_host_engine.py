@@ -162,6 +162,17 @@ TP = {
               "SUM(g) OVER (PARTITION BY a ORDER BY id) FROM s ORDER BY id",
     "values": "SELECT 1 / 3, 2.5 * 3, 0.1 + 0.2",
     "point_get_float": "SELECT f * 3, a / 3 FROM t WHERE id = 2",
+    # float arithmetic over aggregate outputs: the finalize's host batch runs the
+    # HAVING and the projection with numpy, in float64, as the reference's does
+    "group_by_float_arithmetic": "SELECT a, SUM(g) / 3, AVG(g) * 3, MAX(g) / 7 FROM s "
+                                 "GROUP BY a ORDER BY a",
+    "having_float_sum": "SELECT a, COUNT(*) FROM s GROUP BY a HAVING SUM(g) > 2.75 "
+                        "ORDER BY a",
+    "global_aggregate_float_arithmetic": "SELECT SUM(g) / 3, AVG(s.a) * 0.1, "
+                                         "SUM(f) / 3 FROM s, t WHERE s.id = t.id",
+    "having_float_avg_over_a_join": "SELECT u.tid, AVG(t.f) * 3 FROM t JOIN u "
+                                    "ON t.id = u.tid GROUP BY u.tid "
+                                    "HAVING AVG(t.f) > 0.1 ORDER BY u.tid",
 }
 
 

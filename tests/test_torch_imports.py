@@ -122,6 +122,23 @@ def test_placement_modules_load_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_port_lint_loads_no_jax_and_no_reference_package():
+    """`python -m galaxysql_tpu_torch.devtools.lint`, run over the port's tree in a
+    fresh interpreter, exits 0 and imports neither jax nor the JAX package."""
+    cmd = [sys.executable, "-X", "importtime", "-m", "galaxysql_tpu_torch.devtools.lint"]
+    out = subprocess.run(cmd, cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "0 finding(s)" in out.stdout
+    modules = [ln.rsplit("|", 1)[-1].strip() for ln in out.stderr.splitlines()
+               if ln.startswith("import time:")]
+    assert any(m.endswith("galaxysql_tpu_torch.devtools.checkers.jit_discipline")
+               for m in modules)
+    bad = sorted({m for m in modules if m.split(".")[0] in ("jax", "jaxlib")
+                  or m == "galaxysql_tpu" or m.startswith("galaxysql_tpu.")})
+    assert not bad
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _dirs, files in os.walk(os.path.join(ROOT, "galaxysql_tpu_torch")):
